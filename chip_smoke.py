@@ -7,25 +7,38 @@ against its plain PyTorch version.
 Phases, in order, each printing one JSON line; any failure raises and the
 script exits nonzero:
 
-1. build    - compile every kernel from `src/repro_torch/kernels/csrc/` for
-              sm_90a (seconds taken, the ptxas report in the build dir);
-2. kernels  - each kernel's wrapper at the serve path's shapes against its
-              plain version (stated tolerances), timed beside its bound, the
-              plain version and one PyTorch call as a yardstick;
-3. tiny     - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
-              `ServeEngine.generate` with the slice's controller: equal
-              tokens, plane and SOR estimate allclose;
-4. main     - full-width, full-depth Qwen2.5-14B in bf16 (random weights
-              from a seed), batch 4, prompt 256, 32 new tokens, 64-chip
-              fleet and the learned rail-control round; launch counts of
-              every kernel must be exactly what the path implies; then the
-              breakdown of a decode step, read through `generate` (with
-              and without the control round, device busy share and top
-              kernels from torch.profiler).
+1. build      - compile every kernel from `src/repro_torch/kernels/csrc/`
+                for sm_90a (seconds taken, the ptxas report in the build
+                dir);
+2. kernels    - each kernel's wrapper at its path's shapes (the serve path
+                for K1-K3, the training path for K4-K6) against its plain
+                version (stated tolerances), timed beside its bound, the
+                plain version and one PyTorch call as a yardstick;
+3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
+                `ServeEngine.generate` with the slice's controller: equal
+                tokens, plane and SOR estimate allclose;
+4. main       - full-width, full-depth Qwen2.5-14B in bf16 (random weights
+                from a seed), batch 4, prompt 256, 32 new tokens, 64-chip
+                fleet and the learned rail-control round; launch counts of
+                every kernel must be exactly what the path implies; then the
+                breakdown of a decode step, read through `generate` (with
+                and without the control round, device busy share and top
+                kernels from torch.profiler);
+5. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+                fleet SOR train steps through `Trainer.run`: losses, params,
+                plane and SOR estimate allclose;
+6. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+                from a seed), batch 4 x seq 512, per-layer remat, AdamW,
+                the launcher's WSD schedule, a 64-chip fleet with in-graph
+                SOR learning, through `Trainer.run`: one warm-up step, then
+                8 steps whose launch counts must be exact; step time, data
+                time, tokens/s, MFU, peak memory, losses, the learned-region
+                summary, and a torch.profiler window of 2 steps.
 
-Then the `{"kernels": [...]}` line, the card's name and power limit, and the
-final `{"ok": true, ...}` line. Exits nonzero without printing a result when
-no CUDA device is present.
+Then the `{"kernels": [...]}` line (launches summed over the two main
+paths' checked runs), the card's name and power limit, and the final
+`{"ok": true, ...}` line. Exits nonzero without printing a result when no
+CUDA device is present.
 """
 
 from __future__ import annotations
@@ -44,6 +57,9 @@ PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
 
 # the serve path driven on the card: full width and depth
 MAIN = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, chips=64)
+# the training path driven on the card: full width and depth
+TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
+             profiled_steps=2)
 
 
 def emit(obj) -> None:
@@ -240,6 +256,138 @@ def check_sor_fit(dev, flush) -> dict:
                 shape=dict(window=window, n=n, ragged_n=3 * 67))
 
 
+def check_flash_bwd(dev, flush) -> list[dict]:
+    """K4 and K5 at the training path's shapes (MiniCPM-2B: 48/48 heads,
+    head_dim 64, bf16, causal), with K2's o and lse, each against its
+    plain version; plus a ragged T and a window. The yardstick is the
+    backward of one SDPA call (dq, dk, dv together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    B, Hq, Hkv, Dh = TRAIN["batch"], 48, 48, 64
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def inputs(T, hq, hkv):
+        return tuple(torch.randn(shape, generator=gen, device=dev,
+                                 dtype=torch.bfloat16)
+                     for shape in ((B, T, hq, Dh), (B, T, hkv, Dh),
+                                   (B, T, hkv, Dh), (B, T, hq, Dh)))
+
+    err = {"dq": 0.0, "dkv": 0.0}
+    for T, hq, hkv, window in ((TRAIN["seq"], Hq, Hkv, 0),
+                               (500, 12, 4, 0), (300, 8, 8, 96)):
+        q, k, v, do = inputs(T, hq, hkv)
+        kw = dict(causal=True, group=hq // hkv, sliding_window=window)
+        o, lse = fa.flash_attention(q, k, v, **kw)
+        o_ref, _ = fa.flash_attention_plain(q, k, v, **kw)
+        delta = fa.bwd_delta(o, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dq_ref = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 **kw)
+        dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
+                                                          delta, **kw)
+        torch.cuda.synchronize()
+        d_o = (o.float() - o_ref.float()).abs().max().item()
+        if not (math.isfinite(d_o) and d_o <= 2e-2):
+            raise AssertionError(f"flash_attention T={T} Dh={Dh}: "
+                                 f"max|o-o_ref|={d_o}")
+        # bf16 outputs against the f32 plain version rounded to bf16: an
+        # ulp is 2^-8 of a value, so 1e-2 of the largest magnitude
+        for name, key, a, b in (("dq", "dq", dq, dq_ref),
+                                ("dk", "dkv", dk, dk_ref),
+                                ("dv", "dkv", dv, dv_ref)):
+            d = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (math.isfinite(d) and d <= 1e-2 * max(scale, 1.0)):
+                raise AssertionError(f"flash backward {name} T={T} "
+                                     f"window={window}: max diff {d}, "
+                                     f"max |ref| {scale}")
+            err[key] = max(err[key], d)
+    T = TRAIN["seq"]
+    q, k, v, do = inputs(T, Hq, Hkv)
+    kw = dict(causal=True, group=Hq // Hkv)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw), 20,
+                    flush)
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(*args, **kw), 20,
+                     flush)
+    dq_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+        *args, **kw), 5, flush)
+    dkv_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+        *args, **kw), 5, flush)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
+                  for a in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+    pairs = B * Hq * T * (T + 1) // 2            # causal: keys <= row
+    qb, kb = 2 * q.numel(), 2 * k.numel()        # bf16 q-shaped, k-shaped
+    stats = 2 * 4 * B * Hq * T                   # lse and delta, f32
+    # K4 reads q, k, v, do, lse, delta, writes dq; s, dp, dq products
+    dq_bound = bound_ms(3 * qb + 2 * kb + stats, 6 * Dh * pairs, "bfloat16")
+    # K5 reads q, k, v, do, lse, delta, writes dk, dv; s, dp, dv, dk
+    dkv_bound = bound_ms(2 * qb + 4 * kb + stats, 8 * Dh * pairs,
+                         "bfloat16")
+    shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
+                 also=[[500, 12, 4, 0], [300, 8, 8, 96]])
+    src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    return [dict(name="flash_attention_bwd_dq", route="cuda", source=src,
+                 replaces="src/repro/kernels/flash_attention.py:234",
+                 max_abs_err=err["dq"], ms=dq_ms, plain_ms=dq_plain_ms,
+                 bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                 library_ms=lib_ms, shape=shape),
+            dict(name="flash_attention_bwd_dkv", route="cuda", source=src,
+                 replaces="src/repro/kernels/flash_attention.py:262",
+                 max_abs_err=err["dkv"], ms=dkv_ms, plain_ms=dkv_plain_ms,
+                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+                 library_ms=lib_ms, shape=shape)]
+
+
+def check_fleet_reduce(dev, flush) -> dict:
+    """K6 at the fleet train step's [64, 5] and at 1000 chips, a NaN lane
+    in one field of each; max and min exact, the sum to f32 order."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import fleet_telemetry as ft
+    err = 0.0
+    for n in (TRAIN["chips"], 1000):
+        x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+            (n, 5)).astype(np.float32)).to(dev)
+        x[n // 2, 3] = float("nan")
+        got, want = ft.fleet_reduce(x), ft.fleet_reduce_plain(x)
+        torch.cuda.synchronize()
+        for name, a, b, tol in zip(("max", "min", "sum"), got, want,
+                                   (0.0, 0.0, 1e-5)):
+            if not torch.equal(torch.isnan(a), torch.isnan(b)) or \
+                    not bool(torch.isnan(a[3])):
+                raise AssertionError(f"fleet_reduce n={n} {name}: NaN lanes "
+                                     f"differ")
+            ok = ~torch.isnan(b)
+            d = (a[ok] - b[ok]).abs().max().item()
+            if d > tol * max(1.0, b[ok].abs().max().item()):
+                raise AssertionError(f"fleet_reduce n={n} {name}: max diff "
+                                     f"{d}")
+            err = max(err, d)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (TRAIN["chips"], 5)).astype(np.float32)).to(dev)
+    ms = time_ms(lambda: ft.fleet_reduce(x), 100, flush)
+    plain_ms = time_ms(lambda: ft.fleet_reduce_plain(x), 100, flush)
+    b_ms, b_by = bound_ms(4 * (x.numel() + 3 * 5), 3 * x.numel(), "float32")
+    return dict(name="fleet_reduce", route="cuda",
+                source="src/repro_torch/kernels/csrc/fleet_reduce.cu",
+                replaces="src/repro/kernels/fleet_telemetry.py:192",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=dict(n_chips=TRAIN["chips"], n_fields=5,
+                           nan_lane_checked_at=[TRAIN["chips"], 1000]))
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the serve path through ServeEngine.generate
 # ---------------------------------------------------------------------------
@@ -371,9 +519,10 @@ def run_main(dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = eng.summary()
 
-    want = {"flash_attention_fwd": cfg.n_layers,
-            "decode_attention": cfg.n_layers * (new - 1),
-            "sor_fit": new // 4}
+    want = {name: 0 for name in ops.KERNELS}
+    want.update({"flash_attention_fwd": cfg.n_layers,
+                 "decode_attention": cfg.n_layers * (new - 1),
+                 "sor_fit": new // 4})
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if tokens.shape != (B, new) or tokens.min() < 0 or \
@@ -468,6 +617,261 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
                      for name, (calls, us) in top])
 
 
+# ---------------------------------------------------------------------------
+# phases 5-6: the training path through Trainer.run
+# ---------------------------------------------------------------------------
+
+def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
+                steps: int, refresh_every: int, remat: str = "full"):
+    """The slice's training configuration: the fleet train step with
+    in-graph SOR learning on a `chips`-chip fleet (margin-coupled error,
+    straggler and HBM-error observables, learned three-rail control round,
+    refit every `refresh_every` steps), AdamW with f32 moments, the
+    launcher's WSD schedule and roofline profile. Returns (make_trainer,
+    initial state, data, sor config); make_trainer(state, total_steps)
+    builds a `Trainer` that continues from `state`."""
+    from repro_torch.core import sor
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.core.policy import MultiRailClosedLoop
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import (FleetStepConfig, StepConfig,
+                                        make_fleet_train_step)
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           initial_plane_and_ef)
+    n = sum(a.numel() for a in tree_leaves(params))
+    opt_cfg = adamw.AdamWConfig()
+    fleet = FleetSpec.sample(chips, seed=0)
+    scfg = sor.SorConfig(ingest="frames", rails=ALL_RAIL_OBSERVABLES,
+                         refresh_every=refresh_every)
+    tokens = batch * seq
+
+    def sched(s):
+        return wsd(s, peak_lr=3e-4, warmup_steps=10,
+                   stable_steps=int(steps * 0.7),
+                   decay_steps=int(steps * 0.2))
+
+    step = make_fleet_train_step(
+        registry.build(cfg, remat=remat).loss_fn, opt_cfg, sched,
+        StepProfile(6.0 * n * tokens, 14.0 * n, 4.0 * n, 4.0 * n),
+        StepConfig(policy=MultiRailClosedLoop()),
+        FleetStepConfig(spec=fleet, hbm_error_base=1e-4,
+                        straggler_prob=0.05, link_ber_floor=1e-3, sor=scfg))
+    plane, ef = initial_plane_and_ef(params, fleet)
+    state = {"params": params, "opt": adamw.init_state(params, opt_cfg),
+             "plane": plane, "ef": ef,
+             "sor": sor.init_state(scfg, chips, device=dev)}
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
+
+    def make_trainer(state, total_steps):
+        return Trainer(step, data,
+                       TrainerConfig(total_steps=total_steps, sor=scfg,
+                                     device=dev), state)
+
+    return make_trainer, state, data, scfg
+
+
+# tiny cuda vs cpu, f32. Losses and params: sums in another order, then
+# AdamW's normalized step (m / sqrt(v)) amplifies a last-bit gradient
+# difference where |g| is tiny (params held to lr-scaled error). The first
+# SOR refit solves from two samples: the reference's uncentred f32 solve
+# cancels ~3 of 7 digits, so its slope carries ~2 % of f32 rounding
+# (measured between the two packages on the CPU: slope 0.15 of ~9 dex/V,
+# v_frontier 2.8e-3 V), which the envelope floor passes to the rails at
+# confidence 0.21 (measured 2.3e-4 V).
+TINY_TRAIN_TOL = dict(loss=dict(rtol=1e-4, atol=0.0),
+                      params=dict(rtol=1e-4, atol=1e-4),
+                      rails=dict(rtol=0.0, atol=5e-4),
+                      sor=dict(rtol=5e-2, atol=1e-2))
+
+
+def run_tiny_train() -> dict:
+    """Tiny MiniCPM in f32, the same weights on cuda and cpu, three fleet
+    SOR steps (refit every second step) through Trainer.run: losses,
+    params, plane (comp_level exact) and SOR estimate (usable lanes exact)
+    allclose at TINY_TRAIN_TOL; the largest differences are reported."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("minicpm_2b", tiny=True),
+                              dtype="float32")
+    params = registry.build(cfg).init(
+        torch.Generator(device="cpu").manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        make, state, _, scfg = train_slice(cfg, p, dev, chips=8, batch=2,
+                                           seq=32, steps=3, refresh_every=2)
+        trainer = make(state, 3)
+        trainer.run()
+        runs[dev] = trainer
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    tol = TINY_TRAIN_TOL
+
+    def worst(a, b, t, what):
+        b = b.detach().cpu()
+        a = a.detach()
+        if not torch.allclose(a, b, **t):
+            raise AssertionError(f"tiny_train {what}: max diff "
+                                 f"{(a - b).abs().max().item()}")
+        return (a - b).abs().max().item()
+
+    losses = {d: torch.tensor([r.loss for r in t.log.records])
+              for d, t in runs.items()}
+    out = {"loss_max_abs_diff": worst(losses["cpu"], losses["cuda"],
+                                      tol["loss"], "loss"),
+           "losses_cuda": losses["cuda"].tolist()}
+    out["params_max_abs_diff"] = max(
+        worst(a, b, tol["params"], "params")
+        for a, b in zip(tree_leaves(cpu.state["params"]),
+                        tree_leaves(gpu.state["params"])))
+    pc, pg = cpu.state["plane"], gpu.state["plane"]
+    out["rails_max_abs_diff"] = max(
+        worst(getattr(pc, f), getattr(pg, f), tol["rails"], f)
+        for f in ("v_core", "v_hbm", "v_io"))
+    if not torch.equal(pc.comp_level, pg.comp_level.cpu()):
+        raise AssertionError("tiny_train: comp_level differs")
+    ec, eg = cpu.state["sor"].estimate, gpu.state["sor"].estimate
+    if not torch.equal(ec.confidence > 0, eg.confidence.cpu() > 0):
+        raise AssertionError("tiny_train: SOR usable lanes differ")
+    out["sor_max_abs_diff"] = {
+        f: worst(getattr(ec, f), getattr(eg, f), tol["sor"], f"sor {f}")
+        for f in ("intercept", "slope", "v_frontier", "confidence",
+                  "n_eff")}
+    out["sor_lanes_learned"] = int((eg.confidence > 0).sum())
+    out["tolerances"] = tol
+    return out
+
+
+def run_main_train(dev) -> dict:
+    """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run: one
+    warm-up step, then TRAIN["steps"] steps whose launch counts are checked
+    exactly, then a torch.profiler window of TRAIN["profiled_steps"]."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    cfg = get_config(TRAIN["arch"])
+    B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    t0 = time.perf_counter()
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    make, state, data, scfg = train_slice(
+        cfg, params, dev, chips=TRAIN["chips"], batch=B, seq=T, steps=steps,
+        refresh_every=4)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for s in range(3):
+        data.batch(s)
+    data_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for s in range(3):
+        data.torch_batch(s, dev)
+    torch.cuda.synchronize()
+    data_to_device_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    warm = make(state, 1)          # warm-up: cuBLAS, allocator, first launch
+    warm.run()
+    torch.cuda.synchronize()
+    tick0 = warm.state["sor"].tick
+
+    trainer = make(warm.state, steps)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L = cfg.n_layers
+    refits = sum(1 for t in range(tick0 + 1, tick0 + steps + 1)
+                 if t % scfg.refresh_every == 0)
+    want = {name: 0 for name in ops.KERNELS}
+    want.update({"flash_attention_fwd": 2 * L * steps,   # forward + remat
+                 "flash_attention_bwd_dq": L * steps,
+                 "flash_attention_bwd_dkv": L * steps,
+                 "fleet_reduce": steps, "sor_fit": refits})
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    losses = [r.loss for r in trainer.log.records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    summary = trainer.summary()
+    sor = summary["sor"]
+    step_s = statistics.median(trainer.step_times)
+    tokens = B * T
+    profile = train_breakdown(make, trainer.state, TRAIN["profiled_steps"])
+    return dict(
+        arch=cfg.name, n_layers=L, params=n_params, batch=B, seq=T,
+        n_chips=TRAIN["chips"], dtype=cfg.dtype, remat="full",
+        adamw_state="float32", init_s=init_s, steps=steps,
+        step_ms_median=step_s * 1e3,
+        step_ms=[x * 1e3 for x in trainer.step_times],
+        run_s=run_s, data_batch_ms=data_ms,
+        data_to_device_ms=data_to_device_ms,
+        tokens_per_s=tokens / step_s,
+        mfu=6.0 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+        peak_mem_gb=peak_gb, losses=losses, launches=launches,
+        expected_launches=want, sor_tick_before=tick0,
+        sor_conf_mean=sor["confidence_mean"],
+        sor_conf_min=min(sor[f"{r.rail}/confidence_min"]
+                         for r in scfg.rails),
+        sor_summary=sor, fleet_last=summary.get("fleet_last"),
+        profile=profile)
+
+
+def train_breakdown(make, state, steps: int) -> dict:
+    """`steps` more train steps under torch.profiler: the device's busy
+    time per step (sum of device-side events), its share of the host wall
+    time of the same steps, and the kernels that fill it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(evt):
+        return getattr(evt, "device_time_total",
+                       getattr(evt, "cuda_time_total", 0.0))
+
+    trainer = make(state, steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kern = {e.key: (e.count, dev_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    busy_ms = sum(us for _, us in kern.values()) / 1e3 / steps
+    top = sorted(kern.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
+    return dict(steps=steps, profiled_step_ms=wall_ms,
+                device_busy_ms_per_step=busy_ms,
+                device_busy_share=busy_ms / wall_ms,
+                top_kernels=[dict(name=name[:90], calls_per_step=c / steps,
+                                  ms_per_step=us / 1e3 / steps)
+                             for name, (c, us) in top])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -497,23 +901,37 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
-    for check in (check_sor_fit, check_flash, check_decode):
-        row = check(dev, flush)
-        kernels[row["name"]] = row
-        emit({"phase": "kernels", **row})
+    checks = (check_sor_fit, check_flash, check_decode, check_flash_bwd,
+              check_fleet_reduce)
+    for check in checks:
+        rows = check(dev, flush)
+        for row in rows if isinstance(rows, list) else [rows]:
+            kernels[row["name"]] = row
+            emit({"phase": "kernels", **row})
     del flush
 
     emit({"phase": "tiny", **run_tiny()})
 
     result = run_main(dev)
-    launches = result["launches"]
+    serve_launches = result["launches"]
     emit({"phase": "main", **result})
+    del result
+    torch.cuda.empty_cache()       # the serve phase's weights are gone
+
+    emit({"phase": "tiny_train", **run_tiny_train()})
+
+    result = run_main_train(dev)
+    train_launches = result["launches"]
+    emit({"phase": "main_train", **result})
+    del result
 
     rows = []
     for name in ops.KERNELS:
         row = dict(kernels[name])
         row.pop("shape")
-        row["launches"] = launches[name]
+        row["launches"] = serve_launches[name] + train_launches[name]
+        row["launches_by_path"] = {"serve": serve_launches[name],
+                                   "train": train_launches[name]}
         rows.append(row)
     print(smi, flush=True)
     emit({"kernels": rows})

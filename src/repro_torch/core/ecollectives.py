@@ -7,13 +7,16 @@ Compression levels (the "voltage knob" of the ICI rail):
     1  int8 + EF    : blockwise int8 quantized
     2  int8+topk+EF : additionally top-k sparsified
 
-The int8 codec itself (`quantize_int8`, error feedback, the compressed
-psum) is not ported yet.
+`zeros_like_residuals` makes the error-feedback residuals the train step
+carries; the int8 codec itself (`quantize_int8`, error feedback, the
+compressed psum) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 DEFAULT_BLOCK = 256
 LEVEL_LOSSLESS, LEVEL_INT8, LEVEL_INT8_TOPK = 0, 1, 2
@@ -40,3 +43,12 @@ def wire_cost(level: int, k_fraction: float = 0.25,
         return WireCost(k_fraction * 1.0 + scale_overhead + 0.25,
                         "top-k int8 (+index bitmap) all-gather + local reduce")
     raise ValueError(f"unknown level {level}")
+
+
+def zeros_like_residuals(params):
+    """f32 zeros shaped like every parameter leaf (nested dicts), on the
+    leaves' devices."""
+    if isinstance(params, dict):
+        return {k: zeros_like_residuals(v) for k, v in params.items()}
+    return torch.zeros(params.shape, dtype=torch.float32,
+                       device=params.device)

@@ -1,7 +1,8 @@
-"""Telemetry plumbing (port of the serve path's part of
-`repro/core/telemetry.py`): the typed per-step observation
-(`TelemetryFrame`), the per-rail observable declarations and the
-`FrameHistory` ring the safe-operating-region learner fits over.
+"""Telemetry plumbing (port of `repro/core/telemetry.py`): the typed
+per-step observation (`TelemetryFrame`), the per-rail observable
+declarations, the `FrameHistory` ring the safe-operating-region learner
+fits over, and the trainer's host-side store (`StepRecord`,
+`TelemetryLog`).
 
 A frame's fields are scalars (one chip) or `[n_chips]` tensors (a fleet).
 Fields its constructor did not measure keep their Python defaults (0.0,
@@ -15,6 +16,7 @@ steer control flow.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 from typing import Any
@@ -262,3 +264,139 @@ def scalar_view(x) -> float:
     a = np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x,
                    dtype=np.float64)
     return float(a.mean()) if a.ndim else float(a)
+
+
+# metrics with first-class StepRecord fields
+_CORE_KEYS = ("grad_error", "t_step_s", "power_w", "energy_step_j")
+_PLANE_FIELDS = ("v_core", "v_hbm", "v_io", "comp_level")
+
+
+@dataclasses.dataclass
+class StepRecord:
+    step: int
+    loss: float
+    grad_error: float
+    t_step_s: float
+    power_w: float
+    energy_step_j: float
+    comp_level: int
+    v_core: float
+    v_hbm: float
+    v_io: float
+    n_chips: int = 1
+    extras: dict[str, float] = dataclasses.field(default_factory=dict)
+    # fleet-shaped state only: per-chip vectors + host-side reductions
+    per_chip: dict[str, list[float]] = dataclasses.field(default_factory=dict)
+    fleet: dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+def _to_host(values: dict[str, Any]) -> dict[str, np.ndarray]:
+    """Every tensor of `values` to numpy in ONE device-to-host copy: the
+    tensors are flattened into one float64 buffer (exact for f32 and int32)
+    on their device, copied once and split again. Non-tensors pass through
+    numpy as they are."""
+    keys = [k for k, v in values.items() if isinstance(v, torch.Tensor)]
+    out = {k: np.asarray(v) for k, v in values.items() if k not in keys}
+    if keys:
+        flat = torch.cat([values[k].detach().reshape(-1).to(torch.float64)
+                          for k in keys]).cpu().numpy()
+        at = 0
+        for k in keys:
+            t = values[k]
+            n = t.numel()
+            out[k] = flat[at:at + n].reshape(tuple(t.shape)).astype(
+                np.float32 if t.is_floating_point() else np.int64)
+            at += n
+    return out
+
+
+class TelemetryLog:
+    """Bounded host-side telemetry store (ring buffer)."""
+
+    def __init__(self, capacity: int = 100_000):
+        self.records: collections.deque[StepRecord] = collections.deque(
+            maxlen=capacity)
+
+    def append_from(self, step: int, loss, metrics: dict[str, Any],
+                    state) -> StepRecord:
+        per_chip: dict[str, list[float]] = {}
+        fleet: dict[str, float] = {}
+
+        # one device-to-host copy for everything this record needs
+        host = _to_host({"loss": loss, **{f"m/{k}": v
+                                          for k, v in metrics.items()},
+                         **{f"s/{f}": getattr(state, f)
+                            for f in _PLANE_FIELDS}})
+        loss = host["loss"]
+        metrics = {k: host[f"m/{k}"] for k in metrics}
+        state_v = {f: host[f"s/{f}"] for f in _PLANE_FIELDS}
+
+        v_core_a = np.asarray(state_v["v_core"])
+        n_chips = int(v_core_a.shape[0]) if v_core_a.ndim else 1
+
+        def record(key: str, x) -> float | None:
+            """Scalar -> float. [n_chips] -> per-chip list + max/min/mean/
+            p95 reductions, returning the fleet mean as the scalar view.
+            Arrays that are not `[n_chips]`-shaped are not per-chip
+            telemetry -> None."""
+            a = np.asarray(x)
+            if a.ndim == 0:
+                return float(a)
+            if a.ndim == 1 and a.shape[0] == n_chips:
+                af = a.astype(np.float64)
+                per_chip[key] = [float(v) for v in af]
+                fleet[f"{key}_max"] = float(af.max())
+                fleet[f"{key}_min"] = float(af.min())
+                fleet[f"{key}_mean"] = float(af.mean())
+                fleet[f"{key}_p95"] = float(np.percentile(af, 95.0))
+                return float(af.mean())
+            return None
+
+        core = {k: record(k, metrics.get(k, 0.0)) or 0.0 for k in _CORE_KEYS}
+        rails = {f: record(f, state_v[f]) or 0.0
+                 for f in ("v_core", "v_hbm", "v_io")}
+        comp = np.asarray(state_v["comp_level"])
+        if comp.ndim:
+            per_chip["comp_level"] = [float(c) for c in comp]
+            comp_level = int(comp.min())   # fleet view: most conservative chip
+        else:
+            comp_level = int(comp)
+
+        extras: dict[str, float] = {}
+        for k, v in metrics.items():
+            if k in _CORE_KEYS or k == "loss":
+                continue
+            if k.startswith("fleet/"):
+                fleet[k.split("/", 1)[1]] = float(np.asarray(v))
+                continue
+            s = record(k, v)
+            if s is not None and k not in per_chip:
+                extras[k] = s
+
+        rec = StepRecord(
+            step=step,
+            loss=float(np.mean(np.asarray(loss))),
+            grad_error=core["grad_error"],
+            t_step_s=core["t_step_s"],
+            power_w=core["power_w"],
+            energy_step_j=core["energy_step_j"],
+            comp_level=comp_level,
+            v_core=rails["v_core"], v_hbm=rails["v_hbm"], v_io=rails["v_io"],
+            n_chips=n_chips,
+            extras=extras, per_chip=per_chip, fleet=fleet,
+        )
+        self.records.append(rec)
+        return rec
+
+    def totals(self) -> dict[str, float]:
+        if not self.records:
+            return {"steps": 0, "energy_j": 0.0, "mean_power_w": 0.0,
+                    "time_s": 0.0, "fleet_energy_j": 0.0}
+        # scalar fields are per-chip means, so these are per-chip totals;
+        # fleet_energy_j is the whole fleet's energy (mean x n_chips).
+        e = sum(r.energy_step_j for r in self.records)
+        t = sum(r.t_step_s for r in self.records)
+        ef = sum(r.energy_step_j * r.n_chips for r in self.records)
+        return {"steps": len(self.records), "energy_j": e,
+                "mean_power_w": e / max(t, 1e-12), "time_s": t,
+                "fleet_energy_j": ef}

@@ -1,5 +1,6 @@
-"""Fused safe-operating-region fit (K1): wrapper around the CUDA kernel
-`csrc/sor_fit.cu`, beside its plain PyTorch version.
+"""Fused safe-operating-region fit (K1) and the fleet telemetry reduction
+(K6): wrappers around the CUDA kernels `csrc/sor_fit.cu` and
+`csrc/fleet_reduce.cu`, each beside its plain PyTorch version.
 
 Replaces the TPU kernel `repro/kernels/fleet_telemetry.py::sor_fit`
 (`_sor_fit_kernel`). On the card it is bound by launch latency: the
@@ -66,3 +67,41 @@ def sor_fit(x, y, w, log10_bound, guard, *, min_slope: float,
 
 
 sor_fit.launches = 0
+
+
+def fleet_reduce_plain(x):
+    """The plain PyTorch version: `ref.fleet_reduce_reference`."""
+    return ref.fleet_reduce_reference(x)
+
+
+def fleet_reduce(x):
+    """K6. x [n_chips, n_fields] f32 -> (max, min, sum) over the chips,
+    each [n_fields] f32; a field with a NaN lane gives NaN, as the
+    reference's `jnp.max`/`jnp.min` do. Replaces the TPU kernel
+    `repro/kernels/fleet_telemetry.py::fleet_reduce` (`_kernel`); launch-
+    bound at the fleet step's [64, 5], so one block; see
+    `csrc/fleet_reduce.cu`."""
+    if x.device.type == "cpu":
+        return fleet_reduce_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"fleet_reduce runs on cpu or cuda, got {x.device}")
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError(f"x must be [n_chips >= 1, n_fields], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("fleet_reduce takes a contiguous float32 tensor")
+    n_chips, n_fields = x.shape
+    outs = tuple(torch.empty(n_fields, dtype=torch.float32, device=x.device)
+                 for _ in range(3))
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.fleet_reduce_launch(x.data_ptr(),
+                                     *(o.data_ptr() for o in outs), n_chips,
+                                     n_fields, stream)
+    _build.check(rc, "fleet_reduce")
+    fleet_reduce.launches += 1
+    return outs
+
+
+fleet_reduce.launches = 0

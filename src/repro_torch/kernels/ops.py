@@ -13,12 +13,16 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fleet_telemetry as _ft
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
 
 # name -> the wrapper carrying the launch count
 KERNELS = {
     "sor_fit": _ft.sor_fit,
     "flash_attention_fwd": _fa.flash_attention,
     "decode_attention": _da.decode_attention,
+    "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
+    "fleet_reduce": _ft.fleet_reduce,
 }
 
 
@@ -33,10 +37,9 @@ def reset_launch_counts() -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True, group: int = 1,
                     sliding_window: int = 0):
-    """q [B,T,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,T,Hq,Dh]."""
-    out, _lse = _fa.flash_attention(q, k, v, causal=causal, group=group,
-                                    sliding_window=sliding_window)
-    return out
+    """q [B,T,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,T,Hq,Dh], differentiable: the
+    forward is K2, the backward K4 + K5 (`flash_attention.FlashAttention`)."""
+    return _fa.FlashAttention.apply(q, k, v, causal, group, sliding_window)
 
 
 def decode_attention(q, k, v, lengths, *, group: int = 1):
@@ -52,3 +55,15 @@ def sor_fit(x, y, w, log10_bound, guard, *, min_slope: float,
     [n] f32."""
     return _ft.sor_fit(x, y, w, log10_bound, guard, min_slope=min_slope,
                        min_spread_v=min_spread_v, conf_samples=conf_samples)
+
+
+def fleet_reduce(x):
+    """x [n_chips, n_fields] -> (max, min, sum) over chips, each
+    [n_fields] f32 (K6)."""
+    return _ft.fleet_reduce(x)
+
+
+def fleet_percentile(x, q: float):
+    """`[n_chips]` stat vector -> the q-th percentile, [] f32. Sort-bound,
+    so the plain version runs on every device, as in the reference."""
+    return ref.fleet_percentile_reference(x, q)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serve path.
+"""Plain PyTorch versions of the kernels on the serve and training paths.
 
 Torch copies of the oracles in `repro/kernels/ref.py`: the CPU path of every
 kernel wrapper runs them, and the card checks hold each CUDA kernel against
@@ -61,6 +61,23 @@ def attend(scores, v, *, group: int, dtype):
     vf = v.float().repeat_interleave(group, dim=2)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhts,bshk->bthk", probs, vf).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Fleet telemetry reduction oracle (fleet control plane)
+# ---------------------------------------------------------------------------
+
+def fleet_reduce_reference(x):
+    """x [n_chips, n_fields] -> (max, min, sum), each [n_fields] f32; NaN
+    propagates through max and min."""
+    xf = x.float()
+    return xf.amax(0), xf.amin(0), xf.sum(0)
+
+
+def fleet_percentile_reference(x, q: float):
+    """x [n_chips] -> the q-th percentile, [] f32, interpolated linearly
+    between the two nearest ranks (`jnp.percentile`'s default)."""
+    return torch.quantile(x.float(), q / 100.0)
 
 
 # ---------------------------------------------------------------------------

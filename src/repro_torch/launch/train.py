@@ -1,0 +1,91 @@
+"""Training launcher (port of `repro/launch/train.py`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+        --tiny --steps 4 [--device cpu]
+
+The scalar train step (`make_train_step`) with the in-graph controller,
+AdamW and the WSD schedule, driven through `Trainer.run`. Weights are
+random, drawn on the device from seed 0. Unlike the JAX launcher, `--tiny`
+is honoured: without it the full configuration is built (with per-layer
+remat, as the reference does for non-tiny configs).
+
+Not ported yet (each raises `NotImplementedError`): `--control-path host`,
+`--dry-run`, and checkpoints (`--ckpt-dir`, `--resume`).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.policy import POLICIES
+from repro_torch.core.power_plane import StepProfile
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.models import lm, registry
+from repro_torch.models.common import resolve_device
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import wsd
+from repro_torch.train.step import StepConfig, make_train_step
+from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                       initial_plane_and_ef)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--tiny", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--dry-run", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--policy", choices=list(POLICIES), default="phase-aware")
+    ap.add_argument("--control-path", choices=("in-graph", "host"),
+                    default="in-graph")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.control_path == "host":
+        raise NotImplementedError("--control-path host is not yet ported")
+    if args.dry_run:
+        raise NotImplementedError("--dry-run is not yet ported")
+    if args.ckpt_dir is not None or args.resume:
+        raise NotImplementedError("checkpoints (--ckpt-dir, --resume) are "
+                                  "not yet ported")
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch, tiny=args.tiny)
+    api = registry.build(cfg, remat="none" if args.tiny else "full")
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    n = sum(p.numel() for p in lm.tree_leaves(params))
+    print(f"{cfg.name}: {n/1e6:.1f}M params (tiny={args.tiny})")
+
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, opt_cfg)
+    plane, ef = initial_plane_and_ef(params)
+    tokens = args.batch * args.seq
+    profile = StepProfile(6.0 * n * tokens, 14.0 * n, 4.0 * n, 4.0 * n)
+
+    def sched(s):
+        return wsd(s, peak_lr=3e-4, warmup_steps=10,
+                   stable_steps=int(args.steps * 0.7),
+                   decay_steps=int(args.steps * 0.2))
+
+    step = make_train_step(api.loss_fn, opt_cfg, sched, profile,
+                           StepConfig(policy=POLICIES[args.policy]))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+    trainer = Trainer(step, data,
+                      TrainerConfig(total_steps=args.steps, device=device),
+                      {"params": params, "opt": opt, "plane": plane,
+                       "ef": ef})
+    log = trainer.run()
+    rec = list(log.records)
+    print(f"loss {rec[0].loss:.4f} -> {rec[-1].loss:.4f}; "
+          f"summary: {trainer.summary()}")
+
+
+if __name__ == "__main__":
+    main()

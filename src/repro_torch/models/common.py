@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, rotary embeddings, initializers and
-the TP head-padding planner (`HeadPlan`, copied verbatim from
+"""Shared model building blocks: norms, rotary embeddings, initializers,
+the loss and the TP head-padding planner (`HeadPlan`, copied verbatim from
 `repro/models/common.py`).
 
 Parameters are plain dicts of tensors; the functions are plain functions on
@@ -86,6 +86,25 @@ def apply_rotary(x, sin, cos):
     x1f, x2f = x1.float(), x2.float()
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4):
+    """Mean token cross-entropy with optional z-loss; logits [*, V] cast to
+    f32. labels == -1 are masked out (padding)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    ll = logits.gather(-1, safe[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    denom = mask.sum().clamp(min=1)
+    return torch.where(mask, nll, 0.0).sum() / denom
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,10 @@ layout, so weights carry over one to one. The reference's `lax.scan` over
 layers is a Python loop over that axis; its sharding constraints have no
 counterpart on one card. Decode caches are stacked `[n_layers, B, S, nkv,
 Dh]` tensors that `decode_step` updates in place.
+
+`forward_train` checkpoints each layer (`remat="full"`) with
+`torch.utils.checkpoint`; the reference's two-level group remat
+(`remat="group"`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,11 +18,15 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 from repro_torch.models.attention import AttnSpec
+
+MOE_AUX_COEF = 0.01
+REMAT_MODES = ("none", "full")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -103,6 +111,21 @@ def _layer(params, i: int):
     return tree_map(lambda a: a[i], params["blocks"])
 
 
+def _layers(params, n_layers: int):
+    """Per-layer views of the stacked blocks for a differentiated pass:
+    one `unbind` per stacked leaf, whose backward is one stack. (Indexing
+    `a[i]` per layer, as `_layer` does, would allocate a zero tensor of the
+    whole stacked leaf in each select's backward.)"""
+    split = tree_map(lambda a: torch.unbind(a, 0), params["blocks"])
+    return [tree_map(lambda parts: parts[i], split) for i in range(n_layers)]
+
+
+def _train_layer(p, x, positions, spec: AttnSpec, cfg: ModelConfig):
+    h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
+    a, _ = attn.attention_full(p["attn"], h, spec, positions)
+    return _block_tail(p, x + a, cfg)
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig):
     return params["embed"][tokens.long()]
 
@@ -114,6 +137,34 @@ def logits_from(params, x, cfg: ModelConfig):
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9
     return logits
+
+
+def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
+    """batch: {'tokens': [B,T] int, 'labels': [B,T] int (-1 = masked)} ->
+    (loss, metrics). `remat="full"` recomputes each layer's activations in
+    the backward (non-reentrant `torch.utils.checkpoint` around the layer,
+    the reference's per-layer `jax.checkpoint`); `"none"` keeps them."""
+    _check_family(cfg)
+    if remat not in REMAT_MODES:
+        raise NotImplementedError(
+            f"remat={remat!r} is not yet ported (have {REMAT_MODES}); the "
+            f"two-level group remat stands in ROADMAP.md")
+    x = embed_tokens(params, batch["tokens"], cfg)
+    B, T = x.shape[0], x.shape[1]
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device)[None].expand(B, T)
+    spec = attn_spec(cfg)
+    for p in _layers(params, cfg.n_layers):
+        if remat == "full":
+            x = checkpoint(_train_layer, p, x, positions, spec, cfg,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(p, x, positions, spec, cfg)
+    logits = logits_from(params, x, cfg)
+    loss = common.softmax_cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = loss + MOE_AUX_COEF * aux / max(cfg.n_layers, 1)
+    return total, {"ce_loss": loss, "moe_aux": aux}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -18,13 +18,17 @@ from repro_torch.models import common, lm
 class ModelApi:
     cfg: ModelConfig
     init: Callable[..., Any]               # (generator) -> params
+    loss_fn: Callable[..., Any]            # (params, batch) -> (loss, metrics)
     init_decode_cache: Callable[..., Any]  # (batch, max_len, device) -> cache
     decode_fn: Callable[..., Any]          # (params, cache, batch) -> (logits, cache)
     prefill_fn: Callable[..., Any] | None  # (params, tokens, max_len)
 
 
-def build(cfg: ModelConfig) -> ModelApi:
+def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
     lm._check_family(cfg)
+
+    def loss_fn(params, batch):
+        return lm.forward_train(params, batch, cfg, remat=remat)
 
     def decode_fn(params, cache, batch):
         return lm.decode_step(params, cache, batch["tokens"],
@@ -36,6 +40,7 @@ def build(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=lambda gen: lm.init_lm(gen, cfg),
+        loss_fn=loss_fn,
         init_decode_cache=lambda b, s, device="cuda": lm.init_decode_cache(
             cfg, b, s, device),
         decode_fn=decode_fn,
@@ -69,3 +74,4 @@ def params_from_jax(cfg: ModelConfig, np_tree, device="cuda"):
 
     check_keys(shapes, np_tree)
     return lm.tree_map(convert, shapes, np_tree)
+

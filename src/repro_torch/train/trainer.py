@@ -1,0 +1,195 @@
+"""Trainer (port of `repro/train/trainer.py`): the step loop, injected
+straggler events with deadline-based mitigation (host numpy rng, the same
+draws as the reference), the telemetry log and the in-graph SOR summary.
+
+One host sync per step: the loss is read back (as the reference blocks on
+it) and the step's wall time taken after it; the telemetry record then
+costs one more device-to-host copy of an already-finished step.
+
+Not ported yet (each raises `NotImplementedError`): checkpoints, so
+`TrainerConfig` has no checkpoint fields and `maybe_restore` raises;
+simulated node failures (`FaultConfig.fail_prob > 0`), whose recovery
+reloads a checkpoint; the host (SW-path) controller; and the sharded fleet
+state (`mesh`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+
+from repro_torch.core import ecollectives
+from repro_torch.core import sor as sor_mod
+from repro_torch.core.hwspec import FleetSpec
+from repro_torch.core.power_plane import PowerPlaneState
+from repro_torch.core.telemetry import TelemetryLog
+from repro_torch.models.common import resolve_device
+from repro_torch.models.lm import tree_leaves
+
+_CKPT = ("checkpoints are not yet ported (ROADMAP.md, open item "
+         "'Checkpoint and recovery')")
+
+
+@dataclasses.dataclass
+class FaultConfig:
+    fail_prob: float = 0.0           # per-step probability of a node loss
+    straggler_prob: float = 0.0      # per-step probability of a slow node
+    straggler_factor: float = 4.0    # slow node runs this much slower
+    grace: float = 1.5               # deadline = grace * median step time
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int
+    # host-path (SW analogue) control plane: not ported yet, must be None;
+    # the in-graph path is configured on the step (StepConfig.policy)
+    controller: Any = None
+    faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    # the SorConfig the train step was built with (FleetStepConfig.sor):
+    # with it (and init_state["sor"]) the trainer threads the SorState
+    # through the 6-arg step and folds the learned view into summary()
+    sor: Any = None
+    mesh: Any = None                 # sharded fleet state: not ported yet
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        if self.controller is not None:
+            raise NotImplementedError(
+                "the host controller (TrainerConfig.controller) is not yet "
+                "ported (ROADMAP.md, open item 'Host software path')")
+        if self.faults.fail_prob:
+            raise NotImplementedError(
+                f"FaultConfig.fail_prob > 0 recovers from a checkpoint; "
+                f"{_CKPT}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the sharded fleet state (TrainerConfig.mesh) is not yet "
+                "ported (ROADMAP.md, open item 'Sharding')")
+
+
+class Trainer:
+    def __init__(self, train_step: Callable, data, cfg: TrainerConfig,
+                 init_state: dict[str, Any]):
+        """init_state: {'params', 'opt', 'plane', 'ef'} (+ 'sor'), on
+        `cfg.device`; data: a `SyntheticLM` (its `torch_batch`)."""
+        self.device = resolve_device(cfg.device)
+        plane = init_state["plane"]
+        if plane.device.type != self.device.type:
+            raise ValueError(f"the state lives on {plane.device}, the "
+                             f"trainer on {self.device}")
+        self.train_step = train_step
+        self.data = data
+        self.cfg = cfg
+        self.state = dict(init_state)
+        self.log = TelemetryLog()
+        self.straggler_events = 0
+        self._rng = np.random.default_rng(cfg.faults.seed)
+        self._step_times: list[float] = []
+        ss = self.state.get("sor")
+        if (cfg.sor is None) != (ss is None):
+            raise ValueError(
+                "TrainerConfig.sor and init_state['sor'] must be set "
+                "together: the SOR train step (FleetStepConfig.sor) takes "
+                "the 6-arg signature and threads the state the trainer "
+                "carries — configure both or neither")
+        if ss is not None and ss.history.rails != cfg.sor.rails:
+            raise ValueError(
+                f"TrainerConfig.sor declares rails "
+                f"{[s.rail for s in cfg.sor.rails]} but init_state['sor'] "
+                f"was built with {[s.rail for s in ss.history.rails]}; "
+                f"pass the same SorConfig as FleetStepConfig.sor")
+
+    @property
+    def step_times(self) -> list[float]:
+        """Host wall seconds of each step run so far (after the loss sync,
+        with injected straggler time)."""
+        return list(self._step_times)
+
+    def maybe_restore(self) -> bool:
+        raise NotImplementedError(_CKPT)
+
+    # -- fault injection ---------------------------------------------------------
+    def _inject_faults(self, t_step: float) -> float:
+        f = self.cfg.faults
+        if f.straggler_prob and self._rng.random() < f.straggler_prob:
+            # a straggling node would stretch the step by straggler_factor;
+            # deadline-based mitigation caps the damage at grace * median
+            # (the median skips the first step and uses a recent window)
+            recent = self._step_times[1:][-20:]
+            med = float(np.median(recent)) if recent else t_step
+            slow = t_step * f.straggler_factor
+            mitigated = min(slow, med * f.grace)
+            self.straggler_events += 1
+            return mitigated
+        return t_step
+
+    # -- the loop -----------------------------------------------------------------
+    def run(self) -> TelemetryLog:
+        step = 0
+        while step < self.cfg.total_steps:
+            batch = self.data.torch_batch(step, self.device)
+            t0 = time.perf_counter()
+            if "sor" in self.state:
+                params, opt, plane, ef, sor_state, metrics = self.train_step(
+                    self.state["params"], self.state["opt"],
+                    self.state["plane"], self.state["ef"],
+                    self.state["sor"], batch)
+            else:
+                sor_state = None
+                params, opt, plane, ef, metrics = self.train_step(
+                    self.state["params"], self.state["opt"],
+                    self.state["plane"], self.state["ef"], batch)
+            metrics["loss"].item()     # the step's one host sync
+            wall = time.perf_counter() - t0
+            wall = self._inject_faults(wall)
+            self._step_times.append(wall)
+
+            self.state.update(params=params, opt=opt, plane=plane, ef=ef)
+            if sor_state is not None:
+                self.state["sor"] = sor_state
+            self.log.append_from(step, metrics["loss"], metrics,
+                                 self.state["plane"])
+            step += 1
+        return self.log
+
+    # -- reporting -------------------------------------------------------------
+    def summary(self) -> dict[str, Any]:
+        t = self.log.totals()
+        out = {
+            **t,
+            # no node failures, checkpoints or host controller yet
+            "restarts": 0,
+            "straggler_events": self.straggler_events,
+            "ckpt_writes": 0,
+            "host_actuations": 0,
+            "host_actuation_s": 0.0,
+            "host_skipped_actuations": 0,
+            "mean_wall_step_s": float(np.mean(self._step_times))
+            if self._step_times else 0.0,
+        }
+        if self.log.records:
+            last = self.log.records[-1]
+            out["n_chips"] = last.n_chips
+            if last.fleet:   # fleet run: surface the gating worst-chip view
+                out["fleet_last"] = dict(last.fleet)
+        if self.cfg.sor is not None and self.state.get("sor") is not None:
+            # in-graph learner: summarize the state threaded through the step
+            out["sor"] = sor_mod.summary(self.state["sor"].estimate,
+                                         self.cfg.sor)
+        return out
+
+
+def initial_plane_and_ef(params, fleet: FleetSpec | None = None
+                         ) -> tuple[PowerPlaneState, Any]:
+    """Initial (plane, error-feedback residuals) on the parameters'
+    device. With a `FleetSpec`, the plane is `[n_chips]` with every chip at
+    its own process-varied nominal point (pair with
+    `train.step.make_fleet_train_step`)."""
+    dev = next(tree_leaves(params)).device
+    plane = (PowerPlaneState.from_fleet(fleet, dev) if fleet is not None
+             else PowerPlaneState.nominal(device=dev))
+    return plane, ecollectives.zeros_like_residuals(params)

@@ -15,8 +15,10 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import registry
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import trainer as ttrainer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -41,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py", "step.py",
+            "trainer.py", "adamw.py", "schedule.py", "pipeline.py",
+            "train.py"} <= names
 
 
 @pytest.fixture
@@ -65,6 +69,7 @@ def _default_device_builders():
                        lm.param_shapes(cfg))
     return {
         "params_from_jax": lambda: registry.params_from_jax(cfg, tree),
+        "SyntheticLM.torch_batch": lambda: _synthetic().torch_batch(0),
         "api.init_decode_cache": lambda: api.init_decode_cache(1, 8),
         "lm.init_decode_cache": lambda: lm.init_decode_cache(cfg, 1, 8),
         "attention.init_kv_cache": lambda: attention.init_kv_cache(
@@ -72,7 +77,13 @@ def _default_device_builders():
     }
 
 
+def _synthetic():
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(64, 8, 1))
+
+
 @pytest.mark.parametrize("builder", ["params_from_jax",
+                                     "SyntheticLM.torch_batch",
                                      "api.init_decode_cache",
                                      "lm.init_decode_cache",
                                      "attention.init_kv_cache"])
@@ -84,6 +95,35 @@ def test_builders_default_device_needs_a_card(no_card, builder):
 def test_launcher_default_device_needs_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "qwen2p5_14b", "--tiny"])
+
+
+def test_train_launcher_default_device_needs_a_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "minicpm_2b", "--tiny", "--steps", "1"])
+
+
+def test_trainer_default_device_needs_a_card(no_card):
+    cfg = ttrainer.TrainerConfig(total_steps=1)
+    assert cfg.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrainer.Trainer(lambda *a: None, None, cfg, {"plane": None})
+
+
+@pytest.mark.parametrize("flags", [["--control-path", "host"],
+                                   ["--dry-run"], ["--resume"],
+                                   ["--ckpt-dir", "ckpt"]])
+def test_train_launcher_refuses_unported_paths(flags):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        launch_train.main(["--arch", "minicpm_2b", "--tiny", "--device",
+                           "cpu", *flags])
+
+
+def test_cpu_train_step_launches_no_kernel(capsys):
+    ops.reset_launch_counts()
+    launch_train.main(["--arch", "minicpm_2b", "--tiny", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert "'steps': 2" in capsys.readouterr().out
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_launcher_refuses_unported_paths():

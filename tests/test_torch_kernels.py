@@ -2,9 +2,12 @@
 inputs: each plain PyTorch version against `repro.kernels.ref` (causal,
 GQA, ragged T, lengths >= 1, usable and unusable SOR lanes) and, at one
 small shape each, against the Pallas kernel run in interpret mode as
-tests/test_kernels.py runs it. The CUDA kernels against their plain
-versions are in tests/test_torch_kernels_cuda.py."""
+tests/test_kernels.py runs it: the flash forward and backward (against
+`jax.grad` of `ref.mha_reference` and the Pallas `_bwd`), decode attention,
+the SOR fit, and the fleet reduction (NaN lane included). The CUDA kernels
+against their plain versions are in tests/test_torch_kernels_cuda.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
 from test_torch_kernels_cuda import SOR_KW, check_sor, qkv, sor_inputs
 
 # f32 attention: the two packages sum the same products in another order
@@ -109,6 +113,123 @@ def test_sor_fit_plain_matches_pallas_interpret():
     check_sor([g.numpy() for g in got], want)
 
 
+# f32 attention gradients: sums over keys, rows and the group in another
+# order (and the reference's autodiff through softmax), O(1) values
+BWD_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("T,Hq,Hkv,Dh,window", [
+    (64, 4, 4, 64, 0),         # group 1
+    (64, 6, 2, 64, 0),         # group 3
+    (50, 6, 2, 64, 0),         # ragged T
+    (96, 4, 4, 64, 24),        # causal + window
+    (40, 6, 2, 32, 10),        # window, ragged, group 3
+])
+def test_flash_bwd_plain_matches_jax_grad(T, Hq, Hkv, Dh, window):
+    q, k, v = qkv(2, T, T, Hq, Hkv, Dh, seed=T + Hq)
+    do = np.random.default_rng(T).standard_normal(q.shape).astype(np.float32)
+    group = Hq // Hkv
+    kw = dict(causal=True, group=group, sliding_window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jref.mha_reference(a, b, c, **kw),
+                     *_j(q, k, v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q, k, v)
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, **kw)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                        torch.from_numpy(do), **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **BWD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("group,window", [(1, 0), (3, 0), (1, 40)])
+def test_flash_bwd_plain_matches_pallas_interpret(group, window):
+    """dq, dk, dv against the Pallas `_bwd` (dq and dk/dv kernels in
+    interpret mode) on the same forward residuals."""
+    B, T, Hkv, Dh = 1, 128, 2, 64
+    Hq = group * Hkv
+    q, k, v = qkv(B, T, T, Hq, Hkv, Dh, seed=11 + group)
+    do = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    sw = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)
+    kw = dict(causal=True, group=group, window=window, bq=64, bk=64,
+              interpret=True)
+    o_j, lse_j = jfa._fwd(sw(q), sw(k), sw(v), **kw)
+    want = jfa._bwd((sw(q), sw(k), sw(v), o_j, lse_j), sw(do), **kw)
+    tkw = dict(causal=True, group=group, sliding_window=window)
+    tq, tk, tv = _t(q, k, v)
+    o, lse = tfa.flash_attention_plain(tq, tk, tv, **tkw)
+    got = tfa.flash_attention_bwd_plain(tq, tk, tv, o, lse,
+                                        torch.from_numpy(do), **tkw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(),
+                                   np.asarray(jnp.swapaxes(b, 1, 2)),
+                                   **BWD_TOL, err_msg=name)
+
+
+def test_flash_function_on_cpu_is_the_plain_backward():
+    """autograd through ops.flash_attention on CPU tensors runs the plain
+    forward and the plain backward on the saved (q, k, v, o, lse), and
+    launches no kernel; a strided incoming gradient is taken."""
+    q, k, v = (a.requires_grad_() for a in _t(*qkv(2, 48, 48, 6, 2, 32,
+                                                    seed=8)))
+    tops.reset_launch_counts()
+    o = tops.flash_attention(q, k, v, causal=True, group=3,
+                             sliding_window=20)
+    do = torch.randn((2, 6, 48, 32), generator=torch.Generator().manual_seed(
+        0)).transpose(1, 2)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    kw = dict(causal=True, group=3, sliding_window=20)
+    o2, lse = tfa.flash_attention_plain(q.detach(), k.detach(), v.detach(),
+                                        **kw)
+    want = tfa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         o2, lse, do.contiguous(), **kw)
+    assert torch.equal(o.detach(), o2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
+
+
+def _fleet_matrix(n_chips, seed):
+    x = np.random.default_rng(seed).standard_normal((n_chips, 5)).astype(
+        np.float32)
+    x[n_chips // 3, 2] = np.nan                    # a NaN lane in field 2
+    return x
+
+
+# fleet reduction: max/min exact; the f32 sum in another order
+RED_TOL = (dict(rtol=0, atol=0), dict(rtol=0, atol=0),
+           dict(rtol=1e-6, atol=1e-6))
+
+
+@pytest.mark.parametrize("n_chips", [1, 64, 67, 300])
+def test_fleet_reduce_plain_matches_reference(n_chips):
+    x = _fleet_matrix(n_chips, n_chips)
+    got = tft.fleet_reduce(torch.from_numpy(x))
+    want = jref.fleet_reduce_reference(jnp.asarray(x))
+    for a, b, tol in zip(got, want, RED_TOL):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
+    assert all(np.isnan(a[2].item()) for a in got)
+
+
+def test_fleet_reduce_plain_matches_pallas_interpret():
+    x = _fleet_matrix(67, 0)
+    got = tft.fleet_reduce(torch.from_numpy(x))
+    want = jft.fleet_reduce(jnp.asarray(x), interpret=True)
+    for a, b, tol in zip(got, want, RED_TOL):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **tol)
+    assert all(np.isnan(np.asarray(b)[2]) for b in want)
+
+
+@pytest.mark.parametrize("n", [1, 8, 64, 67])
+def test_fleet_percentile_matches_reference(n):
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    for q in (50.0, 95.0, 100.0):
+        np.testing.assert_allclose(
+            tops.fleet_percentile(torch.from_numpy(x), q).numpy(),
+            np.asarray(jref.fleet_percentile_reference(jnp.asarray(x), q)),
+            rtol=1e-6, atol=1e-7)
+
+
 def test_wrappers_reject_other_devices():
     q = torch.zeros((1, 4, 2, 32), device="meta")
     with pytest.raises(ValueError):
@@ -119,3 +240,10 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):
         tft.sor_fit(x, x, x, x[0], x[0], **SOR_KW)
+    with pytest.raises(ValueError):
+        tft.fleet_reduce(x)
+    lse = torch.zeros((1, 2, 4), device="meta")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse)

@@ -129,16 +129,91 @@ def test_sor_fit_kernel_matches_plain(cuda, window, n):
               [w.cpu().numpy() for w in want])
 
 
+def bwd_close(got, want, tol):
+    """max |got - want| within `tol` of the plain version's largest
+    magnitude: the sums run in another order (f32), and a bf16 output is
+    the f32 result rounded (an ulp is 2^-8 of the value)."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * max(scale, 1.0), (name, err, scale)
+
+
+# flash backward: relative to the largest |grad|
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,Hq,Hkv,Dh,window", [
+    (4, 512, 48, 48, 64, 0),    # the training path: MiniCPM-2B's heads
+    (2, 256, 48, 16, 128, 0),   # head_dim 128, group 3 (Qwen2.5-14B)
+    (2, 200, 12, 4, 32, 0),     # ragged T, group 3
+    (2, 150, 4, 2, 32, 40),     # sliding window
+    (1, 77, 8, 8, 64, 0),       # ragged T smaller than one q tile pair
+])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, B, T, Hq, Hkv, Dh,
+                                       window):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(B, T, T, Hq, Hkv, Dh, seed=T))
+    do = torch.from_numpy(qkv(B, T, T, Hq, Hkv, Dh, seed=T + 1)[0]).to(
+        cuda, dtype)
+    kw = dict(causal=True, group=Hq // Hkv, sliding_window=window)
+    o, lse = tfa.flash_attention(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    bwd_close(got, want, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_function_grads_match_plain_backward(cuda):
+    """autograd through ops.flash_attention (K2, then K4 + K5) equals the
+    plain backward on the same saved tensors."""
+    from repro_torch.kernels import ops
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+               for a in qkv(2, 96, 96, 6, 2, 64, seed=4))
+    o = ops.flash_attention(q, k, v, causal=True, group=3)
+    # a strided incoming gradient, as through the out-projection reshape
+    do = torch.randn((2, 6, 96, 64), device=cuda).transpose(1, 2)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    o2, lse = tfa.flash_attention(q.detach(), k.detach(), v.detach(),
+                                  causal=True, group=3)
+    want = tfa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         o2, lse, do, causal=True, group=3)
+    bwd_close(got, want, BWD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chips", [64, 67, 1000])
+def test_fleet_reduce_kernel_matches_plain(cuda, n_chips):
+    x = torch.from_numpy(np.random.default_rng(n_chips).standard_normal(
+        (n_chips, 5)).astype(np.float32)).to(cuda)
+    x[n_chips // 2, 3] = float("nan")     # one NaN lane in field 3
+    got = tft.fleet_reduce(x)
+    want = tft.fleet_reduce_plain(x)
+    for a, b, rtol in zip(got, want, (0.0, 0.0, 1e-5)):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=rtol,
+                                   equal_nan=True)
+    assert all(torch.isnan(a[3]) for a in got)
+    assert not any(torch.isnan(a[:3]).any() or torch.isnan(a[4])
+                   for a in got)
+
+
 @pytest.mark.cuda
 def test_kernels_count_their_launches(cuda):
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
-    q, k, v = (torch.from_numpy(a).to(cuda)
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_()
                for a in qkv(1, 8, 8, 2, 1, 32, seed=1))
-    ops.flash_attention(q, k, v, causal=True, group=2)
-    ops.decode_attention(q[:, :1].contiguous(), k, v,
+    o = ops.flash_attention(q, k, v, causal=True, group=2)
+    torch.autograd.grad(o.sum(), (q, k, v))
+    ops.decode_attention(q[:, :1].detach().contiguous(), k.detach(),
+                         v.detach(),
                          torch.tensor([8], dtype=torch.int32, device=cuda),
                          group=2)
     ops.sor_fit(*(torch.from_numpy(a).to(cuda)
                   for a in sor_inputs(4, 3, seed=0)), **SOR_KW)
+    ops.fleet_reduce(torch.zeros((3, 2), device=cuda))
+    ops.fleet_percentile(torch.zeros(3, device=cuda), 95.0)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
