@@ -10,10 +10,11 @@ script exits nonzero:
 1. build      - compile every kernel from `src/repro_torch/kernels/csrc/`
                 for sm_90a (seconds taken, the ptxas report in the build
                 dir);
-2. kernels    - each kernel's wrapper at its path's shapes (the serve path
-                for K1-K3, the training path for K4-K6) against its plain
-                version (stated tolerances), timed beside its bound, the
-                plain version and one PyTorch call as a yardstick;
+2. kernels    - each kernel's wrapper at its path's shapes (the Qwen serve
+                path for K1-K3, the training path for K4-K6, the RWKV6
+                serve path for K9) against its plain version (stated
+                tolerances), timed beside its bound, the plain version and
+                one PyTorch call as a yardstick where one exists;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -24,10 +25,15 @@ script exits nonzero:
                 breakdown of a decode step, read through `generate` (with
                 and without the control round, device busy share and top
                 kernels from torch.profiler);
-5. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+5. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
+6. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
+                64 heads x 64, d_ff 14336, vocab 65536) as phase 4, with its
+                own exact launch counts (K9 32 per prefill and per decoded
+                token) and decode-step breakdown;
+7. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
-6. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+8. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -35,9 +41,10 @@ script exits nonzero:
                 time, tokens/s, MFU, peak memory, losses, the learned-region
                 summary, and a torch.profiler window of 2 steps.
 
-Then the `{"kernels": [...]}` line (launches summed over the two main
-paths' checked runs), the card's name and power limit, and the final
-`{"ok": true, ...}` line. Exits nonzero without printing a result when no
+Each main path's weights are freed before the next path loads its own.
+Then the `{"kernels": [...]}` line (launches summed over the three main
+paths' checked runs, and by path), the card's name and power limit, and the
+final `{"ok": true, ...}` line. Exits nonzero without printing a result when no
 CUDA device is present.
 """
 
@@ -55,8 +62,9 @@ H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
               "float32": 67e12}       # non-tensor-core f32 rate
 
-# the serve path driven on the card: full width and depth
+# the serve paths driven on the card: full width and depth
 MAIN = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, chips=64)
+RWKV = dict(arch="rwkv6_7b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
 TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
              profiled_steps=2)
@@ -388,8 +396,98 @@ def check_fleet_reduce(dev, flush) -> dict:
                            nan_lane_checked_at=[TRAIN["chips"], 1000]))
 
 
+def rwkv6_args(B, T, H, dtype, state, gen, dev):
+    """r, k, v ~ N(0, 1) in `dtype`; w = -exp(N(-1, 1)) f32 (decays spread
+    over (0, 1)); u ~ N(0, 0.5); an N(0, 1) f32 initial state or None."""
+    import torch
+    Dh = 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (randn(B, T, H, Dh).to(dtype) for _ in range(3))
+    w = -torch.exp(randn(B, T, H, Dh) - 1.0)
+    u = 0.5 * randn(H, Dh)
+    s0 = randn(B, H, Dh, Dh) if state else None
+    return (r, k, v, w, u), s0
+
+
+# K9 against its plain version, relative to the largest magnitude: y in
+# f32 carries sums in another order; y in bf16 is the f32 result rounded
+# (an ulp is 2^-8 of the value); the state is f32 from the same inputs in
+# both, so it carries only the order of the sums
+RWKV6_TOL = dict(y={"float32": 1e-5, "bfloat16": 1e-2},
+                 state={"float32": 1e-5, "bfloat16": 1e-5})
+
+
+def rwkv6_bound(args, s0, y, state) -> tuple[float, str]:
+    """Bytes: each input read once (the initial state only where given),
+    y and the final state written once. Operations: r . S and the state
+    update, 5 f32 operations per state element and step."""
+    r = args[0]
+    B, T, H, Dh = r.shape
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + \
+        y.numel() * y.element_size() + state.numel() * 4 + \
+        (0 if s0 is None else s0.numel() * 4)
+    return bound_ms(n_bytes, 5 * Dh * Dh * B * T * H, "float32")
+
+
+def check_rwkv6_scan(dev, flush) -> dict:
+    """K9 at the RWKV6-7B serve path's prefill (B 4, T 256, 64 heads x 64,
+    bf16, zero initial state) and decode step (T 1, the carried state),
+    plus a ragged T and f32, each against its plain version on y and on the
+    final state; timed at the prefill and the decode shape."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as r6
+    B, T, H = RWKV["batch"], RWKV["prompt"], 64
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err = {"y": 0.0, "state": 0.0}
+    cases = [(T, "bfloat16", False), (1, "bfloat16", True),
+             (200, "bfloat16", True), (T, "float32", True),
+             (1, "float32", True), (37, "float32", False)]
+    for t, dt, state in cases:
+        args, s0 = rwkv6_args(B, t, H, getattr(torch, dt), state, gen, dev)
+        got = r6.rwkv6_scan(*args, init_state=s0)
+        want = r6.rwkv6_scan_plain(*args, init_state=s0)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("y", "state"), got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"rwkv6_scan T={t} {dt} {name}: "
+                                     f"{a.dtype} {tuple(a.shape)} != "
+                                     f"{b.dtype} {tuple(b.shape)}")
+            d = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            tol = RWKV6_TOL[name][dt]
+            if not (math.isfinite(d) and d <= tol * max(scale, 1.0)):
+                raise AssertionError(f"rwkv6_scan T={t} {dt} state={state} "
+                                     f"{name}: max diff {d}, max |ref| "
+                                     f"{scale}")
+            err[name] = max(err[name], d)
+    out = {}
+    for label, t, state in (("", T, False), ("decode_", 1, True)):
+        args, s0 = rwkv6_args(B, t, H, torch.bfloat16, state, gen, dev)
+        y, st = r6.rwkv6_scan(*args, init_state=s0)
+        b_ms, b_by = rwkv6_bound(args, s0, y, st)
+        out.update({
+            f"{label}ms": time_ms(lambda: r6.rwkv6_scan(*args, init_state=s0),
+                                  100 if state else 20, flush),
+            f"{label}plain_ms": time_ms(lambda: r6.rwkv6_scan_plain(
+                *args, init_state=s0), 20 if state else 3, flush),
+            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+    return dict(name="rwkv6_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:67",
+                max_abs_err=max(err.values()), max_abs_err_y=err["y"],
+                max_abs_err_state=err["state"], library_ms=None,
+                tolerance=RWKV6_TOL, **out,
+                shape=dict(B=B, T=T, H=H, Dh=64, dtype="bf16",
+                           decode=dict(T=1, init_state=True),
+                           also=[[t, dt, s] for t, dt, s in cases]))
+
+
 # ---------------------------------------------------------------------------
-# phases 3-4: the serve path through ServeEngine.generate
+# phases 3-6: the serve paths through ServeEngine.generate
 # ---------------------------------------------------------------------------
 
 def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
@@ -419,26 +517,33 @@ def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
         device=device)
 
 
-def run_tiny() -> dict:
-    """Tiny Qwen2.5 (plain TINY and the padded-GQA variant: 12 q / 4 kv
-    heads, group 3, zero pad slots) in f32, the same weights on cuda and
-    cpu: tokens equal, plane and SOR estimate allclose."""
+def tiny_variants(arch: str) -> dict:
+    """The tiny configurations of `arch` in f32 held cuda against cpu: for
+    Qwen2.5 plain TINY and the padded-GQA variant (12 q / 4 kv heads,
+    group 3, zero pad slots); for RWKV6 its TINY."""
     import dataclasses
 
+    from repro_torch.configs import get_config
+    tiny = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    if arch != "qwen2p5_14b":
+        return {"tiny": tiny}
+    return {"tiny": tiny,
+            "tiny_gqa_pad": dataclasses.replace(
+                tiny, n_heads=10, n_kv_heads=2, head_dim=32, tp=4)}
+
+
+def run_tiny(arch: str) -> dict:
+    """Tiny `arch` in f32 (`tiny_variants`), the same weights on cuda and
+    cpu through the slice's engine: tokens equal, plane and SOR estimate
+    allclose."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_map
-    tiny = dataclasses.replace(get_config("qwen2p5_14b", tiny=True),
-                               dtype="float32")
-    variants = {"tiny": tiny,
-                "tiny_gqa_pad": dataclasses.replace(
-                    tiny, n_heads=10, n_kv_heads=2, head_dim=32, tp=4)}
     B, Tp, new, chips = 2, 16, 12, 8
     out = {}
-    for name, cfg in variants.items():
+    for name, cfg in tiny_variants(arch).items():
         params = registry.build(cfg).init(
             torch.Generator(device="cpu").manual_seed(0))
         prompts = np.random.default_rng(0).integers(
@@ -469,17 +574,33 @@ def run_tiny() -> dict:
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
                 raise AssertionError(f"{name}: SOR estimate {f} differs")
         out[name] = dict(tokens_equal=True, shape=list(t_gpu.shape),
-                         plane_max_abs_diff=worst,
-                         heads=[cfg.head_plan().n_q_pad,
-                                cfg.head_plan().n_kv_pad,
-                                cfg.head_plan().group])
+                         plane_max_abs_diff=worst, family=cfg.family)
+        if cfg.family == "dense":
+            plan = cfg.head_plan()
+            out[name]["heads"] = [plan.n_q_pad, plan.n_kv_pad, plan.group]
     return out
 
 
-def run_main(dev) -> dict:
-    """Full-width, full-depth Qwen2.5-14B through ServeEngine.generate with
-    the 64-chip fleet and the learned control round; the launch counts of
-    this run alone are checked exactly. The breakdown of a decode step
+def serve_launches(cfg, new: int) -> dict:
+    """The launches one `generate` of `new` tokens must make: the control
+    round refits on every 4th of its `new` rounds (K1); dense: K2 once per
+    layer in the prefill, K3 once per layer per decoded token; ssm: K9 once
+    per layer in the prefill and per decoded token."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNELS}
+    want["sor_fit"] = new // 4
+    if cfg.family == "ssm":
+        want["rwkv6_scan"] = cfg.n_layers * new
+    else:
+        want.update({"flash_attention_fwd": cfg.n_layers,
+                     "decode_attention": cfg.n_layers * (new - 1)})
+    return want
+
+
+def run_main(dev, spec: dict) -> dict:
+    """Full-width, full-depth `spec["arch"]` through ServeEngine.generate
+    with the 64-chip fleet and the learned control round; the launch counts
+    of this run alone are checked exactly. The breakdown of a decode step
     (`decode_breakdown`) follows the checked run."""
     import numpy as np
     import torch
@@ -488,9 +609,9 @@ def run_main(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves
-    cfg = get_config(MAIN["arch"])
-    B, Tp, new, chips = MAIN["batch"], MAIN["prompt"], MAIN["new"], \
-        MAIN["chips"]
+    cfg = get_config(spec["arch"])
+    B, Tp, new, chips = spec["batch"], spec["prompt"], spec["new"], \
+        spec["chips"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -519,12 +640,10 @@ def run_main(dev) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = eng.summary()
 
-    want = {name: 0 for name in ops.KERNELS}
-    want.update({"flash_attention_fwd": cfg.n_layers,
-                 "decode_attention": cfg.n_layers * (new - 1),
-                 "sor_fit": new // 4})
+    want = serve_launches(cfg, new)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
+        raise AssertionError(f"{cfg.name} launch counts {launches} != "
+                             f"{want}")
     if tokens.shape != (B, new) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tokens.shape} "
@@ -542,7 +661,8 @@ def run_main(dev) -> dict:
     prefill_s = time.perf_counter() - t0
     decode_s = (total_s - prefill_s) / (new - 1)
     profile = decode_breakdown(engine, prompts)
-    return dict(arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+    return dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, params=n_params,
                 batch=B, prompt=Tp, new_tokens=new, n_chips=chips,
                 dtype=cfg.dtype, init_s=init_s, generate_s=total_s,
                 prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
@@ -618,7 +738,7 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5-6: the training path through Trainer.run
+# phases 7-8: the training path through Trainer.run
 # ---------------------------------------------------------------------------
 
 def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
@@ -902,7 +1022,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
     checks = (check_sor_fit, check_flash, check_decode, check_flash_bwd,
-              check_fleet_reduce)
+              check_fleet_reduce, check_rwkv6_scan)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:
@@ -910,18 +1030,24 @@ def main() -> int:
             emit({"phase": "kernels", **row})
     del flush
 
-    emit({"phase": "tiny", **run_tiny()})
-
-    result = run_main(dev)
-    serve_launches = result["launches"]
+    by_path = {}
+    emit({"phase": "tiny", **run_tiny(MAIN["arch"])})
+    result = run_main(dev, MAIN)
+    by_path["serve-qwen"] = result["launches"]
     emit({"phase": "main", **result})
     del result
-    torch.cuda.empty_cache()       # the serve phase's weights are gone
+    torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
+
+    emit({"phase": "tiny_rwkv", **run_tiny(RWKV["arch"])})
+    result = run_main(dev, RWKV)
+    by_path["serve-rwkv"] = result["launches"]
+    emit({"phase": "main_rwkv", **result})
+    del result
+    torch.cuda.empty_cache()       # the RWKV6 weights are gone
 
     emit({"phase": "tiny_train", **run_tiny_train()})
-
     result = run_main_train(dev)
-    train_launches = result["launches"]
+    by_path["train"] = result["launches"]
     emit({"phase": "main_train", **result})
     del result
 
@@ -929,9 +1055,9 @@ def main() -> int:
     for name in ops.KERNELS:
         row = dict(kernels[name])
         row.pop("shape")
-        row["launches"] = serve_launches[name] + train_launches[name]
-        row["launches_by_path"] = {"serve": serve_launches[name],
-                                   "train": train_launches[name]}
+        row["launches"] = sum(counts[name] for counts in by_path.values())
+        row["launches_by_path"] = {path: counts[name]
+                                   for path, counts in by_path.items()}
         rows.append(row)
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -35,6 +35,7 @@ SIGNATURES = {
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 10 + [_F, _P],
     "fleet_reduce_launch": [_P] * 4 + [_I, _I, _P],
+    "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib: "ctypes.CDLL | None" = None

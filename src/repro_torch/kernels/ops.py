@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fleet_telemetry as _ft
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _r6
 
 # name -> the wrapper carrying the launch count
 KERNELS = {
@@ -23,6 +24,7 @@ KERNELS = {
     "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
     "fleet_reduce": _ft.fleet_reduce,
+    "rwkv6_scan": _r6.rwkv6_scan,
 }
 
 
@@ -61,6 +63,13 @@ def fleet_reduce(x):
     """x [n_chips, n_fields] -> (max, min, sum) over chips, each
     [n_fields] f32 (K6)."""
     return _ft.fleet_reduce(x)
+
+
+def rwkv6_scan(r, k, v, w, u, *, init_state=None):
+    """RWKV6 recurrence (K9): r, k, v [B,T,H,Dh], w [B,T,H,Dh] f32
+    log-decay, u [H,Dh] f32, init_state [B,H,Dh,Dh] f32 or None -> (y
+    [B,T,H,Dh], final state [B,H,Dh,Dh] f32)."""
+    return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state)
 
 
 def fleet_percentile(x, q: float):

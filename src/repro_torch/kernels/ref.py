@@ -132,3 +132,31 @@ def sor_fit_reference(x, y, w, log10_bound, guard, *, min_slope: float,
         sor_accumulate_reference(x, y, w), log10_bound, guard,
         min_slope=min_slope, min_spread_v=min_spread_v,
         conf_samples=conf_samples)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 oracle (data-dependent decay linear attention)
+# ---------------------------------------------------------------------------
+
+def rwkv6_scan_reference(r, k, v, w, u, *, init_state=None):
+    """RWKV6 ("Finch") recurrence, sequential oracle.
+
+    r,k,v [B,T,H,Dh]; w [B,T,H,Dh] the per-step *log-decay* (w <= 0,
+    decay = exp(w)); u [H,Dh] the bonus for the current token.
+
+    state S [B,H,Dh,Dh] (key-major), kept in f32:
+      y_t = r_t . (S_{t-1} + (u * k_t) v_t^T)
+      S_t = diag(exp(w_t)) S_{t-1} + k_t v_t^T
+    Returns (y [B,T,H,Dh] in r.dtype, final_state f32)."""
+    B, T, H, Dh = r.shape
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    s = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32, device=r.device)
+         if init_state is None else init_state.float())
+    y = torch.empty((B, T, H, Dh), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]  # [B,H,Dh]
+        att = s + (uf * kt)[..., :, None] * vt[..., None, :]     # [B,H,Dk,Dv]
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", rt, att)
+        s = s * torch.exp(wt)[..., :, None] + kt[..., :, None] * vt[..., None, :]
+    return y.to(r.dtype), s

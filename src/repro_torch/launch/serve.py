@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2p5_14b \
         --tiny --max-new 32 [--device cpu]
 
+Any ported architecture serves through it: the dense family (Qwen2.5,
+MiniCPM) and the ssm family (`--arch rwkv6_7b`, whose decode cache is the
+recurrent state).
+
 Weights are random, drawn on the device from seed 0, as the JAX launcher
 draws them. Unlike the JAX launcher, `--tiny` is honoured: without it the
 full configuration is built.

@@ -1,4 +1,4 @@
-"""Shared model building blocks: norms, rotary embeddings, initializers,
+"""Shared model building blocks: norms (RMS and layer norm), rotary embeddings, initializers,
 the loss and the TP head-padding planner (`HeadPlan`, copied verbatim from
 `repro/models/common.py`).
 
@@ -61,6 +61,15 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * weight.float()).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,18 @@
-"""Decoder-only LM assembly for the dense family (port of the dense branch
-of `repro/models/lm.py`).
+"""Decoder-only LM assembly for the dense family and the ssm family
+(RWKV6), ported from the matching branches of `repro/models/lm.py`.
 
 Parameters are a nested dict of tensors with the per-layer weights stacked
 on a leading `[n_layers]` axis (`params["blocks"]`), exactly the reference
 layout, so weights carry over one to one. The reference's `lax.scan` over
 layers is a Python loop over that axis; its sharding constraints have no
 counterpart on one card. Decode caches are stacked `[n_layers, B, S, nkv,
-Dh]` tensors that `decode_step` updates in place.
+Dh]` tensors (dense) or the stacked recurrent state `{"wkv": [n_layers, B,
+H, Dh, Dh] f32, "tm_last", "cm_last": [n_layers, B, 1, D]}` (ssm), which
+`decode_step` updates in place.
 
 `forward_train` checkpoints each layer (`remat="full"`) with
 `torch.utils.checkpoint`; the reference's two-level group remat
-(`remat="group"`) is not ported yet.
+(`remat="group"`) is not ported yet, nor is training the ssm family.
 """
 
 from __future__ import annotations
@@ -22,17 +24,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mlp
+from repro_torch.models import common, mlp, rwkv6
 from repro_torch.models.attention import AttnSpec
+from repro_torch.models.rwkv6 import Rwkv6Spec
 
 MOE_AUX_COEF = 0.01
 REMAT_MODES = ("none", "full")
+SERVE_FAMILIES = ("dense", "ssm")
+TRAIN_FAMILIES = ("dense",)
+RWKV_CACHE_KEYS = ("wkv", "tm_last", "cm_last")   # the ssm decode cache
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig, families=SERVE_FAMILIES) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (dense only)")
+            f"family {cfg.family!r} is not yet ported for this path (have "
+            f"{families})")
 
 
 def tree_map(fn, tree, *rest):
@@ -59,29 +66,57 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
         sliding_window=0)
 
 
+def rwkv_spec(cfg: ModelConfig) -> Rwkv6Spec:
+    return Rwkv6Spec(d_model=cfg.d_model, d_ff=cfg.d_ff)
+
+
 def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     """The parameter tree's shapes: padded heads, padded vocab, stacked
     blocks."""
     _check_family(cfg)
-    plan = cfg.head_plan()
     D, Dh, F, L = cfg.d_model, cfg.head_dim_, cfg.d_ff, cfg.n_layers
-    nq, nkv = plan.n_q_pad, plan.n_kv_pad
-    a = {"wq": (D, nq, Dh), "wk": (D, nkv, Dh), "wv": (D, nkv, Dh),
-         "wo": (nq, Dh, D)}
-    if cfg.qkv_bias:
-        a.update(bq=(nq, Dh), bk=(nkv, Dh), bv=(nkv, Dh))
-    block = {"ln1_w": (D,), "attn": a, "ln2_w": (D,),
-             "mlp": {"w_gate": (D, F), "w_in": (D, F), "w_out": (F, D)}}
+    if cfg.family == "ssm":
+        block = {"ln1_w": (D,), "ln1_b": (D,),
+                 "rwkv_tm": rwkv6.param_shapes(rwkv_spec(cfg)),
+                 "ln2_w": (D,), "ln2_b": (D,)}
+    else:
+        plan = cfg.head_plan()
+        nq, nkv = plan.n_q_pad, plan.n_kv_pad
+        a = {"wq": (D, nq, Dh), "wk": (D, nkv, Dh), "wv": (D, nkv, Dh),
+             "wo": (nq, Dh, D)}
+        if cfg.qkv_bias:
+            a.update(bq=(nq, Dh), bk=(nkv, Dh), bv=(nkv, Dh))
+        block = {"ln1_w": (D,), "attn": a, "ln2_w": (D,),
+                 "mlp": {"w_gate": (D, F), "w_in": (D, F), "w_out": (F, D)}}
     return {"embed": (cfg.vocab_padded, D), "final_norm_w": (D,),
             "lm_head": (D, cfg.vocab_padded),
             "blocks": tree_map(lambda s: (L,) + s, block)}
 
 
+def param_dtypes(cfg: ModelConfig) -> dict[str, Any]:
+    """The parameter tree's dtypes: `cfg.dtype`, except the leaves the
+    reference creates in f32 (the RWKV6 decay base and bonus)."""
+    dtype = common.default_dtype(cfg.dtype)
+    dtypes = tree_map(lambda s: dtype, param_shapes(cfg))
+    if cfg.family == "ssm":
+        for name in rwkv6.F32_PARAMS:
+            dtypes["blocks"]["rwkv_tm"][name] = torch.float32
+    return dtypes
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype):
     dev = gen.device
-    return {"ln1_w": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+
+    def vec(value):
+        return torch.full((cfg.d_model,), value, dtype=dtype, device=dev)
+
+    if cfg.family == "ssm":
+        return {"ln1_w": vec(1.0), "ln1_b": vec(0.0),
+                "rwkv_tm": rwkv6.init_rwkv6(gen, rwkv_spec(cfg), dtype),
+                "ln2_w": vec(1.0), "ln2_b": vec(0.0)}
+    return {"ln1_w": vec(1.0),
             "attn": attn.init_attention(gen, attn_spec(cfg), dtype),
-            "ln2_w": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+            "ln2_w": vec(1.0),
             "mlp": mlp.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)}
 
 
@@ -98,8 +133,9 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
         "final_norm_w": torch.ones(D, dtype=dtype, device=dev),
         "lm_head": common.dense_init(gen, (D, Vp), D, dtype),
     }
-    blocks = tree_map(lambda s: torch.empty(s, dtype=dtype, device=dev),
-                      param_shapes(cfg)["blocks"])
+    blocks = tree_map(lambda s, dt: torch.empty(s, dtype=dt, device=dev),
+                      param_shapes(cfg)["blocks"],
+                      param_dtypes(cfg)["blocks"])
     for i in range(cfg.n_layers):
         tree_map(lambda dst, src: dst[i].copy_(src), blocks,
                  _init_block(gen, cfg, dtype))
@@ -144,7 +180,7 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     (loss, metrics). `remat="full"` recomputes each layer's activations in
     the backward (non-reentrant `torch.utils.checkpoint` around the layer,
     the reference's per-layer `jax.checkpoint`); `"none"` keeps them."""
-    _check_family(cfg)
+    _check_family(cfg, TRAIN_FAMILIES)
     if remat not in REMAT_MODES:
         raise NotImplementedError(
             f"remat={remat!r} is not yet ported (have {REMAT_MODES}); the "
@@ -169,10 +205,17 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda"):
-    """Stacked per-layer KV cache `{"k", "v"}: [n_layers, B, S, nkv, Dh]`."""
+    """Stacked per-layer cache: the KV cache `{"k", "v"}: [n_layers, B, S,
+    nkv, Dh]` (dense), or the recurrent state `{"wkv": [n_layers, B, H, Dh,
+    Dh] f32, "tm_last", "cm_last": [n_layers, B, 1, D]}` (ssm; `max_len`
+    unused)."""
     _check_family(cfg)
-    c = attn.init_kv_cache(batch, max_len, attn_spec(cfg),
-                           common.default_dtype(cfg.dtype), device)
+    dtype = common.default_dtype(cfg.dtype)
+    if cfg.family == "ssm":
+        c = dict(zip(RWKV_CACHE_KEYS, rwkv6.init_rwkv6_state(
+            batch, rwkv_spec(cfg), dtype, device)))
+    else:
+        c = attn.init_kv_cache(batch, max_len, attn_spec(cfg), dtype, device)
     L = cfg.n_layers
     return {k: v[None].expand((L,) + v.shape).contiguous()
             for k, v in c.items()}
@@ -183,11 +226,32 @@ def _block_tail(p, x, cfg: ModelConfig):
     return x + mlp.swiglu(p["mlp"], h)
 
 
+def _rwkv_layer(p, x, cfg: ModelConfig, state=None):
+    """One RWKV6 layer; `state` is (wkv, tm_last, cm_last) to continue from,
+    or None. Returns (x, (wkv, tm_last, cm_last))."""
+    wkv, tm_last, cm_last = state if state is not None else (None,) * 3
+    h = common.layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps)
+    a, (wkv, tm_last) = rwkv6.rwkv6_time_mix(
+        p["rwkv_tm"], h, rwkv_spec(cfg), init_state=wkv, last_x=tm_last)
+    x = x + a
+    h = common.layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps)
+    c, cm_last = rwkv6.rwkv6_channel_mix(p["rwkv_tm"], h, last_x=cm_last)
+    return x + c, (wkv, tm_last, cm_last)
+
+
 def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
     """One serving step: tokens [B,1] -> (logits [B,1,V], cache), the cache
-    written in place at slot `cur_index`."""
+    written in place (dense: at slot `cur_index`; ssm: the recurrent state,
+    `cur_index` unused)."""
     _check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, state = _rwkv_layer(_layer(params, i), x, cfg,
+                                   tuple(cache[k][i] for k in RWKV_CACHE_KEYS))
+            for key, value in zip(RWKV_CACHE_KEYS, state):
+                cache[key][i].copy_(value)
+        return logits_from(params, x, cfg), cache
     spec = attn_spec(cfg)
     for i in range(cfg.n_layers):
         p = _layer(params, i)
@@ -204,10 +268,16 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
     _check_family(cfg)
     B, T = tokens.shape
     x = embed_tokens(params, tokens, cfg)
+    cache = init_decode_cache(cfg, B, max_len, x.device)
+    if cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x, state = _rwkv_layer(_layer(params, i), x, cfg)
+            for key, value in zip(RWKV_CACHE_KEYS, state):
+                cache[key][i] = value
+        return logits_from(params, x[:, -1:], cfg), cache, T
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device)[None].expand(B, T)
     spec = attn_spec(cfg)
-    cache = init_decode_cache(cfg, B, max_len, x.device)
     for i in range(cfg.n_layers):
         p = _layer(params, i)
         h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)

@@ -1,4 +1,4 @@
-"""Model API over the dense decoder-only LM (port of
+"""Model API over the decoder-only LM, dense and ssm families (port of
 `repro/models/registry.py`), plus `params_from_jax`, which carries a
 reference parameter tree (as numpy arrays) over into the port."""
 
@@ -50,13 +50,14 @@ def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
 
 def params_from_jax(cfg: ModelConfig, np_tree, device="cuda"):
     """The reference's parameter tree, given as numpy arrays (f32, since
-    numpy has no bf16), as the port's parameters on `device` in
-    `cfg.dtype`. The layout is kept as is: padded head slots (zero q slots,
-    duplicated kv heads), padded vocab, the stacked `blocks` axis."""
+    numpy has no bf16), as the port's parameters on `device`, each leaf in
+    the reference's dtype (`lm.param_dtypes`: `cfg.dtype`, and f32 where
+    the reference keeps f32 leaves in any model dtype). The layout is kept
+    as is: padded head slots (zero q slots, duplicated kv heads), padded
+    vocab, the stacked `blocks` axis."""
     device = common.resolve_device(device)
-    dtype = common.default_dtype(cfg.dtype)
 
-    def convert(shape, a):
+    def convert(shape, dtype, a):
         a = np.array(a, dtype=np.float32)   # a writable copy
         if a.shape != shape:
             raise ValueError(f"parameter shape {a.shape} != expected {shape}")
@@ -73,5 +74,5 @@ def params_from_jax(cfg: ModelConfig, np_tree, device="cuda"):
                 check_keys(s[k], t[k], f"{path}.{k}")
 
     check_keys(shapes, np_tree)
-    return lm.tree_map(convert, shapes, np_tree)
+    return lm.tree_map(convert, shapes, lm.param_dtypes(cfg), np_tree)
 

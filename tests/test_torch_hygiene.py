@@ -45,7 +45,7 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py", "step.py",
             "trainer.py", "adamw.py", "schedule.py", "pipeline.py",
-            "train.py"} <= names
+            "train.py", "rwkv6.py", "rwkv6_scan.py", "rwkv6_7b.py"} <= names
 
 
 @pytest.fixture
@@ -62,8 +62,9 @@ def test_engine_default_device_needs_a_card(no_card):
 
 
 def _default_device_builders():
-    from repro_torch.models import attention, lm
+    from repro_torch.models import attention, lm, rwkv6
     cfg = get_config("qwen2p5_14b", tiny=True)
+    ssm = get_config("rwkv6_7b", tiny=True)
     api = registry.build(cfg)
     tree = lm.tree_map(lambda s: np.zeros(s, np.float32),
                        lm.param_shapes(cfg))
@@ -74,6 +75,9 @@ def _default_device_builders():
         "lm.init_decode_cache": lambda: lm.init_decode_cache(cfg, 1, 8),
         "attention.init_kv_cache": lambda: attention.init_kv_cache(
             1, 8, lm.attn_spec(cfg)),
+        "lm.init_decode_cache[ssm]": lambda: lm.init_decode_cache(ssm, 1, 8),
+        "rwkv6.init_rwkv6_state": lambda: rwkv6.init_rwkv6_state(
+            1, lm.rwkv_spec(ssm)),
     }
 
 
@@ -86,7 +90,9 @@ def _synthetic():
                                      "SyntheticLM.torch_batch",
                                      "api.init_decode_cache",
                                      "lm.init_decode_cache",
-                                     "attention.init_kv_cache"])
+                                     "attention.init_kv_cache",
+                                     "lm.init_decode_cache[ssm]",
+                                     "rwkv6.init_rwkv6_state"])
 def test_builders_default_device_needs_a_card(no_card, builder):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _default_device_builders()[builder]()

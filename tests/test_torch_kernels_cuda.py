@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import rwkv6_scan as tr6
 
 SOR_KW = dict(min_slope=0.5, min_spread_v=2e-3, conf_samples=8.0)
 # SOR fit: the uncentred EWLS solve cancels digits (denom = sw*sxx - sx^2),
@@ -32,6 +33,20 @@ def qkv(B, T, S, Hq, Hkv, Dh, seed):
     return (rng.standard_normal((B, T, Hq, Dh)).astype(np.float32),
             rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32),
             rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32))
+
+
+def rwkv_inputs(B, T, H, Dh, seed, state=True):
+    """r, k, v ~ N(0, 1); w = -exp(N(-1, 1)), the log-decay (decays spread
+    over (0, 1), most near exp(-exp(-1)) = 0.69); u ~ N(0, 0.5); an
+    N(0, 1) initial state, or None."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, Dh)).astype(np.float32)
+               for _ in range(3))
+    w = -np.exp(rng.normal(-1.0, 1.0, (B, T, H, Dh))).astype(np.float32)
+    u = (0.5 * rng.standard_normal((H, Dh))).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, Dh, Dh)).astype(np.float32)
+          if state else None)
+    return r, k, v, w, u, s0
 
 
 def sor_inputs(window: int, n: int, seed: int):
@@ -215,5 +230,69 @@ def test_kernels_count_their_launches(cuda):
     ops.sor_fit(*(torch.from_numpy(a).to(cuda)
                   for a in sor_inputs(4, 3, seed=0)), **SOR_KW)
     ops.fleet_reduce(torch.zeros((3, 2), device=cuda))
+    r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
+                        for a in rwkv_inputs(1, 3, 1, 64, seed=0,
+                                             state=False))
+    ops.rwkv6_scan(r, k, v, w, u)
     ops.fleet_percentile(torch.zeros(3, device=cuda), 95.0)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
+
+
+# RWKV6 scan: y and the state against the plain version, relative to the
+# largest magnitude of each. f32: sums in another order; bf16: r, k, v are
+# the same bf16 values in both, the state is f32 in both, and y is the f32
+# result rounded to bf16 (an ulp is 2^-8 of the value)
+R6_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def r6_close(got, want, tol):
+    for name, a, b in zip(("y", "state"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * max(scale, 1.0), (name, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,T,H", [
+    (4, 256, 64),     # the serve path's prefill (RWKV6-7B: 64 heads x 64)
+    (4, 1, 64),       # its decode step
+    (2, 200, 8),      # ragged T, not a multiple of the staged tile
+    (2, 64, 8),
+])
+def test_rwkv6_scan_kernel_matches_plain(cuda, dtype, with_state, B, T, H):
+    r, k, v, w, u, s0 = rwkv_inputs(B, T, H, 64, seed=T, state=with_state)
+    r, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (r, k, v))
+    w, u = (torch.from_numpy(a).to(cuda) for a in (w, u))
+    s0 = None if s0 is None else torch.from_numpy(s0).to(cuda)
+    tr6.rwkv6_scan.launches = 0
+    got = tr6.rwkv6_scan(r, k, v, w, u, init_state=s0)
+    assert tr6.rwkv6_scan.launches == 1
+    want = tr6.rwkv6_scan_plain(r, k, v, w, u, init_state=s0)
+    assert tr6.rwkv6_scan.launches == 1
+    r6_close(got, want, R6_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u, s0 = (torch.from_numpy(a).to(cuda)
+                         for a in rwkv_inputs(1, 8, 2, 64, seed=0))
+    bad = {
+        "cpu w": dict(w=w.cpu()),
+        "bf16 w": dict(w=w.bfloat16()),
+        "mixed r/k dtype": dict(k=k.bfloat16()),
+        "non-contiguous r": dict(r=r.transpose(1, 2).contiguous()
+                                 .transpose(1, 2)),
+        "wrong u shape": dict(u=u[:1]),
+        "bf16 state": dict(init_state=s0.bfloat16()),
+    }
+    for change in bad.values():
+        a = {**dict(r=r, k=k, v=v, w=w, u=u, init_state=s0), **change}
+        with pytest.raises(ValueError, match="rwkv6_scan"):
+            tr6.rwkv6_scan(a["r"], a["k"], a["v"], a["w"], a["u"],
+                           init_state=a["init_state"])
+    r32, k32, v32, w32 = (a[..., :32].contiguous() for a in (r, k, v, w))
+    with pytest.raises(ValueError, match="head_dim"):
+        tr6.rwkv6_scan(r32, k32, v32, w32, u[:, :32].contiguous())

@@ -1,7 +1,7 @@
 """The whole slice on the CPU: `ServeEngine.generate` in the port against
 the reference engine on the reference's weights (tiny Qwen2.5 in f32, plain
-TINY and the padded-GQA variant), an 8-chip fleet and the learned
-three-rail control round. Tokens must be equal; the plane and the SOR
+TINY and the padded-GQA variant; tiny RWKV6 in f32, the ssm family), an
+8-chip fleet and the learned three-rail control round. Tokens must be equal; the plane and the SOR
 estimate allclose; `summary()` carries the same keys and values."""
 
 import dataclasses
@@ -42,6 +42,7 @@ CONFIGS = {
     "tiny_gqa_pad": lambda get: dataclasses.replace(
         get("qwen2p5_14b", tiny=True), n_heads=10, n_kv_heads=2,
         head_dim=32, tp=4),
+    "rwkv_tiny": lambda get: get("rwkv6_7b", tiny=True),
 }
 
 
@@ -77,6 +78,7 @@ TPKG = (tpol, tcp, tpp, tsor, ttel, TFleet)
 
 @pytest.mark.parametrize("name,mode", [("tiny", "slice"),
                                        ("tiny_gqa_pad", "slice"),
+                                       ("rwkv_tiny", "slice"),
                                        ("tiny", "gate"),
                                        ("tiny", "scalar")])
 def test_generate_matches_reference(name, mode):
