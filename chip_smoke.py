@@ -10,11 +10,13 @@ script exits nonzero:
 1. build      - compile every kernel from `src/repro_torch/kernels/csrc/`
                 for sm_90a (seconds taken, the ptxas report in the build
                 dir);
-2. kernels    - each kernel's wrapper at its path's shapes (the Qwen serve
-                path for K1-K3, the training path for K4-K6, the RWKV6
-                serve path for K9) against its plain version (stated
-                tolerances), timed beside its bound, the plain version and
-                one PyTorch call as a yardstick where one exists;
+2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
+                path for K1, the Qwen and the Zamba2 serve paths for
+                K2 and K3, the training path for K4-K6, the RWKV6
+                serve path for K9, the Zamba2 serve path for K8) against
+                its plain version (stated tolerances), timed beside its
+                bound, the plain version and one PyTorch call as a
+                yardstick where one exists;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -30,10 +32,20 @@ script exits nonzero:
                 64 heads x 64, d_ff 14336, vocab 65536) as phase 4, with its
                 own exact launch counts (K9 32 per prefill and per decoded
                 token) and decode-step breakdown;
-7. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+7. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
+                an 8-token sliding window that the shared block's KV cache
+                wraps;
+8. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
+                d_model 2048, 64 SSD heads x 64, state 64; the shared
+                attention + MLP block after every 6th layer, 32/32 heads
+                x 64, window 4096) as phase 4, with its own exact launch
+                counts (K8 38 per prefill and per decoded token, K2 6 per
+                prefill, K3 6 per decoded token after the first) and
+                decode-step breakdown;
+9. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
-8. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+10. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -42,7 +54,7 @@ script exits nonzero:
                 summary, and a torch.profiler window of 2 steps.
 
 Each main path's weights are freed before the next path loads its own.
-Then the `{"kernels": [...]}` line (launches summed over the three main
+Then the `{"kernels": [...]}` line (launches summed over the four main
 paths' checked runs, and by path), the card's name and power limit, and the
 final `{"ok": true, ...}` line. Exits nonzero without printing a result when no
 CUDA device is present.
@@ -65,6 +77,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
 # the serve paths driven on the card: full width and depth
 MAIN = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, chips=64)
 RWKV = dict(arch="rwkv6_7b", batch=4, prompt=256, new=32, chips=64)
+ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
 TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
              profiled_steps=2)
@@ -116,94 +129,135 @@ def bound_ms(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def attn_paths() -> dict:
+    """The attention shapes of each serve path that runs K2 and K3, from
+    its configuration: (batch, padded q heads, padded kv heads, head_dim,
+    sliding window, prompt, KV-cache length)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for path, spec in (("serve-qwen", MAIN), ("serve-zamba", ZAMBA)):
+        cfg = get_config(spec["arch"])
+        plan = cfg.head_plan()
+        max_len = spec["prompt"] + spec["new"] + 8     # as `slice_engine`
+        out[path] = (spec["batch"], plan.n_q_pad, plan.n_kv_pad,
+                     cfg.head_dim_, cfg.sliding_window, spec["prompt"],
+                     min(max_len, cfg.sliding_window or max_len))
+    return out
+
+
 def check_flash(dev, flush) -> dict:
+    """K2 at each serve path's prefill (its prompt, and a ragged T of 200)
+    against its plain version, timed at the prompt beside its bound, the
+    plain version and one SDPA call. The row's top-level times are the
+    Qwen2.5 path's; `paths` holds each path's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    B, Hq, Hkv, Dh = 4, 48, 16, 128
-    group = Hq // Hkv
     gen = torch.Generator(device=dev).manual_seed(11)
-    err = 0.0
-    for T in (256, 200):    # the main path's prompt, and a ragged T
+    err, checked, paths = 0.0, [], {}
+    for path, (B, Hq, Hkv, Dh, window, Tp, _) in attn_paths().items():
+        group = Hq // Hkv
+        kw = dict(causal=True, group=group, sliding_window=window)
+        for T in (Tp, 200):     # the path's prompt, and a ragged T
+            q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+                       for h in (Hq, Hkv, Hkv))
+            o, lse = fa.flash_attention(q, k, v, **kw)
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            d = (o.float() - o_ref.float()).abs().max().item()
+            d_lse = (lse - lse_ref).abs().max().item()
+            # bf16 output against the f32 plain version rounded to bf16
+            if not (math.isfinite(d) and d <= 2e-2 and d_lse <= 1e-3):
+                raise AssertionError(f"flash_attention {path} T={T}: "
+                                     f"max|o-o_ref|={d}, "
+                                     f"max|lse-lse_ref|={d_lse}")
+            err = max(err, d)
+            checked.append(dict(path=path, B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh,
+                                window=window, dtype="bf16"))
+        T = Tp
         q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev,
                                dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
-        o, lse = fa.flash_attention(q, k, v, causal=True, group=group)
-        o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=True,
-                                                  group=group)
-        torch.cuda.synchronize()
-        d = (o.float() - o_ref.float()).abs().max().item()
-        d_lse = (lse - lse_ref).abs().max().item()
-        # bf16 output against the f32 plain version rounded to bf16
-        if not (math.isfinite(d) and d <= 2e-2 and d_lse <= 1e-3):
-            raise AssertionError(f"flash_attention T={T}: max|o-o_ref|={d}, "
-                                 f"max|lse-lse_ref|={d_lse}")
-        err = max(err, d)
-    T = 256
-    q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev,
-                           dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
-                                            group=group), 20, flush)
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True, group=group), 5, flush)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20, flush)
-    n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * T
-    pairs = B * Hq * T * (T + 1) // 2            # causal: keys <= row
-    b_ms, b_by = bound_ms(n_bytes, 4 * Dh * pairs, "bfloat16")
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                           5, flush)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        rows = torch.arange(T, device=dev)
+        keep = rows[None, :] <= rows[:, None]          # causal: keys <= row
+        if window:
+            keep &= rows[None, :] > rows[:, None] - window
+        windowed = 0 < window < T
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep if windowed else None,
+            is_causal=not windowed), 20, flush)
+        n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * T
+        pairs = B * Hq * int(keep.sum().item())
+        b_ms, b_by = bound_ms(n_bytes, 4 * Dh * pairs, "bfloat16")
+        paths[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms,
+                           shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh,
+                                      window=window, dtype="bf16"))
+    top = dict(paths["serve-qwen"])
     return dict(name="flash_attention_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:92",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
-                           ragged_T=200))
+                max_abs_err=err, **top, checked=checked, paths=paths)
 
 
 def check_decode(dev, flush) -> dict:
+    """K3 at each serve path's decode step (its KV-cache length, lengths 1
+    to full) against its plain version, timed beside its bound, the plain
+    version and one masked SDPA call. The row's top-level times are the
+    Qwen2.5 path's; `paths` holds each path's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
-    B, S, Hq, Hkv, Dh = 4, MAIN["prompt"] + MAIN["new"] + 8, 48, 16, 128
-    group = Hq // Hkv
     gen = torch.Generator(device=dev).manual_seed(12)
-    q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
-                        dtype=torch.bfloat16) for _ in range(2))
-    lengths = torch.tensor([1, S // 3, 257, S], dtype=torch.int32,
-                           device=dev)
-    o = da.decode_attention(q, k, v, lengths, group=group)
-    o_ref = da.decode_attention_plain(q, k, v, lengths, group=group)
-    torch.cuda.synchronize()
-    err = (o.float() - o_ref.float()).abs().max().item()
-    if not (math.isfinite(err) and err <= 2e-2):
-        raise AssertionError(f"decode_attention: max|o-o_ref|={err}")
-    ms = time_ms(lambda: da.decode_attention(q, k, v, lengths, group=group),
-                 100, flush)
-    plain_ms = time_ms(lambda: da.decode_attention_plain(
-        q, k, v, lengths, group=group), 20, flush)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), 100, flush)
-    n_valid = int(lengths.sum().item())
-    n_bytes = 2 * (2 * q.numel() + 2 * n_valid * Hkv * Dh) + 4 * B
-    b_ms, b_by = bound_ms(n_bytes, 4 * Dh * Hq * n_valid, "bfloat16")
+    err, checked, paths = 0.0, [], {}
+    for path, (B, Hq, Hkv, Dh, _, Tp, S) in attn_paths().items():
+        group = Hq // Hkv
+        q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        lengths = torch.tensor([1, S // 3, Tp + 1, S], dtype=torch.int32,
+                               device=dev)
+        o = da.decode_attention(q, k, v, lengths, group=group)
+        o_ref = da.decode_attention_plain(q, k, v, lengths, group=group)
+        torch.cuda.synchronize()
+        d = (o.float() - o_ref.float()).abs().max().item()
+        if not (math.isfinite(d) and d <= 2e-2):
+            raise AssertionError(f"decode_attention {path}: "
+                                 f"max|o-o_ref|={d}")
+        err = max(err, d)
+        shape = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
+                     lengths=lengths.tolist())
+        checked.append(dict(path=path, **shape))
+        ms = time_ms(lambda: da.decode_attention(q, k, v, lengths,
+                                                 group=group), 100, flush)
+        plain_ms = time_ms(lambda: da.decode_attention_plain(
+            q, k, v, lengths, group=group), 20, flush)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 100, flush)
+        n_valid = int(lengths.sum().item())
+        n_bytes = 2 * (2 * q.numel() + 2 * n_valid * Hkv * Dh) + 4 * B
+        b_ms, b_by = bound_ms(n_bytes, 4 * Dh * Hq * n_valid, "bfloat16")
+        paths[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, shape=shape)
+    top = dict(paths["serve-qwen"])
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:60",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
-                           lengths=lengths.tolist()))
+                max_abs_err=err, **top, checked=checked, paths=paths)
 
 
 def sor_inputs(window: int, n: int, seed: int, dev):
@@ -412,82 +466,146 @@ def rwkv6_args(B, T, H, dtype, state, gen, dev):
     return (r, k, v, w, u), s0
 
 
-# K9 against its plain version, relative to the largest magnitude: y in
-# f32 carries sums in another order; y in bf16 is the f32 result rounded
-# (an ulp is 2^-8 of the value); the state is f32 from the same inputs in
-# both, so it carries only the order of the sums
-RWKV6_TOL = dict(y={"float32": 1e-5, "bfloat16": 1e-2},
-                 state={"float32": 1e-5, "bfloat16": 1e-5})
+def mamba2_args(B, T, H, G, N, dtype, state, gen, dev):
+    """x, B, C ~ N(0, 1) in `dtype`; dt = softplus(N(0, 1)) f32 (step sizes
+    in (0, ~4)); A = -exp(N(0, 1)) and D ~ N(0, 1) f32; an N(0, 1) f32
+    initial state or None."""
+    import torch
+    import torch.nn.functional as F
+    P = 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(B, T, H, P).to(dtype)
+    dt = F.softplus(randn(B, T, H))
+    A = -torch.exp(randn(H))
+    Bm, Cm = (randn(B, T, G, N).to(dtype) for _ in range(2))
+    D = randn(H)
+    s0 = randn(B, H, N, P) if state else None
+    return (x, dt, A, Bm, Cm, D), s0
 
 
-def rwkv6_bound(args, s0, y, state) -> tuple[float, str]:
+# K8 and K9 against their plain versions, relative to the largest
+# magnitude: y in f32 carries sums in another order; y in bf16 is the f32
+# result rounded (an ulp is 2^-8 of the value); the state is f32 from the
+# same inputs in both, so it carries only the order of the sums
+SCAN_TOL = dict(y={"float32": 1e-5, "bfloat16": 1e-2},
+                state={"float32": 1e-5, "bfloat16": 1e-5})
+
+
+def scan_bound(args, s0, y, state, flops) -> tuple[float, str]:
     """Bytes: each input read once (the initial state only where given),
-    y and the final state written once. Operations: r . S and the state
-    update, 5 f32 operations per state element and step."""
-    r = args[0]
-    B, T, H, Dh = r.shape
+    y and the final state written once; `flops` f32 operations."""
     n_bytes = sum(a.numel() * a.element_size() for a in args) + \
         y.numel() * y.element_size() + state.numel() * 4 + \
         (0 if s0 is None else s0.numel() * 4)
-    return bound_ms(n_bytes, 5 * Dh * Dh * B * T * H, "float32")
+    return bound_ms(n_bytes, flops, "float32")
+
+
+def check_scan(name, kernel, plain, cases, flops, flush) -> dict:
+    """`kernel` against `plain` on y and on the final state at each of
+    `cases` ({label: (args, s0)}; the first is the path's prefill, the
+    second its decode step) at SCAN_TOL; then both timed at the prefill
+    and the decode case, beside the bound (`flops(args)` f32 operations)."""
+    import torch
+    err = {"y": 0.0, "state": 0.0}
+    for label, (args, s0) in cases.items():
+        got = kernel(*args, init_state=s0)
+        want = plain(*args, init_state=s0)
+        torch.cuda.synchronize()
+        dt = str(args[0].dtype).removeprefix("torch.")
+        for part, a, b in zip(("y", "state"), got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{name} {label} {part}: {a.dtype} "
+                                     f"{tuple(a.shape)} != {b.dtype} "
+                                     f"{tuple(b.shape)}")
+            d = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (math.isfinite(d) and
+                    d <= SCAN_TOL[part][dt] * max(scale, 1.0)):
+                raise AssertionError(f"{name} {label} {part}: max diff {d}, "
+                                     f"max |ref| {scale}")
+            err[part] = max(err[part], d)
+    out = {}
+    for prefix, (args, s0) in zip(("", "decode_"), cases.values()):
+        y, st = kernel(*args, init_state=s0)
+        b_ms, b_by = scan_bound(args, s0, y, st, flops(args))
+        decode = prefix == "decode_"
+        out.update({
+            f"{prefix}ms": time_ms(lambda: kernel(*args, init_state=s0),
+                                   100 if decode else 20, flush),
+            f"{prefix}plain_ms": time_ms(lambda: plain(*args, init_state=s0),
+                                         20 if decode else 3, flush),
+            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by})
+    return dict(max_abs_err=max(err.values()), max_abs_err_y=err["y"],
+                max_abs_err_state=err["state"], library_ms=None,
+                tolerance=SCAN_TOL, checked=list(cases), **out)
 
 
 def check_rwkv6_scan(dev, flush) -> dict:
     """K9 at the RWKV6-7B serve path's prefill (B 4, T 256, 64 heads x 64,
     bf16, zero initial state) and decode step (T 1, the carried state),
-    plus a ragged T and f32, each against its plain version on y and on the
-    final state; timed at the prefill and the decode shape."""
+    plus a ragged T and f32; 5 f32 operations per state element and step
+    (r . S and the state update)."""
     import torch
 
     from repro_torch.kernels import rwkv6_scan as r6
     B, T, H = RWKV["batch"], RWKV["prompt"], 64
     gen = torch.Generator(device=dev).manual_seed(14)
-    err = {"y": 0.0, "state": 0.0}
-    cases = [(T, "bfloat16", False), (1, "bfloat16", True),
-             (200, "bfloat16", True), (T, "float32", True),
-             (1, "float32", True), (37, "float32", False)]
-    for t, dt, state in cases:
-        args, s0 = rwkv6_args(B, t, H, getattr(torch, dt), state, gen, dev)
-        got = r6.rwkv6_scan(*args, init_state=s0)
-        want = r6.rwkv6_scan_plain(*args, init_state=s0)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("y", "state"), got, want):
-            if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"rwkv6_scan T={t} {dt} {name}: "
-                                     f"{a.dtype} {tuple(a.shape)} != "
-                                     f"{b.dtype} {tuple(b.shape)}")
-            d = (a.float() - b.float()).abs().max().item()
-            scale = b.float().abs().max().item()
-            tol = RWKV6_TOL[name][dt]
-            if not (math.isfinite(d) and d <= tol * max(scale, 1.0)):
-                raise AssertionError(f"rwkv6_scan T={t} {dt} state={state} "
-                                     f"{name}: max diff {d}, max |ref| "
-                                     f"{scale}")
-            err[name] = max(err[name], d)
-    out = {}
-    for label, t, state in (("", T, False), ("decode_", 1, True)):
-        args, s0 = rwkv6_args(B, t, H, torch.bfloat16, state, gen, dev)
-        y, st = r6.rwkv6_scan(*args, init_state=s0)
-        b_ms, b_by = rwkv6_bound(args, s0, y, st)
-        out.update({
-            f"{label}ms": time_ms(lambda: r6.rwkv6_scan(*args, init_state=s0),
-                                  100 if state else 20, flush),
-            f"{label}plain_ms": time_ms(lambda: r6.rwkv6_scan_plain(
-                *args, init_state=s0), 20 if state else 3, flush),
-            f"{label}bound_ms": b_ms, f"{label}bound_by": b_by})
+    cases = {f"T={t} {dt} state={state}": rwkv6_args(
+                 B, t, H, getattr(torch, dt), state, gen, dev)
+             for t, dt, state in ((T, "bfloat16", False), (1, "bfloat16", True),
+                                  (200, "bfloat16", True),
+                                  (T, "float32", True), (1, "float32", True),
+                                  (37, "float32", False))}
+
+    def flops(args):
+        b, t, h, dh = args[0].shape
+        return 5 * dh * dh * b * t * h
+
     return dict(name="rwkv6_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                 replaces="src/repro/kernels/rwkv6_scan.py:67",
-                max_abs_err=max(err.values()), max_abs_err_y=err["y"],
-                max_abs_err_state=err["state"], library_ms=None,
-                tolerance=RWKV6_TOL, **out,
+                **check_scan("rwkv6_scan", r6.rwkv6_scan, r6.rwkv6_scan_plain,
+                             cases, flops, flush),
                 shape=dict(B=B, T=T, H=H, Dh=64, dtype="bf16",
-                           decode=dict(T=1, init_state=True),
-                           also=[[t, dt, s] for t, dt, s in cases]))
+                           decode=dict(T=1, init_state=True)))
+
+
+def check_mamba2_ssd(dev, flush) -> dict:
+    """K8 at the Zamba2-1.2B serve path's prefill (B 4, T 256, 64 heads x
+    64, one group, state 64, bf16, zero initial state) and decode step (T 1,
+    the carried state), plus a ragged T, f32, and two groups at state 16; 5
+    f32 operations per state element and step (decay, rank-one update,
+    C . S)."""
+    import torch
+
+    from repro_torch.kernels import mamba2_ssd as m2
+    B, T, H = ZAMBA["batch"], ZAMBA["prompt"], 64
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cases = {f"T={t} {dt} state={state} G={G} N={N}": mamba2_args(
+                 B, t, H, G, N, getattr(torch, dt), state, gen, dev)
+             for t, dt, state, G, N in (
+                 (T, "bfloat16", False, 1, 64), (1, "bfloat16", True, 1, 64),
+                 (200, "bfloat16", True, 1, 64), (T, "float32", True, 1, 64),
+                 (1, "float32", True, 1, 64), (37, "float32", False, 2, 16))}
+
+    def flops(args):
+        b, t, h, p = args[0].shape
+        return 5 * args[3].shape[3] * p * b * t * h
+
+    return dict(name="mamba2_ssd", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                replaces="src/repro/kernels/mamba2_ssd.py:82",
+                **check_scan("mamba2_ssd", m2.mamba2_ssd, m2.mamba2_ssd_plain,
+                             cases, flops, flush),
+                shape=dict(B=B, T=T, H=H, P=64, G=1, N=64, dtype="bf16",
+                           decode=dict(T=1, init_state=True)))
 
 
 # ---------------------------------------------------------------------------
-# phases 3-6: the serve paths through ServeEngine.generate
+# phases 3-8: the serve paths through ServeEngine.generate
 # ---------------------------------------------------------------------------
 
 def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
@@ -520,16 +638,21 @@ def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
 def tiny_variants(arch: str) -> dict:
     """The tiny configurations of `arch` in f32 held cuda against cpu: for
     Qwen2.5 plain TINY and the padded-GQA variant (12 q / 4 kv heads,
-    group 3, zero pad slots); for RWKV6 its TINY."""
+    group 3, zero pad slots); for Zamba2 plain TINY and an 8-token sliding
+    window, which the shared block's KV cache wraps (`run_tiny` prompts 16
+    tokens); for RWKV6 its TINY."""
     import dataclasses
 
     from repro_torch.configs import get_config
     tiny = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
-    if arch != "qwen2p5_14b":
-        return {"tiny": tiny}
-    return {"tiny": tiny,
-            "tiny_gqa_pad": dataclasses.replace(
-                tiny, n_heads=10, n_kv_heads=2, head_dim=32, tp=4)}
+    if arch == "qwen2p5_14b":
+        return {"tiny": tiny,
+                "tiny_gqa_pad": dataclasses.replace(
+                    tiny, n_heads=10, n_kv_heads=2, head_dim=32, tp=4)}
+    if arch == "zamba2_1p2b":
+        return {"tiny": tiny,
+                "tiny_window": dataclasses.replace(tiny, sliding_window=8)}
+    return {"tiny": tiny}
 
 
 def run_tiny(arch: str) -> dict:
@@ -578,6 +701,8 @@ def run_tiny(arch: str) -> dict:
         if cfg.family == "dense":
             plan = cfg.head_plan()
             out[name]["heads"] = [plan.n_q_pad, plan.n_kv_pad, plan.group]
+        if cfg.family == "hybrid":
+            out[name]["sliding_window"] = cfg.sliding_window
     return out
 
 
@@ -585,12 +710,19 @@ def serve_launches(cfg, new: int) -> dict:
     """The launches one `generate` of `new` tokens must make: the control
     round refits on every 4th of its `new` rounds (K1); dense: K2 once per
     layer in the prefill, K3 once per layer per decoded token; ssm: K9 once
-    per layer in the prefill and per decoded token."""
+    per layer in the prefill and per decoded token; hybrid: K8 once per
+    layer in the prefill and per decoded token, K2 and K3 as dense but once
+    per occurrence of the shared block (n_layers // attn_every)."""
     from repro_torch.kernels import ops
     want = {name: 0 for name in ops.KERNELS}
     want["sor_fit"] = new // 4
     if cfg.family == "ssm":
         want["rwkv6_scan"] = cfg.n_layers * new
+    elif cfg.family == "hybrid":
+        n_occ = cfg.n_layers // cfg.attn_every
+        want.update({"mamba2_ssd": cfg.n_layers * new,
+                     "flash_attention_fwd": n_occ,
+                     "decode_attention": n_occ * (new - 1)})
     else:
         want.update({"flash_attention_fwd": cfg.n_layers,
                      "decode_attention": cfg.n_layers * (new - 1)})
@@ -738,7 +870,7 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: the training path through Trainer.run
+# phases 9-10: the training path through Trainer.run
 # ---------------------------------------------------------------------------
 
 def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
@@ -1022,7 +1154,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
     checks = (check_sor_fit, check_flash, check_decode, check_flash_bwd,
-              check_fleet_reduce, check_rwkv6_scan)
+              check_fleet_reduce, check_rwkv6_scan, check_mamba2_ssd)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:
@@ -1044,6 +1176,13 @@ def main() -> int:
     emit({"phase": "main_rwkv", **result})
     del result
     torch.cuda.empty_cache()       # the RWKV6 weights are gone
+
+    emit({"phase": "tiny_zamba", **run_tiny(ZAMBA["arch"])})
+    result = run_main(dev, ZAMBA)
+    by_path["serve-zamba"] = result["launches"]
+    emit({"phase": "main_zamba", **result})
+    del result
+    torch.cuda.empty_cache()       # the Zamba2 weights are gone
 
     emit({"phase": "tiny_train", **run_tiny_train()})
     result = run_main_train(dev)

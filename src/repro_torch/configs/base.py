@@ -57,8 +57,9 @@ class ModelConfig:
         return plan_head_padding(self.n_heads, self.n_kv_heads, self.tp)
 
 
-# the architectures this package carries so far (dense and ssm families)
-ARCH_IDS = ("minicpm_2b", "qwen2p5_14b", "rwkv6_7b")
+# the architectures this package carries so far (dense, ssm and hybrid
+# families)
+ARCH_IDS = ("minicpm_2b", "qwen2p5_14b", "rwkv6_7b", "zamba2_1p2b")
 
 
 def get_config(arch: str, tiny: bool = False) -> ModelConfig:

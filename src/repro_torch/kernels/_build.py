@@ -36,6 +36,7 @@ SIGNATURES = {
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 10 + [_F, _P],
     "fleet_reduce_launch": [_P] * 4 + [_I, _I, _P],
     "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    "mamba2_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -13,6 +13,7 @@ from __future__ import annotations
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fleet_telemetry as _ft
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_ssd as _m2
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as _r6
 
@@ -25,6 +26,7 @@ KERNELS = {
     "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
     "fleet_reduce": _ft.fleet_reduce,
     "rwkv6_scan": _r6.rwkv6_scan,
+    "mamba2_ssd": _m2.mamba2_ssd,
 }
 
 
@@ -70,6 +72,13 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None):
     log-decay, u [H,Dh] f32, init_state [B,H,Dh,Dh] f32 or None -> (y
     [B,T,H,Dh], final state [B,H,Dh,Dh] f32)."""
     return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state)
+
+
+def mamba2_scan(x, dt, A, B, C, D, *, init_state=None):
+    """Mamba2 SSD scan (K8): x [Bt,T,H,P], dt [Bt,T,H] f32, A, D [H] f32,
+    B, C [Bt,T,G,N], init_state [Bt,H,N,P] f32 or None -> (y [Bt,T,H,P],
+    final state [Bt,H,N,P] f32)."""
+    return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state)
 
 
 def fleet_percentile(x, q: float):

@@ -135,6 +135,43 @@ def sor_fit_reference(x, y, w, log10_bound, guard, *, min_slope: float,
 
 
 # ---------------------------------------------------------------------------
+# Mamba2 SSD oracle (sequential scan over time)
+# ---------------------------------------------------------------------------
+
+def mamba2_scan_reference(x, dt, A, B, C, D, *, init_state=None):
+    """Sequential state-space scan (the SSD recurrence, Mamba2 eq. form).
+
+    x  [Bt, T, H, P]   input per head (P = head channel dim)
+    dt [Bt, T, H]      softplus-activated step sizes (>0)
+    A  [H]             negative scalar decay per head (A < 0)
+    B  [Bt, T, G, N]   input->state projection (G groups, N = state dim)
+    C  [Bt, T, G, N]   state->output projection
+    D  [H]             skip connection
+    Heads are split evenly over groups: head h uses group h // (H // G).
+
+    state s_{t} = exp(dt_t * A) * s_{t-1} + dt_t * B_t x_t^T   (per head: [N,P])
+    y_t = C_t . s_t + D * x_t
+    Returns (y [Bt,T,H,P] in x.dtype, final_state [Bt,H,N,P] f32)."""
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    hpg = H // G
+    xf, dtf, Af, Df = x.float(), dt.float(), A.float(), D.float()
+    Bh = B.float().repeat_interleave(hpg, dim=2)     # [Bt,T,H,N]
+    Ch = C.float().repeat_interleave(hpg, dim=2)
+    s = (torch.zeros((Bt, H, N, P), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    y = torch.empty((Bt, T, H, P), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        xt, dtt, bt, ct = xf[:, t], dtf[:, t], Bh[:, t], Ch[:, t]
+        decay = torch.exp(dtt * Af)[..., None, None]             # [Bt,H,1,1]
+        upd = dtt[..., None, None] * bt[..., :, None] * xt[..., None, :]
+        s = s * decay + upd
+        y[:, t] = torch.einsum("bhn,bhnp->bhp", ct, s)
+    y = y + Df[None, None, :, None] * xf
+    return y.to(x.dtype), s
+
+
+# ---------------------------------------------------------------------------
 # RWKV6 oracle (data-dependent decay linear attention)
 # ---------------------------------------------------------------------------
 

@@ -5,8 +5,10 @@
         --tiny --max-new 32 [--device cpu]
 
 Any ported architecture serves through it: the dense family (Qwen2.5,
-MiniCPM) and the ssm family (`--arch rwkv6_7b`, whose decode cache is the
-recurrent state).
+MiniCPM), the ssm family (`--arch rwkv6_7b`, whose decode cache is the
+recurrent state) and the hybrid family (`--arch zamba2_1p2b`: Mamba2
+layers, whose decode cache is the conv and SSD state, and one shared
+sliding-window attention block with a KV cache per occurrence).
 
 Weights are random, drawn on the device from seed 0, as the JAX launcher
 draws them. Unlike the JAX launcher, `--tiny` is honoured: without it the

@@ -1,18 +1,30 @@
-"""Decoder-only LM assembly for the dense family and the ssm family
-(RWKV6), ported from the matching branches of `repro/models/lm.py`.
+"""Decoder-only LM assembly for the dense family, the ssm family (RWKV6)
+and the hybrid family (Zamba2: Mamba2 layers with one shared attention +
+MLP block), ported from the matching branches of `repro/models/lm.py`.
 
 Parameters are a nested dict of tensors with the per-layer weights stacked
 on a leading `[n_layers]` axis (`params["blocks"]`), exactly the reference
-layout, so weights carry over one to one. The reference's `lax.scan` over
+layout, so weights carry over one to one; the hybrid family's shared block
+(`params["shared"]`) is not stacked. The reference's `lax.scan` over
 layers is a Python loop over that axis; its sharding constraints have no
-counterpart on one card. Decode caches are stacked `[n_layers, B, S, nkv,
-Dh]` tensors (dense) or the stacked recurrent state `{"wkv": [n_layers, B,
-H, Dh, Dh] f32, "tm_last", "cm_last": [n_layers, B, 1, D]}` (ssm), which
-`decode_step` updates in place.
+counterpart on one card. Decode caches, which `decode_step` updates in
+place:
+
+- dense: the KV cache `{"k", "v": [n_layers, B, S, nkv, Dh]}`;
+- ssm: the recurrent state `{"wkv": [n_layers, B, H, Dh, Dh] f32,
+  "tm_last", "cm_last": [n_layers, B, 1, D]}`;
+- hybrid: `{"mamba": {"conv_x": [n_layers, B, W-1, d_inner], "conv_B",
+  "conv_C": [n_layers, B, W-1, G*N], "ssm": [n_layers, B, H, N, P] f32},
+  "shared_kv": {"k", "v": [n_occ, B, S, nkv, Dh]}}`, one KV cache per
+  occurrence of the shared block (n_occ = n_layers // attn_every), S
+  capped at the sliding window. The reference keeps the Mamba state as
+  the tuple `((conv_x, conv_B, conv_C), ssm)`; the names above map onto
+  it in that order.
 
 `forward_train` checkpoints each layer (`remat="full"`) with
 `torch.utils.checkpoint`; the reference's two-level group remat
-(`remat="group"`) is not ported yet, nor is training the ssm family.
+(`remat="group"`) is not ported yet, nor is training the ssm and hybrid
+families.
 """
 
 from __future__ import annotations
@@ -24,15 +36,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mlp, rwkv6
+from repro_torch.models import common, mamba2, mlp, rwkv6
 from repro_torch.models.attention import AttnSpec
+from repro_torch.models.mamba2 import Mamba2Spec
 from repro_torch.models.rwkv6 import Rwkv6Spec
 
 MOE_AUX_COEF = 0.01
 REMAT_MODES = ("none", "full")
-SERVE_FAMILIES = ("dense", "ssm")
+SERVE_FAMILIES = ("dense", "ssm", "hybrid")
 TRAIN_FAMILIES = ("dense",)
 RWKV_CACHE_KEYS = ("wkv", "tm_last", "cm_last")   # the ssm decode cache
+CONV_KEYS = ("conv_x", "conv_B", "conv_C")         # the hybrid's conv states
 
 
 def _check_family(cfg: ModelConfig, families=SERVE_FAMILIES) -> None:
@@ -59,11 +73,15 @@ def tree_leaves(tree):
         yield tree
 
 
-def attn_spec(cfg: ModelConfig) -> AttnSpec:
+def attn_spec(cfg: ModelConfig, *, sliding: bool = False) -> AttnSpec:
     return AttnSpec(
         d_model=cfg.d_model, head_dim=cfg.head_dim_, plan=cfg.head_plan(),
         qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, causal=True,
-        sliding_window=0)
+        sliding_window=cfg.sliding_window if sliding else 0)
+
+
+def mamba_spec(cfg: ModelConfig) -> Mamba2Spec:
+    return Mamba2Spec(d_model=cfg.d_model, d_state=cfg.ssm_state)
 
 
 def rwkv_spec(cfg: ModelConfig) -> Rwkv6Spec:
@@ -75,32 +93,43 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     blocks."""
     _check_family(cfg)
     D, Dh, F, L = cfg.d_model, cfg.head_dim_, cfg.d_ff, cfg.n_layers
+    plan = cfg.head_plan()
+    nq, nkv = plan.n_q_pad, plan.n_kv_pad
+    a = {"wq": (D, nq, Dh), "wk": (D, nkv, Dh), "wv": (D, nkv, Dh),
+         "wo": (nq, Dh, D)}
+    if cfg.qkv_bias:
+        a.update(bq=(nq, Dh), bk=(nkv, Dh), bv=(nkv, Dh))
+    attn_mlp = {"ln1_w": (D,), "attn": a, "ln2_w": (D,),
+                "mlp": {"w_gate": (D, F), "w_in": (D, F), "w_out": (F, D)}}
     if cfg.family == "ssm":
         block = {"ln1_w": (D,), "ln1_b": (D,),
                  "rwkv_tm": rwkv6.param_shapes(rwkv_spec(cfg)),
                  "ln2_w": (D,), "ln2_b": (D,)}
+    elif cfg.family == "hybrid":
+        block = {"ln1_w": (D,),
+                 "mamba": mamba2.param_shapes(mamba_spec(cfg))}
     else:
-        plan = cfg.head_plan()
-        nq, nkv = plan.n_q_pad, plan.n_kv_pad
-        a = {"wq": (D, nq, Dh), "wk": (D, nkv, Dh), "wv": (D, nkv, Dh),
-             "wo": (nq, Dh, D)}
-        if cfg.qkv_bias:
-            a.update(bq=(nq, Dh), bk=(nkv, Dh), bv=(nkv, Dh))
-        block = {"ln1_w": (D,), "attn": a, "ln2_w": (D,),
-                 "mlp": {"w_gate": (D, F), "w_in": (D, F), "w_out": (F, D)}}
-    return {"embed": (cfg.vocab_padded, D), "final_norm_w": (D,),
-            "lm_head": (D, cfg.vocab_padded),
-            "blocks": tree_map(lambda s: (L,) + s, block)}
+        block = attn_mlp
+    shapes = {"embed": (cfg.vocab_padded, D), "final_norm_w": (D,),
+              "lm_head": (D, cfg.vocab_padded),
+              "blocks": tree_map(lambda s: (L,) + s, block)}
+    if cfg.family == "hybrid":
+        shapes["shared"] = attn_mlp      # one block, reused: not stacked
+    return shapes
 
 
 def param_dtypes(cfg: ModelConfig) -> dict[str, Any]:
     """The parameter tree's dtypes: `cfg.dtype`, except the leaves the
-    reference creates in f32 (the RWKV6 decay base and bonus)."""
+    reference creates in f32 (the RWKV6 decay base and bonus; the Mamba2
+    A_log, D and dt_bias)."""
     dtype = common.default_dtype(cfg.dtype)
     dtypes = tree_map(lambda s: dtype, param_shapes(cfg))
-    if cfg.family == "ssm":
-        for name in rwkv6.F32_PARAMS:
-            dtypes["blocks"]["rwkv_tm"][name] = torch.float32
+    f32 = {"ssm": ("rwkv_tm", rwkv6.F32_PARAMS),
+           "hybrid": ("mamba", mamba2.F32_PARAMS)}.get(cfg.family)
+    if f32 is not None:
+        sub, names = f32
+        for name in names:
+            dtypes["blocks"][sub][name] = torch.float32
     return dtypes
 
 
@@ -114,8 +143,20 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype):
         return {"ln1_w": vec(1.0), "ln1_b": vec(0.0),
                 "rwkv_tm": rwkv6.init_rwkv6(gen, rwkv_spec(cfg), dtype),
                 "ln2_w": vec(1.0), "ln2_b": vec(0.0)}
+    if cfg.family == "hybrid":
+        return {"ln1_w": vec(1.0),
+                "mamba": mamba2.init_mamba2(gen, mamba_spec(cfg), dtype)}
+    return _init_attn_mlp(gen, cfg, dtype, attn_spec(cfg))
+
+
+def _init_attn_mlp(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   spec: AttnSpec):
+    def vec(value):
+        return torch.full((cfg.d_model,), value, dtype=dtype,
+                          device=gen.device)
+
     return {"ln1_w": vec(1.0),
-            "attn": attn.init_attention(gen, attn_spec(cfg), dtype),
+            "attn": attn.init_attention(gen, spec, dtype),
             "ln2_w": vec(1.0),
             "mlp": mlp.init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype)}
 
@@ -140,6 +181,11 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
         tree_map(lambda dst, src: dst[i].copy_(src), blocks,
                  _init_block(gen, cfg, dtype))
     params["blocks"] = blocks
+    if cfg.family == "hybrid":
+        # zamba2: one *shared* attention + MLP block reused every
+        # attn_every Mamba2 layers, with a sliding-window attention
+        params["shared"] = _init_attn_mlp(gen, cfg, dtype,
+                                          attn_spec(cfg, sliding=True))
     return params
 
 
@@ -205,25 +251,69 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda"):
-    """Stacked per-layer cache: the KV cache `{"k", "v"}: [n_layers, B, S,
-    nkv, Dh]` (dense), or the recurrent state `{"wkv": [n_layers, B, H, Dh,
-    Dh] f32, "tm_last", "cm_last": [n_layers, B, 1, D]}` (ssm; `max_len`
-    unused)."""
+    """Stacked per-layer cache, laid out as the module docstring says (the
+    ssm family's ignores `max_len`)."""
     _check_family(cfg)
     dtype = common.default_dtype(cfg.dtype)
+
+    def stack(c, n):
+        return {k: v[None].expand((n,) + v.shape).contiguous()
+                for k, v in c.items()}
+
+    if cfg.family == "hybrid":
+        convs, ssm = mamba2.init_mamba2_state(batch, mamba_spec(cfg), dtype,
+                                              device)
+        kv = attn.init_kv_cache(batch, max_len, attn_spec(cfg, sliding=True),
+                                dtype, device)
+        return {"mamba": stack({**dict(zip(CONV_KEYS, convs)), "ssm": ssm},
+                               cfg.n_layers),
+                "shared_kv": stack(kv, cfg.n_layers // cfg.attn_every)}
     if cfg.family == "ssm":
         c = dict(zip(RWKV_CACHE_KEYS, rwkv6.init_rwkv6_state(
             batch, rwkv_spec(cfg), dtype, device)))
     else:
         c = attn.init_kv_cache(batch, max_len, attn_spec(cfg), dtype, device)
-    L = cfg.n_layers
-    return {k: v[None].expand((L,) + v.shape).contiguous()
-            for k, v in c.items()}
+    return stack(c, cfg.n_layers)
 
 
 def _block_tail(p, x, cfg: ModelConfig):
     h = common.rms_norm(x, p["ln2_w"], cfg.norm_eps)
     return x + mlp.swiglu(p["mlp"], h)
+
+
+def _mamba_layer(p, x, cfg: ModelConfig, state=None):
+    """One hybrid layer: x + mamba2(rms_norm(x)), continuing from `state`
+    ((conv_x, conv_B, conv_C), ssm) or from zeros. Returns (x, state)."""
+    h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
+    m, state = mamba2.mamba2_forward(p["mamba"], h, mamba_spec(cfg),
+                                     init_state=state)
+    return x + m, state
+
+
+def _mamba_state(cache, i: int):
+    """Layer i's state in the hybrid cache, as views, in the reference's
+    tuple layout."""
+    return tuple(cache[k][i] for k in CONV_KEYS), cache["ssm"][i]
+
+
+def _shared_block(params, x, i: int, cfg: ModelConfig, attend):
+    """The hybrid family's shared attention + MLP block, which follows
+    every attn_every-th layer: after layer i, its occurrence occ (the index
+    of its KV cache) runs on x, `attend(p, h, occ)` running the attention
+    (params p) on the normed h and writing occurrence occ's KV cache. After
+    any other layer x is returned as it is."""
+    if (i + 1) % cfg.attn_every:
+        return x
+    occ = (i + 1) // cfg.attn_every - 1
+    shared = params["shared"]
+    h = common.rms_norm(x, shared["ln1_w"], cfg.norm_eps)
+    return _block_tail(shared, x + attend(shared["attn"], h, occ), cfg)
+
+
+def _store_mamba(cache, i: int, state) -> None:
+    (sx, sB, sC), ssm = state
+    for key, value in zip(CONV_KEYS + ("ssm",), (sx, sB, sC, ssm)):
+        cache[key][i].copy_(value)
 
 
 def _rwkv_layer(p, x, cfg: ModelConfig, state=None):
@@ -242,7 +332,8 @@ def _rwkv_layer(p, x, cfg: ModelConfig, state=None):
 def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
     """One serving step: tokens [B,1] -> (logits [B,1,V], cache), the cache
     written in place (dense: at slot `cur_index`; ssm: the recurrent state,
-    `cur_index` unused)."""
+    `cur_index` unused; hybrid: each layer's Mamba2 state, and each shared
+    occurrence's KV cache at slot `cur_index % S`)."""
     _check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
@@ -251,6 +342,20 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
                                    tuple(cache[k][i] for k in RWKV_CACHE_KEYS))
             for key, value in zip(RWKV_CACHE_KEYS, state):
                 cache[key][i].copy_(value)
+        return logits_from(params, x, cfg), cache
+    if cfg.family == "hybrid":
+        spec, kv = attn_spec(cfg, sliding=True), cache["shared_kv"]
+
+        def attend(p, h, occ):
+            return attn.attention_decode(
+                p, h, {"k": kv["k"][occ], "v": kv["v"][occ]}, cur_index,
+                spec)[0]
+
+        for i in range(cfg.n_layers):
+            x, state = _mamba_layer(_layer(params, i), x, cfg,
+                                    _mamba_state(cache["mamba"], i))
+            _store_mamba(cache["mamba"], i, state)
+            x = _shared_block(params, x, i, cfg, attend)
         return logits_from(params, x, cfg), cache
     spec = attn_spec(cfg)
     for i in range(cfg.n_layers):
@@ -277,6 +382,26 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
         return logits_from(params, x[:, -1:], cfg), cache, T
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device)[None].expand(B, T)
+    if cfg.family == "hybrid":
+        spec, kv = attn_spec(cfg, sliding=True), cache["shared_kv"]
+        W = kv["k"].shape[2]
+
+        def attend(p, h, occ):
+            a, (k, v) = attn.attention_full(p, h, spec, positions)
+            if T <= W:
+                kv["k"][occ, :, :T] = k
+                kv["v"][occ, :, :T] = v
+            else:
+                # rolling window: position p lives at slot p % W
+                kv["k"][occ] = torch.roll(k[:, -W:], T % W, dims=1)
+                kv["v"][occ] = torch.roll(v[:, -W:], T % W, dims=1)
+            return a
+
+        for i in range(cfg.n_layers):
+            x, state = _mamba_layer(_layer(params, i), x, cfg)
+            _store_mamba(cache["mamba"], i, state)
+            x = _shared_block(params, x, i, cfg, attend)
+        return logits_from(params, x[:, -1:], cfg), cache, T
     spec = attn_spec(cfg)
     for i in range(cfg.n_layers):
         p = _layer(params, i)

@@ -1,6 +1,6 @@
-"""Model API over the decoder-only LM, dense and ssm families (port of
-`repro/models/registry.py`), plus `params_from_jax`, which carries a
-reference parameter tree (as numpy arrays) over into the port."""
+"""Model API over the decoder-only LM, dense, ssm and hybrid families
+(port of `repro/models/registry.py`), plus `params_from_jax`, which carries
+a reference parameter tree (as numpy arrays) over into the port."""
 
 from __future__ import annotations
 

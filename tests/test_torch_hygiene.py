@@ -45,7 +45,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py", "step.py",
             "trainer.py", "adamw.py", "schedule.py", "pipeline.py",
-            "train.py", "rwkv6.py", "rwkv6_scan.py", "rwkv6_7b.py"} <= names
+            "train.py", "rwkv6.py", "rwkv6_scan.py", "rwkv6_7b.py",
+            "mamba2.py", "mamba2_ssd.py", "zamba2_1p2b.py"} <= names
 
 
 @pytest.fixture
@@ -62,9 +63,10 @@ def test_engine_default_device_needs_a_card(no_card):
 
 
 def _default_device_builders():
-    from repro_torch.models import attention, lm, rwkv6
+    from repro_torch.models import attention, lm, mamba2, rwkv6
     cfg = get_config("qwen2p5_14b", tiny=True)
     ssm = get_config("rwkv6_7b", tiny=True)
+    hybrid = get_config("zamba2_1p2b", tiny=True)
     api = registry.build(cfg)
     tree = lm.tree_map(lambda s: np.zeros(s, np.float32),
                        lm.param_shapes(cfg))
@@ -78,6 +80,10 @@ def _default_device_builders():
         "lm.init_decode_cache[ssm]": lambda: lm.init_decode_cache(ssm, 1, 8),
         "rwkv6.init_rwkv6_state": lambda: rwkv6.init_rwkv6_state(
             1, lm.rwkv_spec(ssm)),
+        "lm.init_decode_cache[hybrid]": lambda: lm.init_decode_cache(
+            hybrid, 1, 8),
+        "mamba2.init_mamba2_state": lambda: mamba2.init_mamba2_state(
+            1, lm.mamba_spec(hybrid)),
     }
 
 
@@ -92,7 +98,9 @@ def _synthetic():
                                      "lm.init_decode_cache",
                                      "attention.init_kv_cache",
                                      "lm.init_decode_cache[ssm]",
-                                     "rwkv6.init_rwkv6_state"])
+                                     "rwkv6.init_rwkv6_state",
+                                     "lm.init_decode_cache[hybrid]",
+                                     "mamba2.init_mamba2_state"])
 def test_builders_default_device_needs_a_card(no_card, builder):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _default_device_builders()[builder]()

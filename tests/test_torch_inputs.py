@@ -1,0 +1,77 @@
+"""Seeded numpy inputs and the SOR-fit comparison shared by the port's
+test files (tests/test_torch_kernels.py, test_torch_rwkv6.py,
+test_torch_zamba2.py on the CPU; test_torch_kernels_cuda.py on the card).
+It holds no tests and imports no JAX."""
+
+import numpy as np
+
+SOR_KW = dict(min_slope=0.5, min_spread_v=2e-3, conf_samples=8.0)
+# SOR fit: the uncentred EWLS solve cancels digits (denom = sw*sxx - sx^2),
+# so analog outputs agree to ~1e-5 relative, not bitwise; masks exactly
+SOR_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def qkv(B, T, S, Hq, Hkv, Dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, Hq, Dh)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32))
+
+
+def rwkv_inputs(B, T, H, Dh, seed, state=True):
+    """r, k, v ~ N(0, 1); w = -exp(N(-1, 1)), the log-decay (decays spread
+    over (0, 1), most near exp(-exp(-1)) = 0.69); u ~ N(0, 0.5); an
+    N(0, 1) initial state, or None."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, Dh)).astype(np.float32)
+               for _ in range(3))
+    w = -np.exp(rng.normal(-1.0, 1.0, (B, T, H, Dh))).astype(np.float32)
+    u = (0.5 * rng.standard_normal((H, Dh))).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, Dh, Dh)).astype(np.float32)
+          if state else None)
+    return r, k, v, w, u, s0
+
+
+def mamba2_inputs(Bt, T, H, G, N, seed, state=True, P=64):
+    """x, B, C ~ N(0, 1); dt = softplus(N(0, 1)) (step sizes in (0, ~4));
+    A = -exp(N(0, 1)) (decays exp(dt * A) spread over (0, 1)); D ~ N(0, 1);
+    an N(0, 1) initial state [Bt,H,N,P], or None."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bt, T, H, P)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((Bt, T, H)), 0.0).astype(
+        np.float32)
+    A = -np.exp(rng.standard_normal(H)).astype(np.float32)
+    B, C = (rng.standard_normal((Bt, T, G, N)).astype(np.float32)
+            for _ in range(2))
+    D = rng.standard_normal(H).astype(np.float32)
+    s0 = (rng.standard_normal((Bt, H, N, P)).astype(np.float32)
+          if state else None)
+    return x, dt, A, B, C, D, s0
+
+
+def sor_inputs(window: int, n: int, seed: int):
+    """A window with a real log-linear frontier (slope -30 dex/V) on two
+    lanes in three and a flat observable on the rest; recency weights with
+    some invalid (zero-weight) samples."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.6, 0.95, (window, n)).astype(np.float32)
+    steep = (np.arange(n) % 3 != 2).astype(np.float32)
+    y = (-3.0 - 30.0 * steep * (x - 0.7)
+         + 0.05 * rng.standard_normal((window, n))).astype(np.float32)
+    rank = np.arange(window)[::-1, None].astype(np.float32)
+    w = (0.92 ** rank * (rng.uniform(size=(window, n)) > 0.1)).astype(
+        np.float32)
+    bound = np.full((n,), np.log10(5e-3), np.float32)
+    guard = np.full((n,), 0.01, np.float32)
+    return x, y, w, bound, guard
+
+
+def check_sor(got, want):
+    """Usable masks exactly, the six analog outputs at SOR_TOL."""
+    names = ("intercept", "slope", "v_frontier", "confidence", "n_eff",
+             "floor")
+    np.testing.assert_array_equal(np.asarray(got[3]) > 0,
+                                  np.asarray(want[3]) > 0)
+    for name, a, b in zip(names, got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   err_msg=name, **SOR_TOL)

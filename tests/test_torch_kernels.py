@@ -21,7 +21,7 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
-from test_torch_kernels_cuda import SOR_KW, check_sor, qkv, sor_inputs
+from test_torch_inputs import SOR_KW, check_sor, qkv, sor_inputs
 
 # f32 attention: the two packages sum the same products in another order
 ATT_TOL = dict(rtol=1e-5, atol=1e-5)

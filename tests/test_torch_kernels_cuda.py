@@ -8,7 +8,7 @@ the file imports no JAX, so it runs on the card's machine:
 (pytest.ini's warning filter names a class of the JAX package; the
 override keeps pytest from importing it.)
 
-The input helpers are shared with tests/test_torch_kernels.py."""
+The seeded input helpers are in tests/test_torch_inputs.py."""
 
 import numpy as np
 import pytest
@@ -17,64 +17,14 @@ import torch
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import mamba2_ssd as tm2
 from repro_torch.kernels import rwkv6_scan as tr6
+from test_torch_inputs import (SOR_KW, check_sor, mamba2_inputs, qkv,
+                               rwkv_inputs, sor_inputs)
 
-SOR_KW = dict(min_slope=0.5, min_spread_v=2e-3, conf_samples=8.0)
-# SOR fit: the uncentred EWLS solve cancels digits (denom = sw*sxx - sx^2),
-# so analog outputs agree to ~1e-5 relative, not bitwise; masks exactly
-SOR_TOL = dict(rtol=1e-4, atol=1e-6)
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
 ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-
-
-def qkv(B, T, S, Hq, Hkv, Dh, seed):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, T, Hq, Dh)).astype(np.float32),
-            rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32),
-            rng.standard_normal((B, S, Hkv, Dh)).astype(np.float32))
-
-
-def rwkv_inputs(B, T, H, Dh, seed, state=True):
-    """r, k, v ~ N(0, 1); w = -exp(N(-1, 1)), the log-decay (decays spread
-    over (0, 1), most near exp(-exp(-1)) = 0.69); u ~ N(0, 0.5); an
-    N(0, 1) initial state, or None."""
-    rng = np.random.default_rng(seed)
-    r, k, v = (rng.standard_normal((B, T, H, Dh)).astype(np.float32)
-               for _ in range(3))
-    w = -np.exp(rng.normal(-1.0, 1.0, (B, T, H, Dh))).astype(np.float32)
-    u = (0.5 * rng.standard_normal((H, Dh))).astype(np.float32)
-    s0 = (rng.standard_normal((B, H, Dh, Dh)).astype(np.float32)
-          if state else None)
-    return r, k, v, w, u, s0
-
-
-def sor_inputs(window: int, n: int, seed: int):
-    """A window with a real log-linear frontier (slope -30 dex/V) on two
-    lanes in three and a flat observable on the rest; recency weights with
-    some invalid (zero-weight) samples."""
-    rng = np.random.default_rng(seed)
-    x = rng.uniform(0.6, 0.95, (window, n)).astype(np.float32)
-    steep = (np.arange(n) % 3 != 2).astype(np.float32)
-    y = (-3.0 - 30.0 * steep * (x - 0.7)
-         + 0.05 * rng.standard_normal((window, n))).astype(np.float32)
-    rank = np.arange(window)[::-1, None].astype(np.float32)
-    w = (0.92 ** rank * (rng.uniform(size=(window, n)) > 0.1)).astype(
-        np.float32)
-    bound = np.full((n,), np.log10(5e-3), np.float32)
-    guard = np.full((n,), 0.01, np.float32)
-    return x, y, w, bound, guard
-
-
-def check_sor(got, want):
-    """Usable masks exactly, the six analog outputs at SOR_TOL."""
-    names = ("intercept", "slope", "v_frontier", "confidence", "n_eff",
-             "floor")
-    np.testing.assert_array_equal(np.asarray(got[3]) > 0,
-                                  np.asarray(want[3]) > 0)
-    for name, a, b in zip(names, got, want):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   err_msg=name, **SOR_TOL)
 
 
 @pytest.fixture
@@ -88,6 +38,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,Hq,Hkv,Dh,window", [
     (256, 48, 16, 128, 0),     # the serve path's prefill
+    (256, 32, 32, 64, 4096),   # the hybrid serve path's (Zamba2-1.2B)
     (200, 12, 4, 32, 0),       # ragged T, the padded-GQA plan
     (77, 8, 8, 64, 0),         # MHA, head_dim 64
     (150, 4, 2, 32, 40),       # sliding window
@@ -107,6 +58,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, T, Hq, Hkv, Dh, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hq,Hkv,Dh,lengths", [
     (296, 48, 16, 128, [1, 98, 257, 296]),   # the serve path's decode
+    (296, 32, 32, 64, [1, 98, 257, 296]),    # the hybrid serve path's
     (50, 4, 4, 64, [50, 3, 1, 17]),
     (33, 8, 1, 32, [33, 33, 2, 9]),           # group 8, the kernel's most
 ])
@@ -234,6 +186,11 @@ def test_kernels_count_their_launches(cuda):
                         for a in rwkv_inputs(1, 3, 1, 64, seed=0,
                                              state=False))
     ops.rwkv6_scan(r, k, v, w, u)
+    x, dt, A, B, C, D, _ = (None if a is None else
+                            torch.from_numpy(a).to(cuda)
+                            for a in mamba2_inputs(1, 3, 2, 1, 16, seed=0,
+                                                   state=False))
+    ops.mamba2_scan(x, dt, A, B, C, D)
     ops.fleet_percentile(torch.zeros(3, device=cuda), 95.0)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
 
@@ -245,7 +202,7 @@ def test_kernels_count_their_launches(cuda):
 R6_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def r6_close(got, want, tol):
+def scan_close(got, want, tol):
     for name, a, b in zip(("y", "state"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         err = (a.float() - b.float()).abs().max().item()
@@ -272,7 +229,7 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, dtype, with_state, B, T, H):
     assert tr6.rwkv6_scan.launches == 1
     want = tr6.rwkv6_scan_plain(r, k, v, w, u, init_state=s0)
     assert tr6.rwkv6_scan.launches == 1
-    r6_close(got, want, R6_TOL[dtype])
+    scan_close(got, want, R6_TOL[dtype])
 
 
 @pytest.mark.cuda
@@ -296,3 +253,64 @@ def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
     r32, k32, v32, w32 = (a[..., :32].contiguous() for a in (r, k, v, w))
     with pytest.raises(ValueError, match="head_dim"):
         tr6.rwkv6_scan(r32, k32, v32, w32, u[:, :32].contiguous())
+
+
+# Mamba2 SSD scan: y and the state against the plain version, relative to
+# the largest magnitude of each, for the reasons given for R6_TOL: f32 sums
+# in another order; bf16 x, B, C are the same values in both, the state is
+# f32 in both, and y is the f32 result rounded to bf16
+M2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("Bt,T,H,G,N", [
+    (4, 256, 64, 1, 64),   # the serve path's prefill (Zamba2-1.2B)
+    (4, 1, 64, 1, 64),     # its decode step
+    (2, 200, 8, 1, 64),    # ragged T, not a multiple of the staged tile
+    (2, 64, 8, 2, 16),     # two groups, the tiny config's d_state
+    (2, 37, 4, 2, 16),
+])
+def test_mamba2_ssd_kernel_matches_plain(cuda, dtype, with_state, Bt, T, H,
+                                         G, N):
+    x, dt, A, B, C, D, s0 = mamba2_inputs(Bt, T, H, G, N, seed=T,
+                                          state=with_state)
+    x, B, C = (torch.from_numpy(a).to(cuda, dtype) for a in (x, B, C))
+    dt, A, D = (torch.from_numpy(a).to(cuda) for a in (dt, A, D))
+    s0 = None if s0 is None else torch.from_numpy(s0).to(cuda)
+    tm2.mamba2_ssd.launches = 0
+    got = tm2.mamba2_ssd(x, dt, A, B, C, D, init_state=s0)
+    assert tm2.mamba2_ssd.launches == 1
+    want = tm2.mamba2_ssd_plain(x, dt, A, B, C, D, init_state=s0)
+    assert tm2.mamba2_ssd.launches == 1
+    scan_close(got, want, M2_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, B, C, D, s0 = (torch.from_numpy(a).to(cuda)
+                             for a in mamba2_inputs(1, 8, 4, 1, 16, seed=0))
+    args = dict(x=x, dt=dt, A=A, B=B, C=C, D=D, init_state=s0)
+    bad = {
+        "cpu dt": dict(dt=dt.cpu()),
+        "bf16 dt": dict(dt=dt.bfloat16()),
+        "mixed x/B dtype": dict(B=B.bfloat16()),
+        "non-contiguous x": dict(x=x.transpose(1, 2).contiguous()
+                                 .transpose(1, 2)),
+        "wrong A shape": dict(A=A[:1]),
+        "bf16 state": dict(init_state=s0.bfloat16()),
+        "head_dim 32": dict(x=x[..., :32].contiguous(),
+                            init_state=s0[..., :32].contiguous()),
+        "d_state 8": dict(B=B[..., :8].contiguous(), C=C[..., :8].contiguous(),
+                          init_state=s0[:, :, :8].contiguous()),
+        "d_state 32": dict(B=B.repeat(1, 1, 1, 2), C=C.repeat(1, 1, 1, 2),
+                           init_state=s0.repeat(1, 1, 2, 1)),
+        "3 groups of 4 heads": dict(B=B.expand(1, 8, 3, 16).contiguous(),
+                                    C=C.expand(1, 8, 3, 16).contiguous()),
+    }
+    for change in bad.values():
+        a = {**args, **change}
+        with pytest.raises(ValueError, match="mamba2_ssd"):
+            tm2.mamba2_ssd(a["x"], a["dt"], a["A"], a["B"], a["C"], a["D"],
+                           init_state=a["init_state"])

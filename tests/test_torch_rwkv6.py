@@ -28,7 +28,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.models import rwkv6 as trwkv
-from test_torch_kernels_cuda import rwkv_inputs
+from test_torch_inputs import rwkv_inputs
 
 # f32 recurrence: the same products summed in another order (the
 # reference's einsum over keys against a sequential sum), relative to the

@@ -1,6 +1,8 @@
 """The whole slice on the CPU: `ServeEngine.generate` in the port against
 the reference engine on the reference's weights (tiny Qwen2.5 in f32, plain
-TINY and the padded-GQA variant; tiny RWKV6 in f32, the ssm family), an
+TINY and the padded-GQA variant; tiny RWKV6 in f32, the ssm family; tiny
+Zamba2 in f32, the hybrid family, plain and with an 8-token window that the
+shared block's KV cache wraps), an
 8-chip fleet and the learned three-rail control round. Tokens must be equal; the plane and the SOR
 estimate allclose; `summary()` carries the same keys and values."""
 
@@ -43,6 +45,9 @@ CONFIGS = {
         get("qwen2p5_14b", tiny=True), n_heads=10, n_kv_heads=2,
         head_dim=32, tp=4),
     "rwkv_tiny": lambda get: get("rwkv6_7b", tiny=True),
+    "zamba_tiny": lambda get: get("zamba2_1p2b", tiny=True),
+    "zamba_tiny_window8": lambda get: dataclasses.replace(
+        get("zamba2_1p2b", tiny=True), sliding_window=8),
 }
 
 
@@ -79,6 +84,8 @@ TPKG = (tpol, tcp, tpp, tsor, ttel, TFleet)
 @pytest.mark.parametrize("name,mode", [("tiny", "slice"),
                                        ("tiny_gqa_pad", "slice"),
                                        ("rwkv_tiny", "slice"),
+                                       ("zamba_tiny", "slice"),
+                                       ("zamba_tiny_window8", "slice"),
                                        ("tiny", "gate"),
                                        ("tiny", "scalar")])
 def test_generate_matches_reference(name, mode):
