@@ -11,41 +11,58 @@ script exits nonzero:
                 for sm_90a (seconds taken, the ptxas report in the build
                 dir);
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
-                path for K1, the Qwen and the Zamba2 serve paths for
-                K2 and K3, the training path for K4-K6, the RWKV6
-                serve path for K9, the Zamba2 serve path for K8) against
-                its plain version (stated tolerances), timed beside its
-                bound, the plain version and one PyTorch call as a
-                yardstick where one exists;
+                path for K1, the host path for K7, the Qwen and the Zamba2
+                serve paths for K2 and K3, the training path for K4-K6, the
+                RWKV6 serve path for K9, the Zamba2 serve path for K8)
+                against its plain version (stated tolerances), timed beside
+                its bound, the plain version and one PyTorch call as a
+                yardstick where one exists; K7 followed by the plain solve
+                also against K1;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
-4. main       - full-width, full-depth Qwen2.5-14B in bf16 (random weights
+4. tiny_host  - the same with the host controller (READ_VOUT polls, the
+                polled three-rail learner) on an 8-chip fleet: equal tokens,
+                achieved rails bit for bit, equal `stats()`; then the
+                frontier world of the reference's multi-rail host test on an
+                8-chip plane, cuda against cpu: the same lanes learn, floors
+                within SOR_RTOL and inside the reference test's bands;
+5. main       - full-width, full-depth Qwen2.5-14B in bf16 (random weights
                 from a seed), batch 4, prompt 256, 32 new tokens, 64-chip
                 fleet and the learned rail-control round; launch counts of
                 every kernel must be exactly what the path implies; then the
                 breakdown of a decode step, read through `generate` (with
                 and without the control round, device busy share and top
                 kernels from torch.profiler);
-5. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
-6. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
-                64 heads x 64, d_ff 14336, vocab 65536) as phase 4, with its
+6. main_host  - the same weights served through the host control path: a
+                64-chip `HostRailController` deciding from its own polls,
+                learning with the split fit (K7) every 4 rounds, actuating
+                the simulated PMBus fleet at 400 kHz; exact launch counts,
+                the host round's time (bus simulation, SOR observe), its
+                plane reads, the bus's `stats()` and the decode breakdown;
+7. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
+8. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
+                64 heads x 64, d_ff 14336, vocab 65536) as phase 5, with its
                 own exact launch counts (K9 32 per prefill and per decoded
                 token) and decode-step breakdown;
-7. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
+9. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
                 an 8-token sliding window that the shared block's KV cache
                 wraps;
-8. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
+10. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
                 d_model 2048, 64 SSD heads x 64, state 64; the shared
                 attention + MLP block after every 6th layer, 32/32 heads
-                x 64, window 4096) as phase 4, with its own exact launch
+                x 64, window 4096) as phase 5, with its own exact launch
                 counts (K8 38 per prefill and per decoded token, K2 6 per
                 prefill, K3 6 per decoded token after the first) and
                 decode-step breakdown;
-9. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+11. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
-10. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+12. tiny_train_host - tiny MiniCPM in f32, four scalar steps through
+                `Trainer.run` with a `HostRailController(PhaseAware())`
+                between steps, cuda against cpu: losses allclose, host
+                actuations and their bus seconds equal;
+13. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -53,9 +70,9 @@ script exits nonzero:
                 time, tokens/s, MFU, peak memory, losses, the learned-region
                 summary, and a torch.profiler window of 2 steps.
 
-Each main path's weights are freed before the next path loads its own.
-Then the `{"kernels": [...]}` line (launches summed over the four main
-paths' checked runs, and by path), the card's name and power limit, and the
+Each model's weights are freed before the next model loads its own.
+Then the `{"kernels": [...]}` line (launches summed over the main paths'
+checked runs, and by path), the card's name and power limit, and the
 final `{"ok": true, ...}` line. Exits nonzero without printing a result when no
 CUDA device is present.
 """
@@ -316,6 +333,79 @@ def check_sor_fit(dev, flush) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 shape=dict(window=window, n=n, ragged_n=3 * 67))
+
+
+# K7's five sums in another order than the plain version's: within 1e-6
+# of the largest |sum| of each output (f32 sums of O(1) terms)
+SUM_TOL = 1e-6
+SUMS = ("sw", "sx", "sy", "sxx", "sxy")
+SOR_OUTS = ("intercept", "slope", "v_frontier", "confidence", "n_eff",
+            "floor")
+
+
+def check_sor_accumulate(dev, flush) -> dict:
+    """K7 at the host path's window (32 rows, 3 rails x 64 chips), a ragged
+    (29, 200) and a 1024-chip fleet (32, 3 x 1024), two whole rows at zero
+    weight in each, against its plain version (SUM_TOL); then K7 followed
+    by the plain solve (`ref.sor_solve_reference`) against K1 on the same
+    inputs. Expected bit-equal: K7 and K1 sum with one device function, and
+    the solve runs as separately rounded elementwise kernels in K1's op
+    order. Where they differ, the largest gap of each output is reported
+    and held to K1's own tolerance against its plain version."""
+    import torch
+
+    from repro_torch.kernels import fleet_telemetry as ft
+    from repro_torch.kernels import ref
+    err, gaps, checked = 0.0, {}, []
+    for window, n in ((32, 3 * MAIN["chips"]), (29, 200), (32, 3 * 1024)):
+        x, y, w, bound, guard = sor_inputs(window, n, seed=window + n,
+                                           dev=dev)
+        w[[0, window // 2]] = 0.0
+        got = ft.sor_accumulate(x, y, w)
+        want = ft.sor_accumulate_plain(x, y, w)
+        fused = ft.sor_fit(x, y, w, bound, guard, **SOR_KW)
+        split = ref.sor_solve_reference(got, bound, guard, **SOR_KW)
+        torch.cuda.synchronize()
+        for name, a, b in zip(SUMS, got, want):
+            d = (a - b).abs().max().item()
+            scale = max(b.abs().max().item(), 1.0)
+            if not (math.isfinite(d) and d <= SUM_TOL * scale):
+                raise AssertionError(f"sor_accumulate ({window}, {n}) "
+                                     f"{name}: max diff {d}, max |ref| "
+                                     f"{scale}")
+            err = max(err, d)
+        if not torch.equal(fused[3] > 0, split[3] > 0):
+            raise AssertionError(f"split fit ({window}, {n}): usable lanes "
+                                 f"differ from K1's")
+        gap = {name: (a - b).abs().max().item()
+               for name, a, b in zip(SOR_OUTS, split, fused)}
+        for name, a, b in zip(SOR_OUTS, split, fused):
+            if not torch.allclose(a, b, rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"split fit ({window}, {n}) {name}: "
+                                     f"max diff {gap[name]} from K1")
+        gaps[f"{window}x{n}"] = gap
+        checked.append([window, n])
+    window, n = 32, 3 * MAIN["chips"]
+    x, y, w, _, _ = sor_inputs(window, n, seed=n, dev=dev)
+    ms = time_ms(lambda: ft.sor_accumulate(x, y, w), 100, flush)
+    plain_ms = time_ms(lambda: ft.sor_accumulate_plain(x, y, w), 100, flush)
+    # reads x, y, w once, writes five sums; 4 multiplies and 5 adds per
+    # element
+    b_ms, b_by = bound_ms(4 * (3 * window * n + 5 * n), 9 * window * n,
+                          "float32")
+    split_equal = all(g == 0.0 for gap in gaps.values()
+                      for g in gap.values())
+    return dict(name="sor_accumulate", route="cuda",
+                source="src/repro_torch/kernels/csrc/sor_fit.cu",
+                replaces="src/repro/kernels/fleet_telemetry.py:157",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, sum_tolerance=SUM_TOL,
+                split_fit_equals_k1=split_equal,
+                split_fit_gap_to_k1=gaps,
+                split_fit_gap_reason=None if split_equal else (
+                    "torch.exp on the card and K1's expf round differently; "
+                    "held to K1's tolerance (rtol 1e-4, atol 1e-6)"),
+                checked=checked, shape=dict(window=window, n=n))
 
 
 def check_flash_bwd(dev, flush) -> list[dict]:
@@ -609,12 +699,17 @@ def check_mamba2_ssd(dev, flush) -> dict:
 # ---------------------------------------------------------------------------
 
 def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
-                 chips: int, device, control: bool = True):
+                 chips: int, device, control: bool = True,
+                 host: bool = False):
     """The slice's serve configuration: a `chips`-chip fleet, the learned
     three-rail control round (refit every 4 rounds; left out with
     `control=False`, accounting only), and the launcher's roofline
-    profiles."""
-    from repro_torch.core.control_plane import InGraphRailController
+    profiles. `host=True` takes the host control path instead: a
+    `HostRailController` deciding from its own READ_VOUT polls (Table VI
+    default interval, software path at 400 kHz), learning from them with
+    the split fit every 4 rounds and actuating the simulated PMBus fleet."""
+    from repro_torch.core.control_plane import (HostRailController,
+                                                InGraphRailController)
     from repro_torch.core.hwspec import FleetSpec
     from repro_torch.core.policy import MultiRailClosedLoop
     from repro_torch.core.power_plane import StepProfile
@@ -623,13 +718,21 @@ def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
     from repro_torch.models.lm import tree_leaves
     from repro_torch.serve.engine import ServeEngine
     n = sum(a.numel() for a in tree_leaves(params))
-    return ServeEngine(
-        cfg, params, max_len=prompt + new + 8, batch_size=batch,
-        fleet=FleetSpec.sample(chips, seed=0),
-        controller=InGraphRailController(
+    controller = None
+    if control and host:
+        controller = HostRailController(
+            MultiRailClosedLoop(), n_chips=chips, decide_from="poll",
+            sor=SorConfig(ingest="polled", rails=ALL_RAIL_OBSERVABLES,
+                          refresh_every=4))
+        controller.enable_polling()
+    elif control:
+        controller = InGraphRailController(
             MultiRailClosedLoop(),
             sor=SorConfig(ingest="frames", rails=ALL_RAIL_OBSERVABLES,
-                          refresh_every=4)) if control else None,
+                          refresh_every=4))
+    return ServeEngine(
+        cfg, params, max_len=prompt + new + 8, batch_size=batch,
+        fleet=FleetSpec.sample(chips, seed=0), controller=controller,
         prefill_profile=StepProfile(2.0 * n * batch * prompt, 2.0 * n, 0.0),
         decode_profile=StepProfile(2.0 * n * batch, 2.0 * n, 0.0),
         device=device)
@@ -706,6 +809,216 @@ def run_tiny(arch: str) -> dict:
     return out
 
 
+# The host path's frontier world, cuda against cpu. The split fit on the
+# same window: frontier, confidence and weight at the port's stated SOR
+# tolerance; intercept and slope at the window's conditioning bound
+# (`solve_rtol`): the uncentred solve cancels all but ~1e-4 of `sw*sxx` on a
+# window that spans ~40 mV, and the two devices differ in the last bit of
+# the sums (torch's CPU `sum` blocks the rows, K7 adds them in order) and of
+# the inputs (log10 and the recency powers round differently on the card).
+# The closed loop: each device's envelope feeds its own next setpoint, so
+# those last bits move setpoints across LINEAR16 steps (0.244 mV) and the
+# learned floors part by up to 0.5 mV, the bound tests/test_torch_host.py
+# holds the port to against the reference (FLOOR_ATOL). No summation order
+# closes it: the inputs themselves differ (`same_window_inputs_equal`).
+SOR_TOL = dict(rtol=1e-4, atol=1e-5)
+FLOOR_ATOL = 5e-4
+
+
+def solve_rtol(x, y, w):
+    """Per-lane first-order bound on the relative change of the uncentred
+    EWLS solve's slope and intercept when every window term moves by one
+    rounding and each of the five sums by one rounding per row, in f64
+    from the window [window, n] (the bound of tests/test_torch_host.py::
+    _solve_rtol): (n + 2) u times the cancellation factors (sw*sxx +
+    sx^2)/|denom| and (sw sum|wxy| + sx sum|wy|)/|num|, and for the
+    intercept `(sy - slope*sx)/sw` the factor (sum|wy| + |slope*sx|)/|sy -
+    slope*sx|. Returns (rel_slope, rel_intercept), each [n] f64."""
+    import numpy as np
+    x, y, w = (np.asarray(a, np.float64) for a in (x, y, w))
+    u = (x.shape[0] + 2) * 2.0 ** -24
+    sw, sx, sy = w.sum(0), (w * x).sum(0), (w * y).sum(0)
+    sxx, sxy = (w * x * x).sum(0), (w * x * y).sum(0)
+    a_y, a_xy = np.abs(w * y).sum(0), np.abs(w * x * y).sum(0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        denom, num = sw * sxx - sx * sx, sw * sxy - sx * sy
+        slope = num / denom
+        rel_slope = 2 * u * ((sw * sxx + sx * sx) / np.abs(denom)
+                             + (sw * a_xy + sx * a_y) / np.abs(num))
+        rel_icpt = (u * a_y + np.abs(slope * sx) * (rel_slope + u)) \
+            / np.abs(sy - slope * sx) + u
+    return rel_slope, rel_icpt
+
+
+def host_learning_world(dev, chips: int = 8, rounds: int = 40):
+    """The frontier world of the reference's
+    tests/test_sor_multirail.py::test_host_polled_ingest_multirail on a
+    `chips`-chip plane: MultiRailClosedLoop with floors 0.70/1.00/0.70,
+    the VDD_IO observable at the bound at 0.78 V and VDD_CORE's at 0.72 V
+    (30 dex/V), polls every 1 ms, `rounds` rounds of 5 ms idle. The
+    observables are computed on the host from the plane, in f32, so both
+    devices see the same numbers for the same plane."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.control_plane import HostRailController
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.core.policy import MultiRailClosedLoop
+    from repro_torch.core.power_plane import PowerPlaneState
+    from repro_torch.core.sor import SorConfig
+    from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES
+    cfg = SorConfig(capacity=24, refresh_every=2, decay=0.96, guard_v=0.004,
+                    max_extension_v=0.12, rails=ALL_RAIL_OBSERVABLES)
+    hc = HostRailController(
+        MultiRailClosedLoop(floors={"VDD_CORE": 0.70, "VDD_HBM": 1.00,
+                                    "VDD_IO": 0.70}),
+        n_chips=chips, settle_band_frac=0.001, decide_from="poll", sor=cfg)
+    hc.enable_polling(interval_s=1e-3)
+    plane = PowerPlaneState.from_fleet(FleetSpec.sample(chips, seed=0), dev)
+
+    def observable(v, onset):
+        v = v.cpu().numpy().astype(np.float32)
+        return torch.from_numpy((5e-3 * 10.0 ** np.clip(
+            30.0 * (onset - v), -6.0, 3.0)).astype(np.float32)).to(dev)
+
+    for _ in range(rounds):
+        hc.fleet.idle(5e-3)
+        plane = hc.control_step(plane, {
+            "grad_error": observable(plane.v_io, 0.78),
+            "straggle_rate": observable(plane.v_core, 0.72)})
+    return hc, plane
+
+
+def run_tiny_host() -> dict:
+    """Tiny Qwen2.5 in f32 served on an 8-chip fleet through the host
+    control path on cuda and on cpu (tokens, the achieved rails of every
+    chip and `stats()` equal); then `host_learning_world` on both devices:
+    the same lanes learn, inside the reference test's bands, with the
+    closed-loop floors within FLOOR_ATOL (VDD_HBM, never reported, stays
+    cold); and the cpu run's final window refitted by the split fit on
+    both devices (K7 on the card): the same usable lanes, frontier,
+    confidence and weight within SOR_TOL, intercept and slope within the
+    window's conditioning bound (`solve_rtol`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_map
+    B, Tp, new, chips = 2, 16, 12, 8
+    cfg = tiny_variants("qwen2p5_14b")["tiny"]
+    params = registry.build(cfg).init(
+        torch.Generator(device="cpu").manual_seed(0))
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, Tp)).astype(np.int32)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), params)
+        eng = slice_engine(cfg, p, batch=B, prompt=Tp, new=new, chips=chips,
+                           device=dev, host=True)
+        runs[dev] = (eng.generate(prompts, new), eng)
+    (t_cpu, e_cpu), (t_gpu, e_gpu) = runs["cpu"], runs["cuda"]
+    if not np.array_equal(t_cpu, t_gpu):
+        raise AssertionError(f"tiny_host: cuda tokens {t_gpu.tolist()} != "
+                             f"cpu tokens {t_cpu.tolist()}")
+    for f in ("v_core", "v_hbm", "v_io"):
+        if not torch.equal(getattr(e_cpu.plane, f),
+                           getattr(e_gpu.plane, f).cpu()):
+            raise AssertionError(f"tiny_host: achieved {f} differs")
+    st_cpu = dataclasses.asdict(e_cpu.controller.stats())
+    st_gpu = dataclasses.asdict(e_gpu.controller.stats())
+    if st_cpu != st_gpu:
+        raise AssertionError(f"tiny_host: stats {st_gpu} != {st_cpu}")
+    s_cpu, s_gpu = e_cpu.summary()["sor"], e_gpu.summary()["sor"]
+    if s_cpu["chips_learned"] != s_gpu["chips_learned"]:
+        raise AssertionError("tiny_host: serve path lanes learned differ")
+    out = dict(tokens_equal=True, rails_equal=True, stats=st_gpu,
+               serve_chips_learned=s_gpu["chips_learned"],
+               v_io_mean=float(e_gpu.plane.v_io.mean()))
+
+    worlds = {dev: host_learning_world(dev) for dev in ("cpu", "cuda")}
+    sums = {dev: hc.sor_summary() for dev, (hc, _) in worlds.items()}
+    learn = {}
+    for i, (rail, band) in enumerate((("VDD_CORE", (0.715, 0.74)),
+                                      ("VDD_HBM", None),
+                                      ("VDD_IO", (0.775, 0.80)))):
+        n_cpu = sums["cpu"][f"{rail}/chips_learned"]
+        n_gpu = sums["cuda"][f"{rail}/chips_learned"]
+        if n_cpu != n_gpu:
+            raise AssertionError(f"learning world {rail}: {n_gpu} chips "
+                                 f"learned on cuda, {n_cpu} on cpu")
+        if band is None:
+            if n_gpu != 0:
+                raise AssertionError(f"{rail} was never reported but "
+                                     f"{n_gpu} chips learned")
+            learn[rail] = dict(chips_learned=0)
+            continue
+        if n_gpu != 8:
+            raise AssertionError(f"learning world {rail}: {n_gpu} of 8 "
+                                 f"chips learned")
+        floors = {}
+        for dev, (hc, _) in worlds.items():
+            est = hc.sor_state.estimate
+            floors[dev] = (est.v_frontier[i] + 0.004).cpu()
+            mean = sums[dev][f"{rail}/floor_mean_v"]
+            if not band[0] < mean < band[1]:
+                raise AssertionError(f"learning world {rail} on {dev}: "
+                                     f"floor {mean} outside {band}")
+        gap = (floors["cuda"] - floors["cpu"]).abs().max().item()
+        learn[rail] = dict(chips_learned=n_gpu,
+                           floor_mean_v=sums["cuda"][f"{rail}/floor_mean_v"],
+                           floor_max_abs_diff=gap)
+        if not gap <= FLOOR_ATOL:
+            raise AssertionError(f"learning world {rail}: floors differ by "
+                                 f"{gap} V (atol {FLOOR_ATOL})")
+    rails_gap = max((getattr(worlds["cuda"][1], f).cpu()
+                     - getattr(worlds["cpu"][1], f)).abs().max().item()
+                    for f in ("v_core", "v_hbm", "v_io"))
+
+    from repro_torch.core import sor
+    hc = worlds["cpu"][0]
+    hist = hc.sor_state.history
+    on_card = dataclasses.replace(hist, **{
+        f: getattr(hist, f).to("cuda")
+        for f in ("v", "obs", "age_s", "polled", "valid")})
+    fits = {"cpu": sor.fit_history(hist, hc.sor, fused=False),
+            "cuda": sor.fit_history(on_card, hc.sor, fused=False)}
+    if not torch.equal(fits["cpu"].confidence > 0,
+                       fits["cuda"].confidence.cpu() > 0):
+        raise AssertionError("same-window split fit: usable lanes differ")
+    x, y, w = (a.reshape(hist.capacity, -1).numpy()
+               for a in sor._fit_inputs(hist, hc.sor))
+    card_inputs = [a.reshape(hist.capacity, -1).cpu().numpy()
+                   for a in sor._fit_inputs(on_card, hc.sor)]
+    rel = dict(zip(("slope", "intercept"), solve_rtol(x, y, w)))
+    usable = (fits["cpu"].confidence > 0).reshape(-1).numpy()
+    fit_gap, fit_rel = {}, {}
+    for f in ("intercept", "slope", "v_frontier", "confidence", "n_eff"):
+        a, b = getattr(fits["cuda"], f).cpu(), getattr(fits["cpu"], f)
+        fit_gap[f] = (a - b).abs().max().item()
+        if f in rel:
+            a, b = a.reshape(-1).numpy(), b.reshape(-1).numpy()
+            r = np.abs(a - b)[usable] / np.abs(b)[usable]
+            fit_rel[f] = dict(max_rel=float(r.max()),
+                              bound_min=float(rel[f][usable].min()))
+            if not np.all(r <= rel[f][usable]):
+                raise AssertionError(
+                    f"same-window split fit {f}: relative gaps "
+                    f"{r.tolist()} beyond the bound "
+                    f"{rel[f][usable].tolist()}")
+        elif not torch.allclose(a, b, **SOR_TOL):
+            raise AssertionError(f"same-window split fit {f}: max diff "
+                                 f"{fit_gap[f]}")
+    inputs_equal = {k: bool(np.array_equal(a, b)) for k, a, b in
+                    zip("xyw", (x, y, w), card_inputs)}
+    out["learning_world"] = dict(
+        rails_max_abs_diff=rails_gap, floor_atol=FLOOR_ATOL,
+        same_window_fit_max_abs_diff=fit_gap, same_window_fit_rel=fit_rel,
+        same_window_inputs_equal=inputs_equal, sor_tol=SOR_TOL, **learn)
+    return out
+
+
 def serve_launches(cfg, new: int) -> dict:
     """The launches one `generate` of `new` tokens must make: the control
     round refits on every 4th of its `new` rounds (K1); dense: K2 once per
@@ -729,29 +1042,40 @@ def serve_launches(cfg, new: int) -> dict:
     return want
 
 
-def run_main(dev, spec: dict) -> dict:
-    """Full-width, full-depth `spec["arch"]` through ServeEngine.generate
-    with the 64-chip fleet and the learned control round; the launch counts
-    of this run alone are checked exactly. The breakdown of a decode step
-    (`decode_breakdown`) follows the checked run."""
-    import numpy as np
+def init_main(dev, spec: dict):
+    """`spec["arch"]` at full width and depth, random weights from seed 0
+    on the card: (cfg, params, seconds taken)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import registry
-    from repro_torch.models.lm import tree_leaves
     cfg = get_config(spec["arch"])
-    B, Tp, new, chips = spec["batch"], spec["prompt"], spec["new"], \
-        spec["chips"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
         torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return cfg, params, time.perf_counter() - t0
+
+
+def main_prompts(cfg, spec: dict):
+    import numpy as np
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (spec["batch"], spec["prompt"])).astype(np.int32)
+
+
+def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
+    """Full-width, full-depth `spec["arch"]` through ServeEngine.generate
+    with the 64-chip fleet and the learned control round; the launch counts
+    of this run alone are checked exactly. The breakdown of a decode step
+    (`decode_breakdown`) follows the checked run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import tree_leaves
+    B, Tp, new, chips = spec["batch"], spec["prompt"], spec["new"], \
+        spec["chips"]
     n_params = sum(a.numel() for a in tree_leaves(params))
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, Tp)).astype(np.int32)
+    prompts = main_prompts(cfg, spec)
 
     def engine(control=True):
         return slice_engine(cfg, params, batch=B, prompt=Tp, new=new,
@@ -803,6 +1127,136 @@ def run_main(dev, spec: dict) -> dict:
                 peak_mem_gb=peak_gb, launches=launches,
                 expected_launches=want, summary=summary,
                 first_tokens=tokens[:, :8].tolist(), profile=profile)
+
+
+def host_serve_launches(cfg, new: int) -> dict:
+    """`serve_launches` with the host control path: the split fit refits
+    on every 4th round through K7, and K1 never runs."""
+    want = serve_launches(cfg, new)
+    want["sor_accumulate"], want["sor_fit"] = want["sor_fit"], 0
+    return want
+
+
+def run_main_host(dev, spec: dict, cfg, params) -> dict:
+    """The main path's weights served through the host control path
+    (`slice_engine(host=True)`): a warm-up, then one checked `generate`
+    whose launch counts must be exact; the prefill alone; the host round's
+    time split into the bus simulation and the SOR observe
+    (`host_round_breakdown`); and the decode-step breakdown."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    B, Tp, new, chips = spec["batch"], spec["prompt"], spec["new"], \
+        spec["chips"]
+    prompts = main_prompts(cfg, spec)
+
+    def engine(control=True):
+        return slice_engine(cfg, params, batch=B, prompt=Tp, new=new,
+                            chips=chips, device=dev, control=control,
+                            host=True)
+
+    engine().generate(prompts, 2)        # warm-up
+    torch.cuda.synchronize()
+    eng = engine()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, new)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    summary = eng.summary()
+    hc = eng.controller
+    stats = dataclasses.asdict(hc.stats())
+
+    want = host_serve_launches(cfg, new)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} host path launch counts "
+                             f"{launches} != {want}")
+    if tokens.shape != (B, new) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tokens.shape} "
+                             f"[{tokens.min()}, {tokens.max()}]")
+    if stats["decisions"] != new or stats["poll_decisions"] != new or \
+            stats["actuations"] < 1 or not stats["actuation_seconds"] > 0:
+        raise AssertionError(f"host path stats {stats}")
+    for k in ("energy_j", "model_time_s", "v_core", "v_io",
+              "fleet_energy_j"):
+        if not math.isfinite(summary[k]):
+            raise AssertionError(f"summary[{k!r}] = {summary[k]}")
+
+    eng = engine()                     # prefill + first token alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_s = (total_s - prefill_s) / (new - 1)
+    rounds = host_round_breakdown(engine, prompts)
+    profile = decode_breakdown(engine, prompts)
+    return dict(arch=cfg.name, control_path="host", batch=B, prompt=Tp,
+                new_tokens=new, n_chips=chips, dtype=cfg.dtype,
+                generate_s=total_s, prefill_ms=prefill_s * 1e3,
+                decode_ms_per_token=decode_s * 1e3,
+                tokens_per_s=B * new / total_s,
+                peak_mem_gb=peak_gb, launches=launches,
+                expected_launches=want, stats=stats,
+                plane_reads_per_round=hc.plane_reads / stats["decisions"],
+                host_round=rounds, summary=summary,
+                first_tokens=tokens[:, :8].tolist(), profile=profile)
+
+
+def host_round_breakdown(engine, prompts, steps: int = 8) -> dict:
+    """The host controller's round on the host clock, through a `generate`
+    of 1 + `steps` tokens with the rounds instrumented: each
+    `control_step` between two device syncs (so it does not wait for the
+    model's queued work, and its own device work is inside), split into the
+    bus simulation (`apply_setpoints` and `poll_frame` of the fleet, pure
+    Python) and the SOR observe (push, split fit, envelopes; synced at its
+    end). Per round, the prefill's round left out."""
+    import torch
+    eng = engine(True)
+    hc = eng.controller
+    cur = {}
+    rounds = []
+
+    def timed(fn, key, sync=False):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            cur[key] = cur.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    hc.fleet.apply_setpoints = timed(hc.fleet.apply_setpoints, "bus")
+    hc.fleet.poll_frame = timed(hc.fleet.poll_frame, "bus")
+    hc._sor_observe = timed(hc._sor_observe, "sor", sync=True)
+    step = hc.control_step
+
+    def control_step(plane, telemetry):
+        cur.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(plane, telemetry)
+        torch.cuda.synchronize()
+        rounds.append((time.perf_counter() - t0, cur.get("bus", 0.0),
+                       cur.get("sor", 0.0)))
+        return out
+
+    hc.control_step = control_step
+    eng.generate(prompts, 1 + steps)
+    decode = rounds[1:]
+    n = len(decode)
+    total, bus, sor = (sum(r[i] for r in decode) / n * 1e3 for i in range(3))
+    return dict(rounds=n, round_ms=total, bus_simulation_ms=bus,
+                sor_observe_ms=sor, other_ms=total - bus - sor,
+                round_ms_each=[r[0] * 1e3 for r in decode])
 
 
 def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
@@ -1004,6 +1458,85 @@ def run_tiny_train() -> dict:
     return out
 
 
+def run_tiny_train_host() -> dict:
+    """Tiny MiniCPM in f32, the same weights on cuda and cpu, four scalar
+    train steps through Trainer.run with a `HostRailController(PhaseAware())`
+    between steps (the train launcher's `--control-path host`): losses
+    within TINY_TRAIN_TOL, host actuations and their simulated bus seconds
+    equal, the achieved rails equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.control_plane import HostRailController
+    from repro_torch.core.policy import PhaseAware
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import StepConfig, make_train_step
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           initial_plane_and_ef)
+    cfg = dataclasses.replace(get_config("minicpm_2b", tiny=True),
+                              dtype="float32")
+    api = registry.build(cfg)
+    params = api.init(torch.Generator(device="cpu").manual_seed(0))
+    n = sum(a.numel() for a in tree_leaves(params))
+    B, T, steps = 2, 32, 4
+
+    def sched(s):
+        return wsd(s, peak_lr=3e-4, warmup_steps=10,
+                   stable_steps=int(steps * 0.7),
+                   decay_steps=int(steps * 0.2))
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev, copy=True), params)
+        opt_cfg = adamw.AdamWConfig()
+        step = make_train_step(
+            api.loss_fn, opt_cfg, sched,
+            StepProfile(6.0 * n * B * T, 14.0 * n, 4.0 * n, 4.0 * n),
+            StepConfig(policy=None))
+        plane, ef = initial_plane_and_ef(p)
+        trainer = Trainer(
+            step, SyntheticLM(DataConfig(cfg.vocab_size, T, B)),
+            TrainerConfig(total_steps=steps,
+                          controller=HostRailController(PhaseAware()),
+                          device=dev),
+            {"params": p, "opt": adamw.init_state(p, opt_cfg),
+             "plane": plane, "ef": ef})
+        trainer.run()
+        runs[dev] = trainer
+    losses = {d: torch.tensor([r.loss for r in t.log.records])
+              for d, t in runs.items()}
+    if not torch.allclose(losses["cpu"], losses["cuda"],
+                          **TINY_TRAIN_TOL["loss"]):
+        raise AssertionError(f"tiny_train_host losses {losses}")
+    sums = {d: t.summary() for d, t in runs.items()}
+    for k in ("host_actuations", "host_actuation_s",
+              "host_skipped_actuations"):
+        if sums["cpu"][k] != sums["cuda"][k]:
+            raise AssertionError(f"tiny_train_host {k}: cuda "
+                                 f"{sums['cuda'][k]} != cpu "
+                                 f"{sums['cpu'][k]}")
+    if sums["cuda"]["host_actuations"] < 1:
+        raise AssertionError("tiny_train_host: no actuation")
+    for f in ("v_core", "v_hbm", "v_io"):
+        if not torch.equal(getattr(runs["cpu"].state["plane"], f),
+                           getattr(runs["cuda"].state["plane"], f).cpu()):
+            raise AssertionError(f"tiny_train_host: achieved {f} differs")
+    stats = dataclasses.asdict(runs["cuda"].cfg.controller.stats())
+    return dict(steps=steps, losses_cuda=losses["cuda"].tolist(),
+                loss_max_abs_diff=(losses["cpu"] - losses["cuda"]).abs()
+                .max().item(),
+                host_actuations=sums["cuda"]["host_actuations"],
+                host_actuation_s=sums["cuda"]["host_actuation_s"],
+                stats=stats, tolerances=dict(loss=TINY_TRAIN_TOL["loss"]))
+
+
 def run_main_train(dev) -> dict:
     """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run: one
     warm-up step, then TRAIN["steps"] steps whose launch counts are checked
@@ -1153,8 +1686,9 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
-    checks = (check_sor_fit, check_flash, check_decode, check_flash_bwd,
-              check_fleet_reduce, check_rwkv6_scan, check_mamba2_ssd)
+    checks = (check_sor_fit, check_sor_accumulate, check_flash, check_decode,
+              check_flash_bwd, check_fleet_reduce, check_rwkv6_scan,
+              check_mamba2_ssd)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:
@@ -1164,27 +1698,30 @@ def main() -> int:
 
     by_path = {}
     emit({"phase": "tiny", **run_tiny(MAIN["arch"])})
-    result = run_main(dev, MAIN)
+    emit({"phase": "tiny_host", **run_tiny_host()})
+    cfg, params, init_s = init_main(dev, MAIN)
+    result = run_main(dev, MAIN, cfg, params, init_s)
     by_path["serve-qwen"] = result["launches"]
     emit({"phase": "main", **result})
-    del result
+    result = run_main_host(dev, MAIN, cfg, params)
+    by_path["serve-qwen-host"] = result["launches"]
+    emit({"phase": "main_host", **result})
+    del result, params
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
 
-    emit({"phase": "tiny_rwkv", **run_tiny(RWKV["arch"])})
-    result = run_main(dev, RWKV)
-    by_path["serve-rwkv"] = result["launches"]
-    emit({"phase": "main_rwkv", **result})
-    del result
-    torch.cuda.empty_cache()       # the RWKV6 weights are gone
-
-    emit({"phase": "tiny_zamba", **run_tiny(ZAMBA["arch"])})
-    result = run_main(dev, ZAMBA)
-    by_path["serve-zamba"] = result["launches"]
-    emit({"phase": "main_zamba", **result})
-    del result
-    torch.cuda.empty_cache()       # the Zamba2 weights are gone
+    for tiny, phase, path, spec in (
+            ("tiny_rwkv", "main_rwkv", "serve-rwkv", RWKV),
+            ("tiny_zamba", "main_zamba", "serve-zamba", ZAMBA)):
+        emit({"phase": tiny, **run_tiny(spec["arch"])})
+        cfg, params, init_s = init_main(dev, spec)
+        result = run_main(dev, spec, cfg, params, init_s)
+        by_path[path] = result["launches"]
+        emit({"phase": phase, **result})
+        del result, params
+        torch.cuda.empty_cache()   # the model's weights are gone
 
     emit({"phase": "tiny_train", **run_tiny_train()})
+    emit({"phase": "tiny_train_host", **run_tiny_train_host()})
     result = run_main_train(dev)
     by_path["train"] = result["launches"]
     emit({"phase": "main_train", **result})

@@ -4,12 +4,19 @@
     FrameHistory  ->  SorEstimate  ->  SafeEnvelope  ->  arbitration
     (telemetry)       (fitted frontiers)  (per-rail v_min)   (control_plane)
 
-`fit_history` is always the fused path: the five EWLS sums, the per-lane
-solve and the envelope floor come out of one `ops.sor_fit` pass (the CUDA
-kernel on the card, its plain version on the CPU). `observe` keeps the
-observation count `tick` as a host integer and decides the `refresh_every`
-cadence on the host, so a control round never reads a device value back
-to choose its branch.
+`fit_history(fused=True)` (the default) is the fused path: the five EWLS
+sums, the per-lane solve and the envelope floor come out of one
+`ops.sor_fit` pass (K1 on the card, its plain version on the CPU).
+`fused=False` is the split path: `ops.sor_accumulate` (K7) returns the five
+sums and the solve runs as tensor code in `ref.sor_estimate_reference`'s
+op order. The reference resolves `fused=None` by context (fused under a
+JAX trace, split on eager calls); the port has no trace, so each caller
+says which it runs: the in-graph controller and the fleet train step fuse,
+the host controller (`control_plane.HostRailController`) splits, as the
+reference's eager host path does. `observe` keeps the observation count
+`tick` as a host integer and decides the `refresh_every` cadence on the
+host, so a control round never reads a device value back to choose its
+branch.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from repro_torch.core.power_plane import as_f32
 from repro_torch.core.telemetry import (DEFAULT_RAIL_OBSERVABLES,
                                         FrameHistory, RailObservable,
                                         TelemetryFrame)
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 LOG10_ERR_FLOOR = -8.0   # zero-error samples clamp here (detection floor)
 LOG10_ERR_CEIL = 2.0
@@ -119,11 +126,13 @@ def _fit_inputs(history: FrameHistory, cfg: SorConfig):
     return x, y, w
 
 
-def fit_history(history: FrameHistory, cfg: SorConfig) -> SorEstimate:
+def fit_history(history: FrameHistory, cfg: SorConfig,
+                fused: bool = True) -> SorEstimate:
     """Exponentially-weighted least squares of log10(observable) against
-    the rail voltage over the window, per (rail, chip), in one fused
-    `ops.sor_fit` pass. Confidence gates on effective samples, voltage
-    spread and a steep-enough frontier of the right sign."""
+    the rail voltage over the window, per (rail, chip): in one fused
+    `ops.sor_fit` pass, or (`fused=False`) as `ops.sor_accumulate` followed
+    by the solve. Confidence gates on effective samples, voltage spread and
+    a steep-enough frontier of the right sign."""
     x, y, w = _fit_inputs(history, cfg)
     shape = x.shape[1:]                      # [n_rails, *chip]
     dev = x.device
@@ -136,23 +145,26 @@ def fit_history(history: FrameHistory, cfg: SorConfig) -> SorEstimate:
         return torch.from_numpy(a).to(dev).reshape(lanes).expand(
             shape).reshape(-1).contiguous()
 
-    intercept, slope, v_frontier, confidence, n_eff, _floor = (
-        s.reshape(shape) for s in ops.sor_fit(
-            flat(x), flat(y), flat(w), full(_rail_bounds(cfg)),
-            full(_rail_guards(cfg)), min_slope=cfg.min_slope,
-            min_spread_v=cfg.min_spread_v, conf_samples=cfg.conf_samples))
-    # the fused pass also emits the envelope floor (v_frontier + guard);
-    # `rail_envelopes` re-derives the identical f32 add
-    return SorEstimate(intercept=intercept, slope=slope,
-                       v_frontier=v_frontier, confidence=confidence,
-                       n_eff=n_eff)
+    gates = dict(min_slope=cfg.min_slope, min_spread_v=cfg.min_spread_v,
+                 conf_samples=cfg.conf_samples)
+    if fused:
+        # the fused pass also emits the envelope floor (v_frontier + guard);
+        # `rail_envelopes` re-derives the identical f32 add
+        est = ops.sor_fit(flat(x), flat(y), flat(w), full(_rail_bounds(cfg)),
+                          full(_rail_guards(cfg)), **gates)[:5]
+    else:
+        est = ref.sor_estimate_reference(
+            ops.sor_accumulate(flat(x), flat(y), flat(w)),
+            full(_rail_bounds(cfg)), **gates)
+    return SorEstimate(*(a.reshape(shape) for a in est))
 
 
 def update_estimate(old: SorEstimate, history: FrameHistory,
-                    cfg: SorConfig) -> SorEstimate:
-    """Refit the window, then blend into the running estimate with
-    `update_gain`. A lane without a usable fit keeps its previous value."""
-    fit = fit_history(history, cfg)
+                    cfg: SorConfig, fused: bool = True) -> SorEstimate:
+    """Refit the window (`fit_history(fused=...)`), then blend into the
+    running estimate with `update_gain`. A lane without a usable fit keeps
+    its previous value."""
+    fit = fit_history(history, cfg, fused=fused)
     gain = torch.where(old.confidence > 0.0, float(np.float32(
         cfg.update_gain)), 1.0)
     new_ok, old_ok = fit.confidence > 0.0, old.confidence > 0.0
@@ -258,14 +270,33 @@ def init_state(cfg: SorConfig, n_chips: int | None = None,
 
 
 def observe(state: SorState, frame: TelemetryFrame,
-            cfg: SorConfig) -> SorState:
-    """Push one observation and refit on every `refresh_every`-th one; the
-    other rounds keep the prior estimate and launch no fit."""
+            cfg: SorConfig, fused: bool = True) -> SorState:
+    """Push one observation and refit (`fit_history(fused=...)`) on every
+    `refresh_every`-th one; the other rounds keep the prior estimate and
+    launch no fit."""
     hist = state.history.push(frame)
     tick = state.tick + 1
-    est = (update_estimate(state.estimate, hist, cfg)
+    est = (update_estimate(state.estimate, hist, cfg, fused=fused)
            if tick % cfg.refresh_every == 0 else state.estimate)
     return SorState(history=hist, estimate=est, tick=tick)
+
+
+def merge_observables(sample: TelemetryFrame, src: TelemetryFrame,
+                      cfg: SorConfig) -> TelemetryFrame:
+    """Overlay the per-rail failure observables the fit needs (named by
+    `cfg.rails`) from `src` (the frame the decision consumed) onto `sample`
+    (e.g. a raw `poll_frame` sweep). A rail whose observable `src` does not
+    carry records NaN: that rail's lane is invalid for this sample."""
+    kw: dict[str, Any] = {}
+    extras = dict(sample.extras)
+    for spec in cfg.rails:
+        v = src.get(spec.key)
+        v = float("nan") if v is None else v
+        if spec.key in TelemetryFrame.__dataclass_fields__:
+            kw[spec.key] = v
+        else:
+            extras[spec.key] = v
+    return dataclasses.replace(sample, extras=extras, **kw)
 
 
 def summary(est: SorEstimate, cfg: SorConfig) -> dict[str, float]:

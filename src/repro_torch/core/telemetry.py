@@ -36,6 +36,7 @@ class Provenance(enum.Enum):
 # metrics dict keys with first-class TelemetryFrame fields
 _FRAME_METRIC_KEYS = ("grad_error", "t_step_s", "t_comp_s", "t_mem_s",
                       "t_coll_s", "power_w", "energy_step_j")
+_FRAME_RAIL_KEYS = ("v_core", "v_hbm", "v_io")
 _FRAME_NOM_KEYS = ("v_nom_core", "v_nom_hbm", "v_nom_io")
 
 
@@ -66,6 +67,23 @@ class TelemetryFrame:
     age_s: Any = 0.0
     extras: dict[str, Any] = dataclasses.field(default_factory=dict)
     provenance: Provenance = Provenance.EXACT
+
+    @staticmethod
+    def from_dict(telemetry: dict[str, Any], *, state=None
+                  ) -> "TelemetryFrame":
+        """EXACT frame from a string-keyed metrics dict (the train step's
+        `metrics`, or a caller's `{"grad_error": ...}`): known keys land in
+        typed fields, everything else in `extras`; rail voltages the dict
+        does not carry come from `state`."""
+        t = dict(telemetry)
+        kw: dict[str, Any] = {}
+        for k in _FRAME_METRIC_KEYS + _FRAME_NOM_KEYS + _FRAME_RAIL_KEYS:
+            v = t.pop(k, None)
+            if v is not None:
+                kw[k] = v
+            elif k in _FRAME_RAIL_KEYS and state is not None:
+                kw[k] = getattr(state, k)
+        return TelemetryFrame(extras=t, **kw)
 
     @staticmethod
     def from_account(state, metrics: dict[str, Any], *,
@@ -115,11 +133,10 @@ class TelemetryFrame:
 
 def as_frame(telemetry, *, state=None) -> TelemetryFrame:
     """Normalize a controller input: a TelemetryFrame passes through, its
-    rail observations filled from `state` when it has none. (The
-    reference's metrics-dict telemetry is not ported.)"""
+    rail observations filled from `state` when it has none; a metrics dict
+    goes through `TelemetryFrame.from_dict`."""
     if not isinstance(telemetry, TelemetryFrame):
-        raise TypeError(f"expected a TelemetryFrame, got "
-                        f"{type(telemetry).__name__}")
+        return TelemetryFrame.from_dict(telemetry, state=state)
     if state is not None and telemetry.v_core is None:
         return dataclasses.replace(
             telemetry, v_core=state.v_core, v_hbm=state.v_hbm,

@@ -30,6 +30,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
     "sor_fit_launch": [_P] * 11 + [_I, _I, _F, _F, _F, _P],
+    "sor_accumulate_launch": [_P] * 8 + [_I, _I, _P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
     "decode_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],

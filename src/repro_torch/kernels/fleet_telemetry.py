@@ -1,13 +1,16 @@
-"""Fused safe-operating-region fit (K1) and the fleet telemetry reduction
-(K6): wrappers around the CUDA kernels `csrc/sor_fit.cu` and
-`csrc/fleet_reduce.cu`, each beside its plain PyTorch version.
+"""Fused safe-operating-region fit (K1), the EWLS accumulation of the split
+fit (K7) and the fleet telemetry reduction (K6): wrappers around the CUDA
+kernels `csrc/sor_fit.cu` (K1 and K7) and `csrc/fleet_reduce.cu`, each
+beside its plain PyTorch version.
 
-Replaces the TPU kernel `repro/kernels/fleet_telemetry.py::sor_fit`
-(`_sor_fit_kernel`). On the card it is bound by launch latency: the
-`[window, n]` window of the serve path is ~74 KB. The kernel runs one thread
-per lane over the window rows (coalesced row loads, sums in registers) and
-carries the solve and the envelope floor out of the same pass; see the
-source's header note.
+K1 replaces the TPU kernel `repro/kernels/fleet_telemetry.py::sor_fit`
+(`_sor_fit_kernel`), K7 its `sor_accumulate` (`_sor_kernel`). On the card
+both are bound by launch latency: the `[window, n]` window of the serve and
+host paths is ~74 KB. Each runs one thread per lane over the window rows
+(coalesced row loads, sums in registers); K1 carries the solve and the
+envelope floor out of the same pass, K7 returns the five sums, computed by
+the same device function, so they equal K1's bit for bit; see the source's
+header note.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises."""
@@ -67,6 +70,48 @@ def sor_fit(x, y, w, log10_bound, guard, *, min_slope: float,
 
 
 sor_fit.launches = 0
+
+
+def sor_accumulate_plain(x, y, w):
+    """The plain PyTorch version: `ref.sor_accumulate_reference`."""
+    return ref.sor_accumulate_reference(x, y, w)
+
+
+def sor_accumulate(x, y, w):
+    """K7. x/y/w [window, n] f32 -> the five EWLS sums (Σw, Σwx, Σwy, Σwx²,
+    Σwxy), each [n] f32."""
+    if x.device.type == "cpu":
+        return sor_accumulate_plain(x, y, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"sor_accumulate runs on cpu or cuda, got "
+                         f"{x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [window, n], got {tuple(x.shape)}")
+    window, n = x.shape
+    for name, a in (("y", y), ("w", w)):
+        if tuple(a.shape) != (window, n):
+            raise ValueError(f"{name} must be {(window, n)}, got "
+                             f"{tuple(a.shape)}")
+    for a in (x, y, w):
+        if a.device != x.device or a.dtype != torch.float32 or \
+                not a.is_contiguous():
+            raise ValueError("sor_accumulate takes contiguous float32 "
+                             "tensors on one CUDA device")
+    outs = tuple(torch.empty(n, dtype=torch.float32, device=x.device)
+                 for _ in range(5))
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.sor_accumulate_launch(x.data_ptr(), y.data_ptr(),
+                                       w.data_ptr(),
+                                       *(o.data_ptr() for o in outs),
+                                       window, n, stream)
+    _build.check(rc, "sor_accumulate")
+    sor_accumulate.launches += 1
+    return outs
+
+
+sor_accumulate.launches = 0
 
 
 def fleet_reduce_plain(x):

@@ -20,6 +20,7 @@ from repro_torch.kernels import rwkv6_scan as _r6
 # name -> the wrapper carrying the launch count
 KERNELS = {
     "sor_fit": _ft.sor_fit,
+    "sor_accumulate": _ft.sor_accumulate,
     "flash_attention_fwd": _fa.flash_attention,
     "decode_attention": _da.decode_attention,
     "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
@@ -59,6 +60,12 @@ def sor_fit(x, y, w, log10_bound, guard, *, min_slope: float,
     [n] f32."""
     return _ft.sor_fit(x, y, w, log10_bound, guard, min_slope=min_slope,
                        min_spread_v=min_spread_v, conf_samples=conf_samples)
+
+
+def sor_accumulate(x, y, w):
+    """The five EWLS sums (Σw, Σwx, Σwy, Σwx², Σwxy) over the `[window, n]`
+    window, each [n] f32 (K7): the split fit's first stage."""
+    return _ft.sor_accumulate(x, y, w)
 
 
 def fleet_reduce(x):

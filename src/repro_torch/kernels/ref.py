@@ -92,11 +92,11 @@ def sor_accumulate_reference(x, y, w):
             (wf * xf * xf).sum(0), (wf * xf * yf).sum(0))
 
 
-def sor_solve_reference(sums, log10_bound, guard, *, min_slope: float,
-                        min_spread_v: float, conf_samples: float):
+def sor_estimate_reference(sums, log10_bound, *, min_slope: float,
+                           min_spread_v: float, conf_samples: float):
     """The EWLS solve on the five accumulated sums, elementwise f32 in the
     reference's op order. Returns (intercept, slope, v_frontier, confidence,
-    n_eff, floor), each [n] f32."""
+    n_eff), each [n] f32: the split fit's second stage."""
     sw, sx, sy, sxx, sxy = sums
     eps = 1e-9
     denom = sw * sxx - sx * sx
@@ -116,12 +116,22 @@ def sor_solve_reference(sums, log10_bound, guard, *, min_slope: float,
     v_frontier = torch.clamp(v_frontier, 0.0, 2.0)
     confidence = torch.where(
         usable, 1.0 - torch.exp(-sw / conf_samples), 0.0)
-    floor = v_frontier + torch.as_tensor(guard, dtype=torch.float32,
-                                         device=sw.device)
     return (torch.where(usable, intercept, 0.0).float(),
             torch.where(usable, slope, 0.0).float(),
-            v_frontier.float(), confidence.float(), sw.float(),
-            floor.float())
+            v_frontier.float(), confidence.float(), sw.float())
+
+
+def sor_solve_reference(sums, log10_bound, guard, *, min_slope: float,
+                        min_spread_v: float, conf_samples: float):
+    """`sor_estimate_reference` plus the envelope floor `v_frontier +
+    guard`. Returns (intercept, slope, v_frontier, confidence, n_eff,
+    floor), each [n] f32."""
+    est = sor_estimate_reference(sums, log10_bound, min_slope=min_slope,
+                                 min_spread_v=min_spread_v,
+                                 conf_samples=conf_samples)
+    floor = est[2] + torch.as_tensor(guard, dtype=torch.float32,
+                                     device=est[2].device)
+    return (*est, floor.float())
 
 
 def sor_fit_reference(x, y, w, log10_bound, guard, *, min_slope: float,

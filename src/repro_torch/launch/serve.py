@@ -13,7 +13,10 @@ sliding-window attention block with a KV cache per occurrence).
 Weights are random, drawn on the device from seed 0, as the JAX launcher
 draws them. Unlike the JAX launcher, `--tiny` is honoured: without it the
 full configuration is built.
-Routed serving (`--router`) and the host control path are not ported yet.
+`--control-path host` serves with the SW-path analogue,
+`HostRailController(policy, n_chips=max(fleet_chips, 1))`: decisions
+between steps, actuated through the simulated PMBus fleet. Routed serving
+(`--router`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core.control_plane import InGraphRailController
+from repro_torch.core.control_plane import (HostRailController,
+                                            InGraphRailController)
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.policy import POLICIES, WorstChipGate
 from repro_torch.core.power_plane import StepProfile
@@ -51,8 +55,6 @@ def main(argv=None):
                     default="none")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.control_path == "host":
-        raise NotImplementedError("--control-path host is not yet ported")
     if args.router != "none":
         raise NotImplementedError("--router is not yet ported")
     device = resolve_device(args.device)
@@ -67,13 +69,17 @@ def main(argv=None):
              if args.fleet_chips else None)
     if fleet is not None:
         policy = WorstChipGate(policy)
+    controller = (InGraphRailController(policy)
+                  if args.control_path == "in-graph"
+                  else HostRailController(policy,
+                                          n_chips=max(args.fleet_chips, 1)))
     engine = ServeEngine(
         cfg, params, max_len=args.prompt_len + args.max_new + 8,
         batch_size=args.batch,
         prefill_profile=StepProfile(2.0 * n * args.batch * args.prompt_len,
                                     2.0 * n, 0.0),
         decode_profile=StepProfile(2.0 * n * args.batch, 2.0 * n, 0.0),
-        controller=InGraphRailController(policy), fleet=fleet,
+        controller=controller, fleet=fleet,
         device=device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)

@@ -3,14 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --tiny --steps 4 [--device cpu]
 
-The scalar train step (`make_train_step`) with the in-graph controller,
-AdamW and the WSD schedule, driven through `Trainer.run`. Weights are
+The scalar train step (`make_train_step`) with AdamW and the WSD schedule,
+driven through `Trainer.run`, with the in-graph controller in the step or
+(`--control-path host`) a `HostRailController` between steps, actuated
+through the simulated PMBus. Weights are
 random, drawn on the device from seed 0. Unlike the JAX launcher, `--tiny`
 is honoured: without it the full configuration is built (with per-layer
 remat, as the reference does for non-tiny configs).
 
-Not ported yet (each raises `NotImplementedError`): `--control-path host`,
-`--dry-run`, and checkpoints (`--ckpt-dir`, `--resume`).
+Not ported yet (each raises `NotImplementedError`): `--dry-run`, and
+checkpoints (`--ckpt-dir`, `--resume`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import argparse
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.control_plane import HostRailController
 from repro_torch.core.policy import POLICIES
 from repro_torch.core.power_plane import StepProfile
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -48,8 +51,6 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.control_path == "host":
-        raise NotImplementedError("--control-path host is not yet ported")
     if args.dry_run:
         raise NotImplementedError("--dry-run is not yet ported")
     if args.ckpt_dir is not None or args.resume:
@@ -74,11 +75,15 @@ def main(argv=None):
                    stable_steps=int(args.steps * 0.7),
                    decay_steps=int(args.steps * 0.2))
 
+    policy = POLICIES[args.policy]
+    in_graph = args.control_path == "in-graph"
     step = make_train_step(api.loss_fn, opt_cfg, sched, profile,
-                           StepConfig(policy=POLICIES[args.policy]))
+                           StepConfig(policy=policy if in_graph else None))
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+    controller = None if in_graph else HostRailController(policy)
     trainer = Trainer(step, data,
-                      TrainerConfig(total_steps=args.steps, device=device),
+                      TrainerConfig(total_steps=args.steps,
+                                    controller=controller, device=device),
                       {"params": params, "opt": opt, "plane": plane,
                        "ef": ef})
     log = trainer.run()

@@ -9,10 +9,16 @@ carrying one) each accounting step runs one learned control round: the
 frame enters the SOR history, the frontier refit runs on its cadence, and
 the envelope-clamped decision moves the rails.
 
+A host controller (`control_plane.HostRailController`, the SW-path
+analogue) runs through its `control_step` after each accounting step: it
+decides between steps and actuates the simulated PMBus fleet; with its own
+`sor=` it learns from its READ_VOUT polls.
+
 Everything lives on the engine's device ("cuda" unless the caller asks
 for the CPU). Per step the host reads back what the reference reads: the
 fleet-mean energy and step time (`scalar_view`) and, with `eos_id`, the
-end-of-sequence check. Routed serving (`serve_trace`, `router=`,
+end-of-sequence check (a host controller adds its own reads of the
+plane). Routed serving (`serve_trace`, `router=`,
 `batch_cap=`) and the sharded control round (`mesh=`) are not ported yet.
 """
 
@@ -28,7 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sor as sor_mod
 from repro_torch.core.control_plane import (InGraphRailController,
                                             as_controller, pinned_rails,
-                                            with_sor)
+                                            sor_summary_of, with_sor)
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.policy import WorstChipGate
 from repro_torch.core.power_plane import (PowerPlaneState, StepProfile,
@@ -95,7 +101,11 @@ class ServeEngine:
                                         else policy)
         if sor is not None:
             if not isinstance(self.controller, InGraphRailController):
-                raise ValueError("sor= needs an in-graph policy/controller")
+                raise ValueError("sor= needs an in-graph policy/controller "
+                                 "(the serve loop threads SorState through "
+                                 "InGraphRailController.control_step_sor); "
+                                 "for a HostRailController pass sor= to the "
+                                 "controller itself")
             self.controller = with_sor(self.controller, sor)
         self._sor_state = None
         self.admission_gate = admission_gate
@@ -234,4 +244,7 @@ class ServeEngine:
         if self._sor_state is not None:
             out["sor"] = sor_mod.summary(self._sor_state.estimate,
                                          self.controller.sor)
+        elif host_sor := sor_summary_of(self.controller):
+            # a HostRailController(sor=...) learns on its own control_step
+            out["sor"] = host_sor
         return out

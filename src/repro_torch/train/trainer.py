@@ -1,16 +1,18 @@
 """Trainer (port of `repro/train/trainer.py`): the step loop, injected
 straggler events with deadline-based mitigation (host numpy rng, the same
-draws as the reference), the telemetry log and the in-graph SOR summary.
+draws as the reference), host-path power control, the telemetry log and
+the SOR summary.
 
 One host sync per step: the loss is read back (as the reference blocks on
 it) and the step's wall time taken after it; the telemetry record then
-costs one more device-to-host copy of an already-finished step.
+costs one more device-to-host copy of an already-finished step. A host
+controller (`TrainerConfig.controller`) runs one `control_step` between
+steps and reads the plane back itself.
 
 Not ported yet (each raises `NotImplementedError`): checkpoints, so
 `TrainerConfig` has no checkpoint fields and `maybe_restore` raises;
 simulated node failures (`FaultConfig.fail_prob > 0`), whose recovery
-reloads a checkpoint; the host (SW-path) controller; and the sharded fleet
-state (`mesh`).
+reloads a checkpoint; and the sharded fleet state (`mesh`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from repro_torch.core import ecollectives
 from repro_torch.core import sor as sor_mod
+from repro_torch.core.control_plane import as_controller, sor_summary_of
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.power_plane import PowerPlaneState
 from repro_torch.core.telemetry import TelemetryLog
@@ -45,8 +48,10 @@ class FaultConfig:
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int
-    # host-path (SW analogue) control plane: not ported yet, must be None;
-    # the in-graph path is configured on the step (StepConfig.policy)
+    # host-path (SW analogue) control plane: a controller, or a bare Policy
+    # (wrapped into a decide-only HostDecisionController); pass a
+    # HostRailController to also pay PMBus actuation. The in-graph path is
+    # configured on the step (StepConfig.policy).
     controller: Any = None
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     # the SorConfig the train step was built with (FleetStepConfig.sor):
@@ -57,10 +62,7 @@ class TrainerConfig:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.controller is not None:
-            raise NotImplementedError(
-                "the host controller (TrainerConfig.controller) is not yet "
-                "ported (ROADMAP.md, open item 'Host software path')")
+        self.controller = as_controller(self.controller, host=True)
         if self.faults.fail_prob:
             raise NotImplementedError(
                 f"FaultConfig.fail_prob > 0 recovers from a checkpoint; "
@@ -151,23 +153,40 @@ class Trainer:
             self.state.update(params=params, opt=opt, plane=plane, ef=ef)
             if sor_state is not None:
                 self.state["sor"] = sor_state
+            # host-path control (SW analogue): decide + PMBus-actuate
+            if self.cfg.controller is not None:
+                self.state["plane"] = self.cfg.controller.control_step(
+                    plane, metrics)
+                metrics = self._with_sor_metrics(metrics)
             self.log.append_from(step, metrics["loss"], metrics,
                                  self.state["plane"])
             step += 1
         return self.log
 
+    def _with_sor_metrics(self, metrics: dict[str, Any]) -> dict[str, Any]:
+        """Fold the host controller's learned safe-operating-region view
+        into the step telemetry as `sor/...` scalar keys."""
+        s = sor_summary_of(self.cfg.controller)
+        if not s:
+            return metrics
+        return {**metrics,
+                **{f"sor/{k}": float(v) for k, v in s.items()
+                   if np.isfinite(v)}}
+
     # -- reporting -------------------------------------------------------------
     def summary(self) -> dict[str, Any]:
         t = self.log.totals()
+        ctrl = (self.cfg.controller.stats() if self.cfg.controller is not None
+                else None)
         out = {
             **t,
-            # no node failures, checkpoints or host controller yet
+            # no node failures or checkpoints yet
             "restarts": 0,
             "straggler_events": self.straggler_events,
             "ckpt_writes": 0,
-            "host_actuations": 0,
-            "host_actuation_s": 0.0,
-            "host_skipped_actuations": 0,
+            "host_actuations": ctrl.actuations if ctrl else 0,
+            "host_actuation_s": ctrl.actuation_seconds if ctrl else 0.0,
+            "host_skipped_actuations": ctrl.skipped_actuations if ctrl else 0,
             "mean_wall_step_s": float(np.mean(self._step_times))
             if self._step_times else 0.0,
         }
@@ -176,10 +195,13 @@ class Trainer:
             out["n_chips"] = last.n_chips
             if last.fleet:   # fleet run: surface the gating worst-chip view
                 out["fleet_last"] = dict(last.fleet)
-        if self.cfg.sor is not None and self.state.get("sor") is not None:
+        sor = sor_summary_of(self.cfg.controller)
+        if sor is None and self.cfg.sor is not None \
+                and self.state.get("sor") is not None:
             # in-graph learner: summarize the state threaded through the step
-            out["sor"] = sor_mod.summary(self.state["sor"].estimate,
-                                         self.cfg.sor)
+            sor = sor_mod.summary(self.state["sor"].estimate, self.cfg.sor)
+        if sor:
+            out["sor"] = sor
         return out
 
 

@@ -46,7 +46,9 @@ def test_port_files_found():
     assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py", "step.py",
             "trainer.py", "adamw.py", "schedule.py", "pipeline.py",
             "train.py", "rwkv6.py", "rwkv6_scan.py", "rwkv6_7b.py",
-            "mamba2.py", "mamba2_ssd.py", "zamba2_1p2b.py"} <= names
+            "mamba2.py", "mamba2_ssd.py", "zamba2_1p2b.py", "codecs.py",
+            "regulator.py", "pmbus.py", "settling.py", "power_manager.py",
+            "fleet.py", "control_plane.py", "fleet_telemetry.py"} <= names
 
 
 @pytest.fixture
@@ -123,8 +125,36 @@ def test_trainer_default_device_needs_a_card(no_card):
         ttrainer.Trainer(lambda *a: None, None, cfg, {"plane": None})
 
 
-@pytest.mark.parametrize("flags", [["--control-path", "host"],
-                                   ["--dry-run"], ["--resume"],
+@pytest.mark.parametrize("entry", ["ServeEngine", "Trainer"])
+def test_host_controller_default_device_needs_a_card(no_card, entry):
+    """The library entry points with a HostRailController and the default
+    device raise without a card: the controller does not move the plane to
+    the CPU on its own."""
+    from repro_torch.core.control_plane import HostRailController
+    from repro_torch.core.policy import PhaseAware
+    hc = HostRailController(PhaseAware(), n_chips=4, decide_from="poll")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "ServeEngine":
+            cfg = get_config("qwen2p5_14b", tiny=True)
+            params = registry.build(cfg).init(
+                torch.Generator().manual_seed(0))
+            ServeEngine(cfg, params, max_len=16, batch_size=1, controller=hc)
+        else:
+            cfg = ttrainer.TrainerConfig(total_steps=1, controller=hc)
+            assert cfg.device == "cuda" and cfg.controller is hc
+            ttrainer.Trainer(lambda *a: None, None, cfg, {"plane": None})
+
+
+def test_host_path_launchers_default_device_needs_a_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "qwen2p5_14b", "--tiny",
+                           "--fleet-chips", "4", "--control-path", "host"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "minicpm_2b", "--tiny", "--steps", "1",
+                           "--control-path", "host"])
+
+
+@pytest.mark.parametrize("flags", [["--dry-run"], ["--resume"],
                                    ["--ckpt-dir", "ckpt"]])
 def test_train_launcher_refuses_unported_paths(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -143,18 +173,40 @@ def test_cpu_train_step_launches_no_kernel(capsys):
 def test_launcher_refuses_unported_paths():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         launch_serve.main(["--arch", "qwen2p5_14b", "--tiny",
-                           "--control-path", "host", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        launch_serve.main(["--arch", "qwen2p5_14b", "--tiny",
                            "--router", "headroom", "--device", "cpu"])
 
 
 def test_cpu_generate_launches_no_kernel(capsys):
-    ops.reset_launch_counts()
+    for path in ("in-graph", "host"):
+        ops.reset_launch_counts()
+        launch_serve.main(["--arch", "qwen2p5_14b", "--tiny", "--batch", "2",
+                           "--prompt-len", "8", "--max-new", "4",
+                           "--fleet-chips", "4", "--control-path", path,
+                           "--device", "cpu"])
+        assert "generated (2, 4) tokens" in capsys.readouterr().out
+        assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+@pytest.mark.parametrize("fleet_chips", ["0", "4"])
+def test_serve_launcher_host_path_runs_on_cpu(capsys, fleet_chips):
+    """`--control-path host` serves through a HostRailController on a
+    scalar plane and on a fleet plane."""
     launch_serve.main(["--arch", "qwen2p5_14b", "--tiny", "--batch", "2",
                        "--prompt-len", "8", "--max-new", "4",
-                       "--fleet-chips", "4", "--device", "cpu"])
+                       "--fleet-chips", fleet_chips, "--control-path",
+                       "host", "--device", "cpu"])
     assert "generated (2, 4) tokens" in capsys.readouterr().out
+
+
+def test_train_launcher_host_path_runs_on_cpu(capsys):
+    ops.reset_launch_counts()
+    launch_train.main(["--arch", "minicpm_2b", "--tiny", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--control-path",
+                       "host", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "'steps': 2" in out
+    actuations = int(out.split("'host_actuations': ")[1].split(",")[0])
+    assert actuations >= 1
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 

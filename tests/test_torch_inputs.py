@@ -66,6 +66,29 @@ def sor_inputs(window: int, n: int, seed: int):
     return x, y, w, bound, guard
 
 
+def accumulate_inputs(window: int, n: int, seed: int):
+    """`sor_inputs`' (x, y, w) with two whole rows at zero weight, as the
+    unfilled slots of a history ring carry."""
+    x, y, w, _, _ = sor_inputs(window, n, seed)
+    w[[0, window // 2]] = 0.0
+    return x, y, w
+
+
+# the five EWLS sums in another order: within 1e-6 of the largest |sum| of
+# each output (f32 sums of 32 terms of O(1) magnitude)
+SUM_TOL = 1e-6
+
+
+def check_sums(got, want):
+    names = ("sw", "sx", "sy", "sxx", "sxy")
+    assert len(got) == len(want) == 5
+    for name, a, b in zip(names, got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype == np.float32, name
+        scale = max(float(np.abs(b).max()), 1.0)
+        assert float(np.abs(a - b).max()) <= SUM_TOL * scale, name
+
+
 def check_sor(got, want):
     """Usable masks exactly, the six analog outputs at SOR_TOL."""
     names = ("intercept", "slope", "v_frontier", "confidence", "n_eff",

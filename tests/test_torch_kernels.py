@@ -4,7 +4,8 @@ GQA, ragged T, lengths >= 1, usable and unusable SOR lanes) and, at one
 small shape each, against the Pallas kernel run in interpret mode as
 tests/test_kernels.py runs it: the flash forward and backward (against
 `jax.grad` of `ref.mha_reference` and the Pallas `_bwd`), decode attention,
-the SOR fit, and the fleet reduction (NaN lane included). The CUDA kernels
+the SOR fit, the SOR accumulation (K7's plain version) and the fleet
+reduction (NaN lane included). The CUDA kernels
 against their plain versions are in tests/test_torch_kernels_cuda.py."""
 
 import jax
@@ -21,7 +22,8 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
-from test_torch_inputs import SOR_KW, check_sor, qkv, sor_inputs
+from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
+                               check_sums, qkv, sor_inputs)
 
 # f32 attention: the two packages sum the same products in another order
 ATT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -111,6 +113,21 @@ def test_sor_fit_plain_matches_pallas_interpret():
     got = tft.sor_fit(*_t(*args), **SOR_KW)
     want = jft.sor_fit(*_j(*args), **SOR_KW, interpret=True)
     check_sor([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("window,n", [(32, 192), (29, 200), (32, 200),
+                                      (29, 192)])
+def test_sor_accumulate_plain_matches_reference_and_pallas(window, n):
+    """K7's plain version against `ref.sor_accumulate_reference` and the
+    Pallas kernel in interpret mode, at a window that is not a multiple of
+    8 and a lane count that is not a multiple of 128, with zero-weight
+    rows."""
+    args = accumulate_inputs(window, n, seed=window + n)
+    got = [g.numpy() for g in tft.sor_accumulate(*_t(*args))]
+    check_sums(got, jref.sor_accumulate_reference(*_j(*args)))
+    check_sums(got, jft.sor_accumulate(*_j(*args), interpret=True))
+    for a, b in zip(tops.sor_accumulate(*_t(*args)), got):   # CPU: plain
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 # f32 attention gradients: sums over keys, rows and the group in another
@@ -240,6 +257,8 @@ def test_wrappers_reject_other_devices():
     x = torch.zeros((4, 3), device="meta")
     with pytest.raises(ValueError):
         tft.sor_fit(x, x, x, x[0], x[0], **SOR_KW)
+    with pytest.raises(ValueError):
+        tft.sor_accumulate(x, x, x)
     with pytest.raises(ValueError):
         tft.fleet_reduce(x)
     lse = torch.zeros((1, 2, 4), device="meta")

@@ -18,9 +18,11 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba2_ssd as tm2
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
-from test_torch_inputs import (SOR_KW, check_sor, mamba2_inputs, qkv,
-                               rwkv_inputs, sor_inputs)
+from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
+                               check_sums, mamba2_inputs, qkv, rwkv_inputs,
+                               sor_inputs)
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
@@ -94,6 +96,51 @@ def test_sor_fit_kernel_matches_plain(cuda, window, n):
     want = tft.sor_fit_plain(*args, **SOR_KW)
     check_sor([g.cpu().numpy() for g in got],
               [w.cpu().numpy() for w in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n", [(32, 192), (29, 200), (32, 3 * 1024),
+                                      (7, 5)])
+def test_sor_accumulate_kernel_matches_plain(cuda, window, n):
+    args = tuple(torch.from_numpy(a).to(cuda)
+                 for a in accumulate_inputs(window, n, seed=n))
+    got = tft.sor_accumulate(*args)
+    want = tft.sor_accumulate_plain(*args)
+    check_sums([g.cpu().numpy() for g in got],
+               [w.cpu().numpy() for w in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (29, 200)])
+def test_split_fit_equals_the_fused_kernel(cuda, window, n):
+    """K7, then the solve as tensor code, against K1 on the same inputs:
+    both sum with the same device function, and the torch solve runs as
+    separately rounded elementwise kernels in K1's op order."""
+    x, y, w, bound, guard = (torch.from_numpy(a).to(cuda)
+                             for a in sor_inputs(window, n, seed=n))
+    fused = tft.sor_fit(x, y, w, bound, guard, **SOR_KW)
+    split = tref.sor_solve_reference(tft.sor_accumulate(x, y, w), bound,
+                                     guard, **SOR_KW)
+    assert bool((fused[3] > 0).any())
+    for name, a, b in zip(("intercept", "slope", "v_frontier",
+                           "confidence", "n_eff", "floor"), split, fused):
+        assert torch.equal(a, b), (name, (a - b).abs().max().item())
+
+
+@pytest.mark.cuda
+def test_sor_accumulate_refusals(cuda):
+    x = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tft.sor_accumulate(x.double(), x.double(), x.double())
+    with pytest.raises(ValueError, match="must be"):
+        tft.sor_accumulate(x, x[:7], x)
+    with pytest.raises(ValueError, match="window, n"):
+        tft.sor_accumulate(x[0], x[0], x[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tft.sor_accumulate(x, x.cpu(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        tft.sor_accumulate(x[:, ::2], x[:, :2].contiguous(),
+                           x[:, :2].contiguous())
 
 
 def bwd_close(got, want, tol):
@@ -181,6 +228,8 @@ def test_kernels_count_their_launches(cuda):
                          group=2)
     ops.sor_fit(*(torch.from_numpy(a).to(cuda)
                   for a in sor_inputs(4, 3, seed=0)), **SOR_KW)
+    ops.sor_accumulate(*(torch.from_numpy(a).to(cuda)
+                         for a in accumulate_inputs(4, 3, seed=0)))
     ops.fleet_reduce(torch.zeros((3, 2), device=cuda))
     r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
                         for a in rwkv_inputs(1, 3, 1, 64, seed=0,

@@ -337,9 +337,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ttrainer.TrainerConfig(total_steps=1, device="cpu",
                                faults=ttrainer.FaultConfig(fail_prob=0.1))
-    with pytest.raises(NotImplementedError, match="host controller"):
-        ttrainer.TrainerConfig(total_steps=1, device="cpu",
-                               controller=TMultiRail())
 
 
 def test_fleet_draws_are_device_side_and_well_distributed():
