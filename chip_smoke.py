@@ -13,11 +13,13 @@ script exits nonzero:
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
                 path for K1, the host path for K7, the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K4-K6, the
-                RWKV6 serve path for K9, the Zamba2 serve path for K8)
-                against its plain version (stated tolerances), timed beside
-                its bound, the plain version and one PyTorch call as a
-                yardstick where one exists; K7 followed by the plain solve
-                also against K1;
+                RWKV6 serve path for K9, the Zamba2 serve path for K8, the
+                ef training path's parameter leaves for K10) against its
+                plain version (stated tolerances; K10 bit for bit), timed
+                beside its bound, the plain version and one PyTorch call as
+                a yardstick where one exists; K7 followed by the plain
+                solve also against K1; K2 also at Zamba2's heads with a
+                4608-token prompt past its 4096 window;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -68,7 +70,21 @@ script exits nonzero:
                 SOR learning, through `Trainer.run`: one warm-up step, then
                 8 steps whose launch counts must be exact; step time, data
                 time, tokens/s, MFU, peak memory, losses, the learned-region
-                summary, and a torch.profiler window of 2 steps.
+                summary, and a torch.profiler window of 2 steps;
+14. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
+                four scalar steps of each error-feedback level (`ef_int8`,
+                `ef_int8_topk`) with BERBounded through `Trainer.run`:
+                losses, grad_error, comp_level, the compressed gradient
+                and residual (g_hat + r', flipped codes) and params; K10
+                exactly twice per leaf per step;
+15. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 13,
+                the scalar step with the ef gradient sync and BERBounded:
+                one warm-up step, then 8 steps each of `ef_int8`,
+                `ef_int8_topk` and `auto` on the same state, launch counts
+                exact (K10 24 per ef step), step times, tokens/s, MFU, peak
+                memory, losses, grad_error, comp_level and v_io; a
+                torch.profiler window of 2 `ef_int8` steps with K10's
+                device ms beside its bound.
 
 Each model's weights are freed before the next model loads its own.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
@@ -79,6 +95,7 @@ CUDA device is present.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -217,6 +234,26 @@ def check_flash(dev, flush) -> dict:
                            bound_by=b_by, library_ms=lib_ms,
                            shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh,
                                       window=window, dtype="bf16"))
+    # the sliding window past its length at Zamba2's full head shapes:
+    # causal, window 4096, a prompt of 4096 + 512 tokens, one batch row
+    B, Hq, Hkv, Dh, window, _, _ = attn_paths()["serve-zamba"]
+    B, T = 1, window + 512
+    kw = dict(causal=True, group=Hq // Hkv, sliding_window=window)
+    q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    d = (o.float() - o_ref.float()).abs().max().item()
+    d_lse = (lse - lse_ref).abs().max().item()
+    if not (math.isfinite(d) and d <= 2e-2 and d_lse <= 1e-3):
+        raise AssertionError(f"flash_attention window {window} T={T}: "
+                             f"max|o-o_ref|={d}, max|lse-lse_ref|={d_lse}")
+    err = max(err, d)
+    checked.append(dict(path="serve-zamba-past-window", B=B, T=T, Hq=Hq,
+                        Hkv=Hkv, Dh=Dh, window=window, dtype="bf16",
+                        max_abs_err=d, max_lse_err=d_lse))
+    del q, k, v, o, lse, o_ref, lse_ref
     top = dict(paths["serve-qwen"])
     return dict(name="flash_attention_fwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -694,8 +731,73 @@ def check_mamba2_ssd(dev, flush) -> dict:
                            decode=dict(T=1, init_state=True)))
 
 
+def ef_leaf_sizes() -> list[int]:
+    """The element counts of MiniCPM-2B's parameter leaves, the shapes K10
+    quantizes on the ef train path (twice each per step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    shapes = lm.param_shapes(get_config(TRAIN["arch"]))
+    return [math.prod(adamw.get_path(shapes, p))
+            for p in adamw.leaf_paths(shapes)]
+
+
+def codec_bytes(n: int, elem_bytes: int, block: int = 256) -> int:
+    """K10's bytes: each input element read once, the padded codes and the
+    scales written once."""
+    nb = -(-n // block)
+    return n * elem_bytes + nb * block + 4 * nb
+
+
+def check_quantize_int8(dev, flush) -> dict:
+    """K10 at the train path's leaf sizes (the two MLP and attention sizes
+    in f32, as the ef step quantizes them; the norms; the attention size in
+    bf16) and two small ragged cases, codes and scales equal
+    (`torch.equal`) to the plain version; timed at the three large shapes
+    beside its bound and the plain version. No single PyTorch call computes
+    this codec. The row's top-level times are the 283.1 M f32 leaf's."""
+    import torch
+
+    from repro_torch.kernels import quant_codec as qc
+    sizes = sorted(set(ef_leaf_sizes()), reverse=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    cases = [(n, 256, torch.float32) for n in sizes]
+    cases += [(sizes[1], 256, torch.bfloat16), (1000, 256, torch.float32),
+              (65, 64, torch.float32)]
+    timed, checked = {}, []
+    for n, block, dtype in cases:
+        x = torch.randn(n, generator=gen, device=dev, dtype=dtype).mul_(1e-3)
+        q, s = qc.quantize_int8(x, block=block)
+        q_ref, s_ref = qc.quantize_int8_plain(x, block=block)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, q_ref) and torch.equal(s, s_ref)):
+            raise AssertionError(
+                f"quantize_int8 n={n} block={block} {dtype}: "
+                f"{int((q != q_ref).sum())} codes and "
+                f"{int((s != s_ref).sum())} scales differ")
+        del q, s, q_ref, s_ref
+        dt = str(dtype).removeprefix("torch.")
+        checked.append(dict(n=n, block=block, dtype=dt))
+        if n >= sizes[1]:
+            ms = time_ms(lambda: qc.quantize_int8(x, block=block), 20, flush)
+            plain_ms = time_ms(lambda: qc.quantize_int8_plain(x, block=block),
+                               3, flush)
+            b_ms, b_by = bound_ms(codec_bytes(n, x.element_size(), block),
+                                  4 * n, "float32")
+            timed[f"{n}/{dt}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
+        del x
+        torch.cuda.empty_cache()
+    top = dict(timed[f"{sizes[1]}/float32"])
+    return dict(name="quantize_int8", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_codec.cu",
+                replaces="src/repro/kernels/quant_codec.py:30",
+                max_abs_err=0.0, **top, checked=checked, timed=timed,
+                shape=dict(n=sizes[1], block=256, dtype="float32"))
+
+
 # ---------------------------------------------------------------------------
-# phases 3-8: the serve paths through ServeEngine.generate
+# phases 3-10: the serve paths through ServeEngine.generate
 # ---------------------------------------------------------------------------
 
 def slice_engine(cfg, params, *, batch: int, prompt: int, new: int,
@@ -1324,7 +1426,7 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 9-10: the training path through Trainer.run
+# phases 11-13: the training path through Trainer.run
 # ---------------------------------------------------------------------------
 
 def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
@@ -1625,10 +1727,12 @@ def run_main_train(dev) -> dict:
         profile=profile)
 
 
-def train_breakdown(make, state, steps: int) -> dict:
+def train_breakdown(make, state, steps: int, watch: str | None = None
+                    ) -> dict:
     """`steps` more train steps under torch.profiler: the device's busy
     time per step (sum of device-side events), its share of the host wall
-    time of the same steps, and the kernels that fill it."""
+    time of the same steps, the kernels that fill it and, with `watch`, the
+    device ms per step of the kernels whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1649,12 +1753,310 @@ def train_breakdown(make, state, steps: int) -> dict:
             if e.device_type == DeviceType.CUDA}
     busy_ms = sum(us for _, us in kern.values()) / 1e3 / steps
     top = sorted(kern.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
-    return dict(steps=steps, profiled_step_ms=wall_ms,
-                device_busy_ms_per_step=busy_ms,
-                device_busy_share=busy_ms / wall_ms,
-                top_kernels=[dict(name=name[:90], calls_per_step=c / steps,
-                                  ms_per_step=us / 1e3 / steps)
-                             for name, (c, us) in top])
+    out = dict(steps=steps, profiled_step_ms=wall_ms,
+               device_busy_ms_per_step=busy_ms,
+               device_busy_share=busy_ms / wall_ms,
+               top_kernels=[dict(name=name[:90], calls_per_step=c / steps,
+                                 ms_per_step=us / 1e3 / steps)
+                            for name, (c, us) in top])
+    if watch:
+        out[f"{watch}_ms_per_step"] = sum(
+            us for name, (_, us) in kern.items() if watch in name) / 1e3 \
+            / steps
+        out[f"{watch}_calls_per_step"] = sum(
+            c for name, (c, _) in kern.items() if watch in name) / steps
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the error-feedback gradient sync (K10) through Trainer.run
+# ---------------------------------------------------------------------------
+
+EF_SYNCS = ("ef_int8", "ef_int8_topk", "auto")
+
+
+def ef_slice(cfg, params, dev, *, batch: int, seq: int, steps: int,
+             remat: str = "full"):
+    """The ef slice's training configuration: the scalar train step with
+    `StepConfig(grad_sync=..., policy=BERBounded())` (the paper's
+    case-study policy reading the compression error), AdamW with f32
+    moments, the launcher's WSD schedule and roofline profile. Returns
+    (make_trainer, initial state); make_trainer(sync, state, total_steps)
+    builds a `Trainer` whose step syncs gradients by `sync` and continues
+    from `state`."""
+    from repro_torch.core.policy import BERBounded
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import StepConfig, make_train_step
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           initial_plane_and_ef)
+    n = sum(a.numel() for a in tree_leaves(params))
+    opt_cfg = adamw.AdamWConfig()
+
+    def sched(s):
+        return wsd(s, peak_lr=3e-4, warmup_steps=10,
+                   stable_steps=int(steps * 0.7),
+                   decay_steps=int(steps * 0.2))
+
+    loss_fn = registry.build(cfg, remat=remat).loss_fn
+    profile = StepProfile(6.0 * n * batch * seq, 14.0 * n, 4.0 * n, 4.0 * n)
+    step_fns = {sync: make_train_step(
+        loss_fn, opt_cfg, sched, profile,
+        StepConfig(grad_sync=sync, policy=BERBounded()))
+        for sync in EF_SYNCS}
+    plane, ef = initial_plane_and_ef(params)
+    state = {"params": params, "opt": adamw.init_state(params, opt_cfg),
+             "plane": plane, "ef": ef}
+    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
+
+    def make_trainer(sync, state, total_steps):
+        return Trainer(step_fns[sync], data,
+                       TrainerConfig(total_steps=total_steps, device=dev),
+                       state)
+
+    return make_trainer, state
+
+
+# tiny ef cuda vs cpu. K10 equals its plain version bit for bit, but the
+# gradients differ at the float level (cuBLAS and the CPU sum in other
+# orders), so where x / scale sits at a .5 boundary a code flips and the
+# flip stays in the residual; held as tests/test_torch_ecollectives.py
+# holds the port against the reference (measured there: raw gradients
+# 2.2e-6 apart by step 3, grad_error 8.2e-5 relative, flips 3.5e-4 of the
+# elements).
+TINY_EF_TOL = dict(grad=dict(rtol=1e-4, atol=5e-6), grad_error_rtol=5e-4,
+                   flip_fraction=1e-3, flip=dict(rtol=1e-4, atol=1e-6))
+
+
+def recording_ef():
+    """Patch `ecollectives.ef_compress_leaf_` to record each leaf's
+    (g_hat, new residual) on the host; returns (records, restore)."""
+    from repro_torch.core import ecollectives
+    orig, records = ecollectives.ef_compress_leaf_, []
+
+    def rec(g, r, *args, **kw):
+        g_hat = orig(g, r, *args, **kw)
+        records.append((g_hat.to("cpu", copy=True), r.to("cpu", copy=True)))
+        return g_hat
+
+    ecollectives.ef_compress_leaf_ = rec
+    return records, lambda: setattr(ecollectives, "ef_compress_leaf_", orig)
+
+
+def block_quantum(c, block: int = 256):
+    """Each element's block scale (absmax / 127) of the values c that were
+    compressed (top-k keeps a block's largest, so its absmax is c's)."""
+    import torch
+    flat = c.abs().reshape(-1)
+    pad = (-flat.numel()) % block
+    am = torch.cat([flat, flat.new_zeros(pad)]).reshape(-1, block).amax(1)
+    return (am / 127.0).repeat_interleave(block)[:flat.numel()].reshape(
+        c.shape)
+
+
+def check_ef_records(cpu, gpu, n_leaves: int, level: int) -> dict:
+    """Per step and leaf, cuda against cpu: the raw gradient recovered as
+    g_hat + r' - r within TINY_EF_TOL["grad"]; g_hat elements apart by more
+    than TINY_EF_TOL["flip"] (flipped codes) few, each within what two
+    quantizations of the corrected values allow. Returns the worst
+    gradient gap and the flips per step."""
+    import torch
+    tol = TINY_EF_TOL
+    worst, flips = 0.0, []
+    prev = [(0.0, 0.0)] * n_leaves
+    for s in range(len(cpu) // n_leaves):
+        nflip = total = 0
+        for i in range(n_leaves):
+            (hc, rc), (hg, rg) = cpu[s * n_leaves + i], gpu[s * n_leaves + i]
+            cc, cg = hc + rc, hg + rg                  # corrected
+            gc, gg = cc - prev[i][0], cg - prev[i][1]
+            if not torch.allclose(gg, gc, **tol["grad"]):
+                raise AssertionError(f"tiny_train_ef step {s} leaf {i}: raw "
+                                     f"gradients {(gg - gc).abs().max()} "
+                                     f"apart")
+            worst = max(worst, (gg - gc).abs().max().item())
+            d = (hg - hc).abs()
+            flip = d > tol["flip"]["atol"] + tol["flip"]["rtol"] * hc.abs()
+            bound = (cg - cc).abs() + (block_quantum(cg)
+                                       + block_quantum(cc)) / 2
+            if level == 2:                       # kept on one side only
+                bound = bound + torch.maximum(cg.abs(), cc.abs())
+            if bool((d[flip] > bound[flip] * (1 + 1e-5)).any()):
+                raise AssertionError(f"tiny_train_ef step {s} leaf {i}: a "
+                                     f"flipped code exceeds its quantum")
+            nflip += int(flip.sum())
+            total += flip.numel()
+            prev[i] = (rc, rg)
+        if nflip > tol["flip_fraction"] * total:
+            raise AssertionError(f"tiny_train_ef step {s}: {nflip} of "
+                                 f"{total} codes flipped")
+        flips.append(nflip)
+    return dict(raw_grad_max_abs_diff=worst, flipped_codes=flips)
+
+
+def run_tiny_train_ef() -> dict:
+    """Tiny MiniCPM in f32, the same weights on cuda and cpu, 4 scalar
+    steps of each ef level with BERBounded through Trainer.run: losses
+    (TINY_TRAIN_TOL), grad_error (rtol), comp_level exact, g_hat + r' and
+    the flipped codes (`check_ef_records`), params (TINY_TRAIN_TOL); K10
+    launched exactly twice per leaf per step on cuda."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("minicpm_2b", tiny=True),
+                              dtype="float32")
+    params = registry.build(cfg).init(
+        torch.Generator(device="cpu").manual_seed(0))
+    n_leaves, steps = len(list(tree_leaves(params))), 4
+    out = {}
+    for level, sync in ((1, "ef_int8"), (2, "ef_int8_topk")):
+        runs, records = {}, {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev, copy=True), params)
+            make, state = ef_slice(cfg, p, dev, batch=2, seq=32, steps=steps)
+            records[dev], restore = recording_ef()
+            ops.reset_launch_counts()
+            trainer = make(sync, state, steps)
+            trainer.run()
+            restore()
+            runs[dev] = (trainer, ops.launch_counts())
+        (cpu, _), (gpu, launches) = runs["cpu"], runs["cuda"]
+        if launches["quantize_int8"] != 2 * n_leaves * steps:
+            raise AssertionError(f"tiny_train_ef {sync}: K10 launched "
+                                 f"{launches['quantize_int8']} times")
+        rc, rg = cpu.log.records, gpu.log.records
+        loss_c = torch.tensor([r.loss for r in rc])
+        loss_g = torch.tensor([r.loss for r in rg])
+        err_c = torch.tensor([r.grad_error for r in rc])
+        err_g = torch.tensor([r.grad_error for r in rg])
+        if not torch.allclose(loss_g, loss_c, **TINY_TRAIN_TOL["loss"]):
+            raise AssertionError(f"tiny_train_ef {sync} losses {loss_g} "
+                                 f"{loss_c}")
+        if not (bool((err_g > 0).all()) and torch.allclose(
+                err_g, err_c, rtol=TINY_EF_TOL["grad_error_rtol"], atol=0)):
+            raise AssertionError(f"tiny_train_ef {sync} grad_error {err_g} "
+                                 f"{err_c}")
+        if [r.comp_level for r in rg] != [r.comp_level for r in rc]:
+            raise AssertionError(f"tiny_train_ef {sync}: comp_level differs")
+        params_diff = 0.0
+        for a, b in zip(tree_leaves(cpu.state["params"]),
+                        tree_leaves(gpu.state["params"])):
+            b = b.detach().cpu()
+            if not torch.allclose(b, a.detach(), **TINY_TRAIN_TOL["params"]):
+                raise AssertionError(f"tiny_train_ef {sync}: params "
+                                     f"{(b - a).abs().max().item()} apart")
+            params_diff = max(params_diff, (b - a).abs().max().item())
+        out[sync] = dict(
+            losses_cuda=loss_g.tolist(), grad_error_cuda=err_g.tolist(),
+            grad_error_max_rel_diff=((err_g - err_c).abs() / err_c).max()
+            .item(), comp_level=[r.comp_level for r in rg],
+            params_max_abs_diff=params_diff, k10_launches=
+            launches["quantize_int8"],
+            **check_ef_records(records["cpu"], records["cuda"], n_leaves,
+                               level))
+    out["tolerances"] = dict(TINY_EF_TOL, loss=TINY_TRAIN_TOL["loss"],
+                             params=TINY_TRAIN_TOL["params"])
+    return out
+
+
+def run_main_train_ef(dev) -> dict:
+    """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run with
+    the error-feedback gradient sync and BERBounded: one warm-up step, then
+    TRAIN["steps"] checked steps of each of `ef_int8`, `ef_int8_topk` and
+    `auto` on the same state (the last measures the compression's cost in
+    the same run), exact launch counts (K10 twice per leaf per step), then
+    a torch.profiler window of TRAIN["profiled_steps"] `ef_int8` steps
+    with K10's device time beside its bound."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    cfg = get_config(TRAIN["arch"])
+    B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    t0 = time.perf_counter()
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    sizes = [a.numel() for a in tree_leaves(params)]
+    n_params, n_leaves = sum(sizes), len(sizes)
+    make, state = ef_slice(cfg, params, dev, batch=B, seq=T,
+                           steps=len(EF_SYNCS) * steps)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    warm = make("ef_int8", state, 1)
+    warm.run()
+    state = warm.state
+    del warm
+    L, tokens = cfg.n_layers, B * T
+    runs, by_sync = {}, {}
+    for sync in EF_SYNCS:
+        trainer = make(sync, state, steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        trainer.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = {name: 0 for name in ops.KERNELS}
+        want.update({"flash_attention_fwd": 2 * L * steps,
+                     "flash_attention_bwd_dq": L * steps,
+                     "flash_attention_bwd_dkv": L * steps,
+                     "quantize_int8": 0 if sync == "auto"
+                     else 2 * n_leaves * steps})
+        if launches != want:
+            raise AssertionError(f"train-ef {sync} launch counts {launches} "
+                                 f"!= {want}")
+        recs = trainer.log.records
+        losses = [r.loss for r in recs]
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train-ef {sync} losses {losses}")
+        errs = [r.grad_error for r in recs]
+        if sync != "auto" and not all(e > 0 for e in errs):
+            raise AssertionError(f"train-ef {sync} grad_error {errs}")
+        step_s = statistics.median(trainer.step_times)
+        state = trainer.state
+        by_sync[sync] = launches
+        runs[sync] = dict(
+            step_ms_median=step_s * 1e3,
+            step_ms=[x * 1e3 for x in trainer.step_times],
+            tokens_per_s=tokens / step_s,
+            mfu=6.0 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=losses, grad_error=errs, comp_level=recs[-1].comp_level,
+            v_io=state["plane"].v_io.item(), launches=launches)
+        del trainer
+    k10_bytes = sum(2 * codec_bytes(n, 4) for n in sizes)
+    k10_bound = bound_ms(k10_bytes, sum(2 * 4 * n for n in sizes),
+                         "float32")
+    profile = train_breakdown(lambda st, n: make("ef_int8", st, n), state,
+                              TRAIN["profiled_steps"], watch="quantize_int8")
+    launches = {name: sum(c[name] for c in by_sync.values())
+                for name in ops.KERNELS}
+    return dict(
+        arch=cfg.name, n_layers=L, params=n_params, leaves=n_leaves,
+        batch=B, seq=T, dtype=cfg.dtype, remat="full",
+        adamw_state="float32", policy="ber-bounded", init_s=init_s,
+        steps=steps, runs=runs,
+        ef_int8_over_auto_ms=runs["ef_int8"]["step_ms_median"]
+        - runs["auto"]["step_ms_median"],
+        ef_int8_topk_over_auto_ms=runs["ef_int8_topk"]["step_ms_median"]
+        - runs["auto"]["step_ms_median"],
+        k10_bound_ms_per_step=k10_bound[0], k10_bound_by=k10_bound[1],
+        launches=launches, profile=profile)
 
 
 def main() -> int:
@@ -1688,7 +2090,7 @@ def main() -> int:
     kernels = {}
     checks = (check_sor_fit, check_sor_accumulate, check_flash, check_decode,
               check_flash_bwd, check_fleet_reduce, check_rwkv6_scan,
-              check_mamba2_ssd)
+              check_mamba2_ssd, check_quantize_int8)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:
@@ -1725,6 +2127,14 @@ def main() -> int:
     result = run_main_train(dev)
     by_path["train"] = result["launches"]
     emit({"phase": "main_train", **result})
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()       # main_train's MiniCPM state is gone
+
+    emit({"phase": "tiny_train_ef", **run_tiny_train_ef()})
+    result = run_main_train_ef(dev)
+    by_path["train-ef"] = result["launches"]
+    emit({"phase": "main_train_ef", **result})
     del result
 
     rows = []

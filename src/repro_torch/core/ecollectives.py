@@ -1,15 +1,31 @@
-"""Error-bounded collectives: the compression levels and their wire-byte
-accounting that the power plane's step model reads (`power_plane.
-step_terms`), copied from `repro/core/ecollectives.py`.
+"""Error-bounded collectives (port of `repro/core/ecollectives.py`): the
+gradient-domain analogue of the paper's bounded-BER link. Gradients are
+compressed on the wire (blockwise int8, optionally top-k sparsified), the
+compression residual is carried forward with error feedback so the error
+stays bounded over training, and the relative L2 error is the step's
+`grad_error` observable that `policy.BERBounded` reads.
 
 Compression levels (the "voltage knob" of the ICI rail):
     0  lossless     : bf16/f32 psum
     1  int8 + EF    : blockwise int8 quantized
     2  int8+topk+EF : additionally top-k sparsified
 
-`zeros_like_residuals` makes the error-feedback residuals the train step
-carries; the int8 codec itself (`quantize_int8`, error feedback, the
-compressed psum) is not ported yet.
+The codec's quantize is K10 (`kernels.ops.quantize_int8`, the CUDA kernel
+on a CUDA tensor), as the reference's docstring says its module does on
+the TPU; dequantize, `topk_mask` and the norms are torch ops, as the
+reference leaves them to XLA.
+
+The world of one. The reference runs this path under `shard_map` on a
+one-device `data` mesh, where the all-gather stacks one copy, `psum(1)` is
+1 and `pmean(loss)` is the loss. The port's collectives take that world
+only and still run the whole sequence (quantize, a gather of one, the
+dequantize-sum), so K10 runs twice per leaf as in the reference's op
+sequence. A `torch.distributed` world larger than one raises
+`NotImplementedError`: the multi-process sync and `shard_map_ef_step` wait
+for ROADMAP.md §1 item 8 (Sharding).
+
+Unlike the reference's pure `ef_compress`, the port's updates the residual
+tree in place (the counterpart of a donated buffer) and returns it.
 """
 
 from __future__ import annotations
@@ -18,9 +34,162 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.models.lm import tree_map
+from repro_torch.optim.adamw import get_path, leaf_paths
+
 DEFAULT_BLOCK = 256
 LEVEL_LOSSLESS, LEVEL_INT8, LEVEL_INT8_TOPK = 0, 1, 2
 
+
+# ---------------------------------------------------------------------------
+# Blockwise int8 quantization (the codec; LINEAR16 analogue for gradients)
+# ---------------------------------------------------------------------------
+
+def _pad_to_block(x, block: int):
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat, pad
+
+
+def quantize_int8(x, block: int = DEFAULT_BLOCK):
+    """Blockwise symmetric int8 quantization through K10. Returns
+    (q [nblocks, block] int8, scales [nblocks, 1] f32)."""
+    return ops.quantize_int8(x.contiguous(), block=block)
+
+
+def dequantize_int8(q, scale, shape, dtype=torch.float32):
+    flat = q.to(torch.float32).mul_(scale).reshape(-1)
+    n = 1
+    for d in shape:
+        n *= d
+    return flat[:n].reshape(shape).to(dtype)
+
+
+def dequantize_like(blocks_sum, x):
+    flat = blocks_sum.reshape(-1)[: x.numel()]
+    return flat.reshape(x.shape).to(x.dtype)
+
+
+def topk_mask(x, k_fraction: float, block: int = DEFAULT_BLOCK):
+    """Keep the round(k_fraction * block) largest magnitudes of each block
+    (at least one; ties at the threshold are all kept), zero the rest."""
+    flat, pad = _pad_to_block(x, block)
+    blocks = flat.reshape(-1, block)
+    k = max(1, int(round(k_fraction * block)))
+    mag = blocks.abs()
+    # the k-th largest |x| is the (block - k + 1)-th smallest
+    thresh = mag.kthvalue(block - k + 1, dim=1, keepdim=True).values
+    out = torch.where(mag >= thresh, blocks, 0.0).reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Compressed reduction over the data-parallel axis (a world of one)
+# ---------------------------------------------------------------------------
+
+def axis_size(axis_name) -> int:
+    """Replicas along `axis_name`: 1. A `torch.distributed` world larger
+    than one is refused."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            f"error-feedback gradient sync over axis {axis_name!r} in a "
+            f"world of {dist.get_world_size()} is not yet ported: the port "
+            f"runs the reference's one-device data mesh only (ROADMAP.md "
+            f"§1 item 8, Sharding)")
+    return 1
+
+
+def psum_lossless(x, axis_name):
+    axis_size(axis_name)
+    return x
+
+
+def psum_int8(x, axis_name, block: int = DEFAULT_BLOCK):
+    """Bounded-error sum over `axis_name`: quantize locally to int8 (K10),
+    gather the codes and scales of every replica (one here), dequantize and
+    sum."""
+    axis_size(axis_name)
+    q, s = quantize_int8(x, block)
+    qg, sg = q[None], s[None]                    # [P, nblk, block], P = 1
+    total = torch.sum(qg.to(torch.float32).mul_(sg), dim=0)
+    return dequantize_like(total, x)
+
+
+def psum_int8_topk(x, axis_name, k_fraction: float = 0.25,
+                   block: int = DEFAULT_BLOCK):
+    """Level 2: top-k sparsify, then the int8 sum."""
+    return psum_int8(topk_mask(x, k_fraction, block), axis_name, block)
+
+
+def reduce_leaf(g, axis_name, level: int, k_fraction: float = 0.25,
+                mean: bool = True):
+    """One leaf of `reduce_gradients`."""
+    if level == LEVEL_LOSSLESS:
+        out = psum_lossless(g, axis_name)
+    elif level == LEVEL_INT8:
+        out = psum_int8(g, axis_name)
+    elif level == LEVEL_INT8_TOPK:
+        out = psum_int8_topk(g, axis_name, k_fraction)
+    else:
+        raise ValueError(f"unknown compression level {level}")
+    return out / axis_size(axis_name) if mean else out
+
+
+def reduce_gradients(grads, axis_name, level: int, k_fraction: float = 0.25,
+                     mean: bool = True):
+    """Reduce a gradient tree across `axis_name` at a compression level."""
+    return tree_map(lambda g: reduce_leaf(g, axis_name, level, k_fraction,
+                                          mean), grads)
+
+
+# ---------------------------------------------------------------------------
+# Error feedback (keeps the compression error bounded over training)
+# ---------------------------------------------------------------------------
+
+def ef_compress_leaf_(g, r, level: int, k_fraction: float = 0.25,
+                      block: int = DEFAULT_BLOCK):
+    """One leaf of `ef_compress` at level 1 or 2: r becomes corrected =
+    g + r in place, g_hat = dequantize(quantize(corrected, top-k'd at
+    level 2)) and then r = corrected - g_hat. Returns g_hat (f32, as r)."""
+    corrected = r.add_(g)
+    kept = (topk_mask(corrected, k_fraction, block)
+            if level == LEVEL_INT8_TOPK else corrected)
+    q, s = quantize_int8(kept, block)
+    del kept
+    g_hat = dequantize_int8(q, s, corrected.shape, corrected.dtype)
+    corrected.sub_(g_hat)
+    return g_hat
+
+
+def ef_compress(grads, residuals, level: int, k_fraction: float = 0.25,
+                block: int = DEFAULT_BLOCK):
+    """Error-feedback transform: g' = compress(g + r); r' = (g + r) - g'.
+    Returns (g', residuals), the residual tree updated in place. At level 0
+    both come back unchanged."""
+    if level == LEVEL_LOSSLESS:
+        return grads, residuals
+    return tree_map(lambda g, r: ef_compress_leaf_(g, r, level, k_fraction,
+                                                   block),
+                    grads, residuals), residuals
+
+
+def zeros_like_residuals(params):
+    """f32 zeros shaped like every parameter leaf (nested dicts), on the
+    leaves' devices."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+# ---------------------------------------------------------------------------
+# Wire-byte accounting (feeds the step model + energy model)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class WireCost:
@@ -45,10 +214,21 @@ def wire_cost(level: int, k_fraction: float = 0.25,
     raise ValueError(f"unknown level {level}")
 
 
-def zeros_like_residuals(params):
-    """f32 zeros shaped like every parameter leaf (nested dicts), on the
-    leaves' devices."""
-    if isinstance(params, dict):
-        return {k: zeros_like_residuals(v) for k, v in params.items()}
-    return torch.zeros(params.shape, dtype=torch.float32,
-                       device=params.device)
+def error_sums(g, g_hat):
+    """One leaf's terms of `compression_error_norm`: (sum (g - g_hat)^2,
+    sum g^2), each in the dtype the reference's sums take."""
+    return ((g - g_hat) ** 2).sum(), (g ** 2).sum()
+
+
+def error_norm_from_sums(num, den):
+    return torch.sqrt(num / torch.clamp(den, min=1e-30))
+
+
+def compression_error_norm(grads, grads_hat):
+    """Relative L2 error — the gradient-domain 'BER' telemetry channel;
+    leaves summed in the reference's (sorted-key) tree order."""
+    num = den = 0
+    for path in leaf_paths(grads):
+        n, d = error_sums(get_path(grads, path), get_path(grads_hat, path))
+        num, den = num + n, den + d
+    return error_norm_from_sums(num, den)

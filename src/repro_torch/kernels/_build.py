@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH_FLAGS)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_int64
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
     "sor_fit_launch": [_P] * 11 + [_I, _I, _F, _F, _F, _P],
@@ -38,6 +39,7 @@ SIGNATURES = {
     "fleet_reduce_launch": [_P] * 4 + [_I, _I, _P],
     "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "mamba2_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "quantize_int8_launch": [_P] * 3 + [_L, _I, _I, _P],
 }
 
 _lib: "ctypes.CDLL | None" = None

@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fleet_telemetry as _ft
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import mamba2_ssd as _m2
+from repro_torch.kernels import quant_codec as _qc
 from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as _r6
 
@@ -28,6 +29,7 @@ KERNELS = {
     "fleet_reduce": _ft.fleet_reduce,
     "rwkv6_scan": _r6.rwkv6_scan,
     "mamba2_ssd": _m2.mamba2_ssd,
+    "quantize_int8": _qc.quantize_int8,
 }
 
 
@@ -86,6 +88,13 @@ def mamba2_scan(x, dt, A, B, C, D, *, init_state=None):
     B, C [Bt,T,G,N], init_state [Bt,H,N,P] f32 or None -> (y [Bt,T,H,P],
     final state [Bt,H,N,P] f32)."""
     return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state)
+
+
+def quantize_int8(x, *, block: int = 256):
+    """Blockwise symmetric int8 codec (K10): x any shape, f32 or bf16 ->
+    (q [nblocks, block] int8, scale [nblocks, 1] f32), the tail block
+    zero-padded."""
+    return _qc.quantize_int8(x, block=block)
 
 
 def fleet_percentile(x, q: float):

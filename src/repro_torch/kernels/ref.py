@@ -64,6 +64,30 @@ def attend(scores, v, *, group: int, dtype):
 
 
 # ---------------------------------------------------------------------------
+# Blockwise int8 quantization oracle (ecollectives codec)
+# ---------------------------------------------------------------------------
+
+def quantize_int8_reference(x, block: int = 256):
+    """x any shape -> (q [nblocks, block] int8, scale [nblocks, 1] f32): the
+    tail zero-padded in x's dtype, then per block absmax (NaN propagates),
+    scale = absmax / 127 or 1 where absmax is not > 0, q = clip(round half
+    to even(x / scale), -127, 127). A NaN element's code is 0, as XLA
+    converts NaN to an integer. Both divisions are tensor by tensor: on a
+    CUDA tensor torch computes `a / python_scalar` as a * (1 / scalar),
+    which misses the IEEE quotient by an ulp on some scales."""
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, block).to(torch.float32)
+    absmax = blocks.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(absmax > 0,
+                        absmax / torch.full_like(absmax, 127.0), 1.0)
+    r = (blocks / scale).round_().clamp_(-127, 127).nan_to_num_(0.0)
+    return r.to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
 # Fleet telemetry reduction oracle (fleet control plane)
 # ---------------------------------------------------------------------------
 

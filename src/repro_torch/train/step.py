@@ -9,10 +9,18 @@ parameters and moments in place (`optim.adamw.apply_updates`), the
 counterpart of the reference's donated buffers: callers rebind to the
 returned trees, which are the trees they passed in.
 
-Not ported yet (each raises `NotImplementedError`): error-feedback
-compressed gradient sync (`grad_sync="ef_int8"`, `"ef_int8_topk"`, which
-need the codec and collectives), and the sharded fleet step
-(`FleetStepConfig.mesh`, `shard_control`).
+Error-feedback compressed gradient sync (`grad_sync="ef_int8"`,
+`"ef_int8_topk"`) runs the reference's sequence leaf by leaf
+(`_ef_sync`): the raw gradient leaf is compressed with error feedback
+(the residual updated in place), its terms of the relative L2 error
+(`grad_error`) are summed, the compressed leaf is reduced at the int8
+level over the data-parallel axis (a world of one, `core/ecollectives.py`),
+and the raw leaf is dropped before the next, so no second full f32
+gradient tree is held.
+
+Not ported yet (each raises `NotImplementedError`): the sharded fleet step
+(`FleetStepConfig.mesh`, `shard_control`) and the gradient sync over a
+`torch.distributed` world larger than one.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import ecollectives
 from repro_torch.core.control_plane import as_controller, with_sor
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.power_plane import (PowerPlaneState, StepProfile,
@@ -35,8 +44,10 @@ from repro_torch.optim import adamw
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     microbatches: int = 1
-    grad_sync: str = "auto"          # auto (ef_int8 | ef_int8_topk: to port)
+    grad_sync: str = "auto"          # auto | ef_int8 | ef_int8_topk
+    k_fraction: float = 0.25
     policy: Any = None               # in-graph policy/controller or None
+    dp_axes: tuple[str, ...] = ("data",)  # the axis of the ef sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +73,13 @@ class FleetStepConfig:
     seed: int = 0
 
 
+GRAD_SYNCS = ("auto", "ef_int8", "ef_int8_topk")
+
+
 def _check_step_cfg(step_cfg: StepConfig) -> None:
-    if step_cfg.grad_sync != "auto":
-        raise NotImplementedError(
-            f"grad_sync={step_cfg.grad_sync!r} is not yet ported: it needs "
-            f"the error-bounded collectives codec (ROADMAP.md, open item "
-            f"'Error-bounded collectives codec')")
+    if step_cfg.grad_sync not in GRAD_SYNCS:
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got "
+                         f"{step_cfg.grad_sync!r}")
     if step_cfg.microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got "
                          f"{step_cfg.microbatches}")
@@ -119,14 +131,43 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
     return loss_sum * inv, metrics, tree([a.mul_(inv) for a in acc])
 
 
+def _ef_sync(grads, ef_resid, step_cfg: StepConfig):
+    """The reference's error-feedback sync (`step.py:143-157`), leaf by
+    leaf in its tree order: compress g + r at the configured level (the
+    residual updated in place), sum the leaf's terms of the relative L2
+    error, reduce the compressed leaf at the int8 level (top-k or not) over
+    the data-parallel axis, and drop the raw leaf. Returns (reduced grads,
+    f32 as in the reference; ef_resid; grad_error)."""
+    level = (ecollectives.LEVEL_INT8_TOPK
+             if step_cfg.grad_sync == "ef_int8_topk"
+             else ecollectives.LEVEL_INT8)
+    axis = step_cfg.dp_axes[0]
+    num = den = 0
+    for path in adamw.leaf_paths(grads):
+        parent = adamw.get_path(grads, path[:-1])
+        g = parent.pop(path[-1])
+        g_hat = ecollectives.ef_compress_leaf_(
+            g, adamw.get_path(ef_resid, path), level, step_cfg.k_fraction)
+        n, d = ecollectives.error_sums(g, g_hat)
+        num, den = num + n, den + d
+        del g                      # the raw leaf goes before the reduce
+        parent[path[-1]] = ecollectives.reduce_leaf(g_hat, axis,
+                                                    ecollectives.LEVEL_INT8)
+    return grads, ef_resid, ecollectives.error_norm_from_sums(num, den)
+
+
 def _grads_and_update(loss_fn, opt_cfg, schedule_fn, step_cfg, params,
                       opt_state, ef_resid, batch):
     """The model side of a train step, shared by the scalar and fleet
-    factories: microbatched grads and the AdamW update. Returns (params',
-    opt_state', ef_resid', loss, metrics, opt_metrics, grad_error)."""
+    factories: microbatched grads, the optional error-feedback compressed
+    sync and the AdamW update. Returns (params', opt_state', ef_resid',
+    loss, metrics, opt_metrics, grad_error)."""
     loss, metrics, grads = _accumulate_grads(loss_fn, params, batch,
                                              step_cfg.microbatches)
     grad_error = torch.zeros((), dtype=torch.float32, device=loss.device)
+    if step_cfg.grad_sync != "auto":
+        # pmean(loss) over the world of one is the loss itself
+        grads, ef_resid, grad_error = _ef_sync(grads, ef_resid, step_cfg)
     lr = schedule_fn(opt_state["step"])
     params, opt_state, opt_metrics = adamw.apply_updates(
         params, grads, opt_state, lr, opt_cfg)

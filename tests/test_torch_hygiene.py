@@ -167,6 +167,24 @@ def test_cpu_train_step_launches_no_kernel(capsys):
     launch_train.main(["--arch", "minicpm_2b", "--tiny", "--steps", "2",
                        "--batch", "2", "--seq", "16", "--device", "cpu"])
     assert "'steps': 2" in capsys.readouterr().out
+    # an error-feedback step (the codec, K10's plain version on the CPU)
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import StepConfig, make_train_step
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg = get_config("minicpm_2b", tiny=True)
+    api = registry.build(cfg)
+    params = api.init(torch.Generator().manual_seed(0))
+    step = make_train_step(api.loss_fn, adamw.AdamWConfig(), lambda s: 1e-3,
+                           StepProfile(1.0, 1.0, 1.0, 1.0),
+                           StepConfig(grad_sync="ef_int8"))
+    plane, ef = initial_plane_and_ef(params)
+    *_, metrics = step(params, adamw.init_state(params, adamw.AdamWConfig()),
+                       plane, ef,
+                       SyntheticLM(DataConfig(cfg.vocab_size, 16, 2))
+                       .torch_batch(0, "cpu"))
+    assert metrics["grad_error"].item() > 0
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 

@@ -1,7 +1,8 @@
 """Seeded numpy inputs and the SOR-fit comparison shared by the port's
 test files (tests/test_torch_kernels.py, test_torch_rwkv6.py,
-test_torch_zamba2.py on the CPU; test_torch_kernels_cuda.py on the card).
-It holds no tests and imports no JAX."""
+test_torch_zamba2.py, test_torch_ecollectives.py on the CPU;
+test_torch_kernels_cuda.py on the card). It holds no tests and imports no
+JAX."""
 
 import numpy as np
 
@@ -47,6 +48,29 @@ def mamba2_inputs(Bt, T, H, G, N, seed, state=True, P=64):
     s0 = (rng.standard_normal((Bt, H, N, P)).astype(np.float32)
           if state else None)
     return x, dt, A, B, C, D, s0
+
+
+def codec_input(n: int, seed: int, block: int = 256):
+    """n N(0, 1) values f32, each block scaled by 10^U(-6, 1) (the spread of
+    gradient magnitudes across a model's leaves), with one all-zero block
+    where n allows (its scale is 1)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    nb = -(-n // block)
+    mag = 10.0 ** rng.uniform(-6.0, 1.0, nb)
+    x = (x * np.repeat(mag, block)[:n]).astype(np.float32)
+    if nb > 2:
+        x[block:2 * block] = 0.0
+    return x
+
+
+def codec_ties(block: int = 256):
+    """One block whose absmax is 127, so its scale is exactly 1 and every
+    x / scale below is an exact .5 tie (rounded half to even)."""
+    ties = np.arange(-126.5, 126.0, 1.0, dtype=np.float32)
+    x = np.resize(ties, block).astype(np.float32)
+    x[0] = 127.0
+    return x
 
 
 def sor_inputs(window: int, n: int, seed: int):

@@ -18,11 +18,12 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import mamba2_ssd as tm2
+from repro_torch.kernels import quant_codec as tqc
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
 from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
-                               check_sums, mamba2_inputs, qkv, rwkv_inputs,
-                               sor_inputs)
+                               check_sums, codec_input, codec_ties,
+                               mamba2_inputs, qkv, rwkv_inputs, sor_inputs)
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
@@ -240,8 +241,54 @@ def test_kernels_count_their_launches(cuda):
                             for a in mamba2_inputs(1, 3, 2, 1, 16, seed=0,
                                                    state=False))
     ops.mamba2_scan(x, dt, A, B, C, D)
+    ops.quantize_int8(torch.ones(300, device=cuda))
     ops.fleet_percentile(torch.zeros(3, device=cuda), 95.0)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
+
+
+# -- the int8 codec (K10): codes and scales equal the plain version -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,block", [(1000, 256), (65, 64), (300_000, 256),
+                                     (4096, 256), (2304, 256), (4097, 1024),
+                                     (100, 32)])
+def test_quantize_int8_kernel_equals_plain(cuda, dtype, n, block):
+    x = torch.from_numpy(codec_input(n, seed=n, block=block)).to(cuda, dtype)
+    q, s = tqc.quantize_int8(x, block=block)
+    q_ref, s_ref = tqc.quantize_int8_plain(x, block=block)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.cuda
+def test_quantize_int8_kernel_ties_zeros_nan(cuda):
+    """Exact .5 ties round half to even, an all-zero block and a NaN block
+    take scale 1, the NaN's code is 0."""
+    x = np.concatenate([codec_ties(), np.zeros(256, np.float32),
+                        codec_input(256, seed=3)])
+    x[600] = np.nan
+    x = torch.from_numpy(x).to(cuda)
+    q, s = tqc.quantize_int8(x)
+    q_ref, s_ref = tqc.quantize_int8_plain(x)
+    assert torch.equal(s, s_ref) and s[:, 0].tolist()[:3] == [1.0] * 3
+    assert torch.equal(q, q_ref) and q[2, 600 - 512].item() == 0
+
+
+@pytest.mark.cuda
+def test_quantize_int8_refusals(cuda):
+    x = torch.ones(512, device=cuda)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tqc.quantize_int8(torch.ones(512, device="meta"))
+    with pytest.raises(ValueError, match="contiguous"):
+        tqc.quantize_int8(x.reshape(2, 256).t())
+    for block in (48, 1056, 16):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            tqc.quantize_int8(x, block=block)
+    for dtype in (torch.int32, torch.int8, torch.float16):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            tqc.quantize_int8(x.to(dtype))
+    with pytest.raises(ValueError, match="non-empty"):
+        tqc.quantize_int8(x[:0])
 
 
 # RWKV6 scan: y and the state against the plain version, relative to the

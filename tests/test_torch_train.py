@@ -326,9 +326,6 @@ def test_unported_options_raise():
     api = treg.build(cfg)
     args = (api.loss_fn, tadamw.AdamWConfig(), _sched(twsd),
             TProfile(**PROFILE))
-    for sync in ("ef_int8", "ef_int8_topk"):
-        with pytest.raises(NotImplementedError, match="codec"):
-            tstep.make_train_step(*args, tstep.StepConfig(grad_sync=sync))
     fs = TFleetSpec.sample(2, seed=0)
     for kw in (dict(mesh=object()), dict(shard_control=True)):
         with pytest.raises(NotImplementedError, match="Sharding"):
