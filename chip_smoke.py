@@ -9,10 +9,12 @@ script exits nonzero:
 
 1. build      - compile every kernel from `src/repro_torch/kernels/csrc/`
                 for sm_90a (seconds taken, the ptxas report in the build
-                dir);
+                dir) and count the HGMMA (wgmma) instructions of K2's bf16
+                kernels in the library's SASS (fails on none);
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
                 path for K1, the host path for K7, the Qwen and the Zamba2
-                serve paths for K2 and K3, the training path for K4-K6, the
+                serve paths for K2 and K3, the training path for K2 and
+                K4-K6 (K2 also in f32 at the Qwen prefill), the
                 RWKV6 serve path for K9, the Zamba2 serve path for K8, the
                 ef training path's parameter leaves for K10) against its
                 plain version (stated tolerances; K10 bit for bit), timed
@@ -70,7 +72,8 @@ script exits nonzero:
                 SOR learning, through `Trainer.run`: one warm-up step, then
                 8 steps whose launch counts must be exact; step time, data
                 time, tokens/s, MFU, peak memory, losses, the learned-region
-                summary, and a torch.profiler window of 2 steps;
+                summary, and a torch.profiler window of 2 steps (K2's
+                device ms per step beside the top kernels);
 14. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
@@ -179,18 +182,33 @@ def attn_paths() -> dict:
     return out
 
 
+def flash_paths() -> dict:
+    """K2's shapes: each serve path's prefill (`attn_paths`) and the
+    training path's forward, (batch, q heads, kv heads, head_dim, window,
+    T)."""
+    from repro_torch.configs import get_config
+    out = {path: spec[:6] for path, spec in attn_paths().items()}
+    cfg = get_config(TRAIN["arch"])
+    plan = cfg.head_plan()
+    out["train-minicpm"] = (TRAIN["batch"], plan.n_q_pad, plan.n_kv_pad,
+                            cfg.head_dim_, cfg.sliding_window, TRAIN["seq"])
+    return out
+
+
 def check_flash(dev, flush) -> dict:
-    """K2 at each serve path's prefill (its prompt, and a ragged T of 200)
-    against its plain version, timed at the prompt beside its bound, the
-    plain version and one SDPA call. The row's top-level times are the
-    Qwen2.5 path's; `paths` holds each path's."""
+    """K2 in bf16 at each serve path's prefill and the training path's
+    forward (its T, and a ragged T of 200) against its plain version, timed
+    at the path's T beside its bound, the plain version and one SDPA call;
+    then the f32 path at the Qwen2.5 prefill, checked and timed (`f32_ms`).
+    The row's top-level times are the Qwen2.5 path's; `paths` holds each
+    path's."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(11)
     err, checked, paths = 0.0, [], {}
-    for path, (B, Hq, Hkv, Dh, window, Tp, _) in attn_paths().items():
+    for path, (B, Hq, Hkv, Dh, window, Tp) in flash_paths().items():
         group = Hq // Hkv
         kw = dict(causal=True, group=group, sliding_window=window)
         for T in (Tp, 200):     # the path's prompt, and a ragged T
@@ -236,7 +254,7 @@ def check_flash(dev, flush) -> dict:
                                       window=window, dtype="bf16"))
     # the sliding window past its length at Zamba2's full head shapes:
     # causal, window 4096, a prompt of 4096 + 512 tokens, one batch row
-    B, Hq, Hkv, Dh, window, _, _ = attn_paths()["serve-zamba"]
+    B, Hq, Hkv, Dh, window, _ = flash_paths()["serve-zamba"]
     B, T = 1, window + 512
     kw = dict(causal=True, group=Hq // Hkv, sliding_window=window)
     q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev,
@@ -253,10 +271,30 @@ def check_flash(dev, flush) -> dict:
     checked.append(dict(path="serve-zamba-past-window", B=B, T=T, Hq=Hq,
                         Hkv=Hkv, Dh=Dh, window=window, dtype="bf16",
                         max_abs_err=d, max_lse_err=d_lse))
+    # the f32 path (the FMA kernel) at the Qwen2.5 prefill: f32 FMA sums
+    # in another order than the plain version's
+    B, Hq, Hkv, Dh, window, T = flash_paths()["serve-qwen"]
+    kw = dict(causal=True, group=Hq // Hkv, sliding_window=window)
+    q, k, v = (torch.randn((B, T, h, Dh), generator=gen, device=dev)
+               for h in (Hq, Hkv, Hkv))
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    d = (o - o_ref).abs().max().item()
+    d_lse = (lse - lse_ref).abs().max().item()
+    if not (math.isfinite(d) and d <= 1e-4 and d_lse <= 1e-3):
+        raise AssertionError(f"flash_attention f32 T={T}: max|o-o_ref|={d}, "
+                             f"max|lse-lse_ref|={d_lse}")
+    checked.append(dict(path="serve-qwen", B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh,
+                        window=window, dtype="f32", max_abs_err=d,
+                        max_lse_err=d_lse))
+    f32_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush)
+    paths["serve-qwen"]["f32_ms"] = f32_ms
     del q, k, v, o, lse, o_ref, lse_ref
     top = dict(paths["serve-qwen"])
     return dict(name="flash_attention_fwd", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:92",
                 max_abs_err=err, **top, checked=checked, paths=paths)
 
@@ -1707,7 +1745,9 @@ def run_main_train(dev) -> dict:
     sor = summary["sor"]
     step_s = statistics.median(trainer.step_times)
     tokens = B * T
-    profile = train_breakdown(make, trainer.state, TRAIN["profiled_steps"])
+    # K2's device time per step: its bf16 kernel (`flash_fwd_sm90<64>`)
+    profile = train_breakdown(make, trainer.state, TRAIN["profiled_steps"],
+                              watch="flash_fwd_sm90")
     return dict(
         arch=cfg.name, n_layers=L, params=n_params, batch=B, seq=T,
         n_chips=TRAIN["chips"], dtype=cfg.dtype, remat="full",
@@ -2059,6 +2099,27 @@ def run_main_train_ef(dev) -> dict:
         launches=launches, profile=profile)
 
 
+def k2_hgmma(lib: Path) -> dict:
+    """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each bf16
+    instantiation of K2's kernel, read from the built library's SASS; raises
+    if an instantiation is missing or has none."""
+    import re
+    import shutil
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0]
+        dh = re.search(r"flash_fwd_sm90ILi(\d+)E", name)
+        if dh:
+            counts[f"flash_fwd_sm90<{dh.group(1)}>"] = fn.count("HGMMA")
+    want = {f"flash_fwd_sm90<{dh}>" for dh in (64, 128)}
+    if set(counts) != want or not all(counts.values()):
+        raise AssertionError(f"K2's bf16 kernels lack HGMMA: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2081,7 +2142,8 @@ def main() -> int:
     lib = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.relative_to(ROOT)), "gpu": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "k2_hgmma": k2_hgmma(lib)})
     _build.load()
     print(lib.with_name(lib.name + ".ptxas.txt").read_text(),
           file=sys.stderr)

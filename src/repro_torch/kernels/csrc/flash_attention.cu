@@ -1,4 +1,7 @@
-// K2 — flash-attention forward for Hopper (sm_90a).
+// K2 — flash-attention forward for Hopper (sm_90a): the f32 path, and bf16
+// at head_dim 32. bf16 at head_dim 64 and 128 (every full-width path) runs
+// on the tensor cores in `flash_attention_sm90.cu`; the entry point below
+// sends it there.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_fwd
 // (`_fwd_kernel`): online-softmax attention with a causal / sliding-window
@@ -6,12 +9,13 @@
 // q's dtype and the f32 log-sum-exp for the backward pass.
 //
 // What bounds it on this card: at the prefill shapes of the serve path
-// (B 4, T 256, 48 q / 16 kv heads, head_dim 128, bf16) the function moves
-// ~34 MB (~10 us at 3.35 TB/s) and does ~3.2 GFLOP of causal products
-// (~3 us at the 989 TFLOP/s bf16 tensor-core rate), so the least time is set
-// by memory. This first kernel computes its two products with f32 FMAs, not
-// tensor cores, so in practice it is bound by the FMA and shared-memory
-// issue rate; wgmma/TMA tiles are later work.
+// (B 4, T 256, 48 q / 16 kv heads, head_dim 128) the function moves
+// ~34 MB (~10 us at 3.35 TB/s) and does ~3.2 GFLOP of causal products, so
+// the least time is set by memory. This kernel computes its two products
+// with f32 FMAs, not tensor cores, so it is bound by the FMA and
+// shared-memory issue rate. It stays the f32 path on purpose: `wgmma` on
+// f32 inputs is TF32 (about three decimal digits), and the f32 callers
+// (the tiny cuda-vs-cpu phases, the 1e-4 card tests) need full f32.
 //
 // Design: one block of four warps per (batch, q head, 64-row q tile). The
 // scaled q tile is staged once in shared memory as f32; the loop walks
@@ -20,7 +24,8 @@
 // lane one key of the tile for the scores and head_dim/32 output columns
 // for the accumulator, so m, l and acc live in registers in f32. Ragged T
 // and S tails are masked here, so prompts of any length are taken.
-// Inputs are f32 or bf16, head_dim 32, 64 or 128, layout [B, T, H, Dh].
+// Inputs are f32 at head_dim 32, 64 or 128, or bf16 at head_dim 32;
+// layout [B, T, H, Dh].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -221,27 +226,33 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(int head_dim, const void* q, const void* k, const void* v,
-              void* o, void* lse, int B, int Tq, int S, int Hq, int Hkv,
-              int group, int causal, int window, float scale,
-              cudaStream_t stream) {
+int launch_f32(int head_dim, const void* q, const void* k, const void* v,
+               void* o, void* lse, int B, int Tq, int S, int Hq, int Hkv,
+               int group, int causal, int window, float scale,
+               cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group, causal,
-                           window, scale, stream);
+      return launch<float, 32>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                               causal, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group, causal,
-                           window, scale, stream);
+      return launch<float, 64>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                               causal, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
-                            causal, window, scale, stream);
+      return launch<float, 128>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                                causal, window, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+extern "C" int flash_attention_fwd_sm90(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int B, int Tq, int S, int Hq, int Hkv,
+                                        int group, int head_dim, int causal,
+                                        int window, float scale,
+                                        void* stream);
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
@@ -250,9 +261,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int window, float scale, void* stream) {
   if ((long long)B * Hq * Tq == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+    return flash_attention_fwd_sm90(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                                    head_dim, causal, window, scale, stream);
   if (is_bf16)
-    return launch_dh<__nv_bfloat16>(head_dim, q, k, v, o, lse, B, Tq, S, Hq,
-                                    Hkv, group, causal, window, scale, st);
-  return launch_dh<float>(head_dim, q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
-                          causal, window, scale, st);
+    return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, Tq, S, Hq, Hkv,
+                                     group, causal, window, scale, st);
+  return launch_f32(head_dim, q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                    causal, window, scale, st);
 }

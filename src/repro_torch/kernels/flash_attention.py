@@ -1,21 +1,27 @@
 """Flash attention, forward (K2) and backward (K4 dq, K5 dk/dv): wrappers
-around the CUDA kernels `csrc/flash_attention.cu` and
-`csrc/flash_attention_bwd.cu`, beside their plain PyTorch versions, and the
-`torch.autograd.Function` that joins them.
+around the CUDA kernels `csrc/flash_attention_sm90.cu` and
+`csrc/flash_attention.cu` (K2) and `csrc/flash_attention_bwd.cu` (K4, K5),
+beside their plain PyTorch versions, and the `torch.autograd.Function` that
+joins them.
 
 Replaces the TPU kernels of `repro/kernels/flash_attention.py`: `_fwd`
 (`_fwd_kernel`) and `_bwd` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`). At the
 serve path's prefill and the training path's shapes the least time of each
-is set by memory; these first kernels run their products on f32 FMAs, so
-they are limited by FMA and shared-memory issue instead. The forward: one
-block per (batch, q head, 64-row q tile) walks 32-key K/V tiles with the
-online softmax in registers. The backward recomputes p from the saved lse:
+is set by memory. K2 has two kernels behind one entry point: bf16 at
+head_dim 64 and 128 (every full-width path) runs on the tensor cores, one
+warpgroup per (batch, q head, 64-row q tile) computing Q K^T and P V with
+`wgmma` on K/V tiles (32 keys at head_dim 128, 64 at 64) that TMA loads
+into a two-stage ring, p rounded to bf16 before P V; f32, and bf16 at
+head_dim 32, run the FMA kernel, one block per 64-row q tile walking
+32-key tiles (TF32 would lose the f32 callers' digits). The backward
+recomputes p from the saved lse on f32 FMAs:
 K4 keeps a dq tile in registers while it walks the kv tiles, K5 keeps a
 32-key dk/dv tile in registers while it walks the group x q tiles; see the
 sources' header notes.
 
 Layout is the reference's `[B, T, H, Dh]` throughout. Unlike the Pallas
 kernels, T and S need not tile: the ragged tails are masked in the kernels.
+K2 takes 16-byte-aligned q, k and v (TMA's rule) and raises otherwise.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises."""
@@ -157,6 +163,9 @@ def flash_attention(q, k, v, *, causal: bool = True, group: int = 1,
                                      sliding_window=sliding_window)
     _check("flash_attention", q, k, v, (), causal=causal, group=group,
            sliding_window=sliding_window)
+    if any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("flash_attention takes 16-byte-aligned q, k, v "
+                         "(the TMA loads' rule)")
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)

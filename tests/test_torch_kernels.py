@@ -5,7 +5,9 @@ small shape each, against the Pallas kernel run in interpret mode as
 tests/test_kernels.py runs it: the flash forward and backward (against
 `jax.grad` of `ref.mha_reference` and the Pallas `_bwd`), decode attention,
 the SOR fit, the SOR accumulation (K7's plain version) and the fleet
-reduction (NaN lane included). The CUDA kernels
+reduction (NaN lane included). The bf16 K2's one deliberate numeric change
+(p rounded to bf16 before P V) is bounded against `ref.mha_reference` at
+the full-width paths' head shapes. The CUDA kernels
 against their plain versions are in tests/test_torch_kernels_cuda.py."""
 
 import jax
@@ -22,6 +24,7 @@ from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
                                check_sums, qkv, sor_inputs)
 
@@ -72,6 +75,52 @@ def test_flash_plain_sliding_window_matches_reference():
     want = jref.mha_reference(*_j(q, k, v), causal=True, group=1,
                               sliding_window=24)
     np.testing.assert_allclose(o.numpy(), np.asarray(want), **ATT_TOL)
+
+
+def _bf16_p_attention(q, k, v, *, group: int, window: int, bk: int = 64):
+    """The bf16 K2's arithmetic (`csrc/flash_attention_sm90.cu`) in plain
+    torch: f32 scores, the online softmax over 64-key tiles, l summed from
+    the f32 p, p rounded to bf16 before P V (the wgmma A operand), o
+    divided by l and cast to q's dtype."""
+    s = tref.masked_scores(q, k, causal=True, group=group,
+                           sliding_window=window)            # [B,Hq,T,S]
+    vf = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    m = torch.full(s.shape[:-1], -torch.inf)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros((*s.shape[:-1], v.shape[-1]))
+    for k0 in range(0, s.shape[-1], bk):
+        m_new = torch.maximum(m, s[..., k0:k0 + bk].amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s[..., k0:k0 + bk] - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = (acc * alpha[..., None]
+               + p.bfloat16().float() @ vf[:, :, k0:k0 + bk])
+        m = m_new
+    return (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("T", [256, 512])
+@pytest.mark.parametrize("Hq,Hkv,Dh,window", [
+    (48, 16, 128, 0),      # Qwen2.5-14B's heads, group 3
+    (32, 32, 64, 4096),    # Zamba2-1.2B's shared block, window 4096
+    (48, 48, 64, 0),       # MiniCPM-2B's heads
+])
+def test_flash_bf16_p_within_card_tolerance(T, Hq, Hkv, Dh, window):
+    """The bf16 K2 rounds p to bf16 before P V; the card holds its o to the
+    f32 plain version within 2e-2 (`ATT_TOL[bf16]` of the card tests).
+    That rounding, on bf16 inputs at the three paths' head shapes, stays
+    within the same 2e-2 of the reference's `mha_reference`."""
+    q, k, v = qkv(1, T, T, Hq, Hkv, Dh, seed=T + Dh)
+    group = Hq // Hkv
+    got = _bf16_p_attention(*(torch.from_numpy(a).bfloat16()
+                              for a in (q, k, v)),
+                            group=group, window=window)
+    want = jref.mha_reference(*(jnp.asarray(a, jnp.bfloat16)
+                                for a in (q, k, v)),
+                              causal=True, group=group, sliding_window=window)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=2e-2)
 
 
 @pytest.mark.parametrize("S,Hq,Hkv,lengths", [

@@ -45,6 +45,10 @@ def cuda():
     (200, 12, 4, 32, 0),       # ragged T, the padded-GQA plan
     (77, 8, 8, 64, 0),         # MHA, head_dim 64
     (150, 4, 2, 32, 40),       # sliding window
+    (512, 48, 48, 64, 0),      # the training path (MiniCPM-2B's heads)
+    (200, 48, 16, 128, 0),     # ragged T at batch 2: a K/V tile past S must
+    (200, 32, 32, 64, 0),      # not read the next batch row (Dh 128, 64)
+    (300, 8, 8, 64, 100),      # T past the window: window-edge tiles
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, T, Hq, Hkv, Dh, window):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
@@ -55,6 +59,47 @@ def test_flash_kernel_matches_plain(cuda, dtype, T, Hq, Hkv, Dh, window):
     tol = ATT_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_counts_one_launch_per_call(cuda, dtype):
+    """The FMA kernel (f32) and the tensor-core kernel (bf16) each count."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(1, 64, 64, 4, 2, 64, seed=2))
+    before = tfa.flash_attention.launches
+    tfa.flash_attention(q, k, v, causal=True, group=2)
+    assert tfa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_without_keys(cuda, dtype):
+    """S == 0 (no K/V tile to load): o is 0 and lse -inf, as the plain
+    version."""
+    q = torch.ones((1, 5, 2, 64), dtype=dtype, device=cuda)
+    k = torch.ones((1, 0, 2, 64), dtype=dtype, device=cuda)
+    o, lse = tfa.flash_attention(q, k, k, causal=False)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, k, causal=False)
+    assert torch.equal(o, o_ref) and (o == 0).all()
+    assert torch.equal(lse, lse_ref) and torch.isneginf(lse).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_flash_kernel_refuses_unaligned_inputs(cuda, which):
+    """TMA needs 16-byte-aligned bases: a contiguous view 2 bytes into a
+    buffer raises before any launch."""
+    shape, n = (1, 64, 2, 64), 64 * 2 * 64
+    qkv_ = [torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+            for _ in range(3)]
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    qkv_[which] = buf.as_strided(shape, (n, 128, 64, 1), storage_offset=1)
+    assert qkv_[which].is_contiguous() and qkv_[which].data_ptr() % 16 == 2
+    before = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa.flash_attention(*qkv_, causal=True)
+    assert tfa.flash_attention.launches == before
 
 
 @pytest.mark.cuda
