@@ -9,8 +9,9 @@ script exits nonzero:
 
 1. build      - compile every kernel from `src/repro_torch/kernels/csrc/`
                 for sm_90a (seconds taken, the ptxas report in the build
-                dir) and count the HGMMA (wgmma) instructions of K2's bf16
-                kernels in the library's SASS (fails on none);
+                dir) and count the HGMMA (wgmma) instructions of the bf16
+                tensor-core kernels (K2, K4, K5 at head_dim 64 and 128) in
+                the library's SASS (fails on one with none);
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
                 path for K1, the host path for K7, the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K2 and
@@ -72,8 +73,9 @@ script exits nonzero:
                 SOR learning, through `Trainer.run`: one warm-up step, then
                 8 steps whose launch counts must be exact; step time, data
                 time, tokens/s, MFU, peak memory, losses, the learned-region
-                summary, and a torch.profiler window of 2 steps (K2's
-                device ms per step beside the top kernels);
+                summary, and a torch.profiler window of 2 steps (the
+                device ms per step of K2, K4 and K5 beside the top
+                kernels);
 14. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
@@ -87,7 +89,7 @@ script exits nonzero:
                 exact (K10 24 per ef step), step times, tokens/s, MFU, peak
                 memory, losses, grad_error, comp_level and v_io; a
                 torch.profiler window of 2 `ef_int8` steps with K10's
-                device ms beside its bound.
+                device ms beside its bound, and K2's, K4's and K5's.
 
 Each model's weights are freed before the next model loads its own.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
@@ -118,6 +120,9 @@ ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
 TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
              profiled_steps=2)
+# the bf16 attention kernels of the training path (K2, K4, K5), by name
+TRAIN_ATTENTION = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
+                   "flash_bwd_dkv_sm90")
 
 
 def emit(obj) -> None:
@@ -486,7 +491,8 @@ def check_sor_accumulate(dev, flush) -> dict:
 def check_flash_bwd(dev, flush) -> list[dict]:
     """K4 and K5 at the training path's shapes (MiniCPM-2B: 48/48 heads,
     head_dim 64, bf16, causal), with K2's o and lse, each against its
-    plain version; plus a ragged T and a window. The yardstick is the
+    plain version; plus a ragged T, a window and a ragged T at batch 2 (a
+    tile past T must not read the next batch row). The yardstick is the
     backward of one SDPA call (dq, dk, dv together)."""
     import torch
     import torch.nn.functional as F
@@ -495,16 +501,17 @@ def check_flash_bwd(dev, flush) -> list[dict]:
     B, Hq, Hkv, Dh = TRAIN["batch"], 48, 48, 64
     gen = torch.Generator(device=dev).manual_seed(13)
 
-    def inputs(T, hq, hkv):
+    def inputs(nb, T, hq, hkv):
         return tuple(torch.randn(shape, generator=gen, device=dev,
                                  dtype=torch.bfloat16)
-                     for shape in ((B, T, hq, Dh), (B, T, hkv, Dh),
-                                   (B, T, hkv, Dh), (B, T, hq, Dh)))
+                     for shape in ((nb, T, hq, Dh), (nb, T, hkv, Dh),
+                                   (nb, T, hkv, Dh), (nb, T, hq, Dh)))
 
     err = {"dq": 0.0, "dkv": 0.0}
-    for T, hq, hkv, window in ((TRAIN["seq"], Hq, Hkv, 0),
-                               (500, 12, 4, 0), (300, 8, 8, 96)):
-        q, k, v, do = inputs(T, hq, hkv)
+    for nb, T, hq, hkv, window in ((B, TRAIN["seq"], Hq, Hkv, 0),
+                                   (B, 500, 12, 4, 0), (B, 300, 8, 8, 96),
+                                   (2, 200, Hq, Hkv, 0)):
+        q, k, v, do = inputs(nb, T, hq, hkv)
         kw = dict(causal=True, group=hq // hkv, sliding_window=window)
         o, lse = fa.flash_attention(q, k, v, **kw)
         o_ref, _ = fa.flash_attention_plain(q, k, v, **kw)
@@ -518,7 +525,7 @@ def check_flash_bwd(dev, flush) -> list[dict]:
         torch.cuda.synchronize()
         d_o = (o.float() - o_ref.float()).abs().max().item()
         if not (math.isfinite(d_o) and d_o <= 2e-2):
-            raise AssertionError(f"flash_attention T={T} Dh={Dh}: "
+            raise AssertionError(f"flash_attention B={nb} T={T} Dh={Dh}: "
                                  f"max|o-o_ref|={d_o}")
         # bf16 outputs against the f32 plain version rounded to bf16: an
         # ulp is 2^-8 of a value, so 1e-2 of the largest magnitude
@@ -528,12 +535,12 @@ def check_flash_bwd(dev, flush) -> list[dict]:
             d = (a.float() - b.float()).abs().max().item()
             scale = b.float().abs().max().item()
             if not (math.isfinite(d) and d <= 1e-2 * max(scale, 1.0)):
-                raise AssertionError(f"flash backward {name} T={T} "
+                raise AssertionError(f"flash backward {name} B={nb} T={T} "
                                      f"window={window}: max diff {d}, "
                                      f"max |ref| {scale}")
             err[key] = max(err[key], d)
     T = TRAIN["seq"]
-    q, k, v, do = inputs(T, Hq, Hkv)
+    q, k, v, do = inputs(B, T, Hq, Hkv)
     kw = dict(causal=True, group=Hq // Hkv)
     o, lse = fa.flash_attention(q, k, v, **kw)
     delta = fa.bwd_delta(o, do)
@@ -561,8 +568,10 @@ def check_flash_bwd(dev, flush) -> list[dict]:
     dkv_bound = bound_ms(2 * qb + 4 * kb + stats, 8 * Dh * pairs,
                          "bfloat16")
     shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
-                 also=[[500, 12, 4, 0], [300, 8, 8, 96]])
-    src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+                 also_B_T_Hq_Hkv_window=[[B, 500, 12, 4, 0],
+                                         [B, 300, 8, 8, 96],
+                                         [2, 200, Hq, Hkv, 0]])
+    src = "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu"
     return [dict(name="flash_attention_bwd_dq", route="cuda", source=src,
                  replaces="src/repro/kernels/flash_attention.py:234",
                  max_abs_err=err["dq"], ms=dq_ms, plain_ms=dq_plain_ms,
@@ -1745,9 +1754,9 @@ def run_main_train(dev) -> dict:
     sor = summary["sor"]
     step_s = statistics.median(trainer.step_times)
     tokens = B * T
-    # K2's device time per step: its bf16 kernel (`flash_fwd_sm90<64>`)
+    # the device time per step of K2, K4 and K5 (their bf16 kernels)
     profile = train_breakdown(make, trainer.state, TRAIN["profiled_steps"],
-                              watch="flash_fwd_sm90")
+                              watch=TRAIN_ATTENTION)
     return dict(
         arch=cfg.name, n_layers=L, params=n_params, batch=B, seq=T,
         n_chips=TRAIN["chips"], dtype=cfg.dtype, remat="full",
@@ -1767,12 +1776,13 @@ def run_main_train(dev) -> dict:
         profile=profile)
 
 
-def train_breakdown(make, state, steps: int, watch: str | None = None
+def train_breakdown(make, state, steps: int, watch: tuple[str, ...] = ()
                     ) -> dict:
     """`steps` more train steps under torch.profiler: the device's busy
     time per step (sum of device-side events), its share of the host wall
-    time of the same steps, the kernels that fill it and, with `watch`, the
-    device ms per step of the kernels whose name holds it."""
+    time of the same steps, the kernels that fill it and, for each name in
+    `watch`, the device ms and calls per step of the kernels whose name
+    holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1799,12 +1809,11 @@ def train_breakdown(make, state, steps: int, watch: str | None = None
                top_kernels=[dict(name=name[:90], calls_per_step=c / steps,
                                  ms_per_step=us / 1e3 / steps)
                             for name, (c, us) in top])
-    if watch:
-        out[f"{watch}_ms_per_step"] = sum(
-            us for name, (_, us) in kern.items() if watch in name) / 1e3 \
-            / steps
-        out[f"{watch}_calls_per_step"] = sum(
-            c for name, (c, _) in kern.items() if watch in name) / steps
+    for w in watch:
+        out[f"{w}_ms_per_step"] = sum(
+            us for name, (_, us) in kern.items() if w in name) / 1e3 / steps
+        out[f"{w}_calls_per_step"] = sum(
+            c for name, (c, _) in kern.items() if w in name) / steps
     return out
 
 
@@ -2083,7 +2092,8 @@ def run_main_train_ef(dev) -> dict:
     k10_bound = bound_ms(k10_bytes, sum(2 * 4 * n for n in sizes),
                          "float32")
     profile = train_breakdown(lambda st, n: make("ef_int8", st, n), state,
-                              TRAIN["profiled_steps"], watch="quantize_int8")
+                              TRAIN["profiled_steps"],
+                              watch=("quantize_int8", *TRAIN_ATTENTION))
     launches = {name: sum(c[name] for c in by_sync.values())
                 for name in ops.KERNELS}
     return dict(
@@ -2099,10 +2109,11 @@ def run_main_train_ef(dev) -> dict:
         launches=launches, profile=profile)
 
 
-def k2_hgmma(lib: Path) -> dict:
-    """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each bf16
-    instantiation of K2's kernel, read from the built library's SASS; raises
-    if an instantiation is missing or has none."""
+def sm90_hgmma(lib: Path) -> dict:
+    """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each
+    instantiation of the sm90 attention kernels (K2's forward, K4's dq,
+    K5's dk/dv, at head_dim 64 and 128), read from the built library's
+    SASS; raises if an instantiation is missing or has none."""
     import re
     import shutil
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2111,12 +2122,13 @@ def k2_hgmma(lib: Path) -> dict:
     counts = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
-        dh = re.search(r"flash_fwd_sm90ILi(\d+)E", name)
-        if dh:
-            counts[f"flash_fwd_sm90<{dh.group(1)}>"] = fn.count("HGMMA")
-    want = {f"flash_fwd_sm90<{dh}>" for dh in (64, 128)}
+        hit = re.search(rf"({'|'.join(TRAIN_ATTENTION)})ILi(\d+)E", name)
+        if hit:
+            counts[f"{hit.group(1)}<{hit.group(2)}>"] = fn.count("HGMMA")
+    want = {f"{kernel}<{dh}>" for kernel in TRAIN_ATTENTION
+            for dh in (64, 128)}
     if set(counts) != want or not all(counts.values()):
-        raise AssertionError(f"K2's bf16 kernels lack HGMMA: {counts}")
+        raise AssertionError(f"the sm90 kernels lack HGMMA: {counts}")
     return counts
 
 
@@ -2143,7 +2155,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib.relative_to(ROOT)), "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "k2_hgmma": k2_hgmma(lib)})
+          "sm90_hgmma": sm90_hgmma(lib)})
     _build.load()
     print(lib.with_name(lib.name + ".ptxas.txt").read_text(),
           file=sys.stderr)

@@ -3,8 +3,9 @@
 Every `csrc/*.cu` is compiled by its own `nvcc` process (all started
 together) for `sm_90a` into an object file, and the objects are linked into
 one shared library with a plain C interface. The library is named by a hash
-of the sources and flags, so an edited source rebuilds and an unchanged tree
-reuses what is already in `build/kernels/` at the repository root.
+of the sources, the headers they include (`csrc/*.cuh`) and the flags, so an
+edited source rebuilds and an unchanged tree reuses what is already in
+`build/kernels/` at the repository root.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port, and this machine-independent module only touches `nvcc` when a kernel
@@ -49,9 +50,10 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _tag(srcs: list[Path]) -> str:
+def _tag() -> str:
+    """A hash of the flags and of every source and header in `csrc/`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -70,7 +72,7 @@ def build() -> Path:
     returns the library path. The ptxas report (registers, shared memory,
     spills per kernel) is kept beside it as `<library>.ptxas.txt`."""
     srcs = sources()
-    lib = BUILD_DIR / f"libkernels_{_tag(srcs)}.so"
+    lib = BUILD_DIR / f"libkernels_{_tag()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,7 @@
-// K4, K5 — flash-attention backward for Hopper (sm_90a).
+// K4, K5 — the flash-attention backward on f32 FMAs, for the f32 path and
+// bf16 at head_dim 32; the entry points at the end of this file send bf16 at
+// head_dim 64 and 128 to the tensor-core kernels of
+// `flash_attention_bwd_sm90.cu`.
 //
 // Replaces the TPU kernels of src/repro/kernels/flash_attention.py::_bwd:
 //   K4 `_bwd_dq_kernel`:  dq = scale * sum_kv ds k
@@ -9,14 +12,20 @@
 // computed by the wrapper. Masks (causal, causal + sliding window, ragged T
 // and S tails) are exactly K2's, so any T and S are taken.
 //
-// What bounds them on this card: at the training path's shapes (B 4,
-// T = S 512, 48 q / 48 kv heads, head_dim 64, bf16, causal) K4 moves
-// ~63.7 MB (~19 us at 3.35 TB/s) and does ~9.7 GFLOP (~10 us at the
-// 989 TFLOP/s bf16 tensor-core rate); K5 moves ~76.3 MB (~23 us) and does
-// ~12.9 GFLOP (~13 us). Both are bound by memory at that rate. These first
-// kernels compute their products with f32 FMAs on shared-memory tiles, not
-// tensor cores, so in practice they are bound by FMA and shared-memory
-// issue; wgmma/TMA tiles are later work.
+// Which path reaches which kernel:
+//   bf16, head_dim 64 and 128 (every full-width path: the MiniCPM-2B train
+//     step, head_dim 64) -> `flash_attention_bwd_sm90.cu`, `wgmma` fed by
+//     TMA, p and ds rounded to bf16 before their products;
+//   f32 (the tiny configs and the f32 callers), and bf16 at head_dim 32 ->
+//     the FMA kernels below. TF32 tensor cores would lose the f32 callers'
+//     digits, and head_dim 32 is below the tensor-core tiles' 64-column
+//     rows.
+//
+// What bounds the FMA kernels: memory would (at B 4, T 512, 48/48 heads x
+// 64, K4 moves ~63.7 MB, ~19 us at 3.35 TB/s), but they compute every
+// product with f32 FMAs on shared-memory tiles (67 TFLOP/s at most, not
+// the tensor cores' 989), so in practice f32 FMA and shared-memory
+// instruction throughput bound them: the paths that reach them are small.
 //
 // Design. The Pallas kernels walk a sequential grid axis and carry their
 // sums in VMEM scratch; on Hopper blocks run in parallel, so each block
@@ -34,8 +43,9 @@
 //       in registers: 2 x 8 x head_dim/32 floats per thread, 64 at head_dim
 //       128, which keeps the two [32, 128] f32 accumulators (32 KB) in the
 //       register file instead of shared memory.
-// Inputs are f32 or bf16, head_dim 32, 64 or 128, layout [B, T, H, Dh] for
-// q, do, dq and [B, S, Hkv, Dh] for k, v, dk, dv; lse and delta [B, Hq, T].
+// Inputs are f32 at head_dim 32, 64 or 128 or bf16 at head_dim 32, layout
+// [B, T, H, Dh] for q, do, dq and [B, S, Hkv, Dh] for k, v, dk, dv; lse and
+// delta [B, Hq, T].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -392,47 +402,60 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dq_dh(int head_dim, const void* q, const void* k, const void* v,
-          const void* dout, const void* lse, const void* delta, void* dq,
-          int B, int Tq, int S, int Hq, int Hkv, int group, int causal,
-          int window, float scale, cudaStream_t st) {
+int dq_f32(int head_dim, const void* q, const void* k, const void* v,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           int B, int Tq, int S, int Hq, int Hkv, int group, int causal,
+           int window, float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, B, Tq, S, Hq,
-                              Hkv, group, causal, window, scale, st);
+      return launch_dq<float, 32>(q, k, v, dout, lse, delta, dq, B, Tq, S,
+                                  Hq, Hkv, group, causal, window, scale, st);
     case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, B, Tq, S, Hq,
-                              Hkv, group, causal, window, scale, st);
+      return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, Tq, S,
+                                  Hq, Hkv, group, causal, window, scale, st);
     case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, B, Tq, S, Hq,
-                               Hkv, group, causal, window, scale, st);
+      return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, Tq, S,
+                                   Hq, Hkv, group, causal, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int dkv_dh(int head_dim, const void* q, const void* k, const void* v,
-           const void* dout, const void* lse, const void* delta, void* dk,
-           void* dv, int B, int Tq, int S, int Hq, int Hkv, int group,
-           int causal, int window, float scale, cudaStream_t st) {
+int dkv_f32(int head_dim, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int B, int Tq, int S, int Hq, int Hkv, int group,
+            int causal, int window, float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
-      return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, Tq, S,
-                               Hq, Hkv, group, causal, window, scale, st);
+      return launch_dkv<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, Tq,
+                                   S, Hq, Hkv, group, causal, window, scale,
+                                   st);
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, Tq, S,
-                               Hq, Hkv, group, causal, window, scale, st);
+      return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, Tq,
+                                   S, Hq, Hkv, group, causal, window, scale,
+                                   st);
     case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, Tq, S,
-                                Hq, Hkv, group, causal, window, scale, st);
+      return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, Tq,
+                                    S, Hq, Hkv, group, causal, window, scale,
+                                    st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+extern "C" int flash_attention_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int Tq, int S,
+    int Hq, int Hkv, int group, int head_dim, int causal, int window,
+    float scale, void* stream);
+
+extern "C" int flash_attention_bwd_dkv_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int Tq,
+    int S, int Hq, int Hkv, int group, int head_dim, int causal, int window,
+    float scale, void* stream);
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
@@ -443,12 +466,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       float scale, void* stream) {
   if ((long long)B * Hq * Tq == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+    return flash_attention_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Tq,
+                                       S, Hq, Hkv, group, head_dim, causal,
+                                       window, scale, stream);
   if (is_bf16)
-    return dq_dh<__nv_bfloat16>(head_dim, q, k, v, dout, lse, delta, dq, B,
-                                Tq, S, Hq, Hkv, group, causal, window, scale,
-                                st);
-  return dq_dh<float>(head_dim, q, k, v, dout, lse, delta, dq, B, Tq, S, Hq,
-                      Hkv, group, causal, window, scale, st);
+    return launch_dq<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, B, Tq,
+                                        S, Hq, Hkv, group, causal, window,
+                                        scale, st);
+  return dq_f32(head_dim, q, k, v, dout, lse, delta, dq, B, Tq, S, Hq, Hkv,
+                group, causal, window, scale, st);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -460,10 +487,14 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int window, float scale, void* stream) {
   if ((long long)B * Hkv * S == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+    return flash_attention_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B,
+                                        Tq, S, Hq, Hkv, group, head_dim,
+                                        causal, window, scale, stream);
   if (is_bf16)
-    return dkv_dh<__nv_bfloat16>(head_dim, q, k, v, dout, lse, delta, dk, dv,
-                                 B, Tq, S, Hq, Hkv, group, causal, window,
-                                 scale, st);
-  return dkv_dh<float>(head_dim, q, k, v, dout, lse, delta, dk, dv, B, Tq, S,
-                       Hq, Hkv, group, causal, window, scale, st);
+    return launch_dkv<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dk, dv,
+                                         B, Tq, S, Hq, Hkv, group, causal,
+                                         window, scale, st);
+  return dkv_f32(head_dim, q, k, v, dout, lse, delta, dk, dv, B, Tq, S, Hq,
+                 Hkv, group, causal, window, scale, st);
 }

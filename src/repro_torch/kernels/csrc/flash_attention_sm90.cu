@@ -60,8 +60,9 @@
 // 1. The TMA descriptor. `cuTensorMapEncodeTiled` is a driver-API function
 //    and the library links no libcuda: it is fetched once through
 //    `cudaGetDriverEntryPoint[ByVersion]` as `PFN_cuTensorMapEncodeTiled`
-//    (<cudaTypedefs.h>), and each call encodes three maps on the host
-//    (q, k, v), passed as `const __grid_constant__ CUtensorMap` parameters.
+//    (<cudaTypedefs.h>, `sm90.cuh`, which K4/K5's tensor-core kernels share),
+//    and each call encodes three maps on the host (q, k, v), passed as
+//    `const __grid_constant__ CUtensorMap` parameters.
 // 2. Ragged S with batch > 1. The maps are 4-D, (Dh, H, L, B) with a box of
 //    (64, 1, rows, 1): a tile that runs past T or S is zero-filled by TMA
 //    and never reads the next batch row's tokens; keys >= S are masked
@@ -81,170 +82,21 @@
 //    that never completes traps (see `mbar_wait`) instead of holding the
 //    card.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int BQ = 64;         // q rows per CTA: one warpgroup's wgmma M
 constexpr int STAGES = 2;      // the K/V ring
 constexpr int THREADS = 128;   // one warpgroup
-constexpr int HALF = 64;       // bf16 columns of one 128-byte swizzled row
-constexpr int BOX = 64 * 128;  // bytes of the q tile's 64-row TMA box
+constexpr int BOX = BQ * ROW_BYTES;  // bytes of the q tile's TMA box
 
 // keys per K/V tile: 32 at head_dim 128 keeps the ring small enough for
 // four CTAs per SM; 64 at head_dim 64 (32 measured slower there)
 __host__ __device__ constexpr int kv_tile(int dh) {
   return dh == 128 ? 32 : 64;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// a barrier that never completes (a load that faulted) traps after ~2^34
-// cycles (~9 s) instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one (64 columns, 1 head, 64 rows, 1 batch) box of a 4-D map into `dst`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
-      "r"(row), "r"(batch)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads across the async wgmma
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define WG_D8(i)                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_R32                                                    \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "  \
-  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "  \
-  "%26, %27, %28, %29, %30, %31"
-#define WG_R64_TAIL                                                    \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "  \
-  "%57, %58, %59, %60, %61, %62, %63"
-
-// S[64 x 32] (+)= Q[64 x 16] K[32 x 16]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[16], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// S[64 x 64] (+)= Q[64 x 16] K[64 x 16]^T, both K-major in shared memory
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O[64 x 64] += P[64 x 16] V[16 x 64]: P in registers, V MN-major
-__device__ __forceinline__ void wgmma_pv(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_R32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O[64 x 128] += P[64 x 16] V[16 x 128]: P in registers, V MN-major
-__device__ __forceinline__ void wgmma_pv(float (&d)[64],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R32
-      WG_R64_TAIL "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
-        WG_D8(48), WG_D8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef WG_D8
-#undef WG_R32
-#undef WG_R64_TAIL
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit; -inf gives 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -268,7 +120,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   constexpr int BK = kv_tile(DH);
   constexpr int NCH = DH / HALF;       // 128-byte column halves
   constexpr int QBYTES = NCH * BOX;    // the q tile
-  constexpr int KBOX = BK * 128;       // one column half of a K or V tile
+  constexpr int KBOX = BK * ROW_BYTES; // one column half of a K or V tile
   constexpr int KVBYTES = NCH * KBOX;  // one K or V tile
   constexpr int NO = DH / 2;           // O fragment floats a thread
   extern __shared__ uint8_t smem_raw[];
@@ -315,7 +167,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   if (tid == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) mbar_init(bar_kv(s), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0) {
@@ -330,7 +182,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   const int row0 = q0 + warp * 16 + (lane >> 2);  // this thread's two rows:
   const int row1 = row0 + 8;                      // row0 and row0 + 8
   const int cq = (lane & 3) * 2;   // first of its two columns in each 8
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
 
   float acc[NO];
 #pragma unroll
@@ -351,11 +203,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      const uint32_t step = (kk % 4) * 32;   // 16 columns into a half
-      wgmma_qk(sc, sdesc(qs + (kk / 4) * BOX + step, 16, 1024),
-               sdesc(ks + (kk / 4) * KBOX + step, 16, 1024), kk > 0);
-    }
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(sc, kmajor(qs, BOX, kk), kmajor(ks, KBOX, kk), kk > 0);
     wg_commit();
     wg_wait_all();
     reg_fence(sc);
@@ -372,12 +221,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         for (int e = 0; e < 4; ++e) {
           const int key = key0 + n * 8 + cq + (e & 1);
           const int row = (e & 2) ? row1 : row0;
-          bool ok = key < S;
-          if (causal) {
-            ok = ok && key <= row;
-            if (window > 0) ok = ok && key > row - window;
-          }
-          if (!ok) sc[n * 4 + e] = -INFINITY;
+          if (!visible(key, row, S, causal, window))
+            sc[n * 4 + e] = -INFINITY;
         }
     }
 
@@ -425,7 +270,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_pv(acc, pa[kk], sdesc(vs + kk * 16 * 128, KBOX, 1024));
+      wgmma_rs(acc, pa[kk], mnmajor(vs, KBOX, kk));
     wg_commit();
     wg_wait_all();
     reg_fence(acc);
@@ -457,41 +302,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// [B, L, H, Dh] bf16 as the 4-D map (Dh, H, L, B), a (64, 1, rows, 1) box,
-// 128-byte swizzle, zero fill past every edge
-bool encode_map(PFN_cuTensorMapEncodeTiled_v12000 encode, CUtensorMap* map,
-                const void* ptr, int B, int L, int H, int DH, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)H, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)DH * 2;
-  const cuuint64_t strides[3] = {row, row * H, row * H * L};
-  const cuuint32_t box[4] = {HALF, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int Tq, int S, int Hq, int Hkv, int group, int causal,
@@ -505,7 +315,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
                  !encode_map(encode, &vmap, v, B, S, Hkv, DH, kv_tile(DH)))))
     return (int)cudaErrorInvalidValue;
   constexpr int smem =
-      (DH / HALF) * (BOX + 2 * STAGES * kv_tile(DH) * 128) + 1024;
+      (DH / HALF) * (BOX + 2 * STAGES * kv_tile(DH) * ROW_BYTES) + 1024;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_sm90<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

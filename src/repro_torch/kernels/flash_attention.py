@@ -1,27 +1,31 @@
 """Flash attention, forward (K2) and backward (K4 dq, K5 dk/dv): wrappers
 around the CUDA kernels `csrc/flash_attention_sm90.cu` and
-`csrc/flash_attention.cu` (K2) and `csrc/flash_attention_bwd.cu` (K4, K5),
-beside their plain PyTorch versions, and the `torch.autograd.Function` that
-joins them.
+`csrc/flash_attention.cu` (K2), `csrc/flash_attention_bwd_sm90.cu` and
+`csrc/flash_attention_bwd.cu` (K4, K5), beside their plain PyTorch
+versions, and the `torch.autograd.Function` that joins them.
 
 Replaces the TPU kernels of `repro/kernels/flash_attention.py`: `_fwd`
 (`_fwd_kernel`) and `_bwd` (`_bwd_dq_kernel`, `_bwd_dkv_kernel`). At the
 serve path's prefill and the training path's shapes the least time of each
-is set by memory. K2 has two kernels behind one entry point: bf16 at
-head_dim 64 and 128 (every full-width path) runs on the tensor cores, one
-warpgroup per (batch, q head, 64-row q tile) computing Q K^T and P V with
-`wgmma` on K/V tiles (32 keys at head_dim 128, 64 at 64) that TMA loads
-into a two-stage ring, p rounded to bf16 before P V; f32, and bf16 at
-head_dim 32, run the FMA kernel, one block per 64-row q tile walking
-32-key tiles (TF32 would lose the f32 callers' digits). The backward
-recomputes p from the saved lse on f32 FMAs:
-K4 keeps a dq tile in registers while it walks the kv tiles, K5 keeps a
-32-key dk/dv tile in registers while it walks the group x q tiles; see the
-sources' header notes.
+is set by memory. Each entry point has two kernels behind it:
+
+- bf16 at head_dim 64 and 128 (every full-width path) runs on the tensor
+  cores: one warpgroup per 64-row output tile, operand tiles loaded by TMA
+  into a two-stage ring, every product on `wgmma`. K2 walks K/V tiles for
+  a q tile (Q K^T, P V; p rounded to bf16 before P V). K4 walks K/V tiles
+  for a q tile (Q K^T, dO V^T, dS K); K5 walks the group members x q tiles
+  for a 64-key tile (K Q^T, V dO^T, p^T dO, dS^T Q), each owning its output
+  tile (no atomics, the same bits every run); p and dS are rounded to bf16
+  before their products.
+- f32, and bf16 at head_dim 32, run FMA kernels on shared-memory tiles
+  (TF32 would lose the f32 callers' digits; these are the tiny configs).
+
+See the sources' header notes for what bounds each and why.
 
 Layout is the reference's `[B, T, H, Dh]` throughout. Unlike the Pallas
 kernels, T and S need not tile: the ragged tails are masked in the kernels.
-K2 takes 16-byte-aligned q, k and v (TMA's rule) and raises otherwise.
+The kernels take 16-byte-aligned q, k, v (and do for the backward), TMA's
+rule, and raise otherwise.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises."""
@@ -150,6 +154,13 @@ def _stats_ok(name: str, q, *stats):
                              f"[{B}, {Hq}, {T}] on {q.device}")
 
 
+def _aligned(name: str, **tensors):
+    """TMA's rule: every tensor it loads starts on 16 bytes."""
+    if any(a.data_ptr() % 16 for a in tensors.values()):
+        raise ValueError(f"{name} takes 16-byte-aligned "
+                         f"{', '.join(tensors)} (the TMA loads' rule)")
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -163,9 +174,7 @@ def flash_attention(q, k, v, *, causal: bool = True, group: int = 1,
                                      sliding_window=sliding_window)
     _check("flash_attention", q, k, v, (), causal=causal, group=group,
            sliding_window=sliding_window)
-    if any(a.data_ptr() % 16 for a in (q, k, v)):
-        raise ValueError("flash_attention takes 16-byte-aligned q, k, v "
-                         "(the TMA loads' rule)")
+    _aligned("flash_attention", q=q, k=k, v=v)
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -190,6 +199,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     _check("flash_attention_bwd_dq", q, k, v, (do,), causal=causal,
            group=group, sliding_window=sliding_window)
     _stats_ok("flash_attention_bwd_dq", q, lse, delta)
+    _aligned("flash_attention_bwd_dq", q=q, k=k, v=v, do=do)
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -212,6 +222,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     _check("flash_attention_bwd_dkv", q, k, v, (do,), causal=causal,
            group=group, sliding_window=sliding_window)
     _stats_ok("flash_attention_bwd_dkv", q, lse, delta)
+    _aligned("flash_attention_bwd_dkv", q=q, k=k, v=v, do=do)
     B, T, Hq, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)

@@ -7,7 +7,8 @@ tests/test_kernels.py runs it: the flash forward and backward (against
 the SOR fit, the SOR accumulation (K7's plain version) and the fleet
 reduction (NaN lane included). The bf16 K2's one deliberate numeric change
 (p rounded to bf16 before P V) is bounded against `ref.mha_reference` at
-the full-width paths' head shapes. The CUDA kernels
+the full-width paths' head shapes, and the bf16 K4/K5's (p and dS rounded
+to bf16 before their products) against its `jax.vjp`. The CUDA kernels
 against their plain versions are in tests/test_torch_kernels_cuda.py."""
 
 import jax
@@ -121,6 +122,63 @@ def test_flash_bf16_p_within_card_tolerance(T, Hq, Hkv, Dh, window):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), rtol=0,
                                atol=2e-2)
+
+
+def _bf16_pds_backward(q, k, v, do, *, group: int, window: int):
+    """The bf16 K4/K5's arithmetic (`csrc/flash_attention_bwd_sm90.cu`) in
+    plain torch: o as the bf16 K2 gives it, delta = rowsum(o * do) in f32,
+    f32 scores from the bf16 q and k, p from the f32 lse, dP from do and v
+    in f32, and p and dS rounded to bf16 before dV = p^T do, dK = scale dS^T
+    q and dQ = scale dS k (f32 sums, the wgmma accumulators), each cast to
+    bf16."""
+    B, T, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(Dh)
+    o = _bf16_p_attention(q, k, v, group=group, window=window)
+    s = tref.masked_scores(q, k, causal=True, group=group,
+                           sliding_window=window)            # [B,Hq,T,S]
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    kf, vf = (a.float().repeat_interleave(group, dim=2) for a in (k, v))
+    dof = do.float()
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = (p * (dp - tfa.bwd_delta(o, do)[..., None])).bfloat16().float()
+    p = p.bfloat16().float()
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.float()) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    return (dq.bfloat16(),
+            *(a.reshape(B, S, Hkv, group, Dh).sum(3).bfloat16()
+              for a in (dk, dv)))
+
+
+@pytest.mark.parametrize("T,Hq,Hkv,Dh,window", [
+    (256, 48, 48, 64, 0),      # MiniCPM-2B's heads
+    (512, 48, 48, 64, 0),
+    (256, 12, 4, 64, 0),       # group 3
+    (300, 8, 8, 64, 100),      # a window, T past it
+    (200, 32, 32, 64, 0),      # ragged T
+    (256, 48, 16, 128, 0),     # Qwen2.5-14B's heads, head_dim 128
+])
+def test_flash_bwd_bf16_pds_within_card_tolerance(T, Hq, Hkv, Dh, window):
+    """The bf16 K4/K5 round p and dS to bf16 before their products; the
+    card holds their grads to the f32 plain version within 1e-2 of the
+    largest |grad| (`BWD_TOL[bf16]` of the card tests). That rounding, on
+    bf16 inputs, stays within the same 1e-2 of `jax.vjp` of the
+    reference's `mha_reference`."""
+    q, k, v = qkv(1, T, T, Hq, Hkv, Dh, seed=T + Dh)
+    do = np.random.default_rng(T).standard_normal(q.shape).astype(np.float32)
+    group = Hq // Hkv
+    got = _bf16_pds_backward(*(torch.from_numpy(a).bfloat16()
+                               for a in (q, k, v, do)),
+                             group=group, window=window)
+    kw = dict(causal=True, group=group, sliding_window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jref.mha_reference(a, b, c, **kw),
+                     *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do, jnp.bfloat16))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b, np.float32)
+        err = np.abs(a.float().numpy() - b).max()
+        assert err <= 1e-2 * np.abs(b).max(), (name, err, np.abs(b).max())
 
 
 @pytest.mark.parametrize("S,Hq,Hkv,lengths", [

@@ -244,6 +244,115 @@ def test_flash_function_grads_match_plain_backward(cuda):
     bwd_close(got, want, BWD_TOL[torch.float32])
 
 
+def bwd_inputs(cuda, B, T, Hq, Hkv, Dh, dtype=torch.bfloat16, window=0):
+    """Seeded q, k, v, do and K2's o and lse for the backward kernels."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(B, T, T, Hq, Hkv, Dh, seed=T + Dh))
+    do = torch.from_numpy(qkv(B, T, T, Hq, Hkv, Dh, seed=T + 1)[0]).to(
+        cuda, dtype)
+    kw = dict(causal=True, group=Hq // Hkv, sliding_window=window)
+    o, lse = tfa.flash_attention(q, k, v, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+# the tensor-core K4/K5 (bf16, head_dim 64 and 128) at their edges
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Hq,Hkv,Dh,window", [
+    (2, 200, 32, 32, 64, 0),    # ragged T at batch 2: a tile past T must
+    (2, 200, 48, 16, 128, 0),   # not read the next batch row (Dh 64, 128)
+    (2, 300, 8, 8, 64, 100),    # T past the window: window-edge tiles
+    (2, 333, 4, 2, 128, 70),    # window, ragged, group 2, Dh 128
+    (1, 160, 4, 4, 64, 7),      # a window inside one tile
+    (2, 256, 12, 4, 64, 0),     # group 3 at head_dim 64
+    (2, 190, 12, 4, 64, 50),    # group 3, window, ragged
+    (1, 40, 6, 2, 64, 0),       # one q tile and one key tile, both ragged
+])
+def test_flash_bwd_sm90_edges_match_plain(cuda, B, T, Hq, Hkv, Dh, window):
+    args, kw = bwd_inputs(cuda, B, T, Hq, Hkv, Dh, window=window)
+    got = tfa.flash_attention_bwd(*args, **kw)
+    want = tfa.flash_attention_bwd_plain(*args, **kw)
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    bwd_close(got, want, BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_bwd_sm90_is_bit_identical_over_launches(cuda, Dh):
+    """Each CTA owns its output tile (no atomics): two launches on the same
+    inputs give the same bits."""
+    args, kw = bwd_inputs(cuda, 2, 300, 12, 4, Dh, window=0)
+    first = tfa.flash_attention_bwd(*args, **kw)
+    second = tfa.flash_attention_bwd(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh", [(torch.float32, 64),
+                                      (torch.bfloat16, 32),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_bwd_counts_one_launch_per_call(cuda, dtype, Dh):
+    """The FMA kernels (f32, bf16 at head_dim 32) and the tensor-core
+    kernels (bf16 at 64 and 128) each count one launch per call."""
+    (q, k, v, o, lse, do), kw = bwd_inputs(cuda, 1, 70, 4, 2, Dh,
+                                           dtype=dtype)
+    delta = tfa.bwd_delta(o, do)
+    dq0 = tfa.flash_attention_bwd_dq.launches
+    dkv0 = tfa.flash_attention_bwd_dkv.launches
+    tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    assert tfa.flash_attention_bwd_dq.launches == dq0 + 1
+    assert tfa.flash_attention_bwd_dkv.launches == dkv0
+    tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert tfa.flash_attention_bwd_dq.launches == dq0 + 1
+    assert tfa.flash_attention_bwd_dkv.launches == dkv0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "do"])
+def test_flash_bwd_refuses_unaligned_inputs(cuda, which):
+    """TMA needs 16-byte-aligned bases: a q or do that is a contiguous view
+    2 bytes into a buffer raises in K4 and K5 before any launch."""
+    (q, k, v, o, lse, do), kw = bwd_inputs(cuda, 1, 64, 2, 2, 64)
+    delta = tfa.bwd_delta(o, do)
+    buf = torch.zeros(q.numel() + 8, dtype=q.dtype, device=cuda)
+    bad = buf.as_strided(q.shape, q.stride(), storage_offset=1)
+    bad.copy_(q if which == "q" else do)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    args = dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    args[which] = bad
+    for fn in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        before = fn.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(**args, **kw)
+        assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_bwd_without_queries(cuda, dtype, Dh):
+    """T == 0: dq is empty and K5 writes dk = dv = 0 for every key (no q
+    tile to load), as the plain version; T == S == 0 returns empty grads."""
+    q = torch.ones((2, 0, 4, Dh), dtype=dtype, device=cuda)
+    k = torch.ones((2, 5, 2, Dh), dtype=dtype, device=cuda)
+    stat = torch.zeros((2, 4, 0), device=cuda)
+    kw = dict(causal=False, group=2)
+    dq = tfa.flash_attention_bwd_dq(q, k, k, q, stat, stat, **kw)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, k, q, stat, stat, **kw)
+    dk_ref, dv_ref = tfa.flash_attention_bwd_dkv_plain(q, k, k, q, stat,
+                                                        stat, **kw)
+    assert dq.shape == q.shape
+    assert torch.equal(dk, dk_ref) and (dk == 0).all()
+    assert torch.equal(dv, dv_ref) and (dv == 0).all()
+    empty = torch.ones((1, 0, 2, Dh), dtype=dtype, device=cuda)
+    o, lse = tfa.flash_attention(empty, empty, empty, causal=True)
+    got = tfa.flash_attention_bwd(empty, empty, empty, o, lse, empty,
+                                  causal=True)
+    assert all(g.shape == empty.shape for g in got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_chips", [64, 67, 1000])
 def test_fleet_reduce_kernel_matches_plain(cuda, n_chips):
