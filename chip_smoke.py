@@ -22,7 +22,10 @@ script exits nonzero:
                 beside its bound, the plain version and one PyTorch call as
                 a yardstick where one exists; K7 followed by the plain
                 solve also against K1; K2 also at Zamba2's heads with a
-                4608-token prompt past its 4096 window;
+                4608-token prompt past its 4096 window; K3 also at the
+                serve paths' uniform lengths of the first and the last
+                decode step and at Zamba2's full 4096-key window, with its
+                wrapper's host us a call;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -123,6 +126,8 @@ TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
 # the bf16 attention kernels of the training path (K2, K4, K5), by name
 TRAIN_ATTENTION = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                    "flash_bwd_dkv_sm90")
+# K3's kernel, by name, in the decode-step profiles
+DECODE_ATTENTION = "decode_split_kernel"
 
 
 def emit(obj) -> None:
@@ -304,53 +309,108 @@ def check_flash(dev, flush) -> dict:
                 max_abs_err=err, **top, checked=checked, paths=paths)
 
 
-def check_decode(dev, flush) -> dict:
-    """K3 at each serve path's decode step (its KV-cache length, lengths 1
-    to full) against its plain version, timed beside its bound, the plain
-    version and one masked SDPA call. The row's top-level times are the
-    Qwen2.5 path's; `paths` holds each path's."""
+def decode_case(da, q, k, v, lengths, group: int, flush) -> dict:
+    """One K3 case: checked against the plain version (bf16 within 2e-2),
+    timed beside its bound, the plain version and one masked SDPA call."""
     import torch
     import torch.nn.functional as F
+    o = da.decode_attention(q, k, v, lengths, group=group)
+    o_ref = da.decode_attention_plain(q, k, v, lengths, group=group)
+    torch.cuda.synchronize()
+    d = (o.float() - o_ref.float()).abs().max().item()
+    B, _, Hq, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    shape = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
+                 lengths=lengths.tolist())
+    if not (math.isfinite(d) and d <= 2e-2):
+        raise AssertionError(f"decode_attention {shape}: max|o-o_ref|={d}")
+    ms = time_ms(lambda: da.decode_attention(q, k, v, lengths, group=group),
+                 100, flush)
+    plain_ms = time_ms(lambda: da.decode_attention_plain(
+        q, k, v, lengths, group=group), 20, flush)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 100, flush)
+    n_valid = int(lengths.sum().item())
+    n_bytes = 2 * (2 * q.numel() + 2 * n_valid * Hkv * Dh) + 4 * B
+    b_ms, b_by = bound_ms(n_bytes, 4 * Dh * Hq * n_valid, "bfloat16")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=d, shape=shape)
+
+
+def host_us(fn, calls: int = 100, reps: int = 5) -> float:
+    """Host microseconds a call: `perf_counter` around `calls` enqueued
+    calls, no sync between them (the device keeps up); the least of `reps`
+    such runs, since the host is shared and its noise only adds time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return min(runs)
+
+
+def check_decode(dev, flush) -> dict:
+    """K3 at each serve path's decode step, its KV-cache length S: lengths
+    1 to full (`ragged`), then the uniform lengths the path runs, every row
+    at prompt + 1 (`first`, the first decode step) and at prompt + new - 1
+    (`last`); then Zamba2's heads at its 4096-key window, full. Each case
+    against the plain version, timed beside its bound, the plain version and
+    one masked SDPA call (`decode_case`); each path's wrapper host us a call
+    at its ragged case (`host_us`). The row's top-level times are the
+    Qwen2.5 path's ragged case; `paths` holds each path's cases."""
+    import torch
 
     from repro_torch.kernels import decode_attention as da
     gen = torch.Generator(device=dev).manual_seed(12)
     err, checked, paths = 0.0, [], {}
-    for path, (B, Hq, Hkv, Dh, _, Tp, S) in attn_paths().items():
+    specs = {"serve-qwen": MAIN, "serve-zamba": ZAMBA}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for path, (B, Hq, Hkv, Dh, window, Tp, S) in attn_paths().items():
         group = Hq // Hkv
         q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev,
                         dtype=torch.bfloat16)
         k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
                             dtype=torch.bfloat16) for _ in range(2))
+        new = specs[path]["new"]
+        cases = {}
+        for case, lens in (("ragged", [1, S // 3, Tp + 1, S]),
+                           ("first", [Tp + 1] * B),
+                           ("last", [Tp + new - 1] * B)):
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            cases[case] = decode_case(da, q, k, v, lengths, group, flush)
+            err = max(err, cases[case]["max_abs_err"])
+            checked.append(dict(path=path, case=case,
+                                **cases[case]["shape"]))
         lengths = torch.tensor([1, S // 3, Tp + 1, S], dtype=torch.int32,
                                device=dev)
-        o = da.decode_attention(q, k, v, lengths, group=group)
-        o_ref = da.decode_attention_plain(q, k, v, lengths, group=group)
-        torch.cuda.synchronize()
-        d = (o.float() - o_ref.float()).abs().max().item()
-        if not (math.isfinite(d) and d <= 2e-2):
-            raise AssertionError(f"decode_attention {path}: "
-                                 f"max|o-o_ref|={d}")
-        err = max(err, d)
-        shape = dict(B=B, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
-                     lengths=lengths.tolist())
-        checked.append(dict(path=path, **shape))
-        ms = time_ms(lambda: da.decode_attention(q, k, v, lengths,
-                                                 group=group), 100, flush)
-        plain_ms = time_ms(lambda: da.decode_attention_plain(
-            q, k, v, lengths, group=group), 20, flush)
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), 100, flush)
-        n_valid = int(lengths.sum().item())
-        n_bytes = 2 * (2 * q.numel() + 2 * n_valid * Hkv * Dh) + 4 * B
-        b_ms, b_by = bound_ms(n_bytes, 4 * Dh * Hq * n_valid, "bfloat16")
-        paths[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms, shape=shape)
-    top = dict(paths["serve-qwen"])
+        cases["host_us"] = host_us(
+            lambda: da.decode_attention(q, k, v, lengths, group=group))
+        cases["split_keys"], cases["n_split"] = da.split_plan(B, S, Hkv,
+                                                               n_sm)
+        paths[path] = dict(cases.pop("ragged"), **cases)
+        if window:      # the rolling cache at its full window
+            kw = dict(generator=gen, device=dev, dtype=torch.bfloat16)
+            k, v = (torch.randn((B, window, Hkv, Dh), **kw)
+                    for _ in range(2))
+            lengths = torch.full((B,), window, dtype=torch.int32, device=dev)
+            row = decode_case(da, q, k, v, lengths, group, flush)
+            err = max(err, row["max_abs_err"])
+            checked.append(dict(path=path, case="window", **row["shape"]))
+            paths[path]["window"] = row
+        del q, k, v
+    top = {key: paths["serve-qwen"][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
+        "shape")}
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:60",
@@ -1414,8 +1474,9 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
     token), per decode step. On the host clock (synchronized, best of two)
     with the control round and without it, so their difference is the
     control round's cost; then under torch.profiler for the device's busy
-    share and the kernels that fill it. `engine(control)` makes a fresh
-    engine of the main path, with or without its controller."""
+    share, the kernels that fill it and K3's part (its device ms and calls
+    a step). `engine(control)` makes a fresh engine of the main path, with
+    or without its controller."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1469,7 +1530,13 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
         device_busy_share=busy_ms / profiled_step_ms,
         top_kernels=[dict(name=name[:90], calls_per_step=calls / steps,
                           ms_per_step=us / 1e3 / steps)
-                     for name, (calls, us) in top])
+                     for name, (calls, us) in top],
+        decode_attention_ms_per_step=sum(
+            us for name, (_, us) in per_kernel.items()
+            if DECODE_ATTENTION in name) / 1e3 / steps,
+        decode_attention_calls_per_step=sum(
+            calls for name, (calls, _) in per_kernel.items()
+            if DECODE_ATTENTION in name) / steps)
 
 
 # ---------------------------------------------------------------------------

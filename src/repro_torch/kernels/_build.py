@@ -34,7 +34,7 @@ SIGNATURES = {
     "sor_fit_launch": [_P] * 11 + [_I, _I, _F, _F, _F, _P],
     "sor_accumulate_launch": [_P] * 8 + [_I, _I, _P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
-    "decode_attention_fwd": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "decode_attention_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 10 + [_F, _P],
     "fleet_reduce_launch": [_P] * 4 + [_I, _I, _P],

@@ -205,6 +205,100 @@ def test_decode_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATT_TOL)
 
 
+def _split_merge_decode(q, k, v, lengths, *, group, split_keys, n_split):
+    """K3's arithmetic in f32 numpy, as `csrc/decode_attention.cu` does it:
+    per (row, kv head, split) and per warp (a quarter of each tile's rows)
+    an online softmax in the log2 domain with one max and one rescale a
+    tile; the four warps merged, then the splits in split order. A split
+    or warp with no valid key stays at m = -inf, l = 0."""
+    B, _, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    tile = min(64, max(16, 8192 // (4 * Dh)))   # the f32 kernel's tile
+    neg = np.float32(-np.inf)
+
+    def merge(parts):   # [(m, l, acc)] in order -> (M, L, A)
+        M = max((m for m, _, _ in parts), default=neg)
+        L, A = np.float32(0), np.zeros(Dh, np.float32)
+        for m, l, acc in parts:
+            c = np.float32(0) if m == neg else np.exp2(m - M)
+            L, A = L + l * c, A + acc * c
+        return M, L, A
+
+    o = np.zeros_like(q)
+    scale = np.float32(1 / np.sqrt(Dh) * np.log2(np.e))
+    for b in range(B):
+        n = int(np.clip(lengths[b], 0, k.shape[1]))
+        for h in range(Hq):
+            qs = q[b, 0, h] * scale
+            kh, vh = k[b, :, h // group], v[b, :, h // group]
+            splits = []
+            for sp in range(n_split):
+                start = sp * split_keys
+                end = min(start + split_keys, n)
+                warps = [[neg, np.float32(0), np.zeros(Dh, np.float32)]
+                         for _ in range(4)]
+                for key0 in range(start, end, tile):
+                    for w, st in enumerate(warps):
+                        rows = np.arange(key0 + w * tile // 4,
+                                         key0 + (w + 1) * tile // 4)
+                        rows = rows[rows < end]
+                        if not rows.size:
+                            continue
+                        s = kh[rows] @ qs
+                        m_new = max(st[0], s.max())
+                        alpha = np.exp2(st[0] - m_new)
+                        p = np.exp2(s - m_new)
+                        st[1] = st[1] * alpha + p.sum()
+                        st[2] = st[2] * alpha + p @ vh[rows]
+                        st[0] = m_new
+                splits.append(merge(warps))
+            _, L, A = merge(splits)
+            o[b, 0, h] = A / (L if L else np.float32(1))
+    return o
+
+
+def test_decode_split_plan_at_the_serve_shapes():
+    """5 splits of 64 keys at both serve paths' S 296 (320 and 640 CTAs on
+    132 SMs), 5 of 832 at Zamba2's 4096-key window."""
+    assert tda.split_plan(4, 296, 16, 132) == (64, 5)
+    assert tda.split_plan(4, 296, 32, 132) == (64, 5)
+    assert tda.split_plan(4, 4096, 32, 132) == (832, 5)
+    assert tda.split_plan(4, 0, 16, 132) == (64, 1)
+    for B, S, Hkv in ((1, 1, 1), (2, 4097, 2), (4, 296, 16), (8, 65, 64)):
+        keys, n = tda.split_plan(B, S, Hkv, 132)
+        assert keys % 64 == 0 and 1 <= n <= tda.MAX_SPLITS
+        assert (n - 1) * keys < S <= n * keys
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,Dh,lengths,plan", [
+    # the Qwen2.5-14B serve plan: splits of 64; on, past and short of edges
+    (296, 6, 2, 128, [64, 65, 257, 296], (4, 296, 16)),
+    (296, 6, 2, 128, [0, 1, 63, 128], (4, 296, 16)),
+    # Zamba2-1.2B's 4096-key window: 5 splits of 832; every split but the
+    # first empty in row 1
+    (4096, 2, 2, 64, [4096, 831], (4, 4096, 32)),
+    (4096, 2, 2, 64, [833, 1664], (4, 4096, 32)),
+    # the plan of few heads: the most splits (8 of 512)
+    (4096, 2, 2, 64, [4095, 513], (2, 4096, 2)),
+])
+def test_decode_split_merge_matches_reference_and_pallas(S, Hq, Hkv, Dh,
+                                                         lengths, plan):
+    q, k, v = qkv(len(lengths), 1, S, Hq, Hkv, Dh, seed=S + lengths[1])
+    lens = np.asarray(lengths, np.int32)
+    split_keys, n_split = tda.split_plan(*plan, 132)
+    got = _split_merge_decode(q, k, v, lens, group=Hq // Hkv,
+                              split_keys=split_keys, n_split=n_split)
+    pallas = jda.decode_attention(*_j(q, k, v), jnp.asarray(lens),
+                                  group=Hq // Hkv, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **ATT_TOL)
+    ref = np.asarray(jref.mha_reference(*_j(q, k, v), causal=False,
+                                        group=Hq // Hkv,
+                                        lengths=jnp.asarray(lens)))
+    live = lens > 0     # the reference gives mean(v) at length 0
+    np.testing.assert_allclose(got[live], ref[live], **ATT_TOL)
+    assert (got[~live] == 0).all()
+
+
 @pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (7, 5)])
 def test_sor_fit_plain_matches_reference(window, n):
     args = sor_inputs(window, n, seed=n)

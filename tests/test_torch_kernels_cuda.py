@@ -133,6 +133,94 @@ def test_decode_kernel_zero_length_rows_are_zero(cuda):
         rtol=1e-4, atol=1e-4)
 
 
+def _decode_case(cuda, dtype, S, Hq, Hkv, Dh, lengths, seed):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(len(lengths), 1, S, Hq, Hkv, Dh, seed=seed))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, k, v, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hq,Hkv,Dh,lengths", [
+    # the Qwen2.5-14B heads, 5 splits of 64: on a split edge, one past it,
+    # one short of it
+    (296, 48, 16, 128, [64, 65, 63, 128]),
+    # every split but the first empty (rows 0, 3), and the full row
+    (296, 48, 16, 128, [1, 296, 64, 5]),
+    # Zamba2-1.2B's heads at its 4096-key window: full, then S 4097 ragged
+    (4096, 32, 32, 64, [4096, 4096, 4096, 4096]),
+    (4097, 32, 32, 64, [4097, 833, 1, 4000]),
+])
+def test_decode_kernel_split_edges(cuda, dtype, S, Hq, Hkv, Dh, lengths):
+    q, k, v, lens = _decode_case(cuda, dtype, S, Hq, Hkv, Dh, lengths, S)
+    o = tda.decode_attention(q, k, v, lens, group=Hq // Hkv)
+    want = tda.decode_attention_plain(q, k, v, lens, group=Hq // Hkv)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_decode_kernel_groups_and_head_dims(cuda, dtype, Dh, group):
+    """Every tile geometry (16 to 64 keys) at the group registers 1, 4 and
+    8; ragged lengths across several splits."""
+    q, k, v, lens = _decode_case(cuda, dtype, 300, 2 * group, 2, Dh,
+                                 [300, 129, 1, 250], Dh + group)
+    o = tda.decode_attention(q, k, v, lens, group=group)
+    want = tda.decode_attention_plain(q, k, v, lens, group=group)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hq,Hkv,Dh,lengths", [
+    (296, 48, 16, 128, [1, 98, 257, 296]),   # 5 splits, the merge's order
+    (4096, 32, 32, 64, [4096, 833, 1, 4000]),
+    (40, 4, 4, 64, [40, 3, 0, 17]),          # one split: no merge
+])
+def test_decode_kernel_two_launches_same_bits(cuda, dtype, S, Hq, Hkv, Dh,
+                                              lengths):
+    """No float atomics, and the merging CTA leaves its counter at 0."""
+    q, k, v, lens = _decode_case(cuda, dtype, S, Hq, Hkv, Dh, lengths, 7)
+    o1 = tda.decode_attention(q, k, v, lens, group=Hq // Hkv)
+    o2 = tda.decode_attention(q, k, v, lens, group=Hq // Hkv)
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_decode_kernel_refuses_unaligned_inputs(cuda, which):
+    """The 16-byte copies need 16-byte-aligned bases: a contiguous view 2
+    bytes into a buffer raises before any launch."""
+    shapes = [(2, 1, 4, 64), (2, 80, 2, 64), (2, 80, 2, 64)]
+    qkv_ = [torch.zeros(s, dtype=torch.bfloat16, device=cuda)
+            for s in shapes]
+    n = qkv_[which].numel()
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    qkv_[which] = buf[1:n + 1].view(shapes[which])
+    assert qkv_[which].is_contiguous() and qkv_[which].data_ptr() % 16 == 2
+    lens = torch.tensor([80, 5], dtype=torch.int32, device=cuda)
+    before = tda.decode_attention.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tda.decode_attention(*qkv_, lens, group=2)
+    assert tda.decode_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [40, 296])
+def test_decode_kernel_counts_one_launch_per_call(cuda, S):
+    """One count a call, with one split (40 keys) or a merge of five."""
+    q, k, v, lens = _decode_case(cuda, torch.bfloat16, S, 4, 2, 64,
+                                 [S, 1], 3)
+    before = tda.decode_attention.launches
+    tda.decode_attention(q, k, v, lens, group=2)
+    assert tda.decode_attention.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (7, 5)])
 def test_sor_fit_kernel_matches_plain(cuda, window, n):
