@@ -17,8 +17,10 @@ script exits nonzero:
                 serve paths for K2 and K3, the training path for K2 and
                 K4-K6 (K2 also in f32 at the Qwen prefill), the
                 RWKV6 serve path for K9, the Zamba2 serve path for K8, the
-                ef training path's parameter leaves for K10) against its
-                plain version (stated tolerances; K10 bit for bit), timed
+                ef training path's parameter leaves for K10 alone and for
+                its fused ef pass at both levels) against its plain version
+                (stated tolerances; K10 and the fused pass bit for bit, the
+                fused pass's two sums to EF_SUM_RTOL), timed
                 beside its bound, the plain version and one PyTorch call as
                 a yardstick where one exists; K7 followed by the plain
                 solve also against K1; K2 also at Zamba2's heads with a
@@ -83,16 +85,19 @@ script exits nonzero:
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
                 losses, grad_error, comp_level, the compressed gradient
-                and residual (g_hat + r', flipped codes) and params; K10
-                exactly twice per leaf per step;
+                and residual (g_hat + r', flipped codes) and params; the
+                fused ef pass exactly once per leaf per step, K10 alone
+                never;
 15. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 13,
                 the scalar step with the ef gradient sync and BERBounded:
                 one warm-up step, then 8 steps each of `ef_int8`,
                 `ef_int8_topk` and `auto` on the same state, launch counts
-                exact (K10 24 per ef step), step times, tokens/s, MFU, peak
+                exact (the fused ef pass 12 per ef step, K10 alone 0), step
+                times, tokens/s, MFU, peak
                 memory, losses, grad_error, comp_level and v_io; a
-                torch.profiler window of 2 `ef_int8` steps with K10's
-                device ms beside its bound, and K2's, K4's and K5's.
+                torch.profiler window of 2 `ef_int8` steps with the fused
+                ef pass's device ms beside its bound, and K2's, K4's and
+                K5's.
 
 Each model's weights are freed before the next model loads its own.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
@@ -142,20 +147,26 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, flush=None) -> float:
+def time_ms(fn, iters: int, flush=None, *, setup=None) -> float:
     """Mean device time of one call: CUDA events around each call, the
     stream held by a device-side sleep while the host enqueues them all, so
     the events time the device work and not Python's launch overhead.
     `flush` (a >50 MB buffer) is overwritten before each call so the L2
-    starts cold, as it does on the serve path between layers."""
+    starts cold, as it does on the serve path between layers. `setup`, if
+    given, runs before each call (and before the flush), outside the timed
+    region: it restores the inputs of a call that updates them in place."""
     import torch
     for _ in range(3):
+        if setup is not None:
+            setup()
         fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     torch.cuda._sleep(int(2e6) * iters)      # ~1 ms of device time per call
     for s, e in zip(starts, ends):
+        if setup is not None:
+            setup()
         if flush is not None:
             flush.zero_()
         s.record()
@@ -901,6 +912,111 @@ def check_quantize_int8(dev, flush) -> dict:
                 replaces="src/repro/kernels/quant_codec.py:30",
                 max_abs_err=0.0, **top, checked=checked, timed=timed,
                 shape=dict(n=sizes[1], block=256, dtype="float32"))
+
+
+# the fused ef pass's two sums against the plain version's: per-lane f32
+# block sums then doubles on the card, torch's f32 sums in the plain
+# version (only the order differs; den of a bf16 g within one bf16 ulp)
+EF_SUM_RTOL = 1e-6
+EF_OPS_PER_ELEMENT = 22    # r + g, two codecs (|.|, max, /, rint, clamp,
+                           # * s), c - g_hat, (g - g_hat)^2 and g^2 summed
+
+
+def ef_sync_bytes(n: int, g_bytes: int, level: int, block: int = 256) -> int:
+    """The fused ef pass's bytes: g and r read, r', out, the padded codes
+    and the scales written (and the thresholds read at level 2)."""
+    nb = -(-n // block)
+    return n * (g_bytes + 12) + nb * block + 4 * nb * (2 if level == 2
+                                                         else 1)
+
+
+def unfused_ef_sync(ec, g, r, level: int):
+    """The composed per-leaf sequence, the yardstick: `ef_compress_leaf_`,
+    `error_sums`, `reduce_leaf(..., LEVEL_INT8)` (torch ops around two
+    launches of K10 alone)."""
+    g_hat = ec.ef_compress_leaf_(g, r, level)
+    sums = ec.error_sums(g, g_hat)
+    return ec.reduce_leaf(g_hat, "data", ec.LEVEL_INT8), sums
+
+
+def check_ef_sync_leaf(dev, flush) -> dict:
+    """K10's fused ef pass at each distinct leaf size of the ef train path,
+    g bf16 (the train step's gradients) and r f32, at levels 1 and 2 (the
+    thresholds from `ecollectives.topk_thresholds`): r', out, q2 and s2
+    equal (bits) to the plain version, num and den within EF_SUM_RTOL (den
+    one bf16 ulp). Timed beside its bound, the plain version and the
+    unfused sequence (the composed torch ops with K10 alone) as the
+    yardstick, and summed over the 12 leaves an ef step. The pass updates r
+    in place, so each timed call of it (and of its plain version) starts
+    from the same r, restored outside the timed region: the level-2
+    thresholds are those of that r + g, the mask a real step applies. No
+    single PyTorch call computes the pass. The row's top-level times are
+    the 283.1 M leaf's at level 1."""
+    import torch
+
+    from repro_torch.core import ecollectives as ec
+    from repro_torch.kernels import quant_codec as qc
+    leaves = ef_leaf_sizes()
+    sizes = sorted(set(leaves), reverse=True)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    timed, worst = {}, dict(num=0.0, den_ulps=0)
+    for n in sizes:
+        for level in (1, 2):
+            g = torch.randn(n, generator=gen, device=dev,
+                            dtype=torch.bfloat16).mul_(1e-3)
+            r = torch.randn(n, generator=gen, device=dev).mul_(1e-5)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            thr = ec.topk_thresholds(r + g, 0.25) if level == 2 else None
+            thr_temp_gb = (torch.cuda.max_memory_allocated() - before) / 1e9
+            r_plain = r.clone()
+            got = qc.ef_sync_leaf(g, r, thr)
+            want = qc.ef_sync_leaf_plain(g, r_plain, thr)
+            torch.cuda.synchronize()
+            same = [torch.equal(r, r_plain)] + [
+                torch.equal(a, b) for a, b in zip(got[:3], want[:3])]
+            num_rel = abs(got[3].item() - want[3].item()) / want[3].item()
+            den_ulps = abs(int(got[4].view(torch.int16))
+                           - int(want[4].view(torch.int16)))
+            if not all(same) or num_rel > EF_SUM_RTOL or den_ulps > 1:
+                raise AssertionError(
+                    f"ef_sync_leaf n={n} level={level}: r', out, q2, s2 "
+                    f"equal {same}, num {num_rel} apart, den {den_ulps} "
+                    f"ulps")
+            worst["num"] = max(worst["num"], num_rel)
+            worst["den_ulps"] = max(worst["den_ulps"], den_ulps)
+            del got, want
+            r0 = r_plain.copy_(r)
+            ms = time_ms(lambda: qc.ef_sync_leaf(g, r, thr), 10, flush,
+                         setup=lambda: r.copy_(r0))
+            seam_ms = time_ms(lambda: ec.ef_sync_leaf_(g, r, level, "data"),
+                              10, flush)
+            plain_ms = time_ms(lambda: qc.ef_sync_leaf_plain(g, r, thr), 3,
+                               flush, setup=lambda: r.copy_(r0))
+            unfused_ms = time_ms(lambda: unfused_ef_sync(ec, g, r, level), 3,
+                                 flush)
+            b_ms, b_by = bound_ms(ef_sync_bytes(n, 2, level),
+                                  EF_OPS_PER_ELEMENT * n, "float32")
+            timed[f"{n}/L{level}"] = dict(
+                ms=ms, seam_ms=seam_ms, plain_ms=plain_ms,
+                unfused_ms=unfused_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, thresholds_temp_gb=thr_temp_gb)
+            del g, r, r0, r_plain, thr
+            torch.cuda.empty_cache()
+    per_step = {f"L{level}": {k: sum(timed[f"{n}/L{level}"][k]
+                                     for n in leaves)
+                              for k in ("ms", "seam_ms", "unfused_ms",
+                                        "bound_ms")}
+                for level in (1, 2)}
+    top = dict(timed[f"{sizes[1]}/L1"])
+    return dict(name="ef_sync_leaf", route="cuda",
+                source="src/repro_torch/kernels/csrc/quant_codec.cu",
+                replaces="src/repro/kernels/quant_codec.py:30",
+                max_abs_err=0.0, sums=dict(worst, rtol=EF_SUM_RTOL),
+                **top, timed=timed, per_ef_step=per_step,
+                shape=dict(n=sizes[1], block=256, g="bfloat16", r="float32",
+                           level=1, leaves=leaves))
 
 
 # ---------------------------------------------------------------------------
@@ -1949,18 +2065,22 @@ TINY_EF_TOL = dict(grad=dict(rtol=1e-4, atol=5e-6), grad_error_rtol=5e-4,
 
 
 def recording_ef():
-    """Patch `ecollectives.ef_compress_leaf_` to record each leaf's
-    (g_hat, new residual) on the host; returns (records, restore)."""
+    """Patch `ecollectives.ef_sync_leaf_`, the train step's one pass a
+    leaf, to record each leaf's (g_hat, new residual r') on the host,
+    g_hat recovered as (g + r) - r': r' = c - g_hat is exact (g_hat is 0
+    or within half a scale of c: Sterbenz's lemma), so c - r' is g_hat
+    bit for bit. Returns (records, restore)."""
     from repro_torch.core import ecollectives
-    orig, records = ecollectives.ef_compress_leaf_, []
+    orig, records = ecollectives.ef_sync_leaf_, []
 
     def rec(g, r, *args, **kw):
-        g_hat = orig(g, r, *args, **kw)
-        records.append((g_hat.to("cpu", copy=True), r.to("cpu", copy=True)))
-        return g_hat
+        c = r + g
+        got = orig(g, r, *args, **kw)
+        records.append((c.sub_(r).cpu(), r.to("cpu", copy=True)))
+        return got
 
-    ecollectives.ef_compress_leaf_ = rec
-    return records, lambda: setattr(ecollectives, "ef_compress_leaf_", orig)
+    ecollectives.ef_sync_leaf_ = rec
+    return records, lambda: setattr(ecollectives, "ef_sync_leaf_", orig)
 
 
 def block_quantum(c, block: int = 256):
@@ -2018,8 +2138,9 @@ def run_tiny_train_ef() -> dict:
     """Tiny MiniCPM in f32, the same weights on cuda and cpu, 4 scalar
     steps of each ef level with BERBounded through Trainer.run: losses
     (TINY_TRAIN_TOL), grad_error (rtol), comp_level exact, g_hat + r' and
-    the flipped codes (`check_ef_records`), params (TINY_TRAIN_TOL); K10
-    launched exactly twice per leaf per step on cuda."""
+    the flipped codes (`check_ef_records`), params (TINY_TRAIN_TOL); the
+    fused ef pass launched exactly once per leaf per step on cuda, K10
+    alone never."""
     import dataclasses
 
     import torch
@@ -2046,8 +2167,10 @@ def run_tiny_train_ef() -> dict:
             restore()
             runs[dev] = (trainer, ops.launch_counts())
         (cpu, _), (gpu, launches) = runs["cpu"], runs["cuda"]
-        if launches["quantize_int8"] != 2 * n_leaves * steps:
-            raise AssertionError(f"tiny_train_ef {sync}: K10 launched "
+        if (launches["ef_sync_leaf"], launches["quantize_int8"]) != (
+                n_leaves * steps, 0):
+            raise AssertionError(f"tiny_train_ef {sync}: fused pass and K10 "
+                                 f"launched {launches['ef_sync_leaf']} and "
                                  f"{launches['quantize_int8']} times")
         rc, rg = cpu.log.records, gpu.log.records
         loss_c = torch.tensor([r.loss for r in rc])
@@ -2075,8 +2198,8 @@ def run_tiny_train_ef() -> dict:
             losses_cuda=loss_g.tolist(), grad_error_cuda=err_g.tolist(),
             grad_error_max_rel_diff=((err_g - err_c).abs() / err_c).max()
             .item(), comp_level=[r.comp_level for r in rg],
-            params_max_abs_diff=params_diff, k10_launches=
-            launches["quantize_int8"],
+            params_max_abs_diff=params_diff, ef_sync_leaf_launches=
+            launches["ef_sync_leaf"],
             **check_ef_records(records["cpu"], records["cuda"], n_leaves,
                                level))
     out["tolerances"] = dict(TINY_EF_TOL, loss=TINY_TRAIN_TOL["loss"],
@@ -2089,9 +2212,10 @@ def run_main_train_ef(dev) -> dict:
     the error-feedback gradient sync and BERBounded: one warm-up step, then
     TRAIN["steps"] checked steps of each of `ef_int8`, `ef_int8_topk` and
     `auto` on the same state (the last measures the compression's cost in
-    the same run), exact launch counts (K10 twice per leaf per step), then
-    a torch.profiler window of TRAIN["profiled_steps"] `ef_int8` steps
-    with K10's device time beside its bound."""
+    the same run), exact launch counts (the fused ef pass once per leaf
+    per step, K10 alone never), then a torch.profiler window of
+    TRAIN["profiled_steps"] `ef_int8` steps with the fused pass's device
+    time beside its bound."""
     import statistics
 
     import torch
@@ -2131,8 +2255,8 @@ def run_main_train_ef(dev) -> dict:
         want.update({"flash_attention_fwd": 2 * L * steps,
                      "flash_attention_bwd_dq": L * steps,
                      "flash_attention_bwd_dkv": L * steps,
-                     "quantize_int8": 0 if sync == "auto"
-                     else 2 * n_leaves * steps})
+                     "ef_sync_leaf": 0 if sync == "auto"
+                     else n_leaves * steps})
         if launches != want:
             raise AssertionError(f"train-ef {sync} launch counts {launches} "
                                  f"!= {want}")
@@ -2155,12 +2279,12 @@ def run_main_train_ef(dev) -> dict:
             losses=losses, grad_error=errs, comp_level=recs[-1].comp_level,
             v_io=state["plane"].v_io.item(), launches=launches)
         del trainer
-    k10_bytes = sum(2 * codec_bytes(n, 4) for n in sizes)
-    k10_bound = bound_ms(k10_bytes, sum(2 * 4 * n for n in sizes),
-                         "float32")
+    ef_bound = bound_ms(sum(ef_sync_bytes(n, 2, 1) for n in sizes),
+                        EF_OPS_PER_ELEMENT * n_params, "float32")
     profile = train_breakdown(lambda st, n: make("ef_int8", st, n), state,
                               TRAIN["profiled_steps"],
-                              watch=("quantize_int8", *TRAIN_ATTENTION))
+                              watch=("ef_sync_leaf", "quantize_int8",
+                                     *TRAIN_ATTENTION))
     launches = {name: sum(c[name] for c in by_sync.values())
                 for name in ops.KERNELS}
     return dict(
@@ -2172,7 +2296,7 @@ def run_main_train_ef(dev) -> dict:
         - runs["auto"]["step_ms_median"],
         ef_int8_topk_over_auto_ms=runs["ef_int8_topk"]["step_ms_median"]
         - runs["auto"]["step_ms_median"],
-        k10_bound_ms_per_step=k10_bound[0], k10_bound_by=k10_bound[1],
+        ef_sync_bound_ms_per_step=ef_bound[0], ef_sync_bound_by=ef_bound[1],
         launches=launches, profile=profile)
 
 
@@ -2231,7 +2355,7 @@ def main() -> int:
     kernels = {}
     checks = (check_sor_fit, check_sor_accumulate, check_flash, check_decode,
               check_flash_bwd, check_fleet_reduce, check_rwkv6_scan,
-              check_mamba2_ssd, check_quantize_int8)
+              check_mamba2_ssd, check_quantize_int8, check_ef_sync_leaf)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:

@@ -13,13 +13,17 @@ Compression levels (the "voltage knob" of the ICI rail):
 The codec's quantize is K10 (`kernels.ops.quantize_int8`, the CUDA kernel
 on a CUDA tensor), as the reference's docstring says its module does on
 the TPU; dequantize, `topk_mask` and the norms are torch ops, as the
-reference leaves them to XLA.
+reference leaves them to XLA. The train step's sync does not compose them:
+`ef_sync_leaf_` runs one leaf's `ef_compress_leaf_`, `error_sums` and
+`reduce_leaf(..., LEVEL_INT8)` as one pass (`kernels.ops.ef_sync_leaf`,
+K10's codec fused with the arithmetic around it), equal to the composed
+sequence bit for bit (its two sums up to their order on the card).
 
 The world of one. The reference runs this path under `shard_map` on a
 one-device `data` mesh, where the all-gather stacks one copy, `psum(1)` is
 1 and `pmean(loss)` is the loss. The port's collectives take that world
 only and still run the whole sequence (quantize, a gather of one, the
-dequantize-sum), so K10 runs twice per leaf as in the reference's op
+dequantize-sum), so the codec runs twice per leaf as in the reference's op
 sequence. A `torch.distributed` world larger than one raises
 `NotImplementedError`: the multi-process sync and `shard_map_ef_step` wait
 for ROADMAP.md §1 item 8 (Sharding).
@@ -78,14 +82,28 @@ def topk_mask(x, k_fraction: float, block: int = DEFAULT_BLOCK):
     (at least one; ties at the threshold are all kept), zero the rest."""
     flat, pad = _pad_to_block(x, block)
     blocks = flat.reshape(-1, block)
-    k = max(1, int(round(k_fraction * block)))
     mag = blocks.abs()
-    # the k-th largest |x| is the (block - k + 1)-th smallest
-    thresh = mag.kthvalue(block - k + 1, dim=1, keepdim=True).values
-    out = torch.where(mag >= thresh, blocks, 0.0).reshape(-1)
+    out = torch.where(mag >= _kth_largest(mag, k_fraction, block), blocks,
+                      0.0).reshape(-1)
     if pad:
         out = out[:-pad]
     return out.reshape(x.shape)
+
+
+def _kth_largest(mag, k_fraction: float, block: int):
+    """Each row's round(k_fraction * block)-th largest value (at least the
+    first), [nblocks, 1]: the k-th largest is the (block - k + 1)-th
+    smallest."""
+    k = max(1, int(round(k_fraction * block)))
+    return mag.kthvalue(block - k + 1, dim=1, keepdim=True).values
+
+
+def topk_thresholds(x, k_fraction: float, block: int = DEFAULT_BLOCK):
+    """`topk_mask`'s per-block thresholds of x: the least |x| a block keeps,
+    over zero-padded blocks, [nblocks, 1] in x's dtype. Takes |x| in place
+    when x needs no padding, so the caller passes a temporary."""
+    flat, _ = _pad_to_block(x, block)
+    return _kth_largest(flat.reshape(-1, block).abs_(), k_fraction, block)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +184,24 @@ def ef_compress_leaf_(g, r, level: int, k_fraction: float = 0.25,
     g_hat = dequantize_int8(q, s, corrected.shape, corrected.dtype)
     corrected.sub_(g_hat)
     return g_hat
+
+
+def ef_sync_leaf_(g, r, level: int, axis_name, k_fraction: float = 0.25):
+    """One leaf of the reference's ef sync (`step.py:143-157`) in one pass:
+    `ef_compress_leaf_` (r becomes (g + r) - g_hat in place), the leaf's
+    `error_sums` and `reduce_leaf(g_hat, axis_name, LEVEL_INT8)`, through
+    K10's fused kernel on a CUDA tensor (`ops.ef_sync_leaf`). Returns (the
+    reduced leaf, f32; sum (g - g_hat)^2; sum g^2). At level 2 the
+    per-block thresholds are `topk_thresholds(g + r)`, an n-element f32
+    temporary while they are taken (2.1 GB at MiniCPM-2B's 530.8 M-element
+    MLP leaves)."""
+    if level not in (LEVEL_INT8, LEVEL_INT8_TOPK):
+        raise ValueError(f"ef_sync_leaf_ takes level 1 or 2, got {level}")
+    axis_size(axis_name)      # the world of one: the mean is the sum
+    thresholds = (topk_thresholds(r + g, k_fraction)
+                  if level == LEVEL_INT8_TOPK else None)
+    out, _, _, num, den = ops.ef_sync_leaf(g.contiguous(), r, thresholds)
+    return out, num, den
 
 
 def ef_compress(grads, residuals, level: int, k_fraction: float = 0.25,

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_int64
-# C entry point -> argtypes; every entry point returns cudaGetLastError()
+# C entry point -> argtypes; every launching entry point returns
+# cudaGetLastError() (ef_sync_leaf_grid returns a CTA count)
 SIGNATURES = {
     "sor_fit_launch": [_P] * 11 + [_I, _I, _F, _F, _F, _P],
     "sor_accumulate_launch": [_P] * 8 + [_I, _I, _P],
@@ -41,6 +42,8 @@ SIGNATURES = {
     "rwkv6_scan_fwd": [_P] * 8 + [_I] * 5 + [_P],
     "mamba2_ssd_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "quantize_int8_launch": [_P] * 3 + [_L, _I, _I, _P],
+    "ef_sync_leaf_launch": [_P] * 7 + [_L, _I, _P],
+    "ef_sync_leaf_grid": [_L],      # returns the launch's CTA count
 }
 
 _lib: "ctypes.CDLL | None" = None

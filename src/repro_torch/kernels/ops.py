@@ -30,6 +30,7 @@ KERNELS = {
     "rwkv6_scan": _r6.rwkv6_scan,
     "mamba2_ssd": _m2.mamba2_ssd,
     "quantize_int8": _qc.quantize_int8,
+    "ef_sync_leaf": _qc.ef_sync_leaf,
 }
 
 
@@ -95,6 +96,14 @@ def quantize_int8(x, *, block: int = 256):
     (q [nblocks, block] int8, scale [nblocks, 1] f32), the tail block
     zero-padded."""
     return _qc.quantize_int8(x, block=block)
+
+
+def ef_sync_leaf(g, r, thresholds=None):
+    """One leaf of the error-feedback int8 sync in one pass (K10 fused):
+    r (f32) becomes the new residual in place; returns (out f32, q int8,
+    scale f32, num f32, den in g's dtype). `thresholds` [nblocks, 1] f32
+    selects level 2 (top-k), None level 1."""
+    return _qc.ef_sync_leaf(g, r, thresholds)
 
 
 def fleet_percentile(x, q: float):

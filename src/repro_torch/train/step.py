@@ -133,11 +133,12 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
 
 def _ef_sync(grads, ef_resid, step_cfg: StepConfig):
     """The reference's error-feedback sync (`step.py:143-157`), leaf by
-    leaf in its tree order: compress g + r at the configured level (the
-    residual updated in place), sum the leaf's terms of the relative L2
-    error, reduce the compressed leaf at the int8 level (top-k or not) over
-    the data-parallel axis, and drop the raw leaf. Returns (reduced grads,
-    f32 as in the reference; ef_resid; grad_error)."""
+    leaf in its tree order, one pass a leaf (`ecollectives.ef_sync_leaf_`,
+    K10's fused kernel on the card): compress g + r at the configured level
+    (the residual updated in place), the leaf's terms of the relative L2
+    error, and the compressed leaf reduced at the int8 level over the
+    data-parallel axis, which replaces the raw leaf. Returns (reduced
+    grads, f32 as in the reference; ef_resid; grad_error)."""
     level = (ecollectives.LEVEL_INT8_TOPK
              if step_cfg.grad_sync == "ef_int8_topk"
              else ecollectives.LEVEL_INT8)
@@ -145,14 +146,10 @@ def _ef_sync(grads, ef_resid, step_cfg: StepConfig):
     num = den = 0
     for path in adamw.leaf_paths(grads):
         parent = adamw.get_path(grads, path[:-1])
-        g = parent.pop(path[-1])
-        g_hat = ecollectives.ef_compress_leaf_(
-            g, adamw.get_path(ef_resid, path), level, step_cfg.k_fraction)
-        n, d = ecollectives.error_sums(g, g_hat)
+        parent[path[-1]], n, d = ecollectives.ef_sync_leaf_(
+            parent[path[-1]], adamw.get_path(ef_resid, path), level, axis,
+            step_cfg.k_fraction)
         num, den = num + n, den + d
-        del g                      # the raw leaf goes before the reduce
-        parent[path[-1]] = ecollectives.reduce_leaf(g_hat, axis,
-                                                    ecollectives.LEVEL_INT8)
     return grads, ef_resid, ecollectives.error_norm_from_sums(num, den)
 
 

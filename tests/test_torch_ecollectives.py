@@ -56,7 +56,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim.schedule import wsd as twsd
 from repro_torch.train import step as tstep
 from repro_torch.train import trainer as ttrainer
-from test_torch_inputs import codec_input, codec_ties
+from test_torch_inputs import codec_input, codec_ties, ef_inputs
 from test_torch_train import (GRAD_TOL, LOSS_TOL, PLANE_TOL, TRAJ_PARAM_TOL,
                               _batches, _close_plane, _leaf, _pair, _sched)
 
@@ -260,6 +260,194 @@ def test_step_refuses_an_unknown_grad_sync():
                               tstep.StepConfig(grad_sync="ef_int4"))
 
 
+# -- the fused pass: one leaf of the ef sync (ef_sync_leaf) --------------------
+
+def _bits(t):
+    """A tensor's bit pattern, so that NaNs compare equal to themselves."""
+    t = t.detach().reshape(-1)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _bit_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        _bits(a), _bits(b))
+
+
+def _fused_case(case, dtype, seed=0):
+    """`ef_inputs(case)` as (g in `dtype`, r f32) tensors."""
+    g, r = ef_inputs(case, seed)
+    return torch.from_numpy(g).to(DTYPES[dtype][1]), torch.from_numpy(r)
+
+
+@pytest.mark.parametrize("case", ["ragged", "zeros", "nan", "ties"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("level", [1, 2])
+def test_fused_plain_equals_the_unfused_sequence(level, dtype, case):
+    """The fused pass's plain version (and `ef_sync_leaf_`, the step's seam)
+    against today's composed sequence: `ef_compress_leaf_`, `error_sums`,
+    `reduce_leaf(..., LEVEL_INT8)` and the codes `psum_int8` gathers.
+    r', out, q2, s2, num and den bit for bit (NaNs included)."""
+    g, r = _fused_case(case, dtype)
+    r_seq, r_seam, r_plain = r.clone(), r.clone(), r.clone()
+    g_hat = tec.ef_compress_leaf_(g, r_seq, level, 0.25)
+    num, den = tec.error_sums(g, g_hat)
+    out = tec.reduce_leaf(g_hat, "data", tec.LEVEL_INT8)
+    q2, s2 = tec.quantize_int8(g_hat)
+    thr = (tec.topk_thresholds(r_plain + g, 0.25) if level == 2 else None)
+    got = tqc.ef_sync_leaf_plain(g, r_plain, thr)
+    for name, a, b in zip(("out", "q2", "s2", "num", "den"), got,
+                          (out, q2, s2, num, den)):
+        assert _bit_equal(a, b), name
+    assert _bit_equal(r_plain, r_seq)
+    ops.reset_launch_counts()
+    seam = tec.ef_sync_leaf_(g, r_seam, level, "data", 0.25)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+    for name, a, b in zip(("out", "num", "den"), seam, (out, num, den)):
+        assert _bit_equal(a, b), name
+    assert _bit_equal(r_seam, r_seq)
+    if case == "ties" and level == 2:     # more than k kept in some block
+        kept = (r_seq != g.float()).reshape(-1, 256).sum(1)
+        assert (kept > 64).any()
+
+
+def test_topk_thresholds_are_topk_masks():
+    """`topk_mask` keeps exactly the elements at or above the shared
+    helper's thresholds, on zero-padded blocks."""
+    x = torch.from_numpy(np.round(np.random.default_rng(3).standard_normal(
+        1000) * 4).astype(np.float32) / 4)
+    thr = tec.topk_thresholds(x.clone(), 0.1)
+    assert thr.shape == (4, 1)
+    flat = torch.cat([x, x.new_zeros(24)]).reshape(-1, 256)
+    want = torch.where(flat.abs() >= thr, flat, 0.0).reshape(-1)[:1000]
+    assert torch.equal(tec.topk_mask(x, 0.1), want)
+
+
+def test_fused_pass_refuses_mismatched_leaves():
+    g = torch.ones(512)
+    with pytest.raises(ValueError, match="one shape"):
+        tqc.ef_sync_leaf(g, torch.zeros(256))
+    with pytest.raises(ValueError, match="one shape"):
+        tqc.ef_sync_leaf(g, torch.zeros(512, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="level 1 or 2"):
+        tec.ef_sync_leaf_(g, torch.zeros(512), 0, "data")
+
+
+def _np_codec(x):
+    """The codec in numpy f32 on [nblocks, block] rows: IEEE quotients,
+    round half to even, NaN propagating through the max, a NaN's code 0."""
+    amax = np.abs(x).max(axis=1, keepdims=True)
+    s = np.where(amax > 0, amax / np.float32(127), np.float32(1)).astype(
+        np.float32)
+    with np.errstate(invalid="ignore"):
+        q = np.clip(np.rint(x / s), -127, 127)
+    return np.nan_to_num(q, nan=0.0).astype(np.int8), s
+
+
+def np_ef_sync(g, r, level, k_fraction=0.25, block=256):
+    """A numpy model of the fused kernel's arithmetic on one leaf: zero-
+    padded blocks; c = r + g; the level-2 mask; g_hat = q1 * s1 with the
+    product rounded before c - g_hat (no FMA); the error terms a lane at a
+    time (lane l's 4-element chunks l and 32 + l, ... summed in f32 in
+    order, the lanes' sums then added in float64), g * g rounded to g's
+    type; then the codec on g_hat and out = q2 * s2. g is f32 or
+    ml_dtypes.bfloat16. Returns (r', out, q2, s2, num, den)."""
+    import ml_dtypes
+    n = g.size
+    nb = -(-n // block)
+    gf = np.zeros(nb * block, np.float32)
+    gf[:n] = g.astype(np.float32)
+    c = np.zeros(nb * block, np.float32)
+    c[:n] = r
+    c = (c + gf).reshape(nb, block)
+    kept = c
+    if level == 2:
+        k = max(1, int(round(k_fraction * block)))
+        thr = np.sort(np.abs(c), axis=1)[:, block - k][:, None]
+        kept = np.where(np.abs(c) >= thr, c, np.float32(0))
+    q1, s1 = _np_codec(kept)
+    g_hat = q1.astype(np.float32) * s1
+    r_new = (c - g_hat).reshape(-1)[:n]
+    e = gf.reshape(nb, block) - g_hat
+    g2 = gf * gf
+    if g.dtype == ml_dtypes.bfloat16:
+        g2 = g2.astype(ml_dtypes.bfloat16).astype(np.float32)
+    num = den = 0.0
+    for terms, acc in ((e * e, "num"), (g2.reshape(nb, block), "den")):
+        lanes = terms.reshape(nb, block // 128, 32, 4).transpose(0, 2, 1, 3)
+        lanes = lanes.reshape(nb * 32, -1)
+        part = np.zeros(nb * 32, np.float32)
+        for j in range(lanes.shape[1]):
+            part = part + lanes[:, j]
+        if acc == "num":
+            num = part.astype(np.float64).sum()
+        else:
+            den = part.astype(np.float64).sum()
+    q2, s2 = _np_codec(g_hat)
+    out = (q2.astype(np.float32) * s2).reshape(-1)[:n]
+    return r_new, out, q2, s2, num, den
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("level", [1, 2])
+def test_fused_arithmetic_model_matches_the_reference(level, dtype):
+    """The numpy model of the fused kernel against the reference's
+    `ef_compress` + `compression_error_norm` + `reduce_gradients(level=
+    INT8)` (under a one-device shard_map) on a tree of ragged leaves up to
+    4096 elements, where the reference's codec is IEEE: r' and out at 0
+    ulps; each leaf's sum (g - g_hat)^2 at rtol 1e-6 and sum g^2 at rtol
+    1e-6 in f32, within one ulp in bf16 (the reference's bf16 sum, the
+    model's rounded once: only the order differs); in f32 the error norm at
+    rtol 1e-6. And against the port's plain version: r', out, q2, s2 bit
+    for bit."""
+    import ml_dtypes
+    rng = np.random.default_rng(7)
+    sizes = {"a": (1000,), "b": (40, 33), "c": (4096,)}
+    g = {k: codec_input(int(np.prod(v)), seed=i).reshape(v)
+         for i, (k, v) in enumerate(sizes.items())}
+    r = {k: (rng.standard_normal(v) * 1e-3).astype(np.float32)
+         for k, v in sizes.items()}
+    jd, td = DTYPES[dtype]
+    jg = {k: jnp.asarray(v).astype(jd) for k, v in g.items()}
+    g_np = {k: np.asarray(v.astype(jnp.float32)).astype(
+        np.float32 if dtype == "float32" else ml_dtypes.bfloat16)
+        for k, v in jg.items()}
+    jh, jr = jec.ef_compress(jg, {k: jnp.asarray(v) for k, v in r.items()},
+                             level, 0.25)
+    jout = _one_device(lambda t: jec.reduce_gradients(t, "data", 1), jh)
+    jerr = float(jec.compression_error_norm(jg, jh))
+    num = den = 0.0
+    for k in sizes:
+        r_new, out, q2, s2, n_, d_ = np_ef_sync(g_np[k].reshape(-1),
+                                                r[k].reshape(-1), level)
+        num, den = num + n_, den + d_
+        np.testing.assert_allclose(
+            n_, float(jnp.sum((jg[k] - jh[k]) ** 2)), rtol=1e-6)
+        jden = jnp.sum(jg[k] ** 2)
+        if dtype == "float32":
+            np.testing.assert_allclose(d_, float(jden), rtol=1e-6)
+        else:
+            ulps = abs(int(np.float32(d_).astype(ml_dtypes.bfloat16).view(
+                np.int16)) - int(np.asarray(jden).view(np.int16)))
+            assert ulps <= 1, (d_, float(jden))
+        np.testing.assert_array_equal(r_new, np.asarray(jr[k]).reshape(-1),
+                                      err_msg=f"r' {k}")
+        np.testing.assert_array_equal(out, np.asarray(jout[k]).reshape(-1),
+                                      err_msg=f"out {k}")
+        tg = torch.from_numpy(g_np[k].astype(np.float32)).to(td)
+        thr = (tec.topk_thresholds(torch.from_numpy(r[k]) + tg, 0.25)
+               if level == 2 else None)
+        rt = torch.from_numpy(r[k].copy())
+        got = tqc.ef_sync_leaf_plain(tg, rt, thr)
+        np.testing.assert_array_equal(rt.numpy().reshape(-1), r_new)
+        np.testing.assert_array_equal(got[0].numpy().reshape(-1), out)
+        np.testing.assert_array_equal(got[1].numpy(), q2)
+        np.testing.assert_array_equal(got[2].numpy(), s2)
+    if dtype == "float32":
+        np.testing.assert_allclose(np.sqrt(num / den), jerr, rtol=1e-6)
+
+
 # -- the train step -----------------------------------------------------------
 
 PROFILE = dict(flops_per_chip=6e9, hbm_bytes_per_chip=1.4e7,
@@ -311,9 +499,13 @@ def _ef_pair(sync, policy):
 def recorded(monkeypatch):
     """Record each step's g_hat and new residual on both sides: the
     reference's through a debug callback on `ecollectives.ef_compress`
-    (traced into the jitted step), the port's from `ef_compress_leaf_`."""
+    (traced into the jitted step), the port's from `ef_sync_leaf_`, the
+    step's one pass a leaf: r' as it leaves, and g_hat as (g + r) - r'.
+    That recovers g_hat exactly: r' = c - g_hat is exact (g_hat is 0 or
+    within half a scale of c, so Sterbenz's lemma holds), so c - r' is
+    g_hat."""
     rec = {"jax": [], "torch": []}
-    j_orig, t_orig = jec.ef_compress, tec.ef_compress_leaf_
+    j_orig, t_orig = jec.ef_compress, tec.ef_sync_leaf_
 
     def j_ef(grads, resid, level, k_fraction=0.25, block=256):
         gs, rs = j_orig(grads, resid, level, k_fraction, block)
@@ -322,12 +514,13 @@ def recorded(monkeypatch):
         return gs, rs
 
     def t_ef(g, r, *args, **kw):
-        g_hat = t_orig(g, r, *args, **kw)
-        rec["torch"].append((g_hat.clone(), r.clone()))
-        return g_hat
+        c = r + g
+        got = t_orig(g, r, *args, **kw)
+        rec["torch"].append((c.sub_(r), r.clone()))
+        return got
 
     monkeypatch.setattr(jec, "ef_compress", j_ef)
-    monkeypatch.setattr(tec, "ef_compress_leaf_", t_ef)
+    monkeypatch.setattr(tec, "ef_sync_leaf_", t_ef)
     return rec
 
 

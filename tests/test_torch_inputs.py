@@ -73,6 +73,26 @@ def codec_ties(block: int = 256):
     return x
 
 
+def ef_inputs(case: str, seed: int = 0, n: int = 0):
+    """(g, r) f32 for one leaf of the fused ef pass: g from `codec_input`, r
+    ~ 1e-2 N(0, 1). 'ragged' (1000 elements, a tail past the last full
+    block, or n); 'zeros' an all-zero block of g + r; 'nan' a NaN in g;
+    'ties' g on a grid of quarters and r zero, so a block's magnitudes
+    repeat at the top-k threshold (every tie is kept)."""
+    rng = np.random.default_rng(seed)
+    n = n or {"ragged": 1000, "zeros": 1024, "nan": 768, "ties": 512}[case]
+    g = codec_input(n, seed=seed + 1)
+    r = (rng.standard_normal(n) * 1e-2).astype(np.float32)
+    if case == "zeros":
+        g[256:512], r[256:512] = 0.0, 0.0
+    if case == "nan":
+        g[300] = np.nan
+    if case == "ties":
+        g = np.round(rng.standard_normal(n) * 4).astype(np.float32) / 4
+        r[:] = 0.0
+    return g, r
+
+
 def sor_inputs(window: int, n: int, seed: int):
     """A window with a real log-linear frontier (slope -30 dex/V) on two
     lanes in three and a flat observable on the rest; recency weights with

@@ -23,7 +23,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
 from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
                                check_sums, codec_input, codec_ties,
-                               mamba2_inputs, qkv, rwkv_inputs, sor_inputs)
+                               ef_inputs, mamba2_inputs, qkv, rwkv_inputs,
+                               sor_inputs)
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
@@ -484,6 +485,8 @@ def test_kernels_count_their_launches(cuda):
                                                    state=False))
     ops.mamba2_scan(x, dt, A, B, C, D)
     ops.quantize_int8(torch.ones(300, device=cuda))
+    ops.ef_sync_leaf(torch.ones(300, device=cuda),
+                     torch.zeros(300, device=cuda))
     ops.fleet_percentile(torch.zeros(3, device=cuda), 95.0)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
 
@@ -494,8 +497,12 @@ def test_kernels_count_their_launches(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,block", [(1000, 256), (65, 64), (300_000, 256),
                                      (4096, 256), (2304, 256), (4097, 1024),
-                                     (100, 32)])
+                                     (100, 32), (128 * 33, 128),
+                                     (10_001, 512), (5000, 384), (487, 96),
+                                     (256 * 33 + 4, 256), (70_000, 1024)])
 def test_quantize_int8_kernel_equals_plain(cuda, dtype, n, block):
+    """Block 256 (the vector kernel) and the scalar kernel's (every other
+    block), whole and ragged tails."""
     x = torch.from_numpy(codec_input(n, seed=n, block=block)).to(cuda, dtype)
     q, s = tqc.quantize_int8(x, block=block)
     q_ref, s_ref = tqc.quantize_int8_plain(x, block=block)
@@ -517,6 +524,24 @@ def test_quantize_int8_kernel_ties_zeros_nan(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_int8_refuses_unaligned_inputs(cuda, dtype):
+    """The 16-byte loads need a 16-byte-aligned base: a contiguous view one
+    element into a buffer raises before any launch; the aligned view of the
+    same buffer runs."""
+    buf = torch.ones(1024 + 16, dtype=dtype, device=cuda)
+    x = buf[1:1025]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    before = tqc.quantize_int8.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tqc.quantize_int8(x)
+    assert tqc.quantize_int8.launches == before
+    aligned = buf[16 // buf.element_size():][:1024]
+    q, s = tqc.quantize_int8(aligned)
+    assert torch.equal(q, tqc.quantize_int8_plain(aligned)[0])
+
+
+@pytest.mark.cuda
 def test_quantize_int8_refusals(cuda):
     x = torch.ones(512, device=cuda)
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -531,6 +556,136 @@ def test_quantize_int8_refusals(cuda):
             tqc.quantize_int8(x.to(dtype))
     with pytest.raises(ValueError, match="non-empty"):
         tqc.quantize_int8(x[:0])
+
+
+# -- the fused ef pass (K10 in ef_sync_leaf): bits against the plain version --
+
+# num = sum (g - g_hat)^2 and den = sum g^2: per-lane f32 block sums then
+# doubles on the card, torch's f32 sums in the plain version; only the
+# order differs (measured on the H100: up to 1e-7 relative in f32). den of
+# a bf16 g is rounded to bf16 on both sides: at most one bf16 ulp apart.
+EF_SUM_RTOL = 1e-6
+
+
+def _ef_pair(cuda, g, r, dtype, level):
+    """The kernel and the plain version on the same (g, r) and level-2
+    thresholds; returns (kernel outputs, its r', plain outputs, its r')."""
+    from repro_torch.core import ecollectives as tec
+    g = torch.from_numpy(g).to(cuda, dtype)
+    r = torch.from_numpy(r).to(cuda)
+    thr = tec.topk_thresholds(r + g, 0.25) if level == 2 else None
+    r_k, r_p = r.clone(), r.clone()
+    got = tqc.ef_sync_leaf(g, r_k, thr)
+    want = tqc.ef_sync_leaf_plain(g, r_p, thr)
+    return got, r_k, want, r_p
+
+
+def _bits(t):
+    t = t.reshape(-1)
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32) \
+        if t.is_floating_point() else t
+
+
+def _check_ef(got, r_k, want, r_p):
+    assert torch.equal(_bits(r_k), _bits(r_p)), "r'"
+    for name, a, b in zip(("out", "q2", "s2"), got[:3], want[:3]):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(_bits(a), _bits(b)), name
+    for name, a, b in zip(("num", "den"), got[3:], want[3:]):
+        assert a.dtype == b.dtype and a.shape == (), name
+        if torch.isnan(b):
+            assert torch.isnan(a), name
+        elif a.dtype == torch.bfloat16:
+            assert abs(int(a.view(torch.int16)) - int(b.view(torch.int16))) \
+                <= 1, (name, a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=EF_SUM_RTOL, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1000, 4096, 2304, 300_000, 70_001, 10_000,
+                               5000, 92_160])
+def test_ef_sync_leaf_kernel_equals_plain(cuda, dtype, level, n):
+    """r', out, q2 and s2 bit for bit; num and den within EF_SUM_RTOL (den
+    of a bf16 g within one bf16 ulp); whole and ragged last blocks."""
+    _check_ef(*_ef_pair(cuda, *ef_inputs("ragged", seed=n, n=n), dtype,
+                        level))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zeros", "nan", "ties"])
+@pytest.mark.parametrize("level", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ef_sync_leaf_kernel_special_blocks(cuda, dtype, level, case):
+    """An all-zero block, a NaN in g (its block's scale 1, its code 0, num
+    and den NaN) and ties at the top-k threshold (all kept)."""
+    got, r_k, want, r_p = _ef_pair(cuda, *ef_inputs(case), dtype, level)
+    _check_ef(got, r_k, want, r_p)
+    if case == "zeros":
+        assert (got[2][1] == 1.0).all() and (got[1][1] == 0).all()
+    if case == "nan":
+        assert torch.isnan(got[3]) and torch.isnan(got[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ef_sync_leaf_two_launches_same_bits(cuda, dtype):
+    """The partial sums are per CTA in a fixed order and the grid depends
+    on n only: two launches on the same inputs give the same bits."""
+    g, r = ef_inputs("ragged", seed=5, n=1_000_003)
+    g = torch.from_numpy(g).to(cuda, dtype)
+    r1 = torch.from_numpy(r).to(cuda)
+    r2 = r1.clone()
+    a = tqc.ef_sync_leaf(g, r1)
+    b = tqc.ef_sync_leaf(g, r2)
+    assert torch.equal(r1, r2)
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.cuda
+def test_ef_sync_leaf_counts_one_launch_per_call(cuda):
+    """One fused launch a leaf; the standalone codec is not launched."""
+    from repro_torch.core import ecollectives as tec
+    from repro_torch.kernels import ops
+    g = torch.randn(3000, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launch_counts()
+    for level in (1, 2, 1):
+        tec.ef_sync_leaf_(g, torch.zeros(3000, device=cuda), level, "data")
+    assert ops.launch_counts() == dict(
+        {name: 0 for name in ops.KERNELS}, ef_sync_leaf=3)
+
+
+@pytest.mark.cuda
+def test_ef_sync_leaf_refusals(cuda):
+    g = torch.ones(512, device=cuda)
+    r = torch.zeros(512, device=cuda)
+    before = tqc.ef_sync_leaf.launches
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tqc.ef_sync_leaf(g.to("meta"), r.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        tqc.ef_sync_leaf(g.cpu(), r)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tqc.ef_sync_leaf(g.half(), r)
+    with pytest.raises(ValueError, match="f32 r"):
+        tqc.ef_sync_leaf(g, r.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tqc.ef_sync_leaf(g.reshape(2, 256).t(), r.reshape(2, 256).t())
+    buf = torch.ones(512 + 4, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        tqc.ef_sync_leaf(buf[1:513], r)
+    with pytest.raises(ValueError, match="16-byte"):
+        tqc.ef_sync_leaf(g, buf[1:513])
+    with pytest.raises(ValueError, match="thresholds"):
+        tqc.ef_sync_leaf(g, r, torch.zeros((3, 1), device=cuda))
+    with pytest.raises(ValueError, match="thresholds"):
+        tqc.ef_sync_leaf(g, r, torch.zeros((2, 1), device=cuda,
+                                           dtype=torch.float64))
+    with pytest.raises(ValueError, match="non-empty"):
+        tqc.ef_sync_leaf(g[:0], r[:0])
+    assert tqc.ef_sync_leaf.launches == before
 
 
 # RWKV6 scan: y and the state against the plain version, relative to the
