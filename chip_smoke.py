@@ -16,7 +16,9 @@ script exits nonzero:
                 path for K1, the host path for K7, the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K2 and
                 K4-K6 (K2 also in f32 at the Qwen prefill), the
-                RWKV6 serve path for K9, the Zamba2 serve path for K8, the
+                RWKV6 serve path for K9, the Zamba2 serve path for K8 (each
+                also at T around its 64-step chunk, and its decode step in
+                place, beside its bytes and operations bounds), the
                 ef training path's parameter leaves for K10 alone and for
                 its fused ef pass at both levels) against its plain version
                 (stated tolerances; K10 and the fused pass bit for bit, the
@@ -54,7 +56,8 @@ script exits nonzero:
 8. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
                 64 heads x 64, d_ff 14336, vocab 65536) as phase 5, with its
                 own exact launch counts (K9 32 per prefill and per decoded
-                token) and decode-step breakdown;
+                token) and decode-step breakdown (K9's device ms and the
+                copy kernels a step: the wkv state is written in place);
 9. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
                 an 8-token sliding window that the shared block's KV cache
                 wraps;
@@ -64,7 +67,8 @@ script exits nonzero:
                 x 64, window 4096) as phase 5, with its own exact launch
                 counts (K8 38 per prefill and per decoded token, K2 6 per
                 prefill, K3 6 per decoded token after the first) and
-                decode-step breakdown;
+                decode-step breakdown (K8's device ms and the copy kernels
+                a step: the ssm state is written in place);
 11. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
@@ -133,6 +137,10 @@ TRAIN_ATTENTION = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                    "flash_bwd_dkv_sm90")
 # K3's kernel, by name, in the decode-step profiles
 DECODE_ATTENTION = "decode_split_kernel"
+# K8's and K9's kernels (chunked prefill, decode step), and the copy
+# kernels, by name, in the decode-step profiles
+SCAN_KERNELS = ("ssd_chunk", "ssd_decode", "wkv_chunk", "wkv_decode")
+COPY_KERNELS = ("copy", "Memcpy")
 
 
 def emit(obj) -> None:
@@ -739,60 +747,106 @@ SCAN_TOL = dict(y={"float32": 1e-5, "bfloat16": 1e-2},
                 state={"float32": 1e-5, "bfloat16": 1e-5})
 
 
-def scan_bound(args, s0, y, state, flops) -> tuple[float, str]:
+# The bf16 scans (K8, K9) take their f32 products on the bf16 tensor cores
+# with an f32 operand split into bf16 terms, three at most (the state
+# update's): an f32 operation there costs at least three bf16 ones.
+SCAN_BF16_TERMS = 3
+
+
+def scan_bound(args, s0, y, state, flops) -> dict:
     """Bytes: each input read once (the initial state only where given),
-    y and the final state written once; `flops` f32 operations."""
+    y and the final state written once. Operations: `flops` f32 operations
+    at the rate of the form the kernel runs them in (bf16 inputs: the
+    tensor cores' bf16 rate over SCAN_BF16_TERMS; f32 inputs: the f32
+    rate). Returns both times and the bound, the larger of them, and the
+    f32-rate time of the same count (`bound_f32_ops_ms`, information
+    only)."""
     n_bytes = sum(a.numel() * a.element_size() for a in args) + \
         y.numel() * y.element_size() + state.numel() * 4 + \
         (0 if s0 is None else s0.numel() * 4)
-    return bound_ms(n_bytes, flops, "float32")
+    if str(y.dtype) == "torch.bfloat16":
+        b_ms, b_by = bound_ms(n_bytes, flops * SCAN_BF16_TERMS, "bfloat16")
+        ops_ms = flops * SCAN_BF16_TERMS / PEAK_FLOPS["bfloat16"] * 1e3
+    else:
+        b_ms, b_by = bound_ms(n_bytes, flops, "float32")
+        ops_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                bound_bytes_ms=n_bytes / H100_BYTES_PER_S * 1e3,
+                bound_ops_ms=ops_ms,
+                bound_f32_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+
+
+def scan_close(name, label, got, want) -> dict:
+    """y and the final state of `got` against `want` at SCAN_TOL, relative
+    to the largest magnitude; returns the max abs difference of each."""
+    err = {}
+    dt = str(want[0].dtype).removeprefix("torch.")
+    for part, a, b in zip(("y", "state"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} {label} {part}: {a.dtype} "
+                                 f"{tuple(a.shape)} != {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        d = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if not (math.isfinite(d) and
+                d <= SCAN_TOL[part][dt] * max(scale, 1.0)):
+            raise AssertionError(f"{name} {label} {part}: max diff {d}, "
+                                 f"max |ref| {scale}")
+        err[part] = d
+    return err
 
 
 def check_scan(name, kernel, plain, cases, flops, flush) -> dict:
     """`kernel` against `plain` on y and on the final state at each of
     `cases` ({label: (args, s0)}; the first is the path's prefill, the
-    second its decode step) at SCAN_TOL; then both timed at the prefill
-    and the decode case, beside the bound (`flops(args)` f32 operations)."""
+    second its decode step) at SCAN_TOL, then the decode step again in
+    place (`state_out` the initial state itself, as the model hands it its
+    cache slice); then the prefill and the decode step timed (the decode
+    step in place too, its state restored outside the timed region),
+    beside both bounds (`flops(args)` f32 operations)."""
     import torch
     err = {"y": 0.0, "state": 0.0}
     for label, (args, s0) in cases.items():
         got = kernel(*args, init_state=s0)
         want = plain(*args, init_state=s0)
         torch.cuda.synchronize()
-        dt = str(args[0].dtype).removeprefix("torch.")
-        for part, a, b in zip(("y", "state"), got, want):
-            if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"{name} {label} {part}: {a.dtype} "
-                                     f"{tuple(a.shape)} != {b.dtype} "
-                                     f"{tuple(b.shape)}")
-            d = (a.float() - b.float()).abs().max().item()
-            scale = b.float().abs().max().item()
-            if not (math.isfinite(d) and
-                    d <= SCAN_TOL[part][dt] * max(scale, 1.0)):
-                raise AssertionError(f"{name} {label} {part}: max diff {d}, "
-                                     f"max |ref| {scale}")
+        for part, d in scan_close(name, label, got, want).items():
             err[part] = max(err[part], d)
+    dec_args, dec_s0 = list(cases.values())[1]
+    buf = dec_s0.clone()
+    got = kernel(*dec_args, init_state=buf, state_out=buf)
+    want = plain(*dec_args, init_state=dec_s0)
+    torch.cuda.synchronize()
+    if got[1].data_ptr() != buf.data_ptr():
+        raise AssertionError(f"{name}: the in-place step returned another "
+                             f"state than its state_out")
+    for part, d in scan_close(name, "decode in place", got, want).items():
+        err[part] = max(err[part], d)
     out = {}
     for prefix, (args, s0) in zip(("", "decode_"), cases.values()):
         y, st = kernel(*args, init_state=s0)
-        b_ms, b_by = scan_bound(args, s0, y, st, flops(args))
         decode = prefix == "decode_"
         out.update({
             f"{prefix}ms": time_ms(lambda: kernel(*args, init_state=s0),
                                    100 if decode else 20, flush),
             f"{prefix}plain_ms": time_ms(lambda: plain(*args, init_state=s0),
                                          20 if decode else 3, flush),
-            f"{prefix}bound_ms": b_ms, f"{prefix}bound_by": b_by})
+            **{f"{prefix}{k}": v for k, v in
+               scan_bound(args, s0, y, st, flops(args)).items()}})
+    out["decode_in_place_ms"] = time_ms(
+        lambda: kernel(*dec_args, init_state=buf, state_out=buf), 100, flush,
+        setup=lambda: buf.copy_(dec_s0))
     return dict(max_abs_err=max(err.values()), max_abs_err_y=err["y"],
                 max_abs_err_state=err["state"], library_ms=None,
-                tolerance=SCAN_TOL, checked=list(cases), **out)
+                tolerance=SCAN_TOL,
+                checked=list(cases) + ["decode in place"], **out)
 
 
 def check_rwkv6_scan(dev, flush) -> dict:
     """K9 at the RWKV6-7B serve path's prefill (B 4, T 256, 64 heads x 64,
     bf16, zero initial state) and decode step (T 1, the carried state),
     plus a ragged T and f32; 5 f32 operations per state element and step
-    (r . S and the state update)."""
+    (r . S and the state update), bounded as `scan_bound` says."""
     import torch
 
     from repro_torch.kernels import rwkv6_scan as r6
@@ -802,6 +856,8 @@ def check_rwkv6_scan(dev, flush) -> dict:
                  B, t, H, getattr(torch, dt), state, gen, dev)
              for t, dt, state in ((T, "bfloat16", False), (1, "bfloat16", True),
                                   (200, "bfloat16", True),
+                                  (63, "bfloat16", True),
+                                  (65, "bfloat16", False),
                                   (T, "float32", True), (1, "float32", True),
                                   (37, "float32", False))}
 
@@ -823,7 +879,7 @@ def check_mamba2_ssd(dev, flush) -> dict:
     64, one group, state 64, bf16, zero initial state) and decode step (T 1,
     the carried state), plus a ragged T, f32, and two groups at state 16; 5
     f32 operations per state element and step (decay, rank-one update,
-    C . S)."""
+    C . S), bounded as `scan_bound` says."""
     import torch
 
     from repro_torch.kernels import mamba2_ssd as m2
@@ -833,7 +889,8 @@ def check_mamba2_ssd(dev, flush) -> dict:
                  B, t, H, G, N, getattr(torch, dt), state, gen, dev)
              for t, dt, state, G, N in (
                  (T, "bfloat16", False, 1, 64), (1, "bfloat16", True, 1, 64),
-                 (200, "bfloat16", True, 1, 64), (T, "float32", True, 1, 64),
+                 (200, "bfloat16", True, 1, 64), (63, "bfloat16", True, 1, 64),
+                 (65, "bfloat16", False, 2, 16), (T, "float32", True, 1, 64),
                  (1, "float32", True, 1, 64), (37, "float32", False, 2, 16))}
 
     def flops(args):
@@ -1590,9 +1647,11 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
     token), per decode step. On the host clock (synchronized, best of two)
     with the control round and without it, so their difference is the
     control round's cost; then under torch.profiler for the device's busy
-    share, the kernels that fill it and K3's part (its device ms and calls
-    a step). `engine(control)` makes a fresh engine of the main path, with
-    or without its controller."""
+    share, the kernels that fill it, K3's part (its device ms and calls a
+    step), K8's and K9's (`scan_*`) and the copy kernels' (`copy_*`: the
+    cache writes of the conv and token-shift states; K8 and K9 write the
+    recurrent state in place). `engine(control)` makes a fresh engine of
+    the main path, with or without its controller."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1652,7 +1711,13 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
             if DECODE_ATTENTION in name) / 1e3 / steps,
         decode_attention_calls_per_step=sum(
             calls for name, (calls, _) in per_kernel.items()
-            if DECODE_ATTENTION in name) / steps)
+            if DECODE_ATTENTION in name) / steps,
+        **{f"{what}_{unit}_per_step": sum(
+            (us / 1e3 if unit == "ms" else calls)
+            for name, (calls, us) in per_kernel.items()
+            if any(k in name for k in names)) / steps
+           for what, names in (("scan", SCAN_KERNELS), ("copy", COPY_KERNELS))
+           for unit in ("ms", "calls")})
 
 
 # ---------------------------------------------------------------------------

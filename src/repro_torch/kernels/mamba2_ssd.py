@@ -7,26 +7,37 @@ matmuls per chunk of time steps, with the `[N, P]` f32 state in VMEM across
 a sequential grid axis of chunks.
 
 What bounds it on this card: at the hybrid serve path's prefill (B 4, T
-256, 64 heads, P 64, N 64) the ~5 f32 operations per state element and
-time step (1.34 GFLOP, ~20 us at 67 TFLOP/s) outweigh the bytes (~21.5 MB,
-~6.4 us); at decode (T = 1) the f32 state read and written (8.4 MB) bounds
-it.
+256, 64 heads, P 64, N 64, bf16) the bytes (~21.5 MB, ~6.4 us): the ~5 f32
+operations per state element and time step (1.34 GFLOP) run on the bf16
+tensor cores as three bf16 products at most (~4.1 us at 989 TFLOP/s); in
+f32, on the CUDA cores, they take ~20 us at 67 TFLOP/s and bound it. At
+decode (T = 1) the f32 state read and written (8.4 MB) bounds it.
 
-Design: blocks on the card run in parallel and in no order, so nothing
-carries over between blocks: one block per (batch row, head) holds the
-head's whole state in registers and runs the time loop itself. Column p of
-the state is independent of the others (y_t[p] reads only S[:, p]), so four
-threads share a column, N/4 rows each, and reduce y with two shuffles. The
-decay is one scalar exp(dt*A) per (step, head). Per tile of time steps the
-block stages x, dt*B, C and the decay in shared memory with coalesced
-loads, and every column reuses them (B and C are shared by every head of a
-group). Any T is taken (the Pallas kernel needs T % min(128, T) == 0);
-decode runs at T = 1. The chunked tensor-core form would do the prefill's
-work as bf16 matmuls (~3.2 GFLOP) and leave the bytes as the bound; it is
-left to a later change.
+Design: the chunked form, spread across the SMs. Blocks on the card run
+in parallel and in no order, so the prefill is two launches of one kernel,
+a tile per (batch row, head, chunk of `CHUNK` steps): the first computes
+each chunk's end state and decay (chunk 0 from the initial state, with
+its y; the others from zero), the second folds the state before each
+later chunk from those and computes its y, the last chunk writing the
+final state. A tile walks its chunk in sub-chunks of `SUB` steps whose
+decays are products of the per-step factors (no difference of cumulative
+sums). bf16 runs the products on the tensor cores with the f32 operands
+split into bf16 terms (the state keeps f32's accuracy; y is rounded to
+bf16 once, at its store); f32 runs them as FMAs. T <= `CHUNK` is one
+launch; decode (T = 1) is one launch of a kernel with one CTA per (batch
+row, head) that moves the state in 16-byte vectors. The wrapper
+allocates the scratch (the chunks' end states and decays, ~17 MB at the
+serve prefill) with `torch.empty`. Any T is taken (the Pallas kernel needs
+T % min(128, T) == 0).
+
+In place: `state_out` (f32 `[Bt,H,N,P]`, contiguous) receives the final
+state and is returned; it may be the same tensor as `init_state`, so the
+model hands the scan its cache slice and the step writes the state there
+without a copy. Without `state_out` a new state is allocated.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises."""
+raises. The kernel's copies need x, B, C, the states and y on 16-byte
+addresses; the wrapper refuses others."""
 
 from __future__ import annotations
 
@@ -37,20 +48,28 @@ from repro_torch.kernels import _build, ref
 HEAD_DIMS = (64,)            # P in the kernel
 STATE_DIMS = (16, 64)        # N: the kernel's template instances
 DTYPES = (torch.float32, torch.bfloat16)
+CHUNK = 64                   # time steps of one tile (the kernel's CHUNK)
+SUB = 16                     # time steps of one sub-chunk (its SUB)
 
 
-def mamba2_ssd_plain(x, dt, A, B, C, D, *, init_state=None):
-    """The plain PyTorch version: `ref.mamba2_scan_reference`."""
-    return ref.mamba2_scan_reference(x, dt, A, B, C, D,
-                                     init_state=init_state)
+def mamba2_ssd_plain(x, dt, A, B, C, D, *, init_state=None,
+                     state_out=None):
+    """The plain PyTorch version: `ref.mamba2_scan_reference`; the final
+    state is copied into `state_out` when one is given."""
+    y, state = ref.mamba2_scan_reference(x, dt, A, B, C, D,
+                                         init_state=init_state)
+    return y, state if state_out is None else state_out.copy_(state)
 
 
-def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None):
+def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None, state_out=None):
     """x [Bt,T,H,P] f32 or bf16; dt [Bt,T,H] f32 (softplus output); A, D
     [H] f32; B, C [Bt,T,G,N] in x.dtype; init_state [Bt,H,N,P] f32 or None
-    (zeros) -> (y [Bt,T,H,P] in x.dtype, final state [Bt,H,N,P] f32)."""
+    (zeros) -> (y [Bt,T,H,P] in x.dtype, final state [Bt,H,N,P] f32). The
+    final state is written into `state_out` when given (it may be
+    `init_state` itself) and that tensor is returned."""
     if x.device.type == "cpu":
-        return mamba2_ssd_plain(x, dt, A, B, C, D, init_state=init_state)
+        return mamba2_ssd_plain(x, dt, A, B, C, D, init_state=init_state,
+                                state_out=state_out)
     if x.device.type != "cuda":
         raise ValueError(f"mamba2_ssd runs on cpu or cuda, got {x.device}")
     if x.dim() != 4 or B.dim() != 4:
@@ -70,9 +89,9 @@ def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None):
             (B, x.dtype, (Bt, T, G, N), "B"),
             (C, x.dtype, (Bt, T, G, N), "C"),
             (D, torch.float32, (H,), "D")]
-    if init_state is not None:
-        want.append((init_state, torch.float32, (Bt, H, N, P),
-                     "init_state"))
+    for st, name in ((init_state, "init_state"), (state_out, "state_out")):
+        if st is not None:
+            want.append((st, torch.float32, (Bt, H, N, P), name))
     for a, dtype, shape, name in [(x, x.dtype, x.shape, "x")] + want:
         if a.device != x.device or a.dtype != dtype or \
                 tuple(a.shape) != tuple(shape) or not a.is_contiguous():
@@ -80,8 +99,24 @@ def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None):
                              f"{dtype} tensor of shape {tuple(shape)} on "
                              f"{x.device}; got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
+    for a, name in ((x, "x"), (B, "B"), (C, "C"), (init_state, "init_state"),
+                    (state_out, "state_out")):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"mamba2_ssd: {name} must start on a 16-byte "
+                             f"address (the kernel's vector copies)")
     y = torch.empty_like(x)
-    state = torch.empty((Bt, H, N, P), dtype=torch.float32, device=x.device)
+    state = state_out if state_out is not None else torch.empty(
+        (Bt, H, N, P), dtype=torch.float32, device=x.device)
+    if T == 0:                  # nothing to scan: the state carries over
+        return y, state.zero_() if init_state is None else \
+            state.copy_(init_state)
+    nc = -(-T // CHUNK)
+    slot = decay = None
+    if T > CHUNK:
+        slot = torch.empty((Bt * H, nc, N, P), dtype=torch.float32,
+                                  device=x.device)
+        decay = torch.empty((Bt * H, nc), dtype=torch.float32,
+                                  device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -89,8 +124,11 @@ def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None):
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), Bt, T, H, G, N, P,
-            int(x.dtype == torch.bfloat16), stream)
+            y.data_ptr(), state.data_ptr(),
+            None if slot is None else slot.data_ptr(),
+            None if decay is None else decay.data_ptr(),
+            Bt, T, H, G, N, P, CHUNK, int(x.dtype == torch.bfloat16),
+            stream)
     _build.check(rc, "mamba2_ssd")
     mamba2_ssd.launches += 1
     return y, state

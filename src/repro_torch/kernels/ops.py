@@ -77,18 +77,24 @@ def fleet_reduce(x):
     return _ft.fleet_reduce(x)
 
 
-def rwkv6_scan(r, k, v, w, u, *, init_state=None):
+def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):
     """RWKV6 recurrence (K9): r, k, v [B,T,H,Dh], w [B,T,H,Dh] f32
     log-decay, u [H,Dh] f32, init_state [B,H,Dh,Dh] f32 or None -> (y
-    [B,T,H,Dh], final state [B,H,Dh,Dh] f32)."""
-    return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state)
+    [B,T,H,Dh], final state [B,H,Dh,Dh] f32). With `state_out` the final
+    state is written there (it may be `init_state`: in place) and it is
+    the state returned."""
+    return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state,
+                          state_out=state_out)
 
 
-def mamba2_scan(x, dt, A, B, C, D, *, init_state=None):
+def mamba2_scan(x, dt, A, B, C, D, *, init_state=None, state_out=None):
     """Mamba2 SSD scan (K8): x [Bt,T,H,P], dt [Bt,T,H] f32, A, D [H] f32,
     B, C [Bt,T,G,N], init_state [Bt,H,N,P] f32 or None -> (y [Bt,T,H,P],
-    final state [Bt,H,N,P] f32)."""
-    return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state)
+    final state [Bt,H,N,P] f32). With `state_out` the final state is
+    written there (it may be `init_state`: in place) and it is the state
+    returned."""
+    return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state,
+                          state_out=state_out)
 
 
 def quantize_int8(x, *, block: int = 256):

@@ -6,21 +6,40 @@ Replaces the TPU kernel `repro/kernels/rwkv6_scan.py::rwkv6_scan`
 on a sequential grid axis with the `[Dh, Dh]` f32 state in VMEM.
 
 What bounds it on this card: at the serve path's prefill (B 4, T 256, 64
-heads, Dh 64) the ~5 f32 operations per state element and time step (1.34
-GFLOP, ~20 us at 67 TFLOP/s) slightly outweigh the bytes (~55 MB, ~16 us);
-at decode (T = 1) the f32 state read and written (8.4 MB) bounds it.
+heads, Dh 64, bf16) the bytes (~55 MB, ~16 us): the ~5 f32 operations per
+state element and time step (1.34 GFLOP) run on the bf16 tensor cores as
+three bf16 products at most (~4.1 us at 989 TFLOP/s); in f32, on the CUDA
+cores, they take ~20 us at 67 TFLOP/s and bound it. At decode (T = 1) the
+f32 state read and written (8.4 MB) bounds it.
 
-Design: blocks on the card run in parallel and in no order, so nothing
-carries over between blocks: one block per (batch row, head) holds the
-head's whole state in registers and runs the time loop itself. Column j of
-the state is independent of the others (y_t[j] reads only S[:, j]), so four
-threads share a column, sixteen rows each, and reduce y with two shuffles.
-Per tile of time steps the block stages r, k, exp(w) and u*k in shared
-memory with coalesced loads, and every column reuses them. Any T is taken
-(the Pallas kernel needs T % min(64, T) == 0); decode runs at T = 1.
+Design: the chunked gated-linear-attention form, spread across the SMs.
+Blocks on the card run in parallel and in no order, so the prefill is two
+launches of one kernel, a tile per (batch row, head, chunk of `CHUNK`
+steps): the first computes each chunk's end state and per-key decay
+(chunk 0 from the initial state, with its y; the others from zero), the
+second folds the state before each later chunk from those and computes
+its y, the last chunk writing the final state. A tile walks its chunk in
+sub-chunks of `SUB` steps, and every decay inside is a running product of
+at most `SUB` factors exp(w) in (0, 1], so no factor e^{-sum w} can
+overflow whatever the decays (the factorised form overflows once a span's
+sum |w| passes ~88). exp(w) is taken once an element. bf16 runs the
+products with the state on the tensor cores, the f32 operands split into
+bf16 terms (the state keeps f32's accuracy; y is rounded to bf16 once, at
+its store); f32 runs them as FMAs. T <= `CHUNK` is one launch; decode (T =
+1) is one launch of a kernel with one CTA per (batch row, head) that moves
+the state in 16-byte vectors. The wrapper allocates
+the scratch (the chunks' end states and decays, ~17 MB at the serve
+prefill) with `torch.empty`. Any T is taken (the Pallas kernel needs T %
+min(64, T) == 0).
+
+In place: `state_out` (f32 `[B,H,Dh,Dh]`, contiguous) receives the final
+state and is returned; it may be the same tensor as `init_state`, so the
+model hands the scan its cache slice and the step writes the state there
+without a copy. Without `state_out` a new state is allocated.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises."""
+raises. The kernel's copies need r, k, v, w, the states and y on 16-byte
+addresses; the wrapper refuses others."""
 
 from __future__ import annotations
 
@@ -30,19 +49,27 @@ from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (64,)      # DH in the kernel
 DTYPES = (torch.float32, torch.bfloat16)
+CHUNK = 64             # time steps of one tile (the kernel's CHUNK)
+SUB = 16               # time steps of one sub-chunk (its SUB)
 
 
-def rwkv6_scan_plain(r, k, v, w, u, *, init_state=None):
-    """The plain PyTorch version: `ref.rwkv6_scan_reference`."""
-    return ref.rwkv6_scan_reference(r, k, v, w, u, init_state=init_state)
+def rwkv6_scan_plain(r, k, v, w, u, *, init_state=None, state_out=None):
+    """The plain PyTorch version: `ref.rwkv6_scan_reference`; the final
+    state is copied into `state_out` when one is given."""
+    y, state = ref.rwkv6_scan_reference(r, k, v, w, u,
+                                        init_state=init_state)
+    return y, state if state_out is None else state_out.copy_(state)
 
 
-def rwkv6_scan(r, k, v, w, u, *, init_state=None):
+def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):
     """r, k, v [B,T,H,Dh] in one dtype; w [B,T,H,Dh] f32 log-decay (<= 0);
     u [H,Dh] f32; init_state [B,H,Dh,Dh] f32 or None (zeros) -> (y
-    [B,T,H,Dh] in r.dtype, final state [B,H,Dh,Dh] f32, key-major)."""
+    [B,T,H,Dh] in r.dtype, final state [B,H,Dh,Dh] f32, key-major). The
+    final state is written into `state_out` when given (it may be
+    `init_state` itself) and that tensor is returned."""
     if r.device.type == "cpu":
-        return rwkv6_scan_plain(r, k, v, w, u, init_state=init_state)
+        return rwkv6_scan_plain(r, k, v, w, u, init_state=init_state,
+                                state_out=state_out)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on cpu or cuda, got {r.device}")
     if r.dim() != 4:
@@ -54,9 +81,9 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None):
     want = [(k, r.dtype, r.shape, "k"), (v, r.dtype, r.shape, "v"),
             (w, torch.float32, r.shape, "w"),
             (u, torch.float32, (H, Dh), "u")]
-    if init_state is not None:
-        want.append((init_state, torch.float32, (B, H, Dh, Dh),
-                     "init_state"))
+    for st, name in ((init_state, "init_state"), (state_out, "state_out")):
+        if st is not None:
+            want.append((st, torch.float32, (B, H, Dh, Dh), name))
     for a, dtype, shape, name in [(r, r.dtype, r.shape, "r")] + want:
         if a.device != r.device or a.dtype != dtype or \
                 tuple(a.shape) != tuple(shape) or not a.is_contiguous():
@@ -64,8 +91,24 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None):
                              f"{dtype} tensor of shape {tuple(shape)} on "
                              f"{r.device}; got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
+    for a, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w"),
+                    (init_state, "init_state"), (state_out, "state_out")):
+        if a is not None and a.data_ptr() % 16:
+            raise ValueError(f"rwkv6_scan: {name} must start on a 16-byte "
+                             f"address (the kernel's vector copies)")
     y = torch.empty_like(r)
-    state = torch.empty((B, H, Dh, Dh), dtype=torch.float32, device=r.device)
+    state = state_out if state_out is not None else torch.empty(
+        (B, H, Dh, Dh), dtype=torch.float32, device=r.device)
+    if T == 0:                  # nothing to scan: the state carries over
+        return y, state.zero_() if init_state is None else \
+            state.copy_(init_state)
+    nc = -(-T // CHUNK)
+    slot = decay = None
+    if T > CHUNK:
+        slot = torch.empty((B * H, nc, Dh, Dh), dtype=torch.float32,
+                                  device=r.device)
+        decay = torch.empty((B * H, nc, Dh), dtype=torch.float32,
+                                  device=r.device)
     lib = _build.load()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -73,8 +116,10 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None):
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, T, H, Dh,
-            int(r.dtype == torch.bfloat16), stream)
+            y.data_ptr(), state.data_ptr(),
+            None if slot is None else slot.data_ptr(),
+            None if decay is None else decay.data_ptr(),
+            B, T, H, Dh, CHUNK, int(r.dtype == torch.bfloat16), stream)
     _build.check(rc, "rwkv6_scan")
     rwkv6_scan.launches += 1
     return y, state

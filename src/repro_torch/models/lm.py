@@ -21,6 +21,11 @@ place:
   the tuple `((conv_x, conv_B, conv_C), ssm)`; the names above map onto
   it in that order.
 
+The recurrent states (`wkv`, `ssm`) are written by the scans themselves:
+`prefill` and `decode_step` hand K8 and K9 the cache's slice as their
+output state (`state_out`), so no step copies a state into the cache; the
+conv and token-shift states, which are small, are copied.
+
 `forward_train` checkpoints each layer (`remat="full"`) with
 `torch.utils.checkpoint`; the reference's two-level group remat
 (`remat="group"`) is not ported yet, nor is training the ssm and hybrid
@@ -281,12 +286,13 @@ def _block_tail(p, x, cfg: ModelConfig):
     return x + mlp.swiglu(p["mlp"], h)
 
 
-def _mamba_layer(p, x, cfg: ModelConfig, state=None):
+def _mamba_layer(p, x, cfg: ModelConfig, state=None, ssm_out=None):
     """One hybrid layer: x + mamba2(rms_norm(x)), continuing from `state`
-    ((conv_x, conv_B, conv_C), ssm) or from zeros. Returns (x, state)."""
+    ((conv_x, conv_B, conv_C), ssm) or from zeros, the new ssm state
+    written into `ssm_out` when given. Returns (x, state)."""
     h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
     m, state = mamba2.mamba2_forward(p["mamba"], h, mamba_spec(cfg),
-                                     init_state=state)
+                                     init_state=state, ssm_out=ssm_out)
     return x + m, state
 
 
@@ -310,19 +316,22 @@ def _shared_block(params, x, i: int, cfg: ModelConfig, attend):
     return _block_tail(shared, x + attend(shared["attn"], h, occ), cfg)
 
 
-def _store_mamba(cache, i: int, state) -> None:
-    (sx, sB, sC), ssm = state
-    for key, value in zip(CONV_KEYS + ("ssm",), (sx, sB, sC, ssm)):
+def _store_convs(cache, i: int, state) -> None:
+    """Layer i's conv states into the hybrid cache (its ssm state is
+    already there: the scan wrote it in place)."""
+    for key, value in zip(CONV_KEYS, state[0]):
         cache[key][i].copy_(value)
 
 
-def _rwkv_layer(p, x, cfg: ModelConfig, state=None):
+def _rwkv_layer(p, x, cfg: ModelConfig, state=None, wkv_out=None):
     """One RWKV6 layer; `state` is (wkv, tm_last, cm_last) to continue from,
-    or None. Returns (x, (wkv, tm_last, cm_last))."""
+    or None; the new wkv state is written into `wkv_out` when given.
+    Returns (x, (wkv, tm_last, cm_last))."""
     wkv, tm_last, cm_last = state if state is not None else (None,) * 3
     h = common.layer_norm(x, p["ln1_w"], p["ln1_b"], cfg.norm_eps)
     a, (wkv, tm_last) = rwkv6.rwkv6_time_mix(
-        p["rwkv_tm"], h, rwkv_spec(cfg), init_state=wkv, last_x=tm_last)
+        p["rwkv_tm"], h, rwkv_spec(cfg), init_state=wkv, last_x=tm_last,
+        state_out=wkv_out)
     x = x + a
     h = common.layer_norm(x, p["ln2_w"], p["ln2_b"], cfg.norm_eps)
     c, cm_last = rwkv6.rwkv6_channel_mix(p["rwkv_tm"], h, last_x=cm_last)
@@ -333,14 +342,16 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
     """One serving step: tokens [B,1] -> (logits [B,1,V], cache), the cache
     written in place (dense: at slot `cur_index`; ssm: the recurrent state,
     `cur_index` unused; hybrid: each layer's Mamba2 state, and each shared
-    occurrence's KV cache at slot `cur_index % S`)."""
+    occurrence's KV cache at slot `cur_index % S`). The scans read and
+    write the wkv / ssm state in its cache slice."""
     _check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x, state = _rwkv_layer(_layer(params, i), x, cfg,
-                                   tuple(cache[k][i] for k in RWKV_CACHE_KEYS))
-            for key, value in zip(RWKV_CACHE_KEYS, state):
+                                   tuple(cache[k][i] for k in RWKV_CACHE_KEYS),
+                                   wkv_out=cache["wkv"][i])
+            for key, value in zip(RWKV_CACHE_KEYS[1:], state[1:]):
                 cache[key][i].copy_(value)
         return logits_from(params, x, cfg), cache
     if cfg.family == "hybrid":
@@ -353,8 +364,9 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
 
         for i in range(cfg.n_layers):
             x, state = _mamba_layer(_layer(params, i), x, cfg,
-                                    _mamba_state(cache["mamba"], i))
-            _store_mamba(cache["mamba"], i, state)
+                                    _mamba_state(cache["mamba"], i),
+                                    ssm_out=cache["mamba"]["ssm"][i])
+            _store_convs(cache["mamba"], i, state)
             x = _shared_block(params, x, i, cfg, attend)
         return logits_from(params, x, cfg), cache
     spec = attn_spec(cfg)
@@ -376,8 +388,9 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
     cache = init_decode_cache(cfg, B, max_len, x.device)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            x, state = _rwkv_layer(_layer(params, i), x, cfg)
-            for key, value in zip(RWKV_CACHE_KEYS, state):
+            x, state = _rwkv_layer(_layer(params, i), x, cfg,
+                                   wkv_out=cache["wkv"][i])
+            for key, value in zip(RWKV_CACHE_KEYS[1:], state[1:]):
                 cache[key][i] = value
         return logits_from(params, x[:, -1:], cfg), cache, T
     positions = torch.arange(T, dtype=torch.int32,
@@ -398,8 +411,9 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
             return a
 
         for i in range(cfg.n_layers):
-            x, state = _mamba_layer(_layer(params, i), x, cfg)
-            _store_mamba(cache["mamba"], i, state)
+            x, state = _mamba_layer(_layer(params, i), x, cfg,
+                                    ssm_out=cache["mamba"]["ssm"][i])
+            _store_convs(cache["mamba"], i, state)
             x = _shared_block(params, x, i, cfg, attend)
         return logits_from(params, x[:, -1:], cfg), cache, T
     spec = attn_spec(cfg)

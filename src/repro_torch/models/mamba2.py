@@ -12,7 +12,10 @@ products in the input dtype and applies silu in f32; the step size is
 `softplus(dt in f32 + dt_bias)` and stays f32; `A = -exp(A_log)`; the gate
 is `silu(z in f32)` cast back before the gated RMS norm. `A_log`, `D` and
 `dt_bias` are f32 parameters in any model dtype. The scan itself is
-`ops.mamba2_scan` (K8)."""
+`ops.mamba2_scan` (K8). Unlike the reference, whose functions are pure, a
+caller may hand the scan an output buffer for the ssm state (`ssm_out`):
+the serve path passes its cache slice, so a decode step updates the state
+in place."""
 
 from __future__ import annotations
 
@@ -130,9 +133,13 @@ def init_mamba2_state(batch: int, spec: Mamba2Spec, dtype=torch.bfloat16,
     return convs, ssm
 
 
-def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None):
+def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None,
+                   ssm_out=None):
     """Prefill pass (or a decode step with `init_state`). x [B,T,D] ->
-    (y [B,T,D], ((conv_x, conv_B, conv_C), ssm))."""
+    (y [B,T,D], ((conv_x, conv_B, conv_C), ssm)). With `ssm_out` (f32
+    [B,H,N,P], e.g. the decode cache's slice, which may be `init_state`'s
+    own ssm) the scan writes the new ssm state there in place and that
+    tensor is returned."""
     B, T, _ = x.shape
     H, N, G, P = spec.n_heads, spec.d_state, spec.n_groups, spec.head_dim
     convs_prev = (None,) * 3 if init_state is None else init_state[0]
@@ -158,7 +165,7 @@ def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None):
     A = -torch.exp(params["A_log"])
 
     y, ssm_state = ops.mamba2_scan(xh, dts, A, Bh, Ch, params["D"],
-                                   init_state=ssm_prev)
+                                   init_state=ssm_prev, state_out=ssm_out)
     y = y.reshape(B, T, spec.d_inner)
     y = common.rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
     return y @ params["w_out"], ((sx, sB, sC), ssm_state)

@@ -8,7 +8,10 @@ low-rank branch goes through tanh in f32 and back to the model dtype, the
 decay is computed in f32 (`w_log = -exp(decay_base + dec)`, with
 `decay_base` and `bonus_u` f32 parameters in any model dtype), and the
 silu, squared ReLU and sigmoid run in f32. The recurrence itself is
-`ops.rwkv6_scan` (K9)."""
+`ops.rwkv6_scan` (K9). Unlike the reference, whose functions are pure, a
+caller may hand the scan an output buffer for the state (`state_out`): the
+serve path passes its cache slice, so a decode step updates the state in
+place."""
 
 from __future__ import annotations
 
@@ -95,8 +98,11 @@ def _token_shift(x, last=None):
 
 
 def rwkv6_time_mix(params, x, spec: Rwkv6Spec, *, init_state=None,
-                   last_x=None):
-    """x [B,T,D] -> (y, (wkv_state [B,H,Dh,Dh] f32, last token [B,1,D]))."""
+                   last_x=None, state_out=None):
+    """x [B,T,D] -> (y, (wkv_state [B,H,Dh,Dh] f32, last token [B,1,D])).
+    With `state_out` (f32 [B,H,Dh,Dh], e.g. the decode cache's slice, which
+    may be `init_state`) the scan writes the new state there in place and
+    that tensor is returned."""
     B, T, D = x.shape
     H, Dh, R = spec.n_heads, spec.head_dim, spec.lora_rank
     xs = _token_shift(x, last_x)
@@ -119,7 +125,7 @@ def rwkv6_time_mix(params, x, spec: Rwkv6Spec, *, init_state=None,
     w_log = w_log.reshape(B, T, H, Dh)
 
     y, state = ops.rwkv6_scan(r, k, v, w_log, params["bonus_u"],
-                              init_state=init_state)
+                              init_state=init_state, state_out=state_out)
     y = common.layer_norm(y.reshape(B, T, D), params["ln_x_w"],
                           params["ln_x_b"])
     y = y * F.silu(g.float()).to(y.dtype)

@@ -50,6 +50,49 @@ def mamba2_inputs(Bt, T, H, G, N, seed, state=True, P=64):
     return x, dt, A, B, C, D, s0
 
 
+def rwkv_adversarial_w(w, seed):
+    """w with head 0 at -3 every step (sum |w| 192 over a 64-step chunk)
+    and head 1 at -40 on ~30 % of steps, -1e-3 on the rest (decays near 1
+    between them): past the ~88 at which the factorised form's e^{-W}
+    overflows f32. The other heads keep their draws."""
+    rng = np.random.default_rng(seed)
+    w = w.copy()
+    w[:, :, 0] = -3.0
+    w[:, :, 1] = np.where(rng.random(w.shape[:2] + w.shape[3:]) < 0.3,
+                          -40.0, -1e-3).astype(np.float32)
+    return w
+
+
+def mamba2_adversarial_decay(dt, A):
+    """dt and A with dt * A = -64 every step on head 0 (each step's decay
+    e^-64; a cumulative sum reaches -16384 over 256 steps) and A = -1e-3
+    on head 1 (decays near 1). The other heads keep their draws."""
+    dt, A = dt.copy(), A.copy()
+    A[0], A[1] = -16.0, -1e-3
+    dt[..., 0] = 4.0
+    return dt, A
+
+
+def bf16_round(a):
+    """f32 -> the nearest bf16 (ties to even), returned as f32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def bf16_split(a, n: int):
+    """f32 a as n bf16 terms, largest first, each the rounding of what the
+    earlier ones left (the scan kernels' `split_bf16`)."""
+    terms = []
+    a = np.asarray(a, np.float32)
+    for _ in range(n):
+        t = bf16_round(a)
+        terms.append(t)
+        a = (a - t).astype(np.float32)
+    return terms
+
+
 def codec_input(n: int, seed: int, block: int = 256):
     """n N(0, 1) values f32, each block scaled by 10^U(-6, 1) (the spread of
     gradient magnitudes across a model's leaves), with one all-zero block

@@ -23,8 +23,9 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
 from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
                                check_sums, codec_input, codec_ties,
-                               ef_inputs, mamba2_inputs, qkv, rwkv_inputs,
-                               sor_inputs)
+                               ef_inputs, mamba2_adversarial_decay,
+                               mamba2_inputs, qkv, rwkv_adversarial_w,
+                               rwkv_inputs, sor_inputs)
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
@@ -698,6 +699,7 @@ R6_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 def scan_close(got, want, tol):
     for name, a, b in zip(("y", "state"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
         err = (a.float() - b.float()).abs().max().item()
         scale = b.float().abs().max().item()
         assert err <= tol * max(scale, 1.0), (name, err, scale)
@@ -706,14 +708,24 @@ def scan_close(got, want, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("B,T,H", [
-    (4, 256, 64),     # the serve path's prefill (RWKV6-7B: 64 heads x 64)
-    (4, 1, 64),       # its decode step
-    (2, 200, 8),      # ragged T, not a multiple of the staged tile
-    (2, 64, 8),
+@pytest.mark.parametrize("B,T,H,decay", [
+    (4, 256, 64, "drawn"),  # the serve path's prefill (RWKV6-7B: 64 x 64)
+    (4, 1, 64, "drawn"),    # its decode step
+    (2, 200, 8, "drawn"),   # ragged T, not a multiple of the 64-step chunk
+    (2, 64, 8, "drawn"),    # one chunk; then around the chunk's edges
+    (2, 63, 8, "drawn"),
+    (2, 65, 8, "drawn"),
+    (2, 129, 4, "drawn"),
+    (2, 17, 4, "drawn"),    # one sub-chunk and a step
+    (2, 2, 4, "drawn"),
+    (2, 256, 8, "adversarial"),  # sum |w| far past 88 a chunk
+    (2, 1, 8, "adversarial"),
 ])
-def test_rwkv6_scan_kernel_matches_plain(cuda, dtype, with_state, B, T, H):
+def test_rwkv6_scan_kernel_matches_plain(cuda, dtype, with_state, B, T, H,
+                                         decay):
     r, k, v, w, u, s0 = rwkv_inputs(B, T, H, 64, seed=T, state=with_state)
+    if decay == "adversarial":
+        w = rwkv_adversarial_w(w, seed=T)
     r, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (r, k, v))
     w, u = (torch.from_numpy(a).to(cuda) for a in (w, u))
     s0 = None if s0 is None else torch.from_numpy(s0).to(cuda)
@@ -737,12 +749,21 @@ def test_rwkv6_scan_kernel_refuses_what_it_does_not_take(cuda):
                                  .transpose(1, 2)),
         "wrong u shape": dict(u=u[:1]),
         "bf16 state": dict(init_state=s0.bfloat16()),
+        "bf16 state_out": dict(state_out=s0.bfloat16()),
+        "wrong state_out shape": dict(state_out=s0[:, :1].contiguous()),
+        "unaligned r": dict(r=torch.empty(r.numel() + 1, dtype=r.dtype,
+                                          device=cuda)[1:].view(r.shape)),
+        "unaligned state_out": dict(
+            state_out=torch.empty(s0.numel() + 1, device=cuda)[1:]
+            .view(s0.shape)),
     }
     for change in bad.values():
-        a = {**dict(r=r, k=k, v=v, w=w, u=u, init_state=s0), **change}
+        a = {**dict(r=r, k=k, v=v, w=w, u=u, init_state=s0,
+                    state_out=None), **change}
         with pytest.raises(ValueError, match="rwkv6_scan"):
             tr6.rwkv6_scan(a["r"], a["k"], a["v"], a["w"], a["u"],
-                           init_state=a["init_state"])
+                           init_state=a["init_state"],
+                           state_out=a["state_out"])
     r32, k32, v32, w32 = (a[..., :32].contiguous() for a in (r, k, v, w))
     with pytest.raises(ValueError, match="head_dim"):
         tr6.rwkv6_scan(r32, k32, v32, w32, u[:, :32].contiguous())
@@ -758,17 +779,26 @@ M2_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_state", [False, True])
-@pytest.mark.parametrize("Bt,T,H,G,N", [
-    (4, 256, 64, 1, 64),   # the serve path's prefill (Zamba2-1.2B)
-    (4, 1, 64, 1, 64),     # its decode step
-    (2, 200, 8, 1, 64),    # ragged T, not a multiple of the staged tile
-    (2, 64, 8, 2, 16),     # two groups, the tiny config's d_state
-    (2, 37, 4, 2, 16),
+@pytest.mark.parametrize("Bt,T,H,G,N,decay", [
+    (4, 256, 64, 1, 64, "drawn"),   # the serve path's prefill (Zamba2-1.2B)
+    (4, 1, 64, 1, 64, "drawn"),     # its decode step
+    (2, 200, 8, 1, 64, "drawn"),    # ragged T, not a multiple of the chunk
+    (2, 64, 8, 2, 16, "drawn"),     # two groups, the tiny config's d_state
+    (2, 37, 4, 2, 16, "drawn"),
+    (2, 63, 8, 1, 64, "drawn"),     # around the chunk's edges
+    (2, 65, 8, 1, 64, "drawn"),
+    (2, 129, 4, 2, 16, "drawn"),
+    (2, 17, 4, 1, 64, "drawn"),     # one sub-chunk and a step
+    (2, 1, 8, 2, 16, "drawn"),      # the decode step at d_state 16
+    (2, 256, 8, 1, 64, "adversarial"),  # dt * A = -64 a step on a head
+    (2, 1, 8, 1, 64, "adversarial"),
 ])
 def test_mamba2_ssd_kernel_matches_plain(cuda, dtype, with_state, Bt, T, H,
-                                         G, N):
+                                         G, N, decay):
     x, dt, A, B, C, D, s0 = mamba2_inputs(Bt, T, H, G, N, seed=T,
                                           state=with_state)
+    if decay == "adversarial":
+        dt, A = mamba2_adversarial_decay(dt, A)
     x, B, C = (torch.from_numpy(a).to(cuda, dtype) for a in (x, B, C))
     dt, A, D = (torch.from_numpy(a).to(cuda) for a in (dt, A, D))
     s0 = None if s0 is None else torch.from_numpy(s0).to(cuda)
@@ -801,9 +831,72 @@ def test_mamba2_ssd_kernel_refuses_what_it_does_not_take(cuda):
                            init_state=s0.repeat(1, 1, 2, 1)),
         "3 groups of 4 heads": dict(B=B.expand(1, 8, 3, 16).contiguous(),
                                     C=C.expand(1, 8, 3, 16).contiguous()),
+        "bf16 state_out": dict(state_out=s0.bfloat16()),
+        "wrong state_out shape": dict(state_out=s0[:, :1].contiguous()),
+        "unaligned x": dict(x=torch.empty(x.numel() + 1, device=cuda)[1:]
+                            .view(x.shape)),
+        "unaligned state_out": dict(
+            state_out=torch.empty(s0.numel() + 1, device=cuda)[1:]
+            .view(s0.shape)),
     }
     for change in bad.values():
-        a = {**args, **change}
+        a = {**args, "state_out": None, **change}
         with pytest.raises(ValueError, match="mamba2_ssd"):
             tm2.mamba2_ssd(a["x"], a["dt"], a["A"], a["B"], a["C"], a["D"],
-                           init_state=a["init_state"])
+                           init_state=a["init_state"],
+                           state_out=a["state_out"])
+
+
+# K8 and K9 in place, and bit for bit over launches
+
+def _scan_case(name, cuda, dtype, T, seed):
+    """(kernel, plain, args, s0) at the serve heads, batch 2."""
+    if name == "rwkv6_scan":
+        r, k, v, w, u, s0 = rwkv_inputs(2, T, 64, 64, seed=seed)
+        args = tuple(torch.from_numpy(a).to(cuda, dtype) for a in (r, k, v)) \
+            + tuple(torch.from_numpy(a).to(cuda) for a in (w, u))
+        return tr6.rwkv6_scan, tr6.rwkv6_scan_plain, args, \
+            torch.from_numpy(s0).to(cuda)
+    x, dt, A, B, C, D, s0 = mamba2_inputs(2, T, 64, 1, 64, seed=seed)
+    args = (torch.from_numpy(x).to(cuda, dtype),
+            *(torch.from_numpy(a).to(cuda) for a in (dt, A)),
+            *(torch.from_numpy(a).to(cuda, dtype) for a in (B, C)),
+            torch.from_numpy(D).to(cuda))
+    return tm2.mamba2_ssd, tm2.mamba2_ssd_plain, args, \
+        torch.from_numpy(s0).to(cuda)
+
+
+SCAN_TOL = {"rwkv6_scan": R6_TOL, "mamba2_ssd": M2_TOL}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 256])
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba2_ssd"])
+def test_scan_kernel_state_out_in_place(cuda, name, T, dtype):
+    """`state_out` the initial state itself (the model's cache slice) and
+    a separate buffer: the same y and state as the plain version, written
+    into the buffer and returned; one launch a call."""
+    kernel, plain, args, s0 = _scan_case(name, cuda, dtype, T, seed=T + 3)
+    want = plain(*args, init_state=s0)
+    buf = s0.clone()
+    kernel.launches = 0
+    got = kernel(*args, init_state=buf, state_out=buf)
+    assert kernel.launches == 1 and got[1] is buf
+    scan_close(got, want, SCAN_TOL[name][dtype])
+    out = torch.full_like(s0, float("nan"))
+    got = kernel(*args, init_state=s0, state_out=out)
+    assert got[1] is out
+    scan_close(got, want, SCAN_TOL[name][dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 65, 256])
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba2_ssd"])
+def test_scan_kernel_two_launches_same_bits(cuda, name, T, dtype):
+    """Sums in a fixed order, no atomics: two launches, the same bits."""
+    kernel, _, args, s0 = _scan_case(name, cuda, dtype, T, seed=T + 4)
+    y1, st1 = kernel(*args, init_state=s0)
+    y2, st2 = kernel(*args, init_state=s0)
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)

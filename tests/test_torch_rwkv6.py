@@ -28,7 +28,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.models import rwkv6 as trwkv
-from test_torch_inputs import rwkv_inputs
+from test_torch_inputs import (bf16_round, bf16_split, rwkv_adversarial_w,
+                               rwkv_inputs)
 
 # f32 recurrence: the same products summed in another order (the
 # reference's einsum over keys against a sequential sum), relative to the
@@ -124,6 +125,179 @@ def test_rwkv6_cpu_dispatch_runs_the_plain_version():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert tops.launch_counts()["rwkv6_scan"] == 0
+
+
+def test_rwkv6_state_out_gives_todays_results():
+    """The plain version's `state_out`, a separate buffer or `init_state`
+    itself, gives the same y and state as a call without it, and returns
+    that buffer."""
+    r, k, v, w, u, s0 = _t(*rwkv_inputs(2, 37, 2, 64, seed=9))
+    y, s = tops.rwkv6_scan(r, k, v, w, u, init_state=s0)
+    out = torch.full_like(s0, float("nan"))
+    y1, s1 = tops.rwkv6_scan(r, k, v, w, u, init_state=s0, state_out=out)
+    alias = s0.clone()
+    y2, s2 = tops.rwkv6_scan(r, k, v, w, u, init_state=alias,
+                             state_out=alias)
+    assert s1 is out and s2 is alias
+    for yy, ss in ((y1, s1), (y2, s2)):
+        assert torch.equal(yy, y) and torch.equal(ss, s)
+    y0, s0_out = tops.rwkv6_scan(r, k, v, w, u,
+                                 state_out=torch.empty_like(s0))
+    y0_want, s0_want = tops.rwkv6_scan(r, k, v, w, u)
+    assert torch.equal(y0, y0_want) and torch.equal(s0_out, s0_want)
+
+
+# ---------------------------------------------------------------------------
+# K9's chunked arithmetic (csrc/rwkv6_scan.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+def rwkv6_chunked_model(r, k, v, w, u, s0=None, tensor_cores=False):
+    """K9's prefill as the kernel computes it, in numpy f32: chunks of
+    `CHUNK` steps in the kernel's two passes (chunk 0 from the initial
+    state, the others but the last from 0, each leaving its end state and
+    per-key decay; then each later chunk from the fold of those before
+    it), each walked in sub-chunks of `SUB` steps. e = exp(w) once
+    an element; every decay is a running product of e taken in step order:
+    rh_t = r_t prod_{m<t} e_m, kh_j = k_j prod_{m>j} e_m, and the scores
+    A_tj (j < t) by walking k_j along t, multiplying by e_t after each
+    step; A_tt is the bonus r_t . (u k_t). `tensor_cores` models the bf16
+    path's operands: kh as three bf16 terms, S, rh and A as two, S rh as
+    hi*hi + lo*hi + hi*lo (r, k, v are bf16 already). Returns (y f32,
+    before the kernel's bf16 store, and the final state)."""
+    f = np.float32
+    B, T, H, Dh = r.shape
+    SUB = tr6.SUB
+    nc = -(-T // tr6.CHUNK)
+    pad = nc * tr6.CHUNK - T
+
+    def padded(a):
+        return np.concatenate(
+            [a.astype(f), np.zeros((B, pad) + a.shape[2:], f)], 1)
+
+    rp, kp, vp = padded(r), padded(k), padded(v)
+    e = np.exp(padded(w))                           # 1 past T (w 0)
+    uk = u.astype(f)
+    y = np.zeros((B, nc * tr6.CHUNK, H, Dh), f)
+    ein = lambda spec, *a: np.einsum(spec, *a).astype(f)   # noqa: E731
+
+    def walk(S, c, with_y):
+        cdec = np.ones((B, H, Dh), f)
+        for r0 in range(c * tr6.CHUNK, (c + 1) * tr6.CHUNK, SUB):
+            if r0 >= T:
+                break
+            sl = slice(r0, r0 + SUB)
+            es, rs, ks, vs = e[:, sl], rp[:, sl], kp[:, sl], vp[:, sl]
+            pre = np.ones_like(es)                  # prod_{m<t}
+            for t in range(1, SUB):
+                pre[:, t] = pre[:, t - 1] * es[:, t - 1]
+            db = pre[:, -1] * es[:, -1]
+            suf = np.ones_like(es)                  # prod_{m>t}
+            for t in range(SUB - 2, -1, -1):
+                suf[:, t] = suf[:, t + 1] * es[:, t + 1]
+            kh = ks * suf
+            if with_y:
+                rh = rs * pre
+                A = np.zeros((B, H, SUB, SUB), f)
+                for j in range(SUB):
+                    A[:, :, j, j] = (rs[:, j] * (uk * ks[:, j])).sum(-1)
+                    co = ks[:, j]
+                    for t in range(j + 1, SUB):
+                        A[:, :, t, j] = (rs[:, t] * co).sum(-1)
+                        co = co * es[:, t]
+                if tensor_cores:
+                    (sh, sl_), (rhh, rhl) = bf16_split(S, 2), bf16_split(rh, 2)
+                    yi = (ein("bthi,bhij->bthj", rhh, sh)
+                          + ein("bthi,bhij->bthj", rhh, sl_)
+                          + ein("bthi,bhij->bthj", rhl, sh))
+                    ya = sum(ein("bhtu,buhj->bthj", aq, vs)
+                             for aq in bf16_split(A, 2))
+                else:
+                    yi = ein("bthi,bhij->bthj", rh, S)
+                    ya = ein("bhtu,buhj->bthj", A, vs)
+                y[:, sl] = yi + ya
+            S = S * db[..., None]
+            for kq in (bf16_split(kh, 3) if tensor_cores else (kh,)):
+                S = S + ein("bthi,bthj->bhij", kq, vs)
+            cdec = cdec * db
+        return S, cdec
+
+    S = np.zeros((B, H, Dh, Dh), f) if s0 is None else s0.astype(f)
+    if nc == 1:                 # one pass: chunk 0 from the initial state
+        S, _ = walk(S, 0, True)
+        return y[:, :T], S
+    # pass 0: chunk 0 from the initial state (with y), the others but the
+    # last from 0; each leaves its end state in a slot, with its decay
+    slots = [walk(S, 0, True)] + [walk(np.zeros_like(S), c, False)
+                                  for c in range(1, nc - 1)]
+    # pass 1: chunk c from the fold of the slots before it
+    for c in range(1, nc):
+        S = slots[0][0]
+        for cc in range(1, c):
+            S = S * slots[cc][1][..., None] + slots[cc][0]
+        S, _ = walk(S, c, True)
+    return y[:, :T], S
+
+
+def _rel(a, b):
+    """max |a - b| relative to max(|b|, 1), as the card tests hold it."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
+
+
+# the model against the reference: f32 sums in another order (1e-5,
+# relative to the largest magnitude, as chip_smoke.py holds the kernel);
+# the tensor-core path's two-term operands keep ~16 bits, so y within 1e-4
+# (the kernel then rounds y to bf16, 2^-8)
+MODEL_TOL = dict(y={False: 1e-5, True: 1e-4}, state=1e-5)
+# the Pallas kernel walks each step as the reference does, so the model is
+# held to it as to the reference
+MODEL_TS = [1, 37, 63, 64, 65, 200, 256]
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", MODEL_TS)
+def test_rwkv6_chunked_model_matches_reference_and_pallas(
+        T, with_state, tensor_cores):
+    """The numpy model of K9's chunked arithmetic against the reference's
+    sequential scan and the Pallas kernel in interpret mode (MODEL_TOL), at
+    T on and around the chunk and sub-chunk edges. The tensor-core path's
+    inputs are bf16 values."""
+    r, k, v, w, u, s0 = rwkv_inputs(1, T, 2, 64, seed=T + 5,
+                                    state=with_state)
+    if tensor_cores:
+        r, k, v = (bf16_round(a) for a in (r, k, v))
+    y, s = rwkv6_chunked_model(r, k, v, w, u, s0, tensor_cores)
+    y_r, s_r = jref.rwkv6_scan_reference(*_j(r, k, v, w, u),
+                                         init_state=_j(s0)[0])
+    y_p, s_p = jr6.rwkv6_scan(*_j(r, k, v, w, u), chunk=T if T % 64 else 64,
+                              init_state=None if s0 is None
+                              else jnp.asarray(s0), interpret=True)
+    for want_y, want_s in ((y_r, s_r), (y_p, s_p)):
+        assert _rel(y, want_y) <= MODEL_TOL["y"][tensor_cores]
+        assert _rel(s, want_s) <= MODEL_TOL["state"]
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_rwkv6_chunked_model_at_an_adversarial_decay(tensor_cores):
+    """sum |w| over a chunk far past 88 (w = -3 on one head, 192 a chunk;
+    w down to -40 a step on another, mixed with decays near 1): the
+    factorised form's e^{-W} overflows f32 on these inputs, while the
+    running products stay finite and within MODEL_TOL of the reference."""
+    T = 256
+    r, k, v, w, u, s0 = rwkv_inputs(1, T, 2, 64, seed=13)
+    w = rwkv_adversarial_w(w, seed=13)
+    if tensor_cores:
+        r, k, v = (bf16_round(a) for a in (r, k, v))
+    cum = -np.cumsum(w[:, :tr6.CHUNK], axis=1, dtype=np.float32)
+    with np.errstate(over="ignore"):
+        assert not np.isfinite(np.exp(cum)).all()     # the trap is set
+    y, s = rwkv6_chunked_model(r, k, v, w, u, s0, tensor_cores)
+    y_r, s_r = jref.rwkv6_scan_reference(*_j(r, k, v, w, u),
+                                         init_state=_j(s0)[0])
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    assert _rel(y, y_r) <= MODEL_TOL["y"][tensor_cores]
+    assert _rel(s, s_r) <= MODEL_TOL["state"]
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,8 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import lm as tlm
 from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import registry as treg
-from test_torch_inputs import mamba2_inputs
+from test_torch_inputs import (bf16_round, bf16_split,
+                               mamba2_adversarial_decay, mamba2_inputs)
 
 # f32 scan: the same products summed in another order (the reference's
 # einsum over the state rows against torch's), relative to the output's
@@ -141,6 +142,178 @@ def test_mamba2_cpu_dispatch_runs_the_plain_version():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert tops.launch_counts()["mamba2_ssd"] == 0
+
+
+def test_mamba2_state_out_gives_todays_results():
+    """The plain version's `state_out`, a separate buffer or `init_state`
+    itself, gives the same y and state as a call without it, and returns
+    that buffer."""
+    x, dt, A, B, C, D, s0 = _t(*mamba2_inputs(2, 37, 4, 2, 16, seed=9))
+    y, s = tops.mamba2_scan(x, dt, A, B, C, D, init_state=s0)
+    out = torch.full_like(s0, float("nan"))
+    y1, s1 = tops.mamba2_scan(x, dt, A, B, C, D, init_state=s0,
+                              state_out=out)
+    alias = s0.clone()
+    y2, s2 = tops.mamba2_scan(x, dt, A, B, C, D, init_state=alias,
+                              state_out=alias)
+    assert s1 is out and s2 is alias
+    for yy, ss in ((y1, s1), (y2, s2)):
+        assert torch.equal(yy, y) and torch.equal(ss, s)
+    y0, s0_out = tops.mamba2_scan(x, dt, A, B, C, D,
+                                  state_out=torch.empty_like(s0))
+    y0_want, s0_want = tops.mamba2_scan(x, dt, A, B, C, D)
+    assert torch.equal(y0, y0_want) and torch.equal(s0_out, s0_want)
+
+
+# ---------------------------------------------------------------------------
+# K8's chunked arithmetic (csrc/mamba2_ssd.cu), modelled in numpy
+# ---------------------------------------------------------------------------
+
+def mamba2_chunked_model(x, dt, A, B, C, D, s0=None, tensor_cores=False):
+    """K8's prefill as the kernel computes it, in numpy f32: chunks of
+    `CHUNK` steps in the kernel's two passes (chunk 0 from the initial
+    state, the others but the last from 0, each leaving its end state and
+    decay; then each later chunk from the fold of those before it), each
+    walked in sub-chunks of `SUB` steps whose decays are
+    running products of exp(dt * A) taken in step order. `tensor_cores`
+    models the bf16 path's operands: Bh as three bf16 terms, S, Ch and W as
+    two, S Ch as hi*hi + lo*hi + hi*lo (x, B, C are bf16 already). Returns
+    (y f32, before the kernel's bf16 store, and the final state)."""
+    f = np.float32
+    Bt, T, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = -(-T // tm2.CHUNK)
+    pad = nc * tm2.CHUNK - T
+
+    def padded(a):
+        return np.concatenate(
+            [a.astype(f), np.zeros((Bt, pad) + a.shape[2:], f)], 1)
+
+    xp, dtp = padded(x), padded(dt)
+    Bp = padded(np.repeat(B, H // G, 2))
+    Cp = padded(np.repeat(C, H // G, 2))
+    dec = np.exp(dtp * A.astype(f))                 # 1 past T (dt 0)
+    y = np.zeros((Bt, nc * tm2.CHUNK, H, P), f)
+    ein = lambda spec, *a: np.einsum(spec, *a).astype(f)   # noqa: E731
+
+    def walk(S, c, with_y):
+        cdec = np.ones((Bt, H), f)
+        for r0 in range(c * tm2.CHUNK, (c + 1) * tm2.CHUNK, tm2.SUB):
+            if r0 >= T:
+                break
+            sl = slice(r0, r0 + tm2.SUB)
+            dc, dts, xs = dec[:, sl], dtp[:, sl], xp[:, sl]
+            ep = np.cumprod(dc, axis=1, dtype=f)     # prod_{m<=t}
+            su = np.ones_like(dc)                    # prod_{m>t}
+            for t in range(tm2.SUB):
+                for m in range(t + 1, tm2.SUB):
+                    su[:, t] = su[:, t] * dc[:, m]
+            dblk = ep[:, -1]
+            Bh = Bp[:, sl] * (dts * su)[..., None]
+            if with_y:
+                Ch = Cp[:, sl] * ep[..., None]
+                M = np.zeros((Bt, H, tm2.SUB, tm2.SUB), f)
+                for j in range(tm2.SUB):
+                    mm = dts[:, j]
+                    M[:, :, j, j] = mm
+                    for t in range(j + 1, tm2.SUB):
+                        mm = mm * dc[:, t]
+                        M[:, :, t, j] = mm
+                W = ein("bthn,bjhn->bhtj", Cp[:, sl], Bp[:, sl]) * M
+                if tensor_cores:
+                    (sh, sl_), (chh, chl) = bf16_split(S, 2), bf16_split(Ch, 2)
+                    yi = (ein("bthn,bhnp->bthp", chh, sh)
+                          + ein("bthn,bhnp->bthp", chh, sl_)
+                          + ein("bthn,bhnp->bthp", chl, sh))
+                    ya = sum(ein("bhtj,bjhp->bthp", wq, xs)
+                             for wq in bf16_split(W, 2))
+                else:
+                    yi = ein("bthn,bhnp->bthp", Ch, S)
+                    ya = ein("bhtj,bjhp->bthp", W, xs)
+                y[:, sl] = yi + ya + D.astype(f)[:, None] * xs
+            S = S * dblk[..., None, None]
+            for bq in (bf16_split(Bh, 3) if tensor_cores else (Bh,)):
+                S = S + ein("bthn,bthp->bhnp", bq, xs)
+            cdec = cdec * dblk
+        return S, cdec
+
+    S = np.zeros((Bt, H, N, P), f) if s0 is None else s0.astype(f)
+    if nc == 1:                 # one pass: chunk 0 from the initial state
+        S, _ = walk(S, 0, True)
+        return y[:, :T], S
+    # pass 0: chunk 0 from the initial state (with y), the others but the
+    # last from 0; each leaves its end state in a slot, with its decay
+    slots = [walk(S, 0, True)] + [walk(np.zeros_like(S), c, False)
+                                  for c in range(1, nc - 1)]
+    # pass 1: chunk c from the fold of the slots before it
+    for c in range(1, nc):
+        S = slots[0][0]
+        for cc in range(1, c):
+            S = S * slots[cc][1][..., None, None] + slots[cc][0]
+        S, _ = walk(S, c, True)
+    return y[:, :T], S
+
+
+def _rel(a, b):
+    """max |a - b| relative to max(|b|, 1), as the card tests hold it."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1.0)
+
+
+# the model against the reference: f32 sums in another order (SCAN_TOL's
+# 1e-5, relative to the largest magnitude, as chip_smoke.py holds the
+# kernel); the tensor-core path's two-term operands keep ~16 bits, so y
+# within 1e-4 (the kernel then rounds y to bf16, 2^-8)
+MODEL_TOL = dict(y={False: 1e-5, True: 1e-4}, state=1e-5)
+MODEL_TS = [1, 37, 63, 64, 65, 200, 256]
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+@pytest.mark.parametrize("G,N", [(1, 64), (2, 16)])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", MODEL_TS)
+def test_mamba2_chunked_model_matches_reference_and_pallas(
+        T, with_state, G, N, tensor_cores):
+    """The numpy model of K8's chunked arithmetic against the reference's
+    sequential scan (MODEL_TOL) and the Pallas kernel in interpret mode
+    (CHUNKED_TOL: its decays are exp of cumulative sums), at T on and
+    around the chunk and sub-chunk edges. The tensor-core path's inputs are
+    bf16 values."""
+    x, dt, A, B, C, D, s0 = mamba2_inputs(1, T, 2, G, N, seed=T + 7 * G,
+                                          state=with_state)
+    if tensor_cores:
+        x, B, C = (bf16_round(a) for a in (x, B, C))
+    y, s = mamba2_chunked_model(x, dt, A, B, C, D, s0, tensor_cores)
+    y_r, s_r = jref.mamba2_scan_reference(*_j(x, dt, A, B, C, D),
+                                          init_state=_j(s0)[0])
+    assert _rel(y, y_r) <= MODEL_TOL["y"][tensor_cores]
+    assert _rel(s, s_r) <= MODEL_TOL["state"]
+    y_p, s_p = jm2.mamba2_ssd(*_j(x, dt, A, B, C, D),
+                              chunk=T if T % 128 else 128,
+                              init_state=None if s0 is None
+                              else jnp.asarray(s0), interpret=True)
+    np.testing.assert_allclose(y, np.asarray(y_p), **CHUNKED_TOL)
+    np.testing.assert_allclose(s, np.asarray(s_p), **CHUNKED_TOL)
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_mamba2_chunked_model_at_an_adversarial_decay(tensor_cores):
+    """dt * A = -64 a step on one head (each step's decay, e^-64, and every
+    product of two underflow towards 0, as in the sequential form; a
+    cumulative sum reaches -16384 over T) and ~-4e-3 on another (decays
+    near 1): the running products stay finite and within MODEL_TOL."""
+    T = 256
+    x, dt, A, B, C, D, s0 = mamba2_inputs(1, T, 2, 1, 64, seed=11)
+    dt, A = mamba2_adversarial_decay(dt, A)
+    if tensor_cores:
+        x, B, C = (bf16_round(a) for a in (x, B, C))
+    assert (dt[..., 0] * A[0] == -64.0).all()
+    y, s = mamba2_chunked_model(x, dt, A, B, C, D, s0, tensor_cores)
+    y_r, s_r = jref.mamba2_scan_reference(*_j(x, dt, A, B, C, D),
+                                          init_state=_j(s0)[0])
+    assert np.isfinite(y).all() and np.isfinite(s).all()
+    assert _rel(y, y_r) <= MODEL_TOL["y"][tensor_cores]
+    assert _rel(s, s_r) <= MODEL_TOL["state"]
 
 
 # ---------------------------------------------------------------------------
