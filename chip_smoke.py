@@ -13,7 +13,11 @@ script exits nonzero:
                 tensor-core kernels (K2, K4, K5 at head_dim 64 and 128) in
                 the library's SASS (fails on one with none);
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
-                path for K1, the host path for K7, the Qwen and the Zamba2
+                path for K1 alone and for its fused refit on the history
+                ring at every ring state of the CPU tests, 3 x 64 and
+                3 x 1024 lanes, beside the composed sequence it replaced
+                and the harness's floor; the host path for K7, also at
+                windows 7 to 64; the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K2 and
                 K4-K6 (K2 also in f32 at the Qwen prefill), the
                 RWKV6 serve path for K9, the Zamba2 serve path for K8 (each
@@ -463,8 +467,9 @@ def check_sor_fit(dev, flush) -> dict:
 
     from repro_torch.kernels import fleet_telemetry as ft
     err = 0.0
-    window = 32
-    for n in (3 * MAIN["chips"], 3 * 67):    # the path's lanes, and ragged
+    checked = []
+    for window, n in ((32, 3 * MAIN["chips"]), (32, 3 * 67), (29, 200),
+                      (64, 67), (7, 5)):       # the path's lanes, ragged
         args = sor_inputs(window, n, seed=n, dev=dev)
         got = ft.sor_fit(*args, **SOR_KW)
         want = ft.sor_fit_plain(*args, **SOR_KW)
@@ -472,15 +477,16 @@ def check_sor_fit(dev, flush) -> dict:
         usable_k, usable_p = got[3] > 0, want[3] > 0
         if not torch.equal(usable_k, usable_p) or not usable_p.any() or \
                 usable_p.all():
-            raise AssertionError(f"sor_fit n={n}: usable masks differ or "
-                                 f"are degenerate")
+            raise AssertionError(f"sor_fit ({window}, {n}): usable masks "
+                                 f"differ or are degenerate")
         for name, a, b in zip(("intercept", "slope", "v_frontier",
                                "confidence", "n_eff", "floor"), got, want):
             if not torch.allclose(a, b, rtol=1e-4, atol=1e-6):
-                raise AssertionError(f"sor_fit n={n} {name}: max diff "
-                                     f"{(a - b).abs().max().item()}")
+                raise AssertionError(f"sor_fit ({window}, {n}) {name}: max "
+                                     f"diff {(a - b).abs().max().item()}")
             err = max(err, (a - b).abs().max().item())
-    n = 3 * MAIN["chips"]
+        checked.append([window, n])
+    window, n = 32, 3 * MAIN["chips"]
     args = sor_inputs(window, n, seed=n, dev=dev)
     ms = time_ms(lambda: ft.sor_fit(*args, **SOR_KW), 100, flush)
     plain_ms = time_ms(lambda: ft.sor_fit_plain(*args, **SOR_KW), 50, flush)
@@ -490,8 +496,8 @@ def check_sor_fit(dev, flush) -> dict:
                 source="src/repro_torch/kernels/csrc/sor_fit.cu",
                 replaces="src/repro/kernels/fleet_telemetry.py:113",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
-                shape=dict(window=window, n=n, ragged_n=3 * 67))
+                bound_by=b_by, library_ms=None, floor_ms=floor_ms(flush),
+                checked=checked, shape=dict(window=window, n=n))
 
 
 # K7's five sums in another order than the plain version's: within 1e-6
@@ -504,8 +510,9 @@ SOR_OUTS = ("intercept", "slope", "v_frontier", "confidence", "n_eff",
 
 def check_sor_accumulate(dev, flush) -> dict:
     """K7 at the host path's window (32 rows, 3 rails x 64 chips), a ragged
-    (29, 200) and a 1024-chip fleet (32, 3 x 1024), two whole rows at zero
-    weight in each, against its plain version (SUM_TOL); then K7 followed
+    (29, 200), a 1024-chip fleet (32, 3 x 1024), two passes of 32 rows
+    (64, 201) and (7, 5), two whole rows at zero weight in each, against
+    its plain version (SUM_TOL); then K7 followed
     by the plain solve (`ref.sor_solve_reference`) against K1 on the same
     inputs. Expected bit-equal: K7 and K1 sum with one device function, and
     the solve runs as separately rounded elementwise kernels in K1's op
@@ -516,7 +523,8 @@ def check_sor_accumulate(dev, flush) -> dict:
     from repro_torch.kernels import fleet_telemetry as ft
     from repro_torch.kernels import ref
     err, gaps, checked = 0.0, {}, []
-    for window, n in ((32, 3 * MAIN["chips"]), (29, 200), (32, 3 * 1024)):
+    for window, n in ((32, 3 * MAIN["chips"]), (29, 200), (32, 3 * 1024),
+                      (64, 201), (7, 5)):
         x, y, w, bound, guard = sor_inputs(window, n, seed=window + n,
                                            dev=dev)
         w[[0, window // 2]] = 0.0
@@ -558,13 +566,218 @@ def check_sor_accumulate(dev, flush) -> dict:
                 source="src/repro_torch/kernels/csrc/sor_fit.cu",
                 replaces="src/repro/kernels/fleet_telemetry.py:157",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, sum_tolerance=SUM_TOL,
+                bound_by=b_by, library_ms=None, floor_ms=floor_ms(flush),
+                sum_tolerance=SUM_TOL,
                 split_fit_equals_k1=split_equal,
                 split_fit_gap_to_k1=gaps,
                 split_fit_gap_reason=None if split_equal else (
                     "torch.exp on the card and K1's expf round differently; "
                     "held to K1's tolerance (rtol 1e-4, atol 1e-6)"),
                 checked=checked, shape=dict(window=window, n=n))
+
+
+def floor_ms(flush) -> float:
+    """The harness's floor: a one-element fill timed as `time_ms` times a
+    kernel (launch, events and the L2 flush, no work)."""
+    import torch
+    tiny = torch.zeros(1, device=flush.device)
+    return time_ms(lambda: tiny.zero_(), 100, flush)
+
+
+def device_activity(call) -> dict:
+    """What one `call` (after a warm-up call) puts on the card and asks of
+    the host's CUDA runtime (torch.profiler): device kernels, device memory
+    copies, their summed device time (us), and the stream or device
+    synchronisations the host waited on, less those of profiling a call
+    that does nothing (the profiler's own)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+        torch.cuda.synchronize()
+        out = {"kernels": 0, "copies": 0, "device_us": 0.0, "syncs": 0}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                out["copies" if e.name.startswith(("Memcpy", "Memset"))
+                    else "kernels"] += 1
+                out["device_us"] += getattr(e, "device_time", 0.0)
+            elif "Synchronize" in e.name:
+                out["syncs"] += 1
+        return out
+
+    base = profiled(lambda: None)
+    return {k: v - base[k] for k, v in profiled(call).items()}
+
+
+def row_order_sums(x, y, w):
+    """The five EWLS sums of x, y, w [window, ...] added row by row, each
+    product and add its own tensor op: the kernels' order."""
+    import torch
+    s = [torch.zeros(x.shape[1:], device=x.device) for _ in range(5)]
+    for r in range(x.shape[0]):
+        wx = w[r] * x[r]
+        for q, term in enumerate((w[r], wx, w[r] * y[r], wx * x[r],
+                                  wx * y[r])):
+            s[q] = s[q] + term
+    return s
+
+
+REFIT_FIELDS = ("intercept", "slope", "v_frontier", "confidence", "n_eff")
+
+
+def check_sor_refit(dev, flush) -> dict:
+    """K1's refit on cadence (`sor_refit`, one launch: the ring's window
+    inputs, the sums, the solve, the blend) at each ring state of
+    `tests/test_torch_inputs.RING_CASES` on the serve paths' 3 x 64 lanes
+    and on 3 x 1024: against its plain version, the composed tensor
+    sequence, on the card (confidence > 0 masks exactly, every field within
+    K1's tolerance, rtol 1e-4 and atol 1e-6; torch's sums block the rows),
+    and against the same sequence with its sums added in row order
+    (`row_order_sums`, the kernel's order), where a gap can come only from
+    a library function: the ring's K7 sums against the row-order sums
+    name it (Σw: powf, the weights; Σwy with Σw equal: log10f; confidence
+    with n_eff equal: expf). Then the main path's ring (capacity 32, 3 x
+    64, no staleness weighting, gain 1): device ms of the refit, of its
+    plain version and of the composed sequence it replaced on the main
+    path (torch's input preparation, K1 alone, torch's blend); host us a
+    refit both ways (`sor.update_estimate` and the composed sequence); the
+    device work and host syncs of one refit fused, composed and split
+    (`device_activity`); the harness's floor."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_inputs import RING_CASES, ring_state
+
+    from repro_torch.core import sor
+    from repro_torch.core.telemetry import (ALL_RAIL_OBSERVABLES,
+                                            FrameHistory)
+    from repro_torch.kernels import fleet_telemetry as ft
+    from repro_torch.kernels import ref
+
+    def on_card(st):
+        hist = FrameHistory(
+            **{f: torch.from_numpy(st[f]).to(dev)
+               for f in ("v", "obs", "age_s", "polled", "valid")},
+            cursor=st["cursor"], count=st["count"],
+            capacity=st["cfg"]["capacity"], rails=ALL_RAIL_OBSERVABLES)
+        cfg = sor.SorConfig(rails=ALL_RAIL_OBSERVABLES, **st["cfg"])
+        old = sor.SorEstimate(*(torch.from_numpy(a).to(dev)
+                                for a in st["old"]))
+        args = (*sor._ring(hist), [a.reshape(3, -1) for a in
+                                   (getattr(old, f) for f in REFIT_FIELDS)],
+                sor._rail_consts(cfg, dev)[0])
+        kw = dict(update_gain=cfg.update_gain, **sor._weighting(hist, cfg),
+                  **sor._gates(cfg))
+        return hist, cfg, old, args, kw
+
+    def composed(hist, cfg, old):
+        """The refit as the main path ran it before K1's refit."""
+        x, y, w = (a.reshape(hist.capacity, -1)
+                   for a in sor._fit_inputs(hist, cfg))
+        bound, guard = sor._rail_consts(cfg, dev)
+        n_chips = x.shape[1] // 3
+
+        def lanes(a):
+            return a[:, None].expand(3, n_chips).reshape(-1)
+
+        fit = ft.sor_fit(x, y, w, lanes(bound), lanes(guard),
+                         **sor._gates(cfg))[:5]
+        return ref.sor_blend_reference(
+            [getattr(old, f).reshape(-1) for f in REFIT_FIELDS], fit,
+            cfg.update_gain)
+
+    err, checked = 0.0, []
+    gap_plain = dict.fromkeys(REFIT_FIELDS, 0.0)
+    gap_row = dict.fromkeys(REFIT_FIELDS, 0.0)
+    gap_sums = dict.fromkeys(SUMS, 0.0)
+    for n_chips in (MAIN["chips"], 1024):
+        for case in RING_CASES:
+            st = ring_state(case, n_chips)
+            hist, cfg, old, args, kw = on_card(st)
+            got = ft.sor_refit(*args, **kw)
+            plain = ft.sor_refit_plain(*args, **kw)
+            window = ref.sor_fit_inputs(*args[:4], **sor._weighting(hist,
+                                                                    cfg))
+            row_sums = row_order_sums(*window)
+            fit = ref.sor_estimate_reference(row_sums, args[5][:, None],
+                                             **sor._gates(cfg))
+            row = ref.sor_blend_reference(args[4], fit, cfg.update_gain)
+            k7 = ft.sor_accumulate_ring(*args[:4], **sor._weighting(hist,
+                                                                    cfg))
+            torch.cuda.synchronize()
+            for other, what in ((plain, "plain"), (row, "row-order")):
+                if not torch.equal(got[3] > 0, other[3] > 0):
+                    raise AssertionError(f"sor_refit {case} x {n_chips}: "
+                                         f"usable lanes differ from the "
+                                         f"{what} sequence")
+            if not (plain[3] > 0).any():
+                raise AssertionError(f"sor_refit {case}: no lane learned")
+            for name, a, b, c in zip(REFIT_FIELDS, got, plain, row):
+                if not torch.allclose(a, b, rtol=1e-4, atol=1e-6):
+                    raise AssertionError(
+                        f"sor_refit {case} x {n_chips} {name}: max diff "
+                        f"{(a - b).abs().max().item()} from the plain "
+                        f"version")
+                if not torch.allclose(a, c, rtol=1e-4, atol=1e-6):
+                    raise AssertionError(
+                        f"sor_refit {case} x {n_chips} {name}: max diff "
+                        f"{(a - c).abs().max().item()} from the row-order "
+                        f"sequence")
+                gap_plain[name] = max(gap_plain[name],
+                                      (a - b).abs().max().item())
+                gap_row[name] = max(gap_row[name],
+                                    (a - c).abs().max().item())
+            for name, a, b in zip(SUMS, k7, row_sums):
+                gap_sums[name] = max(gap_sums[name],
+                                     (a - b).abs().max().item())
+            checked.append([case, n_chips])
+    err = max(gap_plain.values())
+    sources = []
+    if gap_sums["sw"]:
+        sources.append("powf (the weights) against torch.pow")
+    elif gap_sums["sy"] or gap_sums["sxy"]:
+        sources.append("log10f against torch.log10")
+    if gap_row["confidence"] and not gap_row["n_eff"]:
+        sources.append("expf against torch.exp")
+
+    st = ring_state("mid", MAIN["chips"])      # the main path's SorConfig
+    hist, cfg, old, args, kw = on_card(st)
+    cap, n = cfg.capacity, 3 * MAIN["chips"]
+    ms = time_ms(lambda: ft.sor_refit(*args, **kw), 100, flush)
+    # 10 calls of the multi-launch sequences: their 500-750 launches stay
+    # inside the launch queue while the device sleeps, so the events time
+    # the device and not the host's enqueueing
+    plain_ms = time_ms(lambda: ft.sor_refit_plain(*args, **kw), 10, flush)
+    composed_ms = time_ms(lambda: composed(hist, cfg, old), 10, flush)
+    # reads v, obs (f32), valid (bool), the old estimate and the bounds
+    # once, writes the new estimate; 4 products and 5 adds a window element
+    # beside its preparation, ~40 operations a lane to solve and blend
+    b_ms, b_by = bound_ms(4 * 2 * cap * n + cap * n + 4 * 10 * n + 4 * 3,
+                          13 * cap * n + 40 * n, "float32")
+    return dict(
+        name="sor_refit", route="cuda",
+        source="src/repro_torch/kernels/csrc/sor_fit.cu",
+        replaces="src/repro/kernels/fleet_telemetry.py:113",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, floor_ms=floor_ms(flush),
+        composed_ms=composed_ms,
+        host_us=host_us(lambda: sor.update_estimate(old, hist, cfg)),
+        composed_host_us=host_us(lambda: composed(hist, cfg, old)),
+        per_refit=dict(
+            fused=device_activity(lambda: sor.update_estimate(old, hist,
+                                                              cfg)),
+            composed=device_activity(lambda: composed(hist, cfg, old)),
+            split=device_activity(lambda: sor.update_estimate(
+                old, hist, cfg, fused=False))),
+        gap_to_plain=gap_plain, gap_to_row_order=gap_row,
+        bit_equal_to_row_order=not any(gap_row.values()),
+        k7_sums_gap_to_row_order=gap_sums, library_gap_sources=sources,
+        checked=checked, shape=dict(capacity=cap, n=n))
 
 
 def check_flash_bwd(dev, flush) -> list[dict]:
@@ -1403,14 +1616,15 @@ def run_tiny_host() -> dict:
 
 def serve_launches(cfg, new: int) -> dict:
     """The launches one `generate` of `new` tokens must make: the control
-    round refits on every 4th of its `new` rounds (K1); dense: K2 once per
+    round refits on every 4th of its `new` rounds (K1's fused refit, one
+    launch a refit; K1 alone never); dense: K2 once per
     layer in the prefill, K3 once per layer per decoded token; ssm: K9 once
     per layer in the prefill and per decoded token; hybrid: K8 once per
     layer in the prefill and per decoded token, K2 and K3 as dense but once
     per occurrence of the shared block (n_layers // attn_every)."""
     from repro_torch.kernels import ops
     want = {name: 0 for name in ops.KERNELS}
-    want["sor_fit"] = new // 4
+    want["sor_refit"] = new // 4
     if cfg.family == "ssm":
         want["rwkv6_scan"] = cfg.n_layers * new
     elif cfg.family == "hybrid":
@@ -1513,9 +1727,9 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
 
 def host_serve_launches(cfg, new: int) -> dict:
     """`serve_launches` with the host control path: the split fit refits
-    on every 4th round through K7, and K1 never runs."""
+    on every 4th round through K7 (reading the ring), and K1 never runs."""
     want = serve_launches(cfg, new)
-    want["sor_accumulate"], want["sor_fit"] = want["sor_fit"], 0
+    want["sor_accumulate"], want["sor_refit"] = want["sor_refit"], 0
     return want
 
 
@@ -1992,7 +2206,7 @@ def run_main_train(dev) -> dict:
     want.update({"flash_attention_fwd": 2 * L * steps,   # forward + remat
                  "flash_attention_bwd_dq": L * steps,
                  "flash_attention_bwd_dkv": L * steps,
-                 "fleet_reduce": steps, "sor_fit": refits})
+                 "fleet_reduce": steps, "sor_refit": refits})
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     losses = [r.loss for r in trainer.log.records]
@@ -2418,9 +2632,10 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
-    checks = (check_sor_fit, check_sor_accumulate, check_flash, check_decode,
-              check_flash_bwd, check_fleet_reduce, check_rwkv6_scan,
-              check_mamba2_ssd, check_quantize_int8, check_ef_sync_leaf)
+    checks = (check_sor_fit, check_sor_accumulate, check_sor_refit,
+              check_flash, check_decode, check_flash_bwd, check_fleet_reduce,
+              check_rwkv6_scan, check_mamba2_ssd, check_quantize_int8,
+              check_ef_sync_leaf)
     for check in checks:
         rows = check(dev, flush)
         for row in rows if isinstance(rows, list) else [rows]:

@@ -4,24 +4,30 @@
     FrameHistory  ->  SorEstimate  ->  SafeEnvelope  ->  arbitration
     (telemetry)       (fitted frontiers)  (per-rail v_min)   (control_plane)
 
-`fit_history(fused=True)` (the default) is the fused path: the five EWLS
-sums, the per-lane solve and the envelope floor come out of one
-`ops.sor_fit` pass (K1 on the card, its plain version on the CPU).
-`fused=False` is the split path: `ops.sor_accumulate` (K7) returns the five
-sums and the solve runs as tensor code in `ref.sor_estimate_reference`'s
-op order. The reference resolves `fused=None` by context (fused under a
-JAX trace, split on eager calls); the port has no trace, so each caller
-says which it runs: the in-graph controller and the fleet train step fuse,
-the host controller (`control_plane.HostRailController`) splits, as the
-reference's eager host path does. `observe` keeps the observation count
-`tick` as a host integer and decides the `refresh_every` cadence on the
-host, so a control round never reads a device value back to choose its
-branch.
+A refit on cadence (`update_estimate`) runs fused or split. Fused (the
+default): one `ops.sor_refit` pass reads the history ring as it stands,
+forms the window's inputs, sums, solves, gates and blends into the old
+estimate (K1's refit on the card, one launch; its plain version, the
+composed tensor sequence, on the CPU). Split (`fused=False`):
+`ops.sor_accumulate_ring` (K7, reading the ring the same way) returns the
+five sums and the solve and the blend run as tensor code in
+`ref.sor_estimate_reference`'s op order. `fit_history` is the fit alone,
+fused through `ops.sor_fit` (K1 on `_fit_inputs`) or split as above. The
+reference resolves `fused=None` by context (fused under a JAX trace, split
+on eager calls); the port has no trace, so each caller says which it runs:
+the in-graph controller and the fleet train step fuse, the host controller
+(`control_plane.HostRailController`) splits, as the reference's eager host
+path does. `observe` keeps the observation count `tick` as a host integer
+and decides the `refresh_every` cadence on the host, so a control round
+never reads a device value back to choose its branch; the per-rail bounds
+live on the device once per (config, device), so no refit copies from the
+host either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -33,9 +39,6 @@ from repro_torch.core.telemetry import (DEFAULT_RAIL_OBSERVABLES,
                                         FrameHistory, RailObservable,
                                         TelemetryFrame)
 from repro_torch.kernels import ops, ref
-
-LOG10_ERR_FLOOR = -8.0   # zero-error samples clamp here (detection floor)
-LOG10_ERR_CEIL = 2.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,69 +115,100 @@ def _rail_guards(cfg: SorConfig) -> np.ndarray:
                        for s in cfg.rails], np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _rail_consts(cfg: SorConfig, device: torch.device):
+    """(log10 bounds, guards), each [n_rails] f32 on `device`, copied from
+    the host once per (config, device), so that no refit waits on a copy.
+    Shared by every caller: read, never written."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (_rail_bounds(cfg), _rail_guards(cfg)))
+
+
+def _ring(history: FrameHistory):
+    """The ring's buffers as the kernels read them: v, obs, valid
+    [capacity, n_rails, n_chips], age_s [capacity, n_chips] (a fleet's
+    ring as it is; views of a one-chip ring: a view costs host time on
+    every refit)."""
+    if history.v.dim() == 3:
+        return history.v, history.obs, history.valid, history.age_s
+    cap, n_rails = history.capacity, len(history.rails)
+    return (history.v.reshape(cap, n_rails, -1),
+            history.obs.reshape(cap, n_rails, -1),
+            history.valid.reshape(cap, n_rails, -1),
+            history.age_s.reshape(cap, -1))
+
+
+def _weighting(history: FrameHistory, cfg: SorConfig) -> dict:
+    return dict(cursor=history.cursor, decay=cfg.decay,
+                age_halflife_s=cfg.age_halflife_s)
+
+
+def _gates(cfg: SorConfig) -> dict:
+    return dict(min_slope=cfg.min_slope, min_spread_v=cfg.min_spread_v,
+                conf_samples=cfg.conf_samples)
+
+
 def _fit_inputs(history: FrameHistory, cfg: SorConfig):
     """The (x, y, w) EWLS inputs of the window: masked voltages, clipped
     log10 observables, recency (x optional staleness) weights."""
-    w = history.recency_weights(cfg.decay)
-    if cfg.age_halflife_s is not None:
-        w = w * 0.5 ** (history.age_s[:, None] / cfg.age_halflife_s)
-    x = torch.where(history.valid, history.v, 0.0)
-    y = torch.clamp(
-        torch.log10(torch.clamp(history.obs, min=10.0 ** LOG10_ERR_FLOOR)),
-        LOG10_ERR_FLOOR, LOG10_ERR_CEIL)
-    y = torch.where(history.valid, y, 0.0)
-    return x, y, w
+    return ref.sor_fit_inputs(history.v, history.obs, history.valid,
+                              history.age_s, **_weighting(history, cfg))
 
 
 def fit_history(history: FrameHistory, cfg: SorConfig,
                 fused: bool = True) -> SorEstimate:
     """Exponentially-weighted least squares of log10(observable) against
     the rail voltage over the window, per (rail, chip): in one fused
-    `ops.sor_fit` pass, or (`fused=False`) as `ops.sor_accumulate` followed
-    by the solve. Confidence gates on effective samples, voltage spread and
-    a steep-enough frontier of the right sign."""
-    x, y, w = _fit_inputs(history, cfg)
-    shape = x.shape[1:]                      # [n_rails, *chip]
-    dev = x.device
-    lanes = (cfg.n_rails,) + (1,) * len(history.chip_shape)
-
-    def flat(a):
-        return a.reshape(history.capacity, -1).contiguous()
-
-    def full(a):
-        return torch.from_numpy(a).to(dev).reshape(lanes).expand(
-            shape).reshape(-1).contiguous()
-
-    gates = dict(min_slope=cfg.min_slope, min_spread_v=cfg.min_spread_v,
-                 conf_samples=cfg.conf_samples)
+    `ops.sor_fit` pass over `_fit_inputs`, or (`fused=False`) as
+    `ops.sor_accumulate_ring` (K7 reading the ring itself) followed by the
+    solve. Confidence gates on effective samples, voltage spread and a
+    steep-enough frontier of the right sign."""
+    shape = history.v.shape[1:]              # [n_rails, *chip]
+    bound, guard = _rail_consts(cfg, history.v.device)
     if fused:
+        x, y, w = (a.reshape(history.capacity, -1).contiguous()
+                   for a in _fit_inputs(history, cfg))
+        n_chips = x.shape[1] // cfg.n_rails
+
+        def lanes(a):
+            return a[:, None].expand(cfg.n_rails, n_chips).reshape(-1)
+
         # the fused pass also emits the envelope floor (v_frontier + guard);
         # `rail_envelopes` re-derives the identical f32 add
-        est = ops.sor_fit(flat(x), flat(y), flat(w), full(_rail_bounds(cfg)),
-                          full(_rail_guards(cfg)), **gates)[:5]
+        est = ops.sor_fit(x, y, w, lanes(bound), lanes(guard),
+                          **_gates(cfg))[:5]
     else:
         est = ref.sor_estimate_reference(
-            ops.sor_accumulate(flat(x), flat(y), flat(w)),
-            full(_rail_bounds(cfg)), **gates)
+            ops.sor_accumulate_ring(*_ring(history),
+                                    **_weighting(history, cfg)),
+            bound[:, None], **_gates(cfg))
     return SorEstimate(*(a.reshape(shape) for a in est))
 
 
 def update_estimate(old: SorEstimate, history: FrameHistory,
                     cfg: SorConfig, fused: bool = True) -> SorEstimate:
-    """Refit the window (`fit_history(fused=...)`), then blend into the
-    running estimate with `update_gain`. A lane without a usable fit keeps
-    its previous value."""
-    fit = fit_history(history, cfg, fused=fused)
-    gain = torch.where(old.confidence > 0.0, float(np.float32(
-        cfg.update_gain)), 1.0)
-    new_ok, old_ok = fit.confidence > 0.0, old.confidence > 0.0
-
-    def blend(o, f):
-        return torch.where(new_ok, o + gain * (f - o),
-                           torch.where(old_ok, o, f))
-
-    return SorEstimate(*(blend(getattr(old, n), getattr(fit, n))
-                         for n in _FIELDS))
+    """Refit the window, then blend into the running estimate with
+    `update_gain`. A lane without a usable fit keeps its previous value.
+    Fused: one `ops.sor_refit` pass reads the ring, fits and blends (K1's
+    refit: one launch, no copy from the host). Split: `fit_history(fused=
+    False)`, then the blend as tensor code."""
+    shape = old.confidence.shape
+    fields = [getattr(old, f) for f in _FIELDS]
+    if fused:
+        if len(shape) != 2:                # one chip: [n_rails] -> [n_rails, 1]
+            fields = [a.reshape(cfg.n_rails, -1) for a in fields]
+        new = ops.sor_refit(
+            *_ring(history), fields, _rail_consts(cfg, history.v.device)[0],
+            update_gain=cfg.update_gain, **_weighting(history, cfg),
+            **_gates(cfg))
+        if len(shape) != 2:
+            new = [a.reshape(shape) for a in new]
+    else:
+        fit = fit_history(history, cfg, fused=False)
+        new = ref.sor_blend_reference(fields,
+                                      [getattr(fit, f) for f in _FIELDS],
+                                      cfg.update_gain)
+    return SorEstimate(*new)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.power_plane import as_f32
+from repro_torch.kernels import ref
 
 
 class Provenance(enum.Enum):
@@ -267,12 +268,7 @@ class FrameHistory:
         """`[capacity, n_rails, *chip]` exponential recency weights: the
         newest valid sample weighs 1, each older slot `decay`x less, invalid
         lanes 0."""
-        slots = torch.arange(self.capacity, device=self.v.device)
-        rank = (self.cursor - 1 - slots) % self.capacity   # 0 == newest
-        w = torch.full((self.capacity,), decay,
-                       dtype=torch.float32, device=self.v.device) ** rank
-        w = w.reshape((self.capacity,) + (1,) * (1 + len(self.chip_shape)))
-        return w * self.valid.float()
+        return ref.recency_weights(self.valid, self.cursor, decay)
 
 
 def scalar_view(x) -> float:

@@ -34,6 +34,8 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "sor_fit_launch": [_P] * 11 + [_I, _I, _F, _F, _F, _P],
     "sor_accumulate_launch": [_P] * 8 + [_I, _I, _P],
+    "sor_accumulate_ring_launch": [_P] * 9 + [_I] * 5 + [_F, _F, _P],
+    "sor_refit_launch": [_P] * 11 + [_I] * 5 + [_F] * 6 + [_P],
     "flash_attention_fwd": [_P] * 5 + [_I] * 10 + [_F, _P],
     "decode_attention_fwd": [_P] * 5 + [_I] * 9 + [_F, _P],
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],

@@ -4,19 +4,23 @@ kernels `csrc/sor_fit.cu` (K1 and K7) and `csrc/fleet_reduce.cu`, each
 beside its plain PyTorch version.
 
 K1 replaces the TPU kernel `repro/kernels/fleet_telemetry.py::sor_fit`
-(`_sor_fit_kernel`), K7 its `sor_accumulate` (`_sor_kernel`). On the card
-both are bound by launch latency: the `[window, n]` window of the serve and
-host paths is ~74 KB. Each runs one thread per lane over the window rows
-(coalesced row loads, sums in registers); K1 carries the solve and the
-envelope floor out of the same pass, K7 returns the five sums, computed by
-the same device function, so they equal K1's bit for bit; see the source's
-header note.
+(`_sor_fit_kernel`), K7 its `sor_accumulate` (`_sor_kernel`). Each has two
+entry points: the TPU kernel's own interface on a `[window, n]` window
+(`sor_fit`, `sor_accumulate`), and one that reads the SOR history ring as
+it stands and forms the window's inputs itself (`sor_refit`: the whole
+refit on cadence, blend included, in one launch; `sor_accumulate_ring`:
+the split fit's sums). On the card they are bound by latency: the serve
+and host paths' window is ~74 KB. A CTA stages 32 lanes x 32 rows with
+every load of a pass issued at once, and one warp sums each lane's
+products in row order, so K7's sums equal K1's bit for bit; see the
+source's header note.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -112,6 +116,143 @@ def sor_accumulate(x, y, w):
 
 
 sor_accumulate.launches = 0
+
+
+def _check_ring(name: str, v, obs, valid, age_s, cursor: int) -> tuple:
+    """Refuse a ring the kernels do not take; returns (capacity, n_rails,
+    n_chips)."""
+    if v.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {v.device}")
+    if v.dim() != 3 or v.numel() == 0:
+        raise ValueError(f"{name}: v must be a non-empty [capacity, n_rails, "
+                         f"n_chips], got {tuple(v.shape)}")
+    cap, n_rails, n_chips = v.shape
+    for arg, a, shape, dtype in (
+            ("v", v, (cap, n_rails, n_chips), torch.float32),
+            ("obs", obs, (cap, n_rails, n_chips), torch.float32),
+            ("valid", valid, (cap, n_rails, n_chips), torch.bool),
+            ("age_s", age_s, (cap, n_chips), torch.float32)):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name}: {arg} must be {shape}, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise ValueError(f"{name}: {arg} must be {dtype}, got {a.dtype}")
+        if a.device != v.device or not a.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors on one CUDA "
+                             f"device")
+    if not 0 <= cursor < cap:
+        raise ValueError(f"{name}: cursor must be in [0, {cap}), got "
+                         f"{cursor}")
+    return cap, n_rails, n_chips
+
+
+def _weighting_args(cursor: int, decay: float, age_halflife_s) -> tuple:
+    """(cursor, aged, decay, 1 / halflife) as the kernels take them: the
+    reciprocal in f32, as torch divides by a Python scalar on the card."""
+    inv = 0.0 if age_halflife_s is None else float(
+        np.float32(1.0) / np.float32(age_halflife_s))
+    return int(cursor), int(age_halflife_s is not None), decay, inv
+
+
+def sor_accumulate_ring_plain(v, obs, valid, age_s, *, cursor: int,
+                              decay: float, age_halflife_s):
+    """The plain PyTorch version: `ref.sor_fit_inputs`, then
+    `ref.sor_accumulate_reference`."""
+    return ref.sor_accumulate_reference(*ref.sor_fit_inputs(
+        v, obs, valid, age_s, cursor=cursor, decay=decay,
+        age_halflife_s=age_halflife_s))
+
+
+def sor_accumulate_ring(v, obs, valid, age_s, *, cursor: int, decay: float,
+                        age_halflife_s):
+    """K7 on the history ring as it stands: v, obs [capacity, n_rails,
+    n_chips] f32, valid the same in bool, age_s [capacity, n_chips] f32,
+    `cursor` the next write slot -> the five EWLS sums of the window that
+    `ref.sor_fit_inputs` forms, each [n_rails, n_chips] f32. Counts on
+    `sor_accumulate.launches`: the same kernel."""
+    if v.device.type == "cpu":
+        return sor_accumulate_ring_plain(v, obs, valid, age_s, cursor=cursor,
+                                         decay=decay,
+                                         age_halflife_s=age_halflife_s)
+    cap, n_rails, n_chips = _check_ring("sor_accumulate_ring", v, obs, valid,
+                                        age_s, cursor)
+    outs = tuple(torch.empty((n_rails, n_chips), dtype=torch.float32,
+                             device=v.device) for _ in range(5))
+    lib = _build.load()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.sor_accumulate_ring_launch(
+            v.data_ptr(), obs.data_ptr(), valid.data_ptr(), age_s.data_ptr(),
+            *(o.data_ptr() for o in outs), cap, n_rails, n_chips,
+            *_weighting_args(cursor, decay, age_halflife_s), stream)
+    _build.check(rc, "sor_accumulate_ring")
+    sor_accumulate.launches += 1
+    return outs
+
+
+def sor_refit_plain(v, obs, valid, age_s, old, log10_bound, *, cursor: int,
+                    decay: float, age_halflife_s, update_gain: float,
+                    min_slope: float, min_spread_v: float,
+                    conf_samples: float):
+    """The plain PyTorch version: `ref.sor_refit_reference`, the composed
+    sequence (the window's inputs, the sums, the solve, the blend)."""
+    return ref.sor_refit_reference(
+        v, obs, valid, age_s, old, log10_bound, cursor=cursor, decay=decay,
+        age_halflife_s=age_halflife_s, update_gain=update_gain,
+        min_slope=min_slope, min_spread_v=min_spread_v,
+        conf_samples=conf_samples)
+
+
+def sor_refit(v, obs, valid, age_s, old, log10_bound, *, cursor: int,
+              decay: float, age_halflife_s, update_gain: float,
+              min_slope: float, min_spread_v: float, conf_samples: float):
+    """K1's refit on cadence in one launch. The history ring as it stands
+    (v, obs [capacity, n_rails, n_chips] f32, valid the same in bool, age_s
+    [capacity, n_chips] f32, `cursor` the next write slot), the old
+    estimate `old` (intercept, slope, v_frontier, confidence, n_eff), each
+    [n_rails, n_chips] f32, and log10_bound [n_rails] f32 -> the five new
+    estimate fields, each [n_rails, n_chips] f32 (rows of one [5, n_rails,
+    n_chips] allocation)."""
+    if v.device.type == "cpu":
+        return sor_refit_plain(v, obs, valid, age_s, old, log10_bound,
+                               cursor=cursor, decay=decay,
+                               age_halflife_s=age_halflife_s,
+                               update_gain=update_gain, min_slope=min_slope,
+                               min_spread_v=min_spread_v,
+                               conf_samples=conf_samples)
+    cap, n_rails, n_chips = _check_ring("sor_refit", v, obs, valid, age_s,
+                                        cursor)
+    old = tuple(old)
+    if len(old) != 5:
+        raise ValueError(f"sor_refit: old must be the five estimate fields, "
+                         f"got {len(old)}")
+    for arg, a, shape in (*((f"old[{k}]", o, (n_rails, n_chips))
+                            for k, o in enumerate(old)),
+                          ("log10_bound", log10_bound, (n_rails,))):
+        if tuple(a.shape) != shape:
+            raise ValueError(f"sor_refit: {arg} must be {shape}, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != torch.float32 or a.device != v.device or \
+                not a.is_contiguous():
+            raise ValueError("sor_refit takes contiguous float32 tensors on "
+                             "one CUDA device")
+    out = torch.empty((5, n_rails, n_chips), dtype=torch.float32,
+                      device=v.device)
+    lib = _build.load()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.sor_refit_launch(
+            v.data_ptr(), obs.data_ptr(), valid.data_ptr(), age_s.data_ptr(),
+            *(o.data_ptr() for o in old), log10_bound.data_ptr(),
+            out.data_ptr(), cap, n_rails, n_chips,
+            *_weighting_args(cursor, decay, age_halflife_s), update_gain,
+            min_slope, min_spread_v, conf_samples, stream)
+    _build.check(rc, "sor_refit")
+    sor_refit.launches += 1
+    return tuple(out.unbind(0))
+
+
+sor_refit.launches = 0
 
 
 def fleet_reduce_plain(x):

@@ -22,6 +22,7 @@ from repro_torch.kernels import rwkv6_scan as _r6
 KERNELS = {
     "sor_fit": _ft.sor_fit,
     "sor_accumulate": _ft.sor_accumulate,
+    "sor_refit": _ft.sor_refit,
     "flash_attention_fwd": _fa.flash_attention,
     "decode_attention": _da.decode_attention,
     "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
@@ -69,6 +70,30 @@ def sor_accumulate(x, y, w):
     """The five EWLS sums (Σw, Σwx, Σwy, Σwx², Σwxy) over the `[window, n]`
     window, each [n] f32 (K7): the split fit's first stage."""
     return _ft.sor_accumulate(x, y, w)
+
+
+def sor_accumulate_ring(v, obs, valid, age_s, *, cursor: int, decay: float,
+                        age_halflife_s):
+    """K7 on the SOR history ring as it stands (v, obs, valid [capacity,
+    n_rails, n_chips], age_s [capacity, n_chips], `cursor` the next write
+    slot): the five EWLS sums of its window, each [n_rails, n_chips] f32."""
+    return _ft.sor_accumulate_ring(v, obs, valid, age_s, cursor=cursor,
+                                   decay=decay,
+                                   age_halflife_s=age_halflife_s)
+
+
+def sor_refit(v, obs, valid, age_s, old, log10_bound, *, cursor: int,
+              decay: float, age_halflife_s, update_gain: float,
+              min_slope: float, min_spread_v: float, conf_samples: float):
+    """One refit on cadence in one pass (K1's refit): the ring's window
+    inputs, the sums, the solve and the blend into the old estimate (five
+    [n_rails, n_chips] fields) -> the five new fields."""
+    return _ft.sor_refit(v, obs, valid, age_s, old, log10_bound,
+                         cursor=cursor, decay=decay,
+                         age_halflife_s=age_halflife_s,
+                         update_gain=update_gain, min_slope=min_slope,
+                         min_spread_v=min_spread_v,
+                         conf_samples=conf_samples)
 
 
 def fleet_reduce(x):

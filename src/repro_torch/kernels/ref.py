@@ -108,9 +108,45 @@ def fleet_percentile_reference(x, q: float):
 # SOR EWLS fit oracle (safe-operating-region fit hot path)
 # ---------------------------------------------------------------------------
 
+LOG10_ERR_FLOOR = -8.0   # zero-error samples clamp here (detection floor)
+LOG10_ERR_CEIL = 2.0
+
+
+def recency_weights(valid, cursor: int, decay: float):
+    """`[capacity, ...]` exponential recency weights of a history ring whose
+    next write slot is `cursor`: the newest valid sample weighs 1, each
+    older slot `decay`x less, invalid lanes 0."""
+    cap = valid.shape[0]
+    slots = torch.arange(cap, device=valid.device)
+    rank = (cursor - 1 - slots) % cap        # 0 == newest
+    w = torch.full((cap,), decay, dtype=torch.float32,
+                   device=valid.device) ** rank
+    w = w.reshape((cap,) + (1,) * (valid.dim() - 1))
+    return w * valid.float()
+
+
+def sor_fit_inputs(v, obs, valid, age_s, *, cursor: int, decay: float,
+                   age_halflife_s):
+    """The (x, y, w) EWLS inputs of a history ring, each `[capacity,
+    n_rails, *chip]` f32: masked voltages, clipped log10 observables,
+    recency (x optional staleness) weights. v, obs, valid `[capacity,
+    n_rails, *chip]`, age_s `[capacity, *chip]`."""
+    w = recency_weights(valid, cursor, decay)
+    if age_halflife_s is not None:
+        w = w * 0.5 ** (age_s[:, None] / age_halflife_s)
+    x = torch.where(valid, v, 0.0)
+    y = torch.clamp(
+        torch.log10(torch.clamp(obs, min=10.0 ** LOG10_ERR_FLOOR)),
+        LOG10_ERR_FLOOR, LOG10_ERR_CEIL)
+    y = torch.where(valid, y, 0.0)
+    return x, y, w
+
+
 def sor_accumulate_reference(x, y, w):
-    """x/y/w [window, n] -> the five EWLS sums (Σw, Σwx, Σwy, Σwx², Σwxy),
-    each [n] f32."""
+    """x/y/w [window, ...] -> the five EWLS sums (Σw, Σwx, Σwy, Σwx², Σwxy),
+    each [...] f32. `Tensor.sum` takes the rows in order up to 16 of them
+    on the CPU and blocks them past that (and on the card); K1 and K7 sum
+    in row order, so their sums part from these in the last bits."""
     xf, yf, wf = (a.float() for a in (x, y, w))
     return (wf.sum(0), (wf * xf).sum(0), (wf * yf).sum(0),
             (wf * xf * xf).sum(0), (wf * xf * yf).sum(0))
@@ -166,6 +202,37 @@ def sor_fit_reference(x, y, w, log10_bound, guard, *, min_slope: float,
         sor_accumulate_reference(x, y, w), log10_bound, guard,
         min_slope=min_slope, min_spread_v=min_spread_v,
         conf_samples=conf_samples)
+
+
+def sor_blend_reference(old, fit, update_gain: float):
+    """The online refresh's blend of a refit into the running estimate:
+    old and fit are (intercept, slope, v_frontier, confidence, n_eff). A
+    lane with a usable refit moves by `update_gain` (1 where it had no
+    confidence) towards it; one without keeps its old value, or takes the
+    refit's zeros while it has none."""
+    gain = torch.where(old[3] > 0.0, float(np.float32(update_gain)), 1.0)
+    new_ok, old_ok = fit[3] > 0.0, old[3] > 0.0
+    return tuple(torch.where(new_ok, o + gain * (f - o),
+                             torch.where(old_ok, o, f))
+                 for o, f in zip(old, fit))
+
+
+def sor_refit_reference(v, obs, valid, age_s, old, log10_bound, *,
+                        cursor: int, decay: float, age_halflife_s,
+                        update_gain: float, min_slope: float,
+                        min_spread_v: float, conf_samples: float):
+    """One refit on cadence from the history ring: `sor_fit_inputs`, the
+    sums and the solve, then `sor_blend_reference` with the old estimate.
+    v, obs, valid `[capacity, n_rails, n_chips]`, age_s `[capacity,
+    n_chips]`, old five `[n_rails, n_chips]`, log10_bound `[n_rails]` ->
+    the five new fields, each `[n_rails, n_chips]` f32."""
+    fit = sor_estimate_reference(
+        sor_accumulate_reference(*sor_fit_inputs(
+            v, obs, valid, age_s, cursor=cursor, decay=decay,
+            age_halflife_s=age_halflife_s)),
+        log10_bound[:, None], min_slope=min_slope,
+        min_spread_v=min_spread_v, conf_samples=conf_samples)
+    return sor_blend_reference(old, fit, update_gain)
 
 
 # ---------------------------------------------------------------------------

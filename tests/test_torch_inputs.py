@@ -1,10 +1,11 @@
 """Seeded numpy inputs and the SOR-fit comparison shared by the port's
 test files (tests/test_torch_kernels.py, test_torch_rwkv6.py,
-test_torch_zamba2.py, test_torch_ecollectives.py on the CPU;
-test_torch_kernels_cuda.py on the card). It holds no tests and imports no
+test_torch_zamba2.py, test_torch_ecollectives.py, test_torch_sor.py on
+the CPU; test_torch_kernels_cuda.py on the card). It holds no tests and imports no
 JAX."""
 
 import numpy as np
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SOR_KW = dict(min_slope=0.5, min_spread_v=2e-3, conf_samples=8.0)
 # SOR fit: the uncentred EWLS solve cancels digits (denom = sw*sxx - sx^2),
@@ -176,6 +177,17 @@ def check_sums(got, want):
         assert float(np.abs(a - b).max()) <= SUM_TOL * scale, name
 
 
+def check_refit(got, want):
+    """The five new estimate fields of a refit (intercept, slope,
+    v_frontier, confidence, n_eff): confidence > 0 masks exactly, each
+    field at SOR_TOL."""
+    got, want = [np.asarray(a) for a in got], [np.asarray(a) for a in want]
+    np.testing.assert_array_equal(got[3] > 0, want[3] > 0)
+    for name, a, b in zip(("intercept", "slope", "v_frontier", "confidence",
+                           "n_eff"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **SOR_TOL)
+
+
 def check_sor(got, want):
     """Usable masks exactly, the six analog outputs at SOR_TOL."""
     names = ("intercept", "slope", "v_frontier", "confidence", "n_eff",
@@ -185,3 +197,91 @@ def check_sor(got, want):
     for name, a, b in zip(names, got, want):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    err_msg=name, **SOR_TOL)
+
+
+# the SOR history ring states a refit is held at: the cursor at 0, mid-ring
+# and just wrapped; a partly filled ring; whole NaN lanes; staleness
+# weighting; a half update gain; an old estimate with confidence
+RING_CASES = ("cursor0", "mid", "wrapped", "partial", "nan_lanes", "aged",
+              "gain_half", "old_conf")
+RING_BOUND = 5e-3       # SorConfig's default error bound
+RING_RAILS = 3          # ALL_RAIL_OBSERVABLES
+
+
+def ring_state(case: str, n_chips: int, capacity: int = 32, seed: int = 0):
+    """A three-rail history ring as `FrameHistory.push` leaves it, made from
+    a numpy seed: a voltage sweep of ~0.27 V around each (rail, chip)
+    lane's frontier, log-linear observables (30 dex/V) with 5 % lost
+    samples (NaN, invalid), VDD_HBM flat on every other chip (never
+    learns); the sweep is wide enough that the uncentred f32 solve keeps
+    the packages' sum orders within SOR_TOL of each other (ROADMAP.md,
+    "Known disagreements"). `case` (RING_CASES) sets the push count (so
+    the cursor), whole
+    NaN lanes, ages, the update gain and the old estimate. Returns a dict:
+    v, obs, valid [capacity, 3, n_chips], age_s, polled [capacity,
+    n_chips], cursor, count, old (five [3, n_chips] f32: intercept, slope,
+    v_frontier, confidence, n_eff) and the SorConfig keywords
+    (`capacity`, `age_halflife_s`, `update_gain`)."""
+    rng = np.random.default_rng(seed + 1000 * n_chips + 7 * capacity
+                                + RING_CASES.index(case))
+    count = {"cursor0": 2 * capacity, "mid": capacity + capacity // 2,
+             "wrapped": capacity + 1, "partial": 12}.get(
+                 case, capacity + capacity // 3)
+    shape = (RING_RAILS, n_chips)
+    onsets = rng.uniform(0.62, 0.72, shape).astype(np.float32)
+    v = np.zeros((capacity,) + shape, np.float32)
+    obs = np.zeros_like(v)
+    age = np.zeros((capacity, n_chips), np.float32)
+    aged = case == "aged"
+    for t in range(count):
+        slot = t % capacity
+        v[slot] = (onsets + 0.2 - 0.03 * (t % 10)
+                   + 0.01 * rng.standard_normal(shape)).astype(np.float32)
+        o = (RING_BOUND * 10.0 ** np.clip(30.0 * (onsets - v[slot]), -6.0,
+                                          3.0)
+             * np.exp(0.05 * rng.standard_normal(shape)))
+        o[rng.uniform(size=shape) < 0.05] = np.nan
+        o[1, ::2] = RING_BOUND
+        obs[slot] = o.astype(np.float32)
+        if aged:
+            a = rng.uniform(0.0, 0.1, n_chips).astype(np.float32)
+            a[rng.uniform(size=n_chips) < 0.1] = np.inf    # unknown age
+            age[slot] = a
+    if case == "nan_lanes":
+        obs[:, 0, 1::5] = np.nan
+        obs[:, 2, 3::7] = np.nan
+    valid = np.isfinite(v) & np.isfinite(obs)
+    valid[count:] = False
+    old = [np.zeros(shape, np.float32) for _ in range(5)]
+    if case in ("gain_half", "old_conf"):    # an earlier fit of the lanes
+        learned = rng.uniform(size=shape) < 0.6
+        jitter = 1.0 + 0.02 * rng.standard_normal((5,) + shape)
+        old = [np.where(learned, a * j, 0.0).astype(np.float32)
+               for a, j in zip((np.log10(RING_BOUND) + 30.0 * onsets,
+                                np.full(shape, -30.0), onsets,
+                                rng.uniform(0.3, 0.95, shape),
+                                rng.uniform(4.0, 9.0, shape)), jitter)]
+    return dict(v=v, obs=obs, valid=valid, age_s=age,
+                polled=np.zeros((capacity, n_chips), np.float32),
+                cursor=count % capacity, count=count, old=old,
+                cfg=dict(capacity=capacity,
+                         age_halflife_s=0.05 if aged else None,
+                         update_gain=0.5 if case == "gain_half" else 1.0))
+
+
+class OpNames(TorchDispatchMode):
+    """Records the name of every aten op dispatched inside it (`view`,
+    `empty`, `log10`, ...)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(func.__name__.split(".")[0])
+        return func(*args, **(kwargs or {}))
+
+
+# the aten ops that only take a view of a tensor
+VIEW_OPS = {"view", "_unsafe_view", "alias", "unbind", "select", "expand",
+            "slice", "unsqueeze"}

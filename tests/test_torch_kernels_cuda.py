@@ -21,11 +21,13 @@ from repro_torch.kernels import mamba2_ssd as tm2
 from repro_torch.kernels import quant_codec as tqc
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
-from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
-                               check_sums, codec_input, codec_ties,
-                               ef_inputs, mamba2_adversarial_decay,
-                               mamba2_inputs, qkv, rwkv_adversarial_w,
-                               rwkv_inputs, sor_inputs)
+from test_torch_inputs import (RING_BOUND, RING_CASES, SOR_KW, VIEW_OPS,
+                               OpNames, accumulate_inputs, check_refit,
+                               check_sor, check_sums, codec_input,
+                               codec_ties, ef_inputs,
+                               mamba2_adversarial_decay, mamba2_inputs, qkv,
+                               ring_state, rwkv_adversarial_w, rwkv_inputs,
+                               sor_inputs)
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)
@@ -224,7 +226,8 @@ def test_decode_kernel_counts_one_launch_per_call(cuda, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (7, 5)])
+@pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (7, 5),
+                                      (29, 200), (64, 67)])
 def test_sor_fit_kernel_matches_plain(cuda, window, n):
     args = tuple(torch.from_numpy(a).to(cuda)
                  for a in sor_inputs(window, n, seed=n))
@@ -236,7 +239,7 @@ def test_sor_fit_kernel_matches_plain(cuda, window, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("window,n", [(32, 192), (29, 200), (32, 3 * 1024),
-                                      (7, 5)])
+                                      (7, 5), (64, 67)])
 def test_sor_accumulate_kernel_matches_plain(cuda, window, n):
     args = tuple(torch.from_numpy(a).to(cuda)
                  for a in accumulate_inputs(window, n, seed=n))
@@ -247,7 +250,8 @@ def test_sor_accumulate_kernel_matches_plain(cuda, window, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (29, 200)])
+@pytest.mark.parametrize("window,n", [(32, 192), (32, 201), (29, 200),
+                                      (64, 67), (7, 5)])
 def test_split_fit_equals_the_fused_kernel(cuda, window, n):
     """K7, then the solve as tensor code, against K1 on the same inputs:
     both sum with the same device function, and the torch solve runs as
@@ -277,6 +281,164 @@ def test_sor_accumulate_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tft.sor_accumulate(x[:, ::2], x[:, :2].contiguous(),
                            x[:, :2].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n", [(7, 5), (29, 200), (32, 192),
+                                      (64, 67)])
+def test_sor_kernels_sum_in_row_order(cuda, window, n):
+    """K7's sums are the window's products added in row order, each
+    product and add rounded on its own: a row-by-row torch sum equals
+    them bit for bit, and K1's n_eff is K7's Σw."""
+    x, y, w = (torch.from_numpy(a).to(cuda)
+               for a in accumulate_inputs(window, n, seed=n))
+    got = tft.sor_accumulate(x, y, w)
+    want = [torch.zeros(n, device=cuda) for _ in range(5)]
+    for r in range(window):
+        wx = w[r] * x[r]
+        for q, term in enumerate((w[r], wx, w[r] * y[r], wx * x[r],
+                                  wx * y[r])):
+            want[q] = want[q] + term
+    for q, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (q, (a - b).abs().max().item())
+    bound = torch.full((n,), -2.0, device=cuda)
+    fit = tft.sor_fit(x, y, w, bound, bound, **SOR_KW)
+    assert torch.equal(fit[4], got[0])
+
+
+def ring_args(st, dev):
+    """`ring_state`'s ring, old estimate and per-rail bounds on `dev`, and
+    the refit's keywords."""
+    ring = tuple(torch.from_numpy(np.ascontiguousarray(st[k])).to(dev)
+                 for k in ("v", "obs", "valid", "age_s"))
+    old = [torch.from_numpy(a).to(dev) for a in st["old"]]
+    bound = torch.full((3,), float(np.float32(np.log10(RING_BOUND))),
+                       device=dev)
+    kw = dict(cursor=st["cursor"], decay=0.92,
+              age_halflife_s=st["cfg"]["age_halflife_s"])
+    return ring, old, bound, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chips", [64, 1024])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_sor_refit_kernel_matches_plain(cuda, case, n_chips):
+    """K1's refit against its plain version (the composed sequence) on the
+    card, at the serve paths' 3 x 64 lanes and at 3 x 1024."""
+    st = ring_state(case, n_chips)
+    ring, old, bound, kw = ring_args(st, cuda)
+    kw.update(update_gain=st["cfg"]["update_gain"], **SOR_KW)
+    got = tft.sor_refit(*ring, old, bound, **kw)
+    want = tft.sor_refit_plain(*ring, old, bound, **kw)
+    assert all(a.shape == (3, n_chips) for a in got)
+    assert bool((want[3] > 0).any())
+    check_refit([a.cpu().numpy() for a in got],
+                [a.cpu().numpy() for a in want])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chips", [64, 1024])
+@pytest.mark.parametrize("case", ["cursor0", "partial", "nan_lanes",
+                                  "aged"])
+def test_sor_accumulate_ring_kernel_matches_plain(cuda, case, n_chips):
+    st = ring_state(case, n_chips)
+    ring, _, _, kw = ring_args(st, cuda)
+    got = tft.sor_accumulate_ring(*ring, **kw)
+    want = tft.sor_accumulate_ring_plain(*ring, **kw)
+    check_sums([a.cpu().numpy() for a in got],
+               [a.cpu().numpy() for a in want])
+
+
+@pytest.mark.cuda
+def test_sor_refit_refusals(cuda):
+    st = ring_state("mid", 4)
+    (v, obs, valid, age), old, bound, kw = ring_args(st, cuda)
+    kw.update(update_gain=1.0, **SOR_KW)
+
+    def refit(v=v, obs=obs, valid=valid, age=age, old=old, bound=bound,
+              **over):
+        return tft.sor_refit(v, obs, valid, age, old, bound, **{**kw,
+                                                                **over})
+
+    with pytest.raises(ValueError, match="torch.float32"):
+        refit(v=v.double())
+    with pytest.raises(ValueError, match="torch.bool"):
+        refit(valid=valid.float())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        refit(obs=obs.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        refit(v=v.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="capacity, n_rails"):
+        refit(v=v[0])
+    with pytest.raises(ValueError, match="age_s must be"):
+        refit(age=age[:, :2].contiguous())
+    with pytest.raises(ValueError, match="cursor"):
+        refit(cursor=32)
+    with pytest.raises(ValueError, match="cursor"):
+        refit(cursor=-1)
+    with pytest.raises(ValueError, match="five"):
+        refit(old=old[:4])
+    with pytest.raises(ValueError, match="old"):
+        refit(old=[o[:, :2].contiguous() for o in old])
+    with pytest.raises(ValueError, match="float32"):
+        refit(bound=bound.double())
+    with pytest.raises(ValueError, match="cursor"):
+        tft.sor_accumulate_ring(v, obs, valid, age, cursor=40, decay=0.92,
+                                age_halflife_s=None)
+
+
+@pytest.mark.cuda
+def test_sor_ring_kernels_count_their_launches(cuda):
+    """One count a call: the refit on `sor_refit`, K7 on the ring on
+    `sor_accumulate` (its kernel); K1 alone does not move."""
+    st = ring_state("wrapped", 64)
+    ring, old, bound, kw = ring_args(st, cuda)
+    before = (tft.sor_refit.launches, tft.sor_accumulate.launches,
+              tft.sor_fit.launches)
+    tft.sor_refit(*ring, old, bound, update_gain=1.0, **kw, **SOR_KW)
+    tft.sor_accumulate_ring(*ring, **kw)
+    assert (tft.sor_refit.launches, tft.sor_accumulate.launches,
+            tft.sor_fit.launches) == (before[0] + 1, before[1] + 1,
+                                      before[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_refit_neither_copies_nor_syncs_on_the_card(cuda, fused):
+    """A refit on cadence through `sor.update_estimate`: fused, one launch
+    of K1's refit and nothing but an allocation and views; split, K7 on the
+    ring and the solve's tensor code. Neither copies from the host nor
+    synchronises the stream (`torch.cuda.set_sync_debug_mode("error")`
+    raises on a synchronising op)."""
+    from repro_torch.core import sor as tsor
+    from repro_torch.core import telemetry as ttel
+    from repro_torch.kernels import ops
+    st = ring_state("old_conf", 64)
+    hist = ttel.FrameHistory(
+        **{f: torch.from_numpy(st[f]).to(cuda)
+           for f in ("v", "obs", "age_s", "polled", "valid")},
+        cursor=st["cursor"], count=st["count"], capacity=32,
+        rails=ttel.ALL_RAIL_OBSERVABLES)
+    cfg = tsor.SorConfig(rails=ttel.ALL_RAIL_OBSERVABLES, **st["cfg"])
+    old = tsor.SorEstimate(*(torch.from_numpy(a).to(cuda)
+                             for a in st["old"]))
+    tsor.update_estimate(old, hist, cfg, fused=fused)   # builds the bounds
+    torch.cuda.synchronize()
+    before = ops.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with OpNames() as rec:
+            tsor.update_estimate(old, hist, cfg, fused=fused)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ops.launch_counts().items()
+             if v != before[k]}
+    assert moved == ({"sor_refit": 1} if fused else {"sor_accumulate": 1})
+    assert not set(rec.names) & {"_to_copy", "copy_", "lift_fresh", "arange",
+                                 "log10", "remainder"}, rec.names
+    if fused:
+        assert set(rec.names) <= VIEW_OPS | {"empty"}, rec.names
 
 
 def bwd_close(got, want, tol):
@@ -475,6 +637,8 @@ def test_kernels_count_their_launches(cuda):
                   for a in sor_inputs(4, 3, seed=0)), **SOR_KW)
     ops.sor_accumulate(*(torch.from_numpy(a).to(cuda)
                          for a in accumulate_inputs(4, 3, seed=0)))
+    ring, old, bound, kw = ring_args(ring_state("partial", 2), cuda)
+    ops.sor_refit(*ring, old, bound, update_gain=1.0, **kw, **SOR_KW)
     ops.fleet_reduce(torch.zeros((3, 2), device=cuda))
     r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
                         for a in rwkv_inputs(1, 3, 1, 64, seed=0,
