@@ -19,7 +19,11 @@ script exits nonzero:
                 and the harness's floor; the host path for K7, also at
                 windows 7 to 64; the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K2 and
-                K4-K6 (K2 also in f32 at the Qwen prefill), the
+                K4-K6 (K2 also in f32 at the Qwen prefill; K6 also as
+                `fleet_stats`, the fleet step's reduction tail in one
+                launch, at 1 to 20000 chips with ties at the p95's ranks
+                and NaN lanes, beside the composed sequence it replaced
+                and the harness's floor), the
                 RWKV6 serve path for K9, the Zamba2 serve path for K8 (each
                 also at T around its 64-step chunk, and its decode step in
                 place, beside its bytes and operations bounds), the
@@ -584,35 +588,97 @@ def floor_ms(flush) -> float:
     return time_ms(lambda: tiny.zero_(), 100, flush)
 
 
+# torch.profiler drops device events of short windows: now and then the
+# first kernel of a window (on the H100 its start lags its launch by
+# ~1-2 ms on the profiler's clock), in a process that ran the kernel
+# checks before K6's that first kernel in almost every window
+# (`scripts/profile_windows.py --after-checks`). `device_activity`
+# therefore pads each window with PROFILE_PAD_S of host time, spends its
+# first kernel on a lead kernel that is not counted, counts only what
+# starts between two witness kernels around the call, and takes a window
+# that lost a witness again, at most PROFILE_TRIES times
+PROFILE_PAD_S = 0.005
+PROFILE_TRIES = 5
+
+
 def device_activity(call) -> dict:
     """What one `call` (after a warm-up call) puts on the card and asks of
     the host's CUDA runtime (torch.profiler): device kernels, device memory
     copies, their summed device time (us), and the stream or device
     synchronisations the host waited on, less those of profiling a call
-    that does nothing (the profiler's own)."""
+    that does nothing (the profiler's own). Each window, padded with
+    PROFILE_PAD_S of host time at both ends, runs a lead kernel, a
+    witness kernel, the call and the witness again; the device events
+    that start between the two witnesses are the call's. A window that
+    did not record both witnesses is taken again (PROFILE_TRIES);
+    `retaken` counts those windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(fn):
-        fn()
+    lead = torch.zeros(1, dtype=torch.int32, device="cuda")
+    witness = torch.zeros(1, dtype=torch.int16, device="cuda")
+    retaken = 0
+
+    def window(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            lead.neg_()
+            witness.neg_()
             fn()
-        torch.cuda.synchronize()
+            witness.neg_()
+            # a kernel still running when the profiler stops goes
+            # unrecorded: the window ends after the call's last kernel
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.events()
+        device = sorted((e for e in events
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        return events, device
+
+    seen = []
+    for _ in range(PROFILE_TRIES):
+        _, device = window(lambda: None)
+        names = [e.name for e in device]
+        twice = {n for n in names if names.count(n) == 2}
+        if len(twice) == 1:
+            witness_kernel = twice.pop()
+            break
+        retaken += 1
+        seen.append(names)
+    else:
+        raise RuntimeError("device_activity: torch.profiler recorded no "
+                           f"two witness kernels in {PROFILE_TRIES} "
+                           f"windows: {seen}")
+
+    def profiled(fn):
+        nonlocal retaken
+        fn()
+        for _ in range(PROFILE_TRIES):
+            events, device = window(fn)
+            marks = [i for i, e in enumerate(device)
+                     if e.name == witness_kernel]
+            if len(marks) >= 2:
+                break
+            retaken += 1
+        else:
+            raise RuntimeError("device_activity: torch.profiler lost a "
+                               f"witness in {PROFILE_TRIES} windows")
         out = {"kernels": 0, "copies": 0, "device_us": 0.0, "syncs": 0}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                out["copies" if e.name.startswith(("Memcpy", "Memset"))
-                    else "kernels"] += 1
-                out["device_us"] += getattr(e, "device_time", 0.0)
-            elif "Synchronize" in e.name:
-                out["syncs"] += 1
+        for e in device[marks[0] + 1:marks[-1]]:
+            out["copies" if e.name.startswith(("Memcpy", "Memset"))
+                else "kernels"] += 1
+            out["device_us"] += getattr(e, "device_time", 0.0)
+        out["syncs"] = sum("Synchronize" in e.name for e in events
+                           if e.device_type != DeviceType.CUDA)
         return out
 
     base = profiled(lambda: None)
-    return {k: v - base[k] for k, v in profiled(call).items()}
+    out = {k: v - base[k] for k, v in profiled(call).items()}
+    return dict(out, retaken=retaken)
 
 
 def row_order_sums(x, y, w):
@@ -877,14 +943,16 @@ def check_flash_bwd(dev, flush) -> list[dict]:
 
 
 def check_fleet_reduce(dev, flush) -> dict:
-    """K6 at the fleet train step's [64, 5] and at 1000 chips, a NaN lane
-    in one field of each; max and min exact, the sum to f32 order."""
+    """K6 at the fleet train step's [64, 5], at 1, 2, 65 and 1000 chips, a
+    NaN lane in one field of each; max and min exact, the sum to f32
+    order; the harness's floor beside it."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import fleet_telemetry as ft
     err = 0.0
-    for n in (TRAIN["chips"], 1000):
+    sizes = (1, 2, TRAIN["chips"], 65, 1000)
+    for n in sizes:
         x = torch.from_numpy(np.random.default_rng(n).standard_normal(
             (n, 5)).astype(np.float32)).to(dev)
         x[n // 2, 3] = float("nan")
@@ -911,9 +979,125 @@ def check_fleet_reduce(dev, flush) -> dict:
                 source="src/repro_torch/kernels/csrc/fleet_reduce.cu",
                 replaces="src/repro/kernels/fleet_telemetry.py:192",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                bound_by=b_by, library_ms=None, floor_ms=floor_ms(flush),
+                host_us=host_us(lambda: ft.fleet_reduce(x)),
+                per_call=device_activity(lambda: ft.fleet_reduce(x)),
                 shape=dict(n_chips=TRAIN["chips"], n_fields=5,
-                           nan_lane_checked_at=[TRAIN["chips"], 1000]))
+                           nan_lane_checked_at=list(sizes)))
+
+
+def fleet_tail_composed(ops, power_w, t_chip_s, grad_error, energy_step_j,
+                        v_io, straggle, conf=None):
+    """The fleet train step's reduction tail as it ran before
+    `fleet_stats`: the five fields stacked, K6 (`ops.fleet_reduce`), five
+    divides, two `ops.fleet_percentile` (torch.quantile), the straggler
+    mean, the confidence's mean and min. `ops` is the kernels module of the
+    checkout that runs it."""
+    import torch
+    n = power_w.shape[0]
+    stacked = torch.stack([power_w, t_chip_s, grad_error, energy_step_j,
+                           v_io], dim=1).contiguous()
+    mx, mn, sm = ops.fleet_reduce(stacked)
+    out = {}
+    for i, name in enumerate(("power_w", "t_chip_s", "grad_error",
+                              "energy_step_j")):
+        out[f"fleet/{name}_worst"] = mx[i]
+        out[f"fleet/{name}_mean"] = sm[i] / n
+    out["fleet/v_io_min"] = mn[4]
+    out["fleet/v_io_mean"] = sm[4] / n
+    out["fleet/t_fleet_s"] = mx[1]
+    out["fleet/t_chip_p95_s"] = ops.fleet_percentile(t_chip_s, 95.0)
+    out["fleet/grad_error_p95"] = ops.fleet_percentile(grad_error, 95.0)
+    out["fleet/straggler_frac"] = straggle.float().mean()
+    if conf is not None:
+        out["fleet/sor_conf_mean"] = conf.mean()
+        out["fleet/sor_conf_min"] = conf.min()
+    return out
+
+
+def fleet_tail_args(n: int, case: str, dev) -> list:
+    """`tests/test_torch_inputs.fleet_inputs` on the card."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_inputs import fleet_inputs
+    return [None if a is None else torch.from_numpy(a).to(dev)
+            for a in fleet_inputs(n, case)]
+
+
+def check_fleet_stats(dev, flush) -> dict:
+    """`fleet_stats`, the fleet train step's reduction tail in one launch,
+    at each chip count and case of `tests/test_torch_inputs` (`FLEET_SIZES`
+    x `FLEET_CASES`: ties at the p95's ranks, a NaN in t_chip_s, grad_error
+    or v_io, with and without the confidence) against its plain version on
+    the card (`check_fleet_stats`: max, min, the p95s and the straggler
+    fraction bit for bit, the means within FLEET_SUM_RTOL, NaN where the
+    plain version has NaN), against itself on a second launch (the same
+    bits) and against the composed sequence it replaced (K6 in it). Then at
+    the main path's 64 chips (the confidence [3, 64]): device ms of the
+    kernel, of its plain version and of the composed sequence (10 calls of
+    the multi-launch ones, inside the launch queue), host us a call and
+    what one call puts on the card (`device_activity`) of each and of the
+    harness's floor (the kernel's must read one kernel, no copy, no sync);
+    and the kernel's device ms at 128 to 20000 chips."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_inputs import (FLEET_CASES, FLEET_SIZES, FLEET_SUM_RTOL,
+                                   check_fleet_stats as check)
+
+    from repro_torch.kernels import fleet_telemetry as ft
+    from repro_torch.kernels import ops
+
+    def host(d):
+        return {k: v.cpu() for k, v in d.items()}
+
+    gap, checked = 0.0, []
+    for n in FLEET_SIZES:
+        for case in FLEET_CASES:
+            args = fleet_tail_args(n, case, dev)
+            got = host(ft.fleet_stats(*args))
+            check(host(ft.fleet_stats(*args)), got, 0.0)
+            gap = max(gap, check(got, host(ft.fleet_stats_plain(*args)),
+                                 FLEET_SUM_RTOL))
+            check(got, host(fleet_tail_composed(ops, *args)), FLEET_SUM_RTOL)
+            checked.append([n, case])
+
+    # the kernel past the step's n: its p95s count ranks up to 128 chips
+    # and run a radix select past that
+    ms_by_n = {}
+    for n in (128, 129, 1000, 4096, 20000):
+        args = fleet_tail_args(n, "plain", dev)
+        ms_by_n[n] = time_ms(lambda: ops.fleet_stats(*args), 100, flush)
+
+    n = TRAIN["chips"]
+    args = fleet_tail_args(n, "plain", dev)
+    m = args[-1].numel()
+    tiny = torch.zeros(1, device=dev)
+    calls = {"fused": lambda: ops.fleet_stats(*args),
+             "plain": lambda: ft.fleet_stats_plain(*args),
+             "composed": lambda: fleet_tail_composed(ops, *args),
+             "floor": lambda: tiny.zero_()}
+    # reads the five fields, the mask and the confidence once, writes 16
+    # values; a max, a min and an add a value of each fold, at least a
+    # compare a value for each p95
+    b_ms, b_by = bound_ms(4 * 5 * n + n + 4 * m + 4 * 16,
+                          3 * 5 * n + 3 * n + 3 * m + 2 * n, "float32")
+    per_call = {k: device_activity(fn) for k, fn in calls.items()}
+    fused = per_call["fused"]
+    if (fused["kernels"], fused["copies"], fused["syncs"]) != (1, 0, 0):
+        raise AssertionError(f"fleet_stats: one call put {fused} on the "
+                             f"card, not one kernel")
+    return dict(
+        name="fleet_stats", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_reduce.cu",
+        replaces="src/repro/kernels/fleet_telemetry.py:192",
+        max_abs_err=gap, ms=time_ms(calls["fused"], 100, flush),
+        plain_ms=time_ms(calls["plain"], 10, flush), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        composed_ms=time_ms(calls["composed"], 10, flush),
+        floor_ms=floor_ms(flush),
+        host_us={k: host_us(fn) for k, fn in calls.items()},
+        per_call=per_call, ms_by_n=ms_by_n, checked=checked,
+        shape=dict(n=n, conf=list(args[-1].shape)))
 
 
 def rwkv6_args(B, T, H, dtype, state, gen, dev):
@@ -2206,7 +2390,7 @@ def run_main_train(dev) -> dict:
     want.update({"flash_attention_fwd": 2 * L * steps,   # forward + remat
                  "flash_attention_bwd_dq": L * steps,
                  "flash_attention_bwd_dkv": L * steps,
-                 "fleet_reduce": steps, "sor_refit": refits})
+                 "fleet_stats": steps, "sor_refit": refits})
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     losses = [r.loss for r in trainer.log.records]
@@ -2634,6 +2818,7 @@ def main() -> int:
     kernels = {}
     checks = (check_sor_fit, check_sor_accumulate, check_sor_refit,
               check_flash, check_decode, check_flash_bwd, check_fleet_reduce,
+              check_fleet_stats,
               check_rwkv6_scan, check_mamba2_ssd, check_quantize_int8,
               check_ef_sync_leaf)
     for check in checks:

@@ -41,6 +41,7 @@ SIGNATURES = {
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 10 + [_F, _P],
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 10 + [_F, _P],
     "fleet_reduce_launch": [_P] * 4 + [_I, _I, _P],
+    "fleet_stats_launch": [_P] * 8 + [_I, _I, _F, _P],
     "rwkv6_scan_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "mamba2_ssd_fwd": [_P] * 11 + [_I] * 8 + [_P],
     "quantize_int8_launch": [_P] * 3 + [_L, _I, _I, _P],

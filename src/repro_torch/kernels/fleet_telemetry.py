@@ -3,6 +3,14 @@ fit (K7) and the fleet telemetry reduction (K6): wrappers around the CUDA
 kernels `csrc/sor_fit.cu` (K1 and K7) and `csrc/fleet_reduce.cu`, each
 beside its plain PyTorch version.
 
+K6 replaces the TPU kernel `repro/kernels/fleet_telemetry.py::fleet_reduce`
+and has two entry points on one fold routine: `fleet_reduce` (the TPU
+kernel's interface, `[n_chips, n_fields]` -> max, min, sum) and
+`fleet_stats` (the fleet train step's whole reduction tail in one launch:
+every `fleet/*` metric from the step's fields as they stand, the p95s exact
+order statistics interpolated as `torch.quantile` does). Both are bound by
+latency at the step's 64 chips: one CTA a job, every job at once.
+
 K1 replaces the TPU kernel `repro/kernels/fleet_telemetry.py::sor_fit`
 (`_sor_fit_kernel`), K7 its `sor_accumulate` (`_sor_kernel`). Each has two
 entry points: the TPU kernel's own interface on a `[window, n]` window
@@ -291,3 +299,109 @@ def fleet_reduce(x):
 
 
 fleet_reduce.launches = 0
+
+
+# the fleet train step's `fleet/*` metrics, in the order of `fleet_stats`'
+# output buffer (`csrc/fleet_reduce.cu`, enum Slot); the last two only with
+# the SOR confidence
+STATS_FIELDS = ("power_w", "t_chip_s", "grad_error", "energy_step_j",
+                "v_io")
+STATS_KEYS = tuple(f"fleet/{k}" for k in (
+    "power_w_worst", "power_w_mean", "t_chip_s_worst", "t_chip_s_mean",
+    "grad_error_worst", "grad_error_mean", "energy_step_j_worst",
+    "energy_step_j_mean", "v_io_min", "v_io_mean", "t_fleet_s",
+    "t_chip_p95_s", "grad_error_p95", "straggler_frac", "sor_conf_mean",
+    "sor_conf_min"))
+P95 = 95.0
+QUANTILE_MAX = 2**24     # torch.quantile's largest input
+
+
+def fleet_stats_plain(power_w, t_chip_s, grad_error, energy_step_j, v_io,
+                      straggle, conf=None):
+    """The plain PyTorch version: the fleet train step's reduction tail as
+    a sequence of tensor ops (the five fields stacked, `fleet_reduce_plain`,
+    the means, two `torch.quantile`s, the straggler and confidence
+    means)."""
+    n = power_w.shape[0]
+    stacked = torch.stack([power_w, t_chip_s, grad_error, energy_step_j,
+                           v_io], dim=1).contiguous()
+    mx, mn, sm = fleet_reduce_plain(stacked)
+    out = {}
+    # for these the worst chip is the max; for a voltage rail it is the
+    # MIN (thinnest margin), so v_io gets min/mean instead
+    for i, name in enumerate(STATS_FIELDS[:4]):
+        out[f"fleet/{name}_worst"] = mx[i]
+        out[f"fleet/{name}_mean"] = sm[i] / n
+    out["fleet/v_io_min"] = mn[4]
+    out["fleet/v_io_mean"] = sm[4] / n
+    # a synchronous fleet steps at its slowest chip
+    out["fleet/t_fleet_s"] = mx[1]
+    out["fleet/t_chip_p95_s"] = ref.fleet_percentile_reference(t_chip_s, P95)
+    out["fleet/grad_error_p95"] = ref.fleet_percentile_reference(grad_error,
+                                                                 P95)
+    out["fleet/straggler_frac"] = straggle.float().mean()
+    if conf is not None:
+        # learned-region telemetry: how much of the fleet trusts a fit
+        out["fleet/sor_conf_mean"] = conf.mean()
+        out["fleet/sor_conf_min"] = conf.min()
+    return out
+
+
+def _check_stats(fields, straggle, conf) -> int:
+    """Refuse inputs the kernel does not take; returns n."""
+    dev = fields[0].device
+    n = fields[0].shape[0] if fields[0].dim() == 1 else 0
+    if not 1 <= n <= QUANTILE_MAX:
+        raise ValueError(f"fleet_stats: power_w must be [n] with 1 <= n <= "
+                         f"{QUANTILE_MAX}, got {tuple(fields[0].shape)}")
+    args = [(name, a, torch.float32, (n,))
+            for name, a in zip(STATS_FIELDS, fields)]
+    args.append(("straggle", straggle, torch.bool, (n,)))
+    if conf is not None:
+        args.append(("conf", conf, torch.float32, None))
+    for name, a, dtype, shape in args:
+        if shape is not None and tuple(a.shape) != shape:
+            raise ValueError(f"fleet_stats: {name} must be {shape}, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise ValueError(f"fleet_stats: {name} must be {dtype}, got "
+                             f"{a.dtype}")
+        if a.device != dev or not a.is_contiguous():
+            raise ValueError("fleet_stats takes contiguous tensors on one "
+                             "device")
+    if conf is not None and conf.numel() == 0:
+        raise ValueError("fleet_stats: conf is empty")
+    return n
+
+
+def fleet_stats(power_w, t_chip_s, grad_error, energy_step_j, v_io,
+                straggle, conf=None):
+    """The fleet train step's reduction tail in one launch: five [n] f32
+    fields, the straggle mask ([n] bool) and, with the SOR, its confidence
+    (f32, any shape) -> {`fleet/*` key: 0-d f32}, the keys of
+    `STATS_KEYS` (the last two only with `conf`). On the card the values
+    are views of one output buffer; max, min, the p95s and the straggler
+    fraction equal the plain version's bit for bit, the sums' order is the
+    kernel's own. Counts on `fleet_stats.launches`."""
+    fields = (power_w, t_chip_s, grad_error, energy_step_j, v_io)
+    n = _check_stats(fields, straggle, conf)
+    if power_w.device.type == "cpu":
+        return fleet_stats_plain(*fields, straggle, conf)
+    if power_w.device.type != "cuda":
+        raise ValueError(f"fleet_stats runs on cpu or cuda, got "
+                         f"{power_w.device}")
+    keys = STATS_KEYS if conf is not None else STATS_KEYS[:-2]
+    out = torch.empty(len(keys), dtype=torch.float32, device=power_w.device)
+    lib = _build.load()
+    with torch.cuda.device(power_w.device):
+        stream = torch.cuda.current_stream(power_w.device).cuda_stream
+        rc = lib.fleet_stats_launch(
+            *(a.data_ptr() for a in fields), straggle.data_ptr(),
+            None if conf is None else conf.data_ptr(), out.data_ptr(), n,
+            0 if conf is None else conf.numel(), P95 / 100.0, stream)
+    _build.check(rc, "fleet_stats")
+    fleet_stats.launches += 1
+    return dict(zip(keys, out.unbind(0)))
+
+
+fleet_stats.launches = 0

@@ -28,6 +28,7 @@ KERNELS = {
     "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv,
     "fleet_reduce": _ft.fleet_reduce,
+    "fleet_stats": _ft.fleet_stats,
     "rwkv6_scan": _r6.rwkv6_scan,
     "mamba2_ssd": _m2.mamba2_ssd,
     "quantize_int8": _qc.quantize_int8,
@@ -100,6 +101,17 @@ def fleet_reduce(x):
     """x [n_chips, n_fields] -> (max, min, sum) over chips, each
     [n_fields] f32 (K6)."""
     return _ft.fleet_reduce(x)
+
+
+def fleet_stats(power_w, t_chip_s, grad_error, energy_step_j, v_io,
+                straggle, conf=None):
+    """The fleet train step's reduction tail in one launch (K6's fold):
+    five [n] f32 fields, the [n] bool straggle mask and, optionally, the
+    SOR confidence -> {`fleet/*` key: 0-d f32}: worst (v_io: min) and mean
+    of each field, t_fleet_s, the p95s of t_chip_s and grad_error, the
+    straggler fraction, and the confidence's mean and min."""
+    return _ft.fleet_stats(power_w, t_chip_s, grad_error, energy_step_j,
+                           v_io, straggle, conf)
 
 
 def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):

@@ -239,7 +239,7 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
     """Fleet-native train step: the scalar step's model and optimizer math,
     a `[n_chips]` power plane with per-chip process variation, per-chip
     margin-coupled error/straggler/HBM-error observables, and the fleet
-    reductions (worst/mean/p95) through the `ops.fleet_reduce` kernel.
+    reductions (worst/mean/p95) in one launch of `ops.fleet_stats`.
 
     Returns train_step(params, opt_state, plane, ef_resid, batch) ->
     (params', opt_state', plane', ef_resid', metrics); with
@@ -318,33 +318,12 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
         elif controller is not None:
             plane = controller.control_step(plane, frame)
 
-        # fleet reductions through the K6 kernel: [n_chips, n_fields] ->
-        # per-field worst/mean (+ p95 where it gates)
-        stacked = torch.stack([power_metrics["power_w"], t_chip, err,
-                               power_metrics["energy_step_j"], plane.v_io],
-                              dim=1).contiguous()
-        mx, mn, sm = ops.fleet_reduce(stacked)
-        fleet_metrics = {}
-        # for these the worst chip is the max; for a voltage rail it is the
-        # MIN (thinnest margin), so v_io gets min/mean instead
-        for i, name in enumerate(("power_w", "t_chip_s", "grad_error",
-                                  "energy_step_j")):
-            fleet_metrics[f"fleet/{name}_worst"] = mx[i]
-            fleet_metrics[f"fleet/{name}_mean"] = sm[i] / n
-        fleet_metrics["fleet/v_io_min"] = mn[4]
-        fleet_metrics["fleet/v_io_mean"] = sm[4] / n
-        # a synchronous fleet steps at its slowest chip
-        fleet_metrics["fleet/t_fleet_s"] = mx[1]
-        fleet_metrics["fleet/t_chip_p95_s"] = ops.fleet_percentile(t_chip,
-                                                                   95.0)
-        fleet_metrics["fleet/grad_error_p95"] = ops.fleet_percentile(err,
-                                                                     95.0)
-        fleet_metrics["fleet/straggler_frac"] = straggle.float().mean()
-        if sor_cfg is not None:
-            # learned-region telemetry: how much of the fleet trusts a fit
-            conf = sor_state.estimate.confidence
-            fleet_metrics["fleet/sor_conf_mean"] = conf.mean()
-            fleet_metrics["fleet/sor_conf_min"] = conf.min()
+        # the fleet reductions (worst/mean/p95, stragglers, the learned
+        # region's confidence) in one launch
+        fleet_metrics = ops.fleet_stats(
+            power_metrics["power_w"], t_chip, err,
+            power_metrics["energy_step_j"], plane.v_io, straggle,
+            None if sor_cfg is None else sor_state.estimate.confidence)
 
         out_metrics = {"loss": loss, **metrics, **opt_metrics, **telemetry,
                        **fleet_metrics}

@@ -23,6 +23,9 @@ from repro_torch.train import trainer as ttrainer
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+# the card-side scripts: those that set a checkout beside the parent
+# (`*_compare.py`) and the profiler's window count
+CARD_SCRIPTS = sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -33,7 +36,7 @@ def _imported_modules(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES,
+@pytest.mark.parametrize("path", PORT_FILES + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
     bad = [m for m in _imported_modules(path)
@@ -42,13 +45,14 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 
 def test_port_files_found():
-    names = {p.name for p in PORT_FILES}
+    names = {p.name for p in PORT_FILES + CARD_SCRIPTS}
     assert {"engine.py", "ops.py", "sor.py", "chip_smoke.py", "step.py",
             "trainer.py", "adamw.py", "schedule.py", "pipeline.py",
             "train.py", "rwkv6.py", "rwkv6_scan.py", "rwkv6_7b.py",
             "mamba2.py", "mamba2_ssd.py", "zamba2_1p2b.py", "codecs.py",
             "regulator.py", "pmbus.py", "settling.py", "power_manager.py",
-            "fleet.py", "control_plane.py", "fleet_telemetry.py"} <= names
+            "fleet.py", "control_plane.py", "fleet_telemetry.py",
+            "fleet_compare.py", "sor_compare.py", "profile_windows.py"} <= names
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
-"""Seeded numpy inputs and the SOR-fit comparison shared by the port's
-test files (tests/test_torch_kernels.py, test_torch_rwkv6.py,
-test_torch_zamba2.py, test_torch_ecollectives.py, test_torch_sor.py on
-the CPU; test_torch_kernels_cuda.py on the card). It holds no tests and imports no
+"""Seeded numpy inputs and the SOR-fit and fleet-tail comparisons shared by
+the port's test files (tests/test_torch_kernels.py, test_torch_rwkv6.py,
+test_torch_zamba2.py, test_torch_ecollectives.py, test_torch_sor.py,
+test_torch_fleet_stats.py on the CPU; test_torch_kernels_cuda.py and
+chip_smoke.py on the card). It holds no tests and imports no
 JAX."""
 
 import numpy as np
@@ -197,6 +198,66 @@ def check_sor(got, want):
     for name, a, b in zip(names, got, want):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    err_msg=name, **SOR_TOL)
+
+
+# the fleet step's reduction tail (`fleet_stats`): the chip counts it is
+# held at (the step's 64 and its neighbours, both sides of the kernel's
+# rank-counting limit of 128, one past a CTA's one-pass 8192), and its input
+# cases: 'ties' puts the p95's ranks in runs of equal values, 'nan_*' a NaN
+# in that field, 'no_conf' the step without the SOR
+FLEET_SIZES = (1, 2, 63, 64, 65, 128, 129, 1000, 4096, 20000)
+FLEET_CASES = ("plain", "ties", "nan_t_chip", "nan_err", "nan_v_io",
+               "no_conf")
+# the tail's means are sums in another order than torch's: f32 sums of up
+# to 20000 positive terms
+FLEET_SUM_RTOL = 1e-5
+
+
+def fleet_inputs(n: int, case: str = "plain", seed: int = 0):
+    """(power_w, t_chip_s, grad_error, energy_step_j, v_io, straggle, conf)
+    of an n-chip fleet step, numpy: [n] f32 fields, ~5 % stragglers
+    ([n] bool, their step 1.5x), conf [3, n] f32 with a third of its lanes
+    unlearned (0; None for 'no_conf'). 'ties': t_chip_s at two levels (a
+    synchronous fleet's step times) and grad_error on a grid of 1e-3."""
+    rng = np.random.default_rng(seed + n)
+    power = rng.uniform(150.0, 250.0, n).astype(np.float32)
+    straggle = rng.uniform(size=n) < 0.05
+    t_chip = (rng.uniform(0.45, 0.55, n)
+              * np.where(straggle, 1.5, 1.0)).astype(np.float32)
+    err = (1e-3 * np.exp(rng.standard_normal(n))).astype(np.float32)
+    v_io = rng.uniform(0.6, 0.8, n).astype(np.float32)
+    conf = rng.uniform(size=(3, n)).astype(np.float32)
+    conf[rng.uniform(size=(3, n)) < 1 / 3] = 0.0
+    if case == "ties":
+        t_chip = np.where(straggle, 0.75, 0.5).astype(np.float32)
+        err = (np.round(rng.uniform(0.0, 4.0, n)) * 1e-3).astype(np.float32)
+    energy = (power * t_chip).astype(np.float32)
+    nan_at = {"nan_t_chip": (t_chip, n // 2), "nan_err": (err, n // 3),
+              "nan_v_io": (v_io, n - 1)}
+    if case in nan_at:
+        field, i = nan_at[case]
+        field[i] = np.nan
+    return (power, t_chip, err, energy, v_io, straggle,
+            None if case == "no_conf" else conf)
+
+
+def check_fleet_stats(got, want, rtol: float) -> float:
+    """The fleet tail's {key: 0-d value}: the same keys in the same order;
+    every mean (a sum in another order) within `rtol`, every other value
+    (max, min, the p95s, the straggler fraction) equal; NaN where the other
+    has NaN. Returns the largest |difference| of the means."""
+    assert list(got) == list(want), (list(got), list(want))
+    gap = 0.0
+    for key in want:
+        a, b = (np.float32(np.asarray(v[key])) for v in (got, want))
+        if key.endswith("_mean"):
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=0,
+                                       equal_nan=True, err_msg=key)
+            if not np.isnan(b):
+                gap = max(gap, float(abs(a - b)))
+        else:
+            assert (a == b) or (np.isnan(a) and np.isnan(b)), (key, a, b)
+    return gap
 
 
 # the SOR history ring states a refit is held at: the cursor at 0, mid-ring

@@ -21,10 +21,12 @@ from repro_torch.kernels import mamba2_ssd as tm2
 from repro_torch.kernels import quant_codec as tqc
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_scan as tr6
-from test_torch_inputs import (RING_BOUND, RING_CASES, SOR_KW, VIEW_OPS,
-                               OpNames, accumulate_inputs, check_refit,
-                               check_sor, check_sums, codec_input,
-                               codec_ties, ef_inputs,
+from test_torch_inputs import (FLEET_CASES, FLEET_SIZES, FLEET_SUM_RTOL,
+                               RING_BOUND, RING_CASES, SOR_KW, VIEW_OPS,
+                               OpNames, accumulate_inputs, check_fleet_stats,
+                               check_refit, check_sor, check_sums,
+                               codec_input, codec_ties, ef_inputs,
+                               fleet_inputs,
                                mamba2_adversarial_decay, mamba2_inputs, qkv,
                                ring_state, rwkv_adversarial_w, rwkv_inputs,
                                sor_inputs)
@@ -606,7 +608,7 @@ def test_flash_bwd_without_queries(cuda, dtype, Dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_chips", [64, 67, 1000])
+@pytest.mark.parametrize("n_chips", [1, 2, 64, 65, 67, 1000])
 def test_fleet_reduce_kernel_matches_plain(cuda, n_chips):
     x = torch.from_numpy(np.random.default_rng(n_chips).standard_normal(
         (n_chips, 5)).astype(np.float32)).to(cuda)
@@ -619,6 +621,24 @@ def test_fleet_reduce_kernel_matches_plain(cuda, n_chips):
     assert all(torch.isnan(a[3]) for a in got)
     assert not any(torch.isnan(a[:3]).any() or torch.isnan(a[4])
                    for a in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLEET_CASES)
+@pytest.mark.parametrize("n", FLEET_SIZES)
+def test_fleet_stats_kernel_matches_plain(cuda, n, case):
+    """The fleet step's tail in one launch against its plain version (the
+    composed torch sequence) on the card: max, min, the p95s and the
+    straggler fraction bit for bit, the means within FLEET_SUM_RTOL, NaN
+    where the plain version has NaN; the same bits on a second launch."""
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in fleet_inputs(n, case)]
+    got, again, want = ({k: v.cpu() for k, v in out.items()}
+                        for out in (tft.fleet_stats(*args),
+                                    tft.fleet_stats(*args),
+                                    tft.fleet_stats_plain(*args)))
+    check_fleet_stats(got, want, FLEET_SUM_RTOL)
+    check_fleet_stats(again, got, 0.0)
 
 
 @pytest.mark.cuda
@@ -640,6 +660,8 @@ def test_kernels_count_their_launches(cuda):
     ring, old, bound, kw = ring_args(ring_state("partial", 2), cuda)
     ops.sor_refit(*ring, old, bound, update_gain=1.0, **kw, **SOR_KW)
     ops.fleet_reduce(torch.zeros((3, 2), device=cuda))
+    ops.fleet_stats(*(None if a is None else torch.from_numpy(a).to(cuda)
+                      for a in fleet_inputs(5)))
     r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
                         for a in rwkv_inputs(1, 3, 1, 64, seed=0,
                                              state=False))
