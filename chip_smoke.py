@@ -37,7 +37,12 @@ script exits nonzero:
                 4608-token prompt past its 4096 window; K3 also at the
                 serve paths' uniform lengths of the first and the last
                 decode step and at Zamba2's full 4096-key window, with its
-                wrapper's host us a call;
+                wrapper's host us a call; K8 and K9 also as the training
+                paths' differentiable calls at batch 4 x 256 (their
+                gradients bit for bit those of autograd through the plain
+                version on the card, one launch a forward and none a
+                backward, the backward's span and device time); K2, K4
+                and K5 also at Zamba2's shared-block training shape;
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -109,7 +114,30 @@ script exits nonzero:
                 memory, losses, grad_error, comp_level and v_io; a
                 torch.profiler window of 2 `ef_int8` steps with the fused
                 ef pass's device ms beside its bound, and K2's, K4's and
-                K5's.
+                K5's;
+16. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
+                one `forward_train` gradient (on the card K8's and K2's
+                forward, the plain scan's and K4/K5's backward; every
+                leaf within TINY_GRAD_TOL, launches exact), then three
+                fleet SOR steps through `Trainer.run` as phase 11, at a
+                sequence of 80 tokens (past the shared block's 64-token
+                window and K8's 64-step chunk);
+17. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
+                x seq 256, per-layer remat (a Mamba2 layer and the shared
+                block after it under one checkpoint), f32 AdamW moments,
+                the 64-chip fleet with in-graph SOR: one warm-up step,
+                then 2 steps whose launch counts must be exact (K8 2 x
+                38 a step: the forward and the remat recompute; K2 2 x
+                6; K4, K5 6; `fleet_stats` 1; `sor_refit` on cadence),
+                step time, tokens/s, MFU, peak memory (under 80 GB),
+                losses; then one step split by CUDA events into K8's
+                forward, the scan's backward (the plain version re-run
+                and walked back, as the reference's custom_vjp does), K2,
+                the flash backward and the rest;
+18. tiny_train_rwkv - tiny RWKV6 as phase 16 (K9);
+19. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 17 (K9 2 x
+                32 a step), with the reference's int8 AdamW moments: f32
+                ones need ~91 GB beside the bf16 weights.
 
 Each model's weights are freed before the next model loads its own.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
@@ -140,6 +168,15 @@ ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
 TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
              profiled_steps=2)
+# the hybrid and ssm families' training paths: full width and depth, the
+# serve paths' traffic (4 x 256 tokens), one warm-up step and `steps`
+# steps with exact launch counts, then one step split by CUDA events.
+# RWKV6-7B's f32 AdamW moments would need ~91 GB with the bf16 weights
+# (12 B a parameter): its moments are the reference's int8 ones
+TRAIN_ZAMBA = dict(arch="zamba2_1p2b", batch=4, seq=256, chips=64, steps=2,
+                   adamw_state="float32")
+TRAIN_RWKV = dict(arch="rwkv6_7b", batch=4, seq=256, chips=64, steps=2,
+                  adamw_state="int8")
 # the bf16 attention kernels of the training path (K2, K4, K5), by name
 TRAIN_ATTENTION = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                    "flash_bwd_dkv_sm90")
@@ -221,15 +258,27 @@ def attn_paths() -> dict:
 
 def flash_paths() -> dict:
     """K2's shapes: each serve path's prefill (`attn_paths`) and the
-    training path's forward, (batch, q heads, kv heads, head_dim, window,
-    T)."""
+    training paths' forward (MiniCPM-2B's; Zamba2-1.2B's shared block,
+    the same shape as its serve prefill), (batch, q heads, kv heads,
+    head_dim, window, T)."""
     from repro_torch.configs import get_config
     out = {path: spec[:6] for path, spec in attn_paths().items()}
     cfg = get_config(TRAIN["arch"])
     plan = cfg.head_plan()
     out["train-minicpm"] = (TRAIN["batch"], plan.n_q_pad, plan.n_kv_pad,
                             cfg.head_dim_, cfg.sliding_window, TRAIN["seq"])
+    out["train-zamba"] = train_zamba_heads()
     return out
+
+
+def train_zamba_heads() -> tuple:
+    """The shared block's attention on the hybrid training path: (batch,
+    q heads, kv heads, head_dim, window, T)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ZAMBA["arch"])
+    plan = cfg.head_plan()
+    return (TRAIN_ZAMBA["batch"], plan.n_q_pad, plan.n_kv_pad,
+            cfg.head_dim_, cfg.sliding_window, TRAIN_ZAMBA["seq"])
 
 
 def check_flash(dev, flush) -> dict:
@@ -847,13 +896,14 @@ def check_sor_refit(dev, flush) -> dict:
 
 
 def check_flash_bwd(dev, flush) -> list[dict]:
-    """K4 and K5 at the training path's shapes (MiniCPM-2B: 48/48 heads,
-    head_dim 64, bf16, causal), with K2's o and lse, each against its
-    plain version; plus a ragged T, a window and a ragged T at batch 2 (a
-    tile past T must not read the next batch row). The yardstick is the
-    backward of one SDPA call (dq, dk, dv together)."""
+    """K4 and K5 at the training paths' shapes (MiniCPM-2B: 48/48 heads,
+    head_dim 64, bf16, causal; Zamba2-1.2B's shared block: 32/32 heads x
+    64, window 4096, T 256), with K2's o and lse, each against its plain
+    version; plus a ragged T, a window and a ragged T at batch 2 (a tile
+    past T must not read the next batch row). Each path is timed
+    (`flash_bwd_path`); the row's top-level times are MiniCPM-2B's. The
+    yardstick is the backward of one SDPA call (dq, dk, dv together)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     B, Hq, Hkv, Dh = TRAIN["batch"], 48, 48, 64
@@ -866,8 +916,7 @@ def check_flash_bwd(dev, flush) -> list[dict]:
                                    (nb, T, hkv, Dh), (nb, T, hq, Dh)))
 
     err = {"dq": 0.0, "dkv": 0.0}
-    for nb, T, hq, hkv, window in ((B, TRAIN["seq"], Hq, Hkv, 0),
-                                   (B, 500, 12, 4, 0), (B, 300, 8, 8, 96),
+    for nb, T, hq, hkv, window in ((B, 500, 12, 4, 0), (B, 300, 8, 8, 96),
                                    (2, 200, Hq, Hkv, 0)):
         q, k, v, do = inputs(nb, T, hq, hkv)
         kw = dict(causal=True, group=hq // hkv, sliding_window=window)
@@ -897,49 +946,101 @@ def check_flash_bwd(dev, flush) -> list[dict]:
                                      f"window={window}: max diff {d}, "
                                      f"max |ref| {scale}")
             err[key] = max(err[key], d)
-    T = TRAIN["seq"]
-    q, k, v, do = inputs(B, T, Hq, Hkv)
-    kw = dict(causal=True, group=Hq // Hkv)
-    o, lse = fa.flash_attention(q, k, v, **kw)
-    delta = fa.bwd_delta(o, do)
-    args = (q, k, v, do, lse, delta)
-    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw), 20,
-                    flush)
-    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(*args, **kw), 20,
-                     flush)
-    dq_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
-        *args, **kw), 5, flush)
-    dkv_plain_ms = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
-        *args, **kw), 5, flush)
-    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
-                  for a in (q, k, v))
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), dot, retain_graph=True), 20, flush)
-    pairs = B * Hq * T * (T + 1) // 2            # causal: keys <= row
-    qb, kb = 2 * q.numel(), 2 * k.numel()        # bf16 q-shaped, k-shaped
-    stats = 2 * 4 * B * Hq * T                   # lse and delta, f32
-    # K4 reads q, k, v, do, lse, delta, writes dq; s, dp, dq products
-    dq_bound = bound_ms(3 * qb + 2 * kb + stats, 6 * Dh * pairs, "bfloat16")
-    # K5 reads q, k, v, do, lse, delta, writes dk, dv; s, dp, dv, dk
-    dkv_bound = bound_ms(2 * qb + 4 * kb + stats, 8 * Dh * pairs,
-                         "bfloat16")
-    shape = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
+    paths = {}
+    for path, (nb, hq, hkv, _, window, T) in (
+            ("train-minicpm", (B, Hq, Hkv, Dh, 0, TRAIN["seq"])),
+            ("train-zamba", train_zamba_heads())):
+        paths[path] = flash_bwd_path(fa, inputs(nb, T, hq, hkv), hq // hkv,
+                                     window, flush)
+        for name in ("dq", "dkv"):
+            err[name] = max(err[name], paths[path][f"{name}_max_abs_err"])
+    shape = dict(B=B, T=TRAIN["seq"], Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
                  also_B_T_Hq_Hkv_window=[[B, 500, 12, 4, 0],
                                          [B, 300, 8, 8, 96],
                                          [2, 200, Hq, Hkv, 0]])
     src = "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu"
+    top = paths["train-minicpm"]
     return [dict(name="flash_attention_bwd_dq", route="cuda", source=src,
                  replaces="src/repro/kernels/flash_attention.py:234",
-                 max_abs_err=err["dq"], ms=dq_ms, plain_ms=dq_plain_ms,
-                 bound_ms=dq_bound[0], bound_by=dq_bound[1],
-                 library_ms=lib_ms, shape=shape),
+                 max_abs_err=err["dq"], ms=top["dq_ms"],
+                 plain_ms=top["dq_plain_ms"], bound_ms=top["dq_bound_ms"],
+                 bound_by=top["dq_bound_by"], library_ms=top["library_ms"],
+                 shape=shape, paths=paths),
             dict(name="flash_attention_bwd_dkv", route="cuda", source=src,
                  replaces="src/repro/kernels/flash_attention.py:262",
-                 max_abs_err=err["dkv"], ms=dkv_ms, plain_ms=dkv_plain_ms,
-                 bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-                 library_ms=lib_ms, shape=shape)]
+                 max_abs_err=err["dkv"], ms=top["dkv_ms"],
+                 plain_ms=top["dkv_plain_ms"], bound_ms=top["dkv_bound_ms"],
+                 bound_by=top["dkv_bound_by"], library_ms=top["library_ms"],
+                 shape=shape, paths=paths)]
+
+
+def flash_bwd_path(fa, qkvdo, group: int, window: int, flush) -> dict:
+    """K4 and K5 at one training path's shape (bf16, causal, `window`):
+    checked against their plain versions (1e-2 of the largest |grad|),
+    timed beside their bounds, their plain versions and the backward of
+    one SDPA call (dq, dk, dv together; masked where the window is inside
+    T)."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v, do = qkvdo
+    B, T, Hq, Dh = q.shape
+    kw = dict(causal=True, group=group, sliding_window=window)
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    out = {}
+    dq = fa.flash_attention_bwd_dq(*args, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv(*args, **kw)
+    dq_ref = fa.flash_attention_bwd_dq_plain(*args, **kw)
+    dk_ref, dv_ref = fa.flash_attention_bwd_dkv_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, pairs in (("dq", ((dq, dq_ref),)),
+                        ("dkv", ((dk, dk_ref), (dv, dv_ref)))):
+        worst = 0.0
+        for a, b in pairs:
+            d = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            if not (math.isfinite(d) and d <= 1e-2 * max(scale, 1.0)):
+                raise AssertionError(f"flash backward {name} B={B} T={T} "
+                                     f"Hq={Hq} window={window}: max diff "
+                                     f"{d}, max |ref| {scale}")
+            worst = max(worst, d)
+        out[f"{name}_max_abs_err"] = worst
+    out["dq_ms"] = time_ms(lambda: fa.flash_attention_bwd_dq(*args, **kw),
+                           20, flush)
+    out["dkv_ms"] = time_ms(lambda: fa.flash_attention_bwd_dkv(*args, **kw),
+                            20, flush)
+    out["dq_plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+        *args, **kw), 5, flush)
+    out["dkv_plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+        *args, **kw), 5, flush)
+    Hkv = k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (a.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+              .requires_grad_() for a in (k, v))
+    rows = torch.arange(T, device=q.device)
+    keep = rows[None, :] <= rows[:, None]          # causal: keys <= row
+    if window:
+        keep &= rows[None, :] > rows[:, None] - window
+    windowed = 0 < window < T
+    ot = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep if windowed else None,
+        is_causal=not windowed)
+    dot = do.transpose(1, 2).contiguous()
+    out["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+    pairs = B * Hq * int(keep.sum().item())
+    qb, kb = 2 * q.numel(), 2 * k.numel()        # bf16 q-shaped, k-shaped
+    stats = 2 * 4 * B * Hq * T                   # lse and delta, f32
+    # K4 reads q, k, v, do, lse, delta, writes dq; s, dp, dq products
+    out["dq_bound_ms"], out["dq_bound_by"] = bound_ms(
+        3 * qb + 2 * kb + stats, 6 * Dh * pairs, "bfloat16")
+    # K5 reads q, k, v, do, lse, delta, writes dk, dv; s, dp, dv, dk
+    out["dkv_bound_ms"], out["dkv_bound_by"] = bound_ms(
+        2 * qb + 4 * kb + stats, 8 * Dh * pairs, "bfloat16")
+    out["shape"] = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, window=window,
+                        dtype="bf16")
+    return out
 
 
 def check_fleet_reduce(dev, flush) -> dict:
@@ -1262,11 +1363,18 @@ def check_rwkv6_scan(dev, flush) -> dict:
         b, t, h, dh = args[0].shape
         return 5 * dh * dh * b * t * h
 
-    return dict(name="rwkv6_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-                replaces="src/repro/kernels/rwkv6_scan.py:67",
-                **check_scan("rwkv6_scan", r6.rwkv6_scan, r6.rwkv6_scan_plain,
-                             cases, flops, flush),
+    row = dict(name="rwkv6_scan", route="cuda",
+               source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+               replaces="src/repro/kernels/rwkv6_scan.py:67",
+               **check_scan("rwkv6_scan", r6.rwkv6_scan, r6.rwkv6_scan_plain,
+                            cases, flops, flush))
+    args, _ = rwkv6_args(TRAIN_RWKV["batch"], TRAIN_RWKV["seq"], H,
+                         torch.bfloat16, False, gen, dev)
+    row["train_backward"] = check_scan_backward(
+        "rwkv6_scan", r6.rwkv6_scan, r6.rwkv6_scan_plain, args,
+        rwkv6_args(TRAIN_RWKV["batch"], 1, H, torch.bfloat16, True, gen,
+                   dev)[1], flush)
+    return dict(row,
                 shape=dict(B=B, T=T, H=H, Dh=64, dtype="bf16",
                            decode=dict(T=1, init_state=True)))
 
@@ -1294,13 +1402,101 @@ def check_mamba2_ssd(dev, flush) -> dict:
         b, t, h, p = args[0].shape
         return 5 * args[3].shape[3] * p * b * t * h
 
-    return dict(name="mamba2_ssd", route="cuda",
-                source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
-                replaces="src/repro/kernels/mamba2_ssd.py:82",
-                **check_scan("mamba2_ssd", m2.mamba2_ssd, m2.mamba2_ssd_plain,
-                             cases, flops, flush),
+    row = dict(name="mamba2_ssd", route="cuda",
+               source="src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+               replaces="src/repro/kernels/mamba2_ssd.py:82",
+               **check_scan("mamba2_ssd", m2.mamba2_ssd, m2.mamba2_ssd_plain,
+                            cases, flops, flush))
+    args, _ = mamba2_args(TRAIN_ZAMBA["batch"], TRAIN_ZAMBA["seq"], H, 1, 64,
+                          torch.bfloat16, False, gen, dev)
+    row["train_backward"] = check_scan_backward(
+        "mamba2_scan", m2.mamba2_ssd, m2.mamba2_ssd_plain, args,
+        mamba2_args(TRAIN_ZAMBA["batch"], 1, H, 1, 64, torch.bfloat16, True,
+                    gen, dev)[1], flush)
+    return dict(row,
                 shape=dict(B=B, T=T, H=H, P=64, G=1, N=64, dtype="bf16",
                            decode=dict(T=1, init_state=True)))
+
+
+def check_scan_backward(name, kernel, plain, args, s0, flush) -> dict:
+    """The scan's differentiable call (`ops.<name>`: the kernel forward,
+    the plain version's gradient) at the training paths' shape (bf16,
+    batch 4 x 256 steps, 64 heads x 64): its gradients equal autograd
+    through the plain version on the card bit for bit (y's cotangent
+    alone, as on the training path; then y's and the final state's from
+    an initial state), the forward launches the kernel once and the
+    backward none; then one backward (the plain version re-run and walked
+    back) timed by CUDA events (`ms`: its span on the device's timeline,
+    host-bound), its device kernels and their summed time (`busy_ms`)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    fn = getattr(ops, name)
+    gen = torch.Generator(device=args[0].device).manual_seed(16)
+    n = len(args)
+
+    def leaves(st):
+        return [a.detach().clone().requires_grad_() for a in args] + \
+            ([] if st is None else [st.detach().clone().requires_grad_()])
+
+    def forward(f, ins, st):
+        return f(*ins[:n], init_state=ins[n] if st is not None else None)
+
+    for st in (None, s0):
+        ins, ref_ins = leaves(st), leaves(st)
+        before = kernel.launches
+        y, state = forward(fn, ins, st)
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{name}: the forward launched "
+                                 f"{kernel.launches - before} kernels")
+        cots = [torch.randn(y.shape, generator=gen, device=y.device,
+                            dtype=torch.float32).to(y.dtype)]
+        outs = [y]
+        if st is not None:
+            cots.append(torch.randn(state.shape, generator=gen,
+                                    device=y.device))
+            outs.append(state)
+        got = torch.autograd.grad(outs, ins, cots)
+        if kernel.launches != before + 1:
+            raise AssertionError(f"{name}: the backward launched the kernel")
+        ref_outs = forward(plain, ref_ins, st)
+        want = torch.autograd.grad(ref_outs[:len(outs)], ref_ins, cots)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} backward: input {i}'s gradient "
+                                     f"differs from autograd through the "
+                                     f"plain version, max "
+                                     f"{(a - b).abs().max().item()}")
+    ins = leaves(None)
+    y, _ = forward(fn, ins, None)
+    dy = torch.randn(y.shape, generator=gen, device=y.device).to(y.dtype)
+
+    def backward():
+        return torch.autograd.grad(y, ins, dy, retain_graph=True)
+
+    return dict(ms=time_ms(backward, 3, flush), **device_busy(backward),
+                grads_bit_equal=True, launches_forward=1,
+                launches_backward=0)
+
+
+def device_busy(call) -> dict:
+    """The device kernels and memory copies of one `call` (after a warm-up
+    call) and their summed device time, read by torch.profiler with device
+    activity only. Unguarded, unlike `device_activity`: the profiler may
+    drop a window's first kernel, one of thousands here."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
+    return dict(kernels=len(device) - copies, copies=copies,
+                busy_ms=sum(getattr(e, "device_time", 0.0)
+                            for e in device) / 1e3)
 
 
 def ef_leaf_sizes() -> list[int]:
@@ -2123,14 +2319,15 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
 # ---------------------------------------------------------------------------
 
 def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
-                steps: int, refresh_every: int, remat: str = "full"):
+                steps: int, refresh_every: int, remat: str = "full",
+                opt_cfg=None):
     """The slice's training configuration: the fleet train step with
     in-graph SOR learning on a `chips`-chip fleet (margin-coupled error,
     straggler and HBM-error observables, learned three-rail control round,
-    refit every `refresh_every` steps), AdamW with f32 moments, the
-    launcher's WSD schedule and roofline profile. Returns (make_trainer,
-    initial state, data, sor config); make_trainer(state, total_steps)
-    builds a `Trainer` that continues from `state`."""
+    refit every `refresh_every` steps), AdamW (`opt_cfg`, by default f32
+    moments), the launcher's WSD schedule and roofline profile. Returns
+    (make_trainer, initial state, data, sor config); make_trainer(state,
+    total_steps) builds a `Trainer` that continues from `state`."""
     from repro_torch.core import sor
     from repro_torch.core.hwspec import FleetSpec
     from repro_torch.core.policy import MultiRailClosedLoop
@@ -2146,7 +2343,7 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
     from repro_torch.train.trainer import (Trainer, TrainerConfig,
                                            initial_plane_and_ef)
     n = sum(a.numel() for a in tree_leaves(params))
-    opt_cfg = adamw.AdamWConfig()
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
     fleet = FleetSpec.sample(chips, seed=0)
     scfg = sor.SorConfig(ingest="frames", rails=ALL_RAIL_OBSERVABLES,
                          refresh_every=refresh_every)
@@ -2191,11 +2388,12 @@ TINY_TRAIN_TOL = dict(loss=dict(rtol=1e-4, atol=0.0),
                       sor=dict(rtol=5e-2, atol=1e-2))
 
 
-def run_tiny_train() -> dict:
-    """Tiny MiniCPM in f32, the same weights on cuda and cpu, three fleet
-    SOR steps (refit every second step) through Trainer.run: losses,
-    params, plane (comp_level exact) and SOR estimate (usable lanes exact)
-    allclose at TINY_TRAIN_TOL; the largest differences are reported."""
+def run_tiny_train(arch: str = "minicpm_2b", seq: int = 32) -> dict:
+    """Tiny `arch` in f32, the same weights on cuda and cpu, three fleet
+    SOR steps (refit every second step) of batch 2 x `seq` through
+    Trainer.run: losses, params, plane (comp_level exact) and SOR estimate
+    (usable lanes exact) allclose at TINY_TRAIN_TOL; the largest
+    differences are reported."""
     import dataclasses
 
     import torch
@@ -2203,15 +2401,14 @@ def run_tiny_train() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config("minicpm_2b", tiny=True),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
     params = registry.build(cfg).init(
         torch.Generator(device="cpu").manual_seed(0))
     runs = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda a: a.to(dev, copy=True), params)
         make, state, _, scfg = train_slice(cfg, p, dev, chips=8, batch=2,
-                                           seq=32, steps=3, refresh_every=2)
+                                           seq=seq, steps=3, refresh_every=2)
         trainer = make(state, 3)
         trainer.run()
         runs[dev] = trainer
@@ -2386,11 +2583,8 @@ def run_main_train(dev) -> dict:
     L = cfg.n_layers
     refits = sum(1 for t in range(tick0 + 1, tick0 + steps + 1)
                  if t % scfg.refresh_every == 0)
-    want = {name: 0 for name in ops.KERNELS}
-    want.update({"flash_attention_fwd": 2 * L * steps,   # forward + remat
-                 "flash_attention_bwd_dq": L * steps,
-                 "flash_attention_bwd_dkv": L * steps,
-                 "fleet_stats": steps, "sor_refit": refits})
+    want = model_launches(cfg, steps)
+    want.update(fleet_stats=steps, sor_refit=refits)
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     losses = [r.loss for r in trainer.log.records]
@@ -2420,6 +2614,25 @@ def run_main_train(dev) -> dict:
                          for r in scfg.rails),
         sor_summary=sor, fleet_last=summary.get("fleet_last"),
         profile=profile)
+
+
+def model_launches(cfg, passes: int) -> dict:
+    """The exact launch counts of `passes` forward and backward passes of
+    `cfg` with per-layer remat: K2 and the scan (K8, K9) twice a layer
+    that runs them (the forward and the remat recompute), K4 and K5 once;
+    every other kernel never."""
+    from repro_torch.kernels import ops
+    L = cfg.n_layers
+    attention = {"dense": L, "ssm": 0,
+                 "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention_fwd=2 * attention * passes,
+                flash_attention_bwd_dq=attention * passes,
+                flash_attention_bwd_dkv=attention * passes)
+    scan = {"hybrid": "mamba2_ssd", "ssm": "rwkv6_scan"}.get(cfg.family)
+    if scan:
+        want[scan] = 2 * L * passes
+    return want
 
 
 def train_breakdown(make, state, steps: int, watch: tuple[str, ...] = ()
@@ -2461,6 +2674,215 @@ def train_breakdown(make, state, steps: int, watch: tuple[str, ...] = ()
         out[f"{w}_calls_per_step"] = sum(
             c for name, (c, _) in kern.items() if w in name) / steps
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 16-19: the hybrid and ssm families' training paths
+# ---------------------------------------------------------------------------
+
+# tiny Zamba2 / RWKV6 `forward_train` gradients, cuda against cpu, f32: on
+# the card the forward is K8 / K9's chunked sum (its sums in another order
+# than the cpu's step-by-step plain version, ~1e-5 relative at T 80) and
+# the backward the plain version's at those inputs, so the gap grows
+# through the layers, the loss and the backward. Each leaf's largest gap,
+# relative to its largest |grad| (measured: 3.8e-6 Zamba2, 3.0e-6 RWKV6):
+TINY_GRAD_TOL = 1e-4
+# the tiny families' sequence: past tiny Zamba2's 64-token window and the
+# scans' 64-step chunk
+TINY_FAMILY_SEQ = 80
+
+
+def tiny_grad_check(arch: str) -> dict:
+    """One `forward_train` gradient of tiny `arch` in f32 with per-layer
+    remat (batch 2 x TINY_FAMILY_SEQ), cuda against cpu from the same
+    weights: the loss within TINY_TRAIN_TOL, every leaf's gradient within
+    TINY_GRAD_TOL; the cuda pass's launches exact (`model_launches`), the
+    cpu pass's none."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    api = registry.build(cfg, remat="full")
+    params = api.init(torch.Generator(device="cpu").manual_seed(0))
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, TINY_FAMILY_SEQ, 2)) \
+        .torch_batch(0, "cpu")
+    paths = leaf_paths(params)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev, copy=True).requires_grad_(), params)
+        ops.reset_launch_counts()
+        loss, _ = api.loss_fn(p, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, [get_path(p, q) for q in paths])
+        runs[dev] = (loss.item(), grads, ops.launch_counts())
+    want = model_launches(cfg, 1)
+    if runs["cuda"][2] != want or any(runs["cpu"][2].values()):
+        raise AssertionError(f"tiny_train {arch} gradient launches: cuda "
+                             f"{runs['cuda'][2]} (want {want}), cpu "
+                             f"{runs['cpu'][2]}")
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, _) = runs["cpu"], runs["cuda"]
+    if not math.isclose(l_gpu, l_cpu,
+                        rel_tol=TINY_TRAIN_TOL["loss"]["rtol"]):
+        raise AssertionError(f"tiny_train {arch} loss {l_gpu} != {l_cpu}")
+    gaps = {}
+    for path, a, b in zip(paths, g_cpu, g_gpu):
+        d = (a - b.cpu()).abs().max().item()
+        scale = a.abs().max().item()
+        if not (math.isfinite(d) and d <= TINY_GRAD_TOL * scale):
+            raise AssertionError(f"tiny_train {arch} gradient {path}: max "
+                                 f"gap {d}, max |grad| {scale}")
+        gaps["/".join(path)] = dict(max_abs_gap=d, max_abs=scale)
+    return dict(loss_cpu=l_cpu, loss_cuda=l_gpu, seq=TINY_FAMILY_SEQ,
+                grad_max_rel_gap=max(g["max_abs_gap"] / g["max_abs"]
+                                     for g in gaps.values()),
+                grad_gaps=gaps, launches=runs["cuda"][2],
+                tolerance=TINY_GRAD_TOL)
+
+
+def run_tiny_train_family(arch: str) -> dict:
+    """Tiny `arch` (Zamba2 or RWKV6) in f32, cuda against cpu: one
+    `forward_train` gradient (`tiny_grad_check`), then three fleet SOR
+    steps through Trainer.run (`run_tiny_train`) at TINY_FAMILY_SEQ."""
+    return dict(grad=tiny_grad_check(arch),
+                **run_tiny_train(arch, seq=TINY_FAMILY_SEQ))
+
+
+def run_main_train_family(dev, spec: dict) -> dict:
+    """Full-width, full-depth `spec["arch"]` (Zamba2-1.2B or RWKV6-7B) in
+    bf16 through Trainer.run as `run_main_train`, with `spec`'s AdamW
+    moments and a refit every second step: one warm-up step, then
+    spec["steps"] steps whose launch counts are checked exactly, finite
+    losses and a peak under the card's 80 GB; then one step split by CUDA
+    events (`train_step_split`)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import adamw
+    cfg = get_config(spec["arch"])
+    B, T, steps = spec["batch"], spec["seq"], spec["steps"]
+    t0 = time.perf_counter()
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    make, state, _, scfg = train_slice(
+        cfg, params, dev, chips=spec["chips"], batch=B, seq=T, steps=steps,
+        refresh_every=2,
+        opt_cfg=adamw.AdamWConfig(state_dtype=spec["adamw_state"]))
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    warm = make(state, 1)
+    warm.run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    tick0 = warm.state["sor"].tick
+    trainer = make(warm.state, steps)
+    del warm, state
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    refits = sum(1 for t in range(tick0 + 1, tick0 + steps + 1)
+                 if t % scfg.refresh_every == 0)
+    want = model_launches(cfg, steps)
+    want.update(fleet_stats=steps, sor_refit=refits)
+    if launches != want:
+        raise AssertionError(f"train {cfg.name} launch counts {launches} "
+                             f"!= {want}")
+    losses = [r.loss for r in trainer.log.records]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {cfg.name} losses {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"train {cfg.name} peak {peak_gb} GB")
+    step_s = statistics.median(trainer.step_times)
+    tokens = B * T
+    split = train_step_split(make, trainer.state, cfg.family)
+    return dict(
+        arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
+        params=n_params, batch=B, seq=T, n_chips=spec["chips"],
+        dtype=cfg.dtype, remat="full", adamw_state=spec["adamw_state"],
+        init_s=init_s, warmup_step_s=warm_s, steps=steps,
+        step_ms_median=step_s * 1e3,
+        step_ms=[x * 1e3 for x in trainer.step_times], run_s=run_s,
+        tokens_per_s=tokens / step_s,
+        mfu=6.0 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
+        peak_mem_gb=peak_gb, losses=losses, launches=launches,
+        expected_launches=want, sor_tick_before=tick0, split=split)
+
+
+def train_step_split(make, state, family: str) -> dict:
+    """One more train step with CUDA events around the step and around
+    each call of the scan's autograd Function (its forward: K8 or K9; its
+    backward: the plain version re-run and walked back) and, on the
+    hybrid path, the attention's (K2; the flash backward: delta, K4, K5):
+    each one's calls and summed span on the device's timeline (its
+    kernels and the device's idle time between them, the host's dispatch
+    where the host is behind), and the rest of the step's span."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+    scan = {"hybrid": m2.Mamba2Scan, "ssm": r6.Rwkv6Scan}[family]
+    hooks = {"scan_forward": (scan, "forward"),
+             "scan_backward": (scan, "backward")}
+    if family == "hybrid":
+        hooks.update(attention_forward=(fa.FlashAttention, "forward"),
+                     attention_backward=(fa.FlashAttention, "backward"))
+    marks = {label: [] for label in hooks}
+
+    def timed(fn, label):
+        def call(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args)
+            end.record()
+            marks[label].append((start, end))
+            return out
+        return staticmethod(call)
+
+    saved = {label: cls.__dict__[meth] for label, (cls, meth) in hooks.items()}
+    trainer = make(state, 1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    try:
+        for label, (cls, meth) in hooks.items():
+            setattr(cls, meth, timed(getattr(cls, meth), label))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        trainer.run()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for label, (cls, meth) in hooks.items():
+            setattr(cls, meth, saved[label])
+    spans = {label: dict(calls=len(m),
+                         ms=sum(s.elapsed_time(e) for s, e in m))
+             for label, m in marks.items()}
+    step_ms = start.elapsed_time(end)
+    return dict(step_span_ms=step_ms, step_wall_ms=wall_ms, spans=spans,
+                rest_ms=step_ms - sum(v["ms"] for v in spans.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -2866,6 +3288,21 @@ def main() -> int:
     by_path["train-ef"] = result["launches"]
     emit({"phase": "main_train_ef", **result})
     del result
+    gc.collect()
+    torch.cuda.empty_cache()       # main_train_ef's MiniCPM state is gone
+
+    for tiny, phase, path, spec in (
+            ("tiny_train_zamba", "main_train_zamba", "train-zamba",
+             TRAIN_ZAMBA),
+            ("tiny_train_rwkv", "main_train_rwkv", "train-rwkv",
+             TRAIN_RWKV)):
+        emit({"phase": tiny, **run_tiny_train_family(spec["arch"])})
+        result = run_main_train_family(dev, spec)
+        by_path[path] = result["launches"]
+        emit({"phase": phase, **result})
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()   # the model's training state is gone
 
     rows = []
     for name in ops.KERNELS:

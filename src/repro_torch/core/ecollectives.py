@@ -211,6 +211,7 @@ def ef_compress(grads, residuals, level: int, k_fraction: float = 0.25,
     both come back unchanged."""
     if level == LEVEL_LOSSLESS:
         return grads, residuals
+    own_residuals(residuals)
     return tree_map(lambda g, r: ef_compress_leaf_(g, r, level, k_fraction,
                                                    block),
                     grads, residuals), residuals
@@ -218,9 +219,23 @@ def ef_compress(grads, residuals, level: int, k_fraction: float = 0.25,
 
 def zeros_like_residuals(params):
     """f32 zeros shaped like every parameter leaf (nested dicts), on the
-    leaves' devices."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    leaves' devices, each a broadcast view of one zero: the tree holds no
+    memory until the ef sync first writes it (`own_residuals`). A step
+    without the ef sync passes it through untouched; as f32 tensors it
+    would hold 4 bytes a parameter (30.3 GB at RWKV6-7B)."""
+    return tree_map(lambda p: torch.zeros(
+        (), dtype=torch.float32, device=p.device).expand(p.shape), params)
+
+
+def own_residuals(residuals):
+    """Give each leaf of a residual tree memory of its own, in place (a
+    broadcast view from `zeros_like_residuals` becomes a tensor of zeros),
+    so the error feedback can write it; returns the tree."""
+    for path in leaf_paths(residuals):
+        r = get_path(residuals, path)
+        if not r.is_contiguous():
+            get_path(residuals, path[:-1])[path[-1]] = r.contiguous()
+    return residuals
 
 
 # ---------------------------------------------------------------------------

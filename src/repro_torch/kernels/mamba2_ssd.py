@@ -37,7 +37,19 @@ without a copy. Without `state_out` a new state is allocated.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The kernel's copies need x, B, C, the states and y on 16-byte
-addresses; the wrapper refuses others."""
+addresses; the wrapper refuses others.
+
+Training: `Mamba2Scan` is the counterpart of the reference's
+`jax.custom_vjp` around the Pallas kernel (`repro/kernels/ops.py:68-92`):
+its forward is K8 (the plain version on a CPU tensor), its backward the
+gradient of the plain version on the saved inputs, as the reference's is
+`jax.vjp` of its oracle. The Pallas side has no backward kernel. So the
+forward value is K8's chunked sum and the gradient is the step-by-step
+recurrence's at the same inputs; on bf16 inputs the two part by K8's
+rounding (the y it stores is rounded to bf16 once), as Pallas and oracle
+part on the TPU. The backward re-runs the plain loop under autograd and
+walks it back (`ref.plain_vjp`): ~8 tensor ops a time step each way, and
+a few `[Bt,H,N,P]` f32 tensors saved a step."""
 
 from __future__ import annotations
 
@@ -135,3 +147,24 @@ def mamba2_ssd(x, dt, A, B, C, D, *, init_state=None, state_out=None):
 
 
 mamba2_ssd.launches = 0
+
+
+class Mamba2Scan(torch.autograd.Function):
+    """K8 with the plain version's gradient (see the module docstring):
+    (x, dt, A, B, C, D, init_state or None) -> (y, final state). The
+    final state's gradient may be absent; `init_state` gets one only when
+    it was given, as in the reference's `_mamba2_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, init_state, state_out=None):
+        if state_out is not None:
+            raise ValueError("mamba2_ssd: state_out (an in-place state "
+                             "write) is refused on a differentiated call")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D, init_state)
+        return mamba2_ssd(x, dt, A, B, C, D, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return ref.plain_vjp(mamba2_ssd_plain, ctx, (dy, dstate)) + (None,)
+

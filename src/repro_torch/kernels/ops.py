@@ -10,6 +10,8 @@ increments where it launches its kernel and nowhere else;
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import fleet_telemetry as _ft
 from repro_torch.kernels import flash_attention as _fa
@@ -114,12 +116,23 @@ def fleet_stats(power_w, t_chip_s, grad_error, energy_step_j, v_io,
                            v_io, straggle, conf)
 
 
+def _differentiated(*tensors) -> bool:
+    """Whether a scan call must be differentiable: grad mode is on and an
+    input requires a gradient (the serve paths run under `no_grad`)."""
+    return torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad for a in tensors)
+
+
 def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):
     """RWKV6 recurrence (K9): r, k, v [B,T,H,Dh], w [B,T,H,Dh] f32
     log-decay, u [H,Dh] f32, init_state [B,H,Dh,Dh] f32 or None -> (y
     [B,T,H,Dh], final state [B,H,Dh,Dh] f32). With `state_out` the final
     state is written there (it may be `init_state`: in place) and it is
-    the state returned."""
+    the state returned. Under grad, with an input that requires one, the
+    call is differentiable (`rwkv6_scan.Rwkv6Scan`: K9 forward, the plain
+    version's gradient) and refuses `state_out`."""
+    if _differentiated(r, k, v, w, u, init_state):
+        return _r6.Rwkv6Scan.apply(r, k, v, w, u, init_state, state_out)
     return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state,
                           state_out=state_out)
 
@@ -129,7 +142,11 @@ def mamba2_scan(x, dt, A, B, C, D, *, init_state=None, state_out=None):
     B, C [Bt,T,G,N], init_state [Bt,H,N,P] f32 or None -> (y [Bt,T,H,P],
     final state [Bt,H,N,P] f32). With `state_out` the final state is
     written there (it may be `init_state`: in place) and it is the state
-    returned."""
+    returned. Under grad, with an input that requires one, the call is
+    differentiable (`mamba2_ssd.Mamba2Scan`: K8 forward, the plain
+    version's gradient) and refuses `state_out`."""
+    if _differentiated(x, dt, A, B, C, D, init_state):
+        return _m2.Mamba2Scan.apply(x, dt, A, B, C, D, init_state, state_out)
     return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state,
                           state_out=state_out)
 

@@ -298,3 +298,33 @@ def rwkv6_scan_reference(r, k, v, w, u, *, init_state=None):
         y[:, t] = torch.einsum("bhk,bhkv->bhv", rt, att)
         s = s * torch.exp(wt)[..., :, None] + kt[..., :, None] * vt[..., None, :]
     return y.to(r.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# The scans' backward: the gradient of the plain version (the reference's
+# custom_vjps take `jax.vjp` of the oracle)
+# ---------------------------------------------------------------------------
+
+def plain_vjp(plain, ctx, grads):
+    """The gradient of a scan's plain version at the inputs saved in `ctx`
+    (the last of them the initial state or None) against the incoming
+    `grads` (y's and the final state's, either None), for the inputs that
+    need one. Autograd runs a Function's backward with grad mode off, so
+    the plain version runs under `enable_grad`."""
+    saved = ctx.saved_tensors
+    want = [i for i, a in enumerate(saved)
+            if a is not None and ctx.needs_input_grad[i]]
+    out = [None] * len(saved)
+    pairs = [(g, i) for i, g in enumerate(grads) if g is not None]
+    if not want or not pairs:
+        return tuple(out)
+    with torch.enable_grad():
+        ins = [None if a is None else a.detach().requires_grad_(i in want)
+               for i, a in enumerate(saved)]
+        res = plain(*ins[:-1], init_state=ins[-1])
+        got = torch.autograd.grad([res[i] for _, i in pairs],
+                                  [ins[i] for i in want],
+                                  [g for g, _ in pairs], allow_unused=True)
+    for i, g in zip(want, got):
+        out[i] = g
+    return tuple(out)

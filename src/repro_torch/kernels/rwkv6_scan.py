@@ -39,7 +39,19 @@ without a copy. Without `state_out` a new state is allocated.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The kernel's copies need r, k, v, w, the states and y on 16-byte
-addresses; the wrapper refuses others."""
+addresses; the wrapper refuses others.
+
+Training: `Rwkv6Scan` is the counterpart of the reference's
+`jax.custom_vjp` around the Pallas kernel (`repro/kernels/ops.py:108-132`):
+its forward is K9 (the plain version on a CPU tensor), its backward the
+gradient of the plain version on the saved inputs (`ref.plain_vjp`), as
+the reference's is `jax.vjp` of its oracle; the Pallas side has no
+backward kernel. So the forward value is K9's chunked sum and the gradient
+is the step-by-step recurrence's at the same inputs; on bf16 inputs the
+two part by K9's rounding, as Pallas and oracle part on the TPU. The
+backward re-runs the plain loop under autograd and walks it back: ~8
+tensor ops a time step each way, and a few `[B,H,Dh,Dh]` f32 tensors
+saved a step."""
 
 from __future__ import annotations
 
@@ -126,3 +138,23 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):
 
 
 rwkv6_scan.launches = 0
+
+
+class Rwkv6Scan(torch.autograd.Function):
+    """K9 with the plain version's gradient (see the module docstring):
+    (r, k, v, w, u, init_state or None) -> (y, final state). The final
+    state's gradient may be absent; `init_state` gets one only when it was
+    given, as in the reference's `_rwkv6_bwd`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, init_state, state_out=None):
+        if state_out is not None:
+            raise ValueError("rwkv6_scan: state_out (an in-place state "
+                             "write) is refused on a differentiated call")
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, init_state)
+        return rwkv6_scan(r, k, v, w, u, init_state=init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        return ref.plain_vjp(rwkv6_scan_plain, ctx, (dy, dstate)) + (None,)

@@ -4,10 +4,12 @@
         --tiny --steps 4 [--device cpu]
 
 The scalar train step (`make_train_step`) with AdamW and the WSD schedule,
-driven through `Trainer.run`, with the in-graph controller in the step or
-(`--control-path host`) a `HostRailController` between steps, actuated
-through the simulated PMBus. Weights are
-random, drawn on the device from seed 0. Unlike the JAX launcher, `--tiny`
+driven through `Trainer.run`, for any ported architecture: the dense
+family (MiniCPM, Qwen2.5), the ssm family (`--arch rwkv6_7b`) and the
+hybrid family (`--arch zamba2_1p2b`), with the in-graph controller in the
+step or (`--control-path host`) a `HostRailController` between steps,
+actuated through the simulated PMBus. Weights are random, drawn on the
+device from seed 0. Unlike the JAX launcher, `--tiny`
 is honoured: without it the full configuration is built (with per-layer
 remat, as the reference does for non-tiny configs).
 

@@ -26,10 +26,13 @@ The recurrent states (`wkv`, `ssm`) are written by the scans themselves:
 output state (`state_out`), so no step copies a state into the cache; the
 conv and token-shift states, which are small, are copied.
 
-`forward_train` checkpoints each layer (`remat="full"`) with
-`torch.utils.checkpoint`; the reference's two-level group remat
-(`remat="group"`) is not ported yet, nor is training the ssm and hybrid
-families.
+`forward_train` trains the three families and checkpoints each layer
+(`remat="full"`) with `torch.utils.checkpoint`; a hybrid layer and the
+shared block that follows it sit under one checkpoint, as the reference's
+`lax.cond` sits inside its rematted layer body. The training path hands
+the scans no state buffer: K8 and K9 run as differentiable calls
+(`ops.mamba2_scan`, `ops.rwkv6_scan`). The reference's two-level group
+remat (`remat="group"`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,17 +51,15 @@ from repro_torch.models.rwkv6 import Rwkv6Spec
 
 MOE_AUX_COEF = 0.01
 REMAT_MODES = ("none", "full")
-SERVE_FAMILIES = ("dense", "ssm", "hybrid")
-TRAIN_FAMILIES = ("dense",)
+FAMILIES = ("dense", "ssm", "hybrid")        # served and trained
 RWKV_CACHE_KEYS = ("wkv", "tm_last", "cm_last")   # the ssm decode cache
 CONV_KEYS = ("conv_x", "conv_B", "conv_C")         # the hybrid's conv states
 
 
-def _check_family(cfg: ModelConfig, families=SERVE_FAMILIES) -> None:
-    if cfg.family not in families:
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported for this path (have "
-            f"{families})")
+            f"family {cfg.family!r} is not yet ported (have {FAMILIES})")
 
 
 def tree_map(fn, tree, *rest):
@@ -207,9 +208,21 @@ def _layers(params, n_layers: int):
     return [tree_map(lambda parts: parts[i], split) for i in range(n_layers)]
 
 
-def _train_layer(p, x, positions, spec: AttnSpec, cfg: ModelConfig):
+def _train_layer(p, shared, x, positions, i: int, cfg: ModelConfig):
+    """Layer i of a differentiated pass (the reference's `_apply_layer`):
+    dense, attention + MLP; ssm, an RWKV6 layer from zero state; hybrid, a
+    Mamba2 layer and, after every attn_every-th, the shared block (params
+    `shared`), whose attention writes no cache."""
+    if cfg.family == "ssm":
+        return _rwkv_layer(p, x, cfg)[0]
+    if cfg.family == "hybrid":
+        spec = attn_spec(cfg, sliding=True)
+        x, _ = _mamba_layer(p, x, cfg)
+        return _shared_block(
+            shared, x, i, cfg,
+            lambda pa, h, occ: attn.attention_full(pa, h, spec, positions)[0])
     h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
-    a, _ = attn.attention_full(p["attn"], h, spec, positions)
+    a, _ = attn.attention_full(p["attn"], h, attn_spec(cfg), positions)
     return _block_tail(p, x + a, cfg)
 
 
@@ -231,7 +244,7 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     (loss, metrics). `remat="full"` recomputes each layer's activations in
     the backward (non-reentrant `torch.utils.checkpoint` around the layer,
     the reference's per-layer `jax.checkpoint`); `"none"` keeps them."""
-    _check_family(cfg, TRAIN_FAMILIES)
+    _check_family(cfg)
     if remat not in REMAT_MODES:
         raise NotImplementedError(
             f"remat={remat!r} is not yet ported (have {REMAT_MODES}); the "
@@ -240,13 +253,13 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device)[None].expand(B, T)
-    spec = attn_spec(cfg)
-    for p in _layers(params, cfg.n_layers):
+    shared = params.get("shared")
+    for i, p in enumerate(_layers(params, cfg.n_layers)):
         if remat == "full":
-            x = checkpoint(_train_layer, p, x, positions, spec, cfg,
+            x = checkpoint(_train_layer, p, shared, x, positions, i, cfg,
                            use_reentrant=False)
         else:
-            x = _train_layer(p, x, positions, spec, cfg)
+            x = _train_layer(p, shared, x, positions, i, cfg)
     logits = logits_from(params, x, cfg)
     loss = common.softmax_cross_entropy(logits, batch["labels"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -302,16 +315,16 @@ def _mamba_state(cache, i: int):
     return tuple(cache[k][i] for k in CONV_KEYS), cache["ssm"][i]
 
 
-def _shared_block(params, x, i: int, cfg: ModelConfig, attend):
-    """The hybrid family's shared attention + MLP block, which follows
-    every attn_every-th layer: after layer i, its occurrence occ (the index
-    of its KV cache) runs on x, `attend(p, h, occ)` running the attention
-    (params p) on the normed h and writing occurrence occ's KV cache. After
-    any other layer x is returned as it is."""
+def _shared_block(shared, x, i: int, cfg: ModelConfig, attend):
+    """The hybrid family's shared attention + MLP block (params `shared`),
+    which follows every attn_every-th layer: after layer i, its occurrence
+    occ (the index of its KV cache) runs on x, `attend(p, h, occ)` running
+    the attention (params p) on the normed h and, when serving, writing
+    occurrence occ's KV cache. After any other layer x is returned as it
+    is."""
     if (i + 1) % cfg.attn_every:
         return x
     occ = (i + 1) // cfg.attn_every - 1
-    shared = params["shared"]
     h = common.rms_norm(x, shared["ln1_w"], cfg.norm_eps)
     return _block_tail(shared, x + attend(shared["attn"], h, occ), cfg)
 
@@ -367,7 +380,7 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
                                     _mamba_state(cache["mamba"], i),
                                     ssm_out=cache["mamba"]["ssm"][i])
             _store_convs(cache["mamba"], i, state)
-            x = _shared_block(params, x, i, cfg, attend)
+            x = _shared_block(params["shared"], x, i, cfg, attend)
         return logits_from(params, x, cfg), cache
     spec = attn_spec(cfg)
     for i in range(cfg.n_layers):
@@ -414,7 +427,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
             x, state = _mamba_layer(_layer(params, i), x, cfg,
                                     ssm_out=cache["mamba"]["ssm"][i])
             _store_convs(cache["mamba"], i, state)
-            x = _shared_block(params, x, i, cfg, attend)
+            x = _shared_block(params["shared"], x, i, cfg, attend)
         return logits_from(params, x[:, -1:], cfg), cache, T
     spec = attn_spec(cfg)
     for i in range(cfg.n_layers):

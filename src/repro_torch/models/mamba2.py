@@ -15,7 +15,10 @@ is `silu(z in f32)` cast back before the gated RMS norm. `A_log`, `D` and
 `ops.mamba2_scan` (K8). Unlike the reference, whose functions are pure, a
 caller may hand the scan an output buffer for the ssm state (`ssm_out`):
 the serve path passes its cache slice, so a decode step updates the state
-in place."""
+in place. The training path (`lm.forward_train`) passes none: every op
+here is differentiable and writes nothing in place, and under grad the
+scan is differentiable (K8's forward, the plain version's gradient; it
+refuses an output buffer)."""
 
 from __future__ import annotations
 
@@ -135,7 +138,8 @@ def init_mamba2_state(batch: int, spec: Mamba2Spec, dtype=torch.bfloat16,
 
 def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None,
                    ssm_out=None):
-    """Prefill pass (or a decode step with `init_state`). x [B,T,D] ->
+    """A training or prefill pass (or a decode step with `init_state`).
+    x [B,T,D] ->
     (y [B,T,D], ((conv_x, conv_B, conv_C), ssm)). With `ssm_out` (f32
     [B,H,N,P], e.g. the decode cache's slice, which may be `init_state`'s
     own ssm) the scan writes the new ssm state there in place and that

@@ -11,7 +11,10 @@ silu, squared ReLU and sigmoid run in f32. The recurrence itself is
 `ops.rwkv6_scan` (K9). Unlike the reference, whose functions are pure, a
 caller may hand the scan an output buffer for the state (`state_out`): the
 serve path passes its cache slice, so a decode step updates the state in
-place."""
+place. The training path (`lm.forward_train`) passes none: every op here
+is differentiable and writes nothing in place, and under grad the scan is
+differentiable (K9's forward, the plain version's gradient; it refuses an
+output buffer)."""
 
 from __future__ import annotations
 

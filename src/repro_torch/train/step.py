@@ -144,6 +144,7 @@ def _ef_sync(grads, ef_resid, step_cfg: StepConfig):
              else ecollectives.LEVEL_INT8)
     axis = step_cfg.dp_axes[0]
     num = den = 0
+    ecollectives.own_residuals(ef_resid)
     for path in adamw.leaf_paths(grads):
         parent = adamw.get_path(grads, path[:-1])
         parent[path[-1]], n, d = ecollectives.ef_sync_leaf_(

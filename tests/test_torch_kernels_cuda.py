@@ -466,6 +466,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     (2, 200, 12, 4, 32, 0),     # ragged T, group 3
     (2, 150, 4, 2, 32, 40),     # sliding window
     (1, 77, 8, 8, 64, 0),       # ragged T smaller than one q tile pair
+    (4, 256, 32, 32, 64, 4096),  # Zamba2-1.2B's shared block in training
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, B, T, Hq, Hkv, Dh,
                                        window):
@@ -1086,3 +1087,87 @@ def test_scan_kernel_two_launches_same_bits(cuda, name, T, dtype):
     y1, st1 = kernel(*args, init_state=s0)
     y2, st2 = kernel(*args, init_state=s0)
     assert torch.equal(y1, y2) and torch.equal(st1, st2)
+
+
+# K8 and K9 as the training path's differentiable calls
+
+def _grad_case(name, cuda, dtype, with_state, seed):
+    """(ops entry point, kernel, plain version, leaves, initial state or
+    None) at batch 2 x 130 steps (three chunks), 8 heads."""
+    from repro_torch.kernels import ops
+    if name == "rwkv6_scan":
+        r, k, v, w, u, s0 = rwkv_inputs(2, 130, 8, 64, seed=seed)
+        args = [torch.from_numpy(a).to(cuda, dtype) for a in (r, k, v)] + \
+            [torch.from_numpy(a).to(cuda) for a in (w, u)]
+        fn, kernel, plain = ops.rwkv6_scan, tr6.rwkv6_scan, \
+            tr6.rwkv6_scan_plain
+    else:
+        x, dt, A, B, C, D, s0 = mamba2_inputs(2, 130, 8, 2, 64, seed=seed)
+        args = [torch.from_numpy(x).to(cuda, dtype),
+                *(torch.from_numpy(a).to(cuda) for a in (dt, A)),
+                *(torch.from_numpy(a).to(cuda, dtype) for a in (B, C)),
+                torch.from_numpy(D).to(cuda)]
+        fn, kernel, plain = ops.mamba2_scan, tm2.mamba2_ssd, \
+            tm2.mamba2_ssd_plain
+    s0 = torch.from_numpy(s0).to(cuda) if with_state else None
+    return fn, kernel, plain, args, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba2_ssd"])
+def test_scan_function_grads_equal_plain_autograd(cuda, name, dtype,
+                                                  with_state):
+    """The differentiable call's forward launches the kernel once and its
+    backward none; its gradients (y's cotangent, and the final state's
+    from a given initial state) equal autograd through the plain version
+    on the card bit for bit: the backward is that plain version re-run on
+    the saved inputs. Its y is the kernel's."""
+    fn, kernel, plain, args, s0 = _grad_case(name, cuda, dtype, with_state,
+                                             seed=21)
+
+    def leaves():
+        return [a.clone().requires_grad_() for a in args] + \
+            ([] if s0 is None else [s0.clone().requires_grad_()])
+
+    n = len(args)
+    ins, ref_ins = leaves(), leaves()
+    kernel.launches = 0
+    y, st = fn(*ins[:n], init_state=ins[n] if with_state else None)
+    assert kernel.launches == 1 and y.grad_fn is not None
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    cots = [torch.randn(y.shape, generator=gen, device=cuda).to(dtype)]
+    outs = [y]
+    if with_state:
+        cots.append(torch.randn(st.shape, generator=gen, device=cuda))
+        outs.append(st)
+    got = torch.autograd.grad(outs, ins, cots)
+    assert kernel.launches == 1
+    ref_outs = plain(*ref_ins[:n], init_state=ref_ins[n] if with_state
+                     else None)
+    want = torch.autograd.grad(ref_outs[:len(outs)], ref_ins, cots)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+    kernel_y, _ = kernel(*args, init_state=s0)
+    assert torch.equal(y.detach(), kernel_y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba2_ssd"])
+def test_scan_function_refuses_state_out_and_serves_in_place(cuda, name):
+    """Under grad, with an input that requires one, `state_out` raises;
+    under no_grad the same call writes the state in place, launches the
+    kernel once and builds no graph."""
+    fn, kernel, _, args, s0 = _grad_case(name, cuda, torch.bfloat16, True,
+                                         seed=23)
+    ins = [a.clone().requires_grad_() for a in args]
+    buf = s0.clone()
+    with pytest.raises(ValueError, match="state_out"):
+        fn(*ins, init_state=buf, state_out=buf)
+    kernel.launches = 0
+    with torch.no_grad():
+        y, st = fn(*ins, init_state=buf, state_out=buf)
+    assert kernel.launches == 1 and st is buf and y.grad_fn is None
+    want = kernel(*args, init_state=s0)
+    assert torch.equal(y, want[0]) and torch.equal(buf, want[1])

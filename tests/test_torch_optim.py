@@ -86,6 +86,53 @@ def test_adamw_three_steps_match_reference(state_dtype):
                                            **ADAM_TOL)
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "int8"])
+def test_adamw_chunked_update_equals_one_pass(state_dtype, monkeypatch):
+    """Large leaves are updated in slices of their leading axis (at 512
+    elements a slice here: 4 slices of a [8, 32, 8] leaf, 2 of a [12, 64]
+    leaf whose slices are 8 and 4 rows); params and moments, the int8
+    codes and scales included, equal one pass over each leaf bit for
+    bit."""
+    cfg = tadamw.AdamWConfig(state_dtype=state_dtype)
+    rng = np.random.default_rng(3)
+    shapes = {"a": (8, 32, 8), "b": (12, 64), "c": (300,), "d": (5, 7, 3)}
+
+    def tree():
+        return {k: torch.from_numpy(rng.standard_normal(v).astype(
+            np.float32)) for k, v in shapes.items()}
+
+    params = tree()
+    grads = [tree() for _ in range(3)]
+    runs = []
+    for chunk in (512, 1 << 26):
+        monkeypatch.setattr(tadamw, "CHUNK_ELEMENTS", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        st = tadamw.init_state(p, cfg)
+        for g in grads:
+            tadamw.apply_updates(p, g, st, torch.tensor(1e-2), cfg)
+        runs.append((p, st))
+    assert [len(tadamw._row_chunks(params[k])) for k in "abcd"] == [1] * 4
+    monkeypatch.setattr(tadamw, "CHUNK_ELEMENTS", 512)
+    assert [len(tadamw._row_chunks(params[k])) for k in "abcd"] == \
+        [4, 2, 1, 1]
+    one, two = ({"p": p, "m": st["m"], "v": st["v"]} for p, st in runs)
+    for path in tadamw.leaf_paths(one):
+        assert torch.equal(tadamw.get_path(one, path),
+                           tadamw.get_path(two, path)), path
+
+
+def test_int8_init_state_is_the_codes_of_zeros():
+    p = {"a": torch.ones((3, 100)), "b": torch.ones(256)}
+    st = tadamw.init_state(p, tadamw.AdamWConfig(state_dtype="int8"))
+    for k, leaf in p.items():
+        want = tadamw._q_encode(torch.zeros(leaf.shape))
+        for moment in ("m", "v"):
+            got = st[moment][k]
+            assert got["q"].dtype == want["q"].dtype
+            assert torch.equal(got["q"], want["q"])
+            assert torch.equal(got["scale"], want["scale"])
+
+
 def test_q_codec_round_half_to_even_matches_reference():
     x = np.concatenate([np.arange(-6, 7, dtype=np.float32) * 0.5 * 127 / 3,
                         np.random.default_rng(1).standard_normal(300).astype(

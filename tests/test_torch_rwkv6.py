@@ -3,9 +3,10 @@ same numpy inputs: the K9 plain version against `repro.kernels.ref` and
 against the Pallas kernel in interpret mode, the state carry, the time-mix
 and channel-mix, tiny RWKV6 prefill and decode on the reference's weights
 (carried over by `params_from_jax`, which keeps the reference's f32
-leaves), the launcher on the CPU, and the training path's refusal. The
-slice's `generate` parity is in tests/test_torch_serve.py; the CUDA kernel
-against its plain version in tests/test_torch_kernels_cuda.py."""
+leaves) and the launcher on the CPU. The slice's `generate` parity is in
+tests/test_torch_serve.py, training in tests/test_torch_train_families.py,
+the CUDA kernel against its plain version in
+tests/test_torch_kernels_cuda.py."""
 
 import dataclasses
 
@@ -505,13 +506,3 @@ def test_cpu_rwkv_generate_launches_no_kernel(capsys):
     assert "rwkv6-tiny" in out and "generated (2, 4) tokens" in out
     assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
 
-
-def test_ssm_training_is_not_yet_ported():
-    cfg = tget("rwkv6_7b", tiny=True)
-    api = treg.build(cfg)
-    params = api.init(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.loss_fn(params, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlm.forward_train(params, {"tokens": toks, "labels": toks}, cfg)

@@ -85,9 +85,9 @@ VARIANTS = {
 }
 
 
-def _pair(name):
-    jcfg = dataclasses.replace(VARIANTS[name](jget), dtype="float32")
-    tcfg = dataclasses.replace(VARIANTS[name](tget), dtype="float32")
+def _pair(name, variants=VARIANTS):
+    jcfg = dataclasses.replace(variants[name](jget), dtype="float32")
+    tcfg = dataclasses.replace(variants[name](tget), dtype="float32")
     jparams = jreg.build(jcfg).init(jax.random.PRNGKey(1))
     tree = jax.tree_util.tree_map(np.asarray, jparams)
     return jcfg, tcfg, jparams, treg.params_from_jax(tcfg, tree, "cpu")
@@ -202,11 +202,11 @@ def _sched(pkg_wsd):
                              stable_steps=50, decay_steps=50)
 
 
-def _fleet_pair(name, sor=True, **fleet_kw):
+def _fleet_pair(name, sor=True, variants=VARIANTS, **fleet_kw):
     """(jax step, torch step, jax state, torch state, sor configs) of the
     fleet SOR configuration under test (every rail learned, refit every
-    2 ticks) on `N_CHIPS` chips."""
-    jcfg, tcfg, jparams, tparams = _pair(name)
+    2 ticks) on `N_CHIPS` chips; `name` a key of `variants`."""
+    jcfg, tcfg, jparams, tparams = _pair(name, variants)
     kw = dict(hbm_error_base=1e-4, link_ber_floor=1e-3, **fleet_kw)
     jscfg = jsor.SorConfig(ingest="frames", rails=JRAILS, refresh_every=2)
     tscfg = tsor.SorConfig(ingest="frames", rails=TRAILS, refresh_every=2)
