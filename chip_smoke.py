@@ -89,7 +89,12 @@ script exits nonzero:
                 `Trainer.run` with a `HostRailController(PhaseAware())`
                 between steps, cuda against cpu: losses allclose, host
                 actuations and their bus seconds equal;
-13. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+13. tiny_train_ckpt - tiny MiniCPM in bf16, three fleet SOR steps on cuda
+                through `Trainer.run` with a checkpoint after the last:
+                restored by the port on the cpu and by a fresh cuda
+                `Trainer` (`maybe_restore`, its state from seed 1), every
+                leaf bit for bit the cuda state's;
+14. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -98,14 +103,14 @@ script exits nonzero:
                 summary, and a torch.profiler window of 2 steps (the
                 device ms per step of K2, K4 and K5 beside the top
                 kernels);
-14. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
+15. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
                 losses, grad_error, comp_level, the compressed gradient
                 and residual (g_hat + r', flipped codes) and params; the
                 fused ef pass exactly once per leaf per step, K10 alone
                 never;
-15. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 13,
+16. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 14,
                 the scalar step with the ef gradient sync and BERBounded:
                 one warm-up step, then 8 steps each of `ef_int8`,
                 `ef_int8_topk` and `auto` on the same state, launch counts
@@ -115,14 +120,14 @@ script exits nonzero:
                 torch.profiler window of 2 `ef_int8` steps with the fused
                 ef pass's device ms beside its bound, and K2's, K4's and
                 K5's;
-16. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
+17. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
                 one `forward_train` gradient (on the card K8's and K2's
                 forward, the plain scan's and K4/K5's backward; every
                 leaf within TINY_GRAD_TOL, launches exact), then three
                 fleet SOR steps through `Trainer.run` as phase 11, at a
                 sequence of 80 tokens (past the shared block's 64-token
                 window and K8's 64-step chunk);
-17. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
+18. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
                 x seq 256, per-layer remat (a Mamba2 layer and the shared
                 block after it under one checkpoint), f32 AdamW moments,
                 the 64-chip fleet with in-graph SOR: one warm-up step,
@@ -134,10 +139,24 @@ script exits nonzero:
                 forward, the scan's backward (the plain version re-run
                 and walked back, as the reference's custom_vjp does), K2,
                 the flash backward and the rest;
-18. tiny_train_rwkv - tiny RWKV6 as phase 16 (K9);
-19. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 17 (K9 2 x
+19. tiny_train_rwkv - tiny RWKV6 as phase 17 (K9);
+20. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 18 (K9 2 x
                 32 a step), with the reference's int8 AdamW moments: f32
-                ones need ~91 GB beside the bf16 weights.
+                ones need ~91 GB beside the bf16 weights;
+21. main_train_ckpt - Zamba2-1.2B as phase 18 trains it, from a fresh
+                state through `Trainer.run` with async checkpoints every 2
+                steps and after step 4 and one injected node failure
+                before step 3 (steps 0, 1, the save, 2, the failure, the
+                restore of step_2, 2 and 3 again, the save): the restored
+                state equal to the saved one (a digest of every leaf taken
+                on the card at the save and after the restore), the re-run
+                of step 2 equal to its first run (loss, plane and whole
+                state bits), restarts 1, writes 2, launches exact for 5
+                steps, peak memory within 1 GB of phase 18's; the
+                checkpoint's bytes, the save's host-blocking snapshot and
+                background write, the restore, free disk and host memory
+                (MiniCPM-2B's 46 GB checkpoints, two at once, do not fit
+                the card machine's 80 GB of disk).
 
 Each model's weights are freed before the next model loads its own.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
@@ -2315,7 +2334,7 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 11-13: the training path through Trainer.run
+# phases 11, 12 and 14: the training path through Trainer.run
 # ---------------------------------------------------------------------------
 
 def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
@@ -2327,7 +2346,9 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
     refit every `refresh_every` steps), AdamW (`opt_cfg`, by default f32
     moments), the launcher's WSD schedule and roofline profile. Returns
     (make_trainer, initial state, data, sor config); make_trainer(state,
-    total_steps) builds a `Trainer` that continues from `state`."""
+    total_steps, **trainer_config) builds a `Trainer` (of the fleet's
+    provenance and the given `TrainerConfig` fields) that continues from
+    `state`."""
     from repro_torch.core import sor
     from repro_torch.core.hwspec import FleetSpec
     from repro_torch.core.policy import MultiRailClosedLoop
@@ -2366,10 +2387,11 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
              "sor": sor.init_state(scfg, chips, device=dev)}
     data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
 
-    def make_trainer(state, total_steps):
+    def make_trainer(state, total_steps, **trainer_config):
         return Trainer(step, data,
                        TrainerConfig(total_steps=total_steps, sor=scfg,
-                                     device=dev), state)
+                                     fleet=fleet, device=dev,
+                                     **trainer_config), state)
 
     return make_trainer, state, data, scfg
 
@@ -2677,7 +2699,326 @@ def train_breakdown(make, state, steps: int, watch: tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
-# phases 16-19: the hybrid and ssm families' training paths
+# phases 13 and 21: checkpoints, restore and node-failure recovery
+# ---------------------------------------------------------------------------
+
+DIGEST_CHUNK = 1 << 24     # elements a digest pass takes at once
+
+
+def leaf_digest(x) -> tuple:
+    """A leaf's bits folded on its device: two int64 sums over its words
+    (as int32, int16 or uint8 by element size), one of them weighted by
+    each word's position, taken in slices of the leading axis of at most
+    DIGEST_CHUNK elements (a broadcast view is read as the values it
+    shows); with its shape and dtype. A host integer is itself."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        return ("int", int(x))
+    x = x.detach()
+    word = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+            8: torch.int64}[x.element_size()]
+    flat = x.reshape(1) if x.dim() == 0 else x
+    rows = max(1, DIGEST_CHUNK // max(1, flat[0].numel()))
+    total = weighted = torch.zeros((), dtype=torch.int64, device=x.device)
+    at = 0
+    for i in range(0, flat.shape[0], rows):
+        w = flat[i:i + rows].reshape(-1)
+        w = (w.view(torch.uint8) if w.dtype == torch.bool else w.view(word)
+             ).to(torch.int64)
+        pos = torch.arange(at, at + w.numel(), dtype=torch.int64,
+                           device=x.device)
+        total = total + w.sum()
+        weighted = weighted + (w * (pos * 2654435761 % 2147483647 + 1)).sum()
+        at += w.numel()
+    return (str(x.dtype), tuple(x.shape), total.item(), weighted.item())
+
+
+def state_digest(state) -> dict:
+    """`leaf_digest` of every leaf of a trainer state, keyed as the
+    checkpoint keys it (`<group>::<path>`)."""
+    from repro_torch.checkpoint import ckpt
+    out = {}
+    for name, tree in state.items():
+        ckpt._map_with_path(
+            lambda path, x, name=name: out.__setitem__(
+                f"{name}::{ckpt._path_key(path)}", leaf_digest(x)), tree)
+    return out
+
+
+def host_bits(state) -> dict:
+    """Every leaf of a trainer state as bytes on the host, keyed as the
+    checkpoint keys it."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    out = {}
+
+    def take(name, path, x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().contiguous().reshape(-1)
+            x = x.view(torch.uint8) if x.numel() else x
+            x = bytes(x.numpy())
+        out[f"{name}::{ckpt._path_key(path)}"] = x
+
+    for name, tree in state.items():
+        ckpt._map_with_path(lambda p, x, name=name: take(name, p, x), tree)
+    return out
+
+
+def run_tiny_train_ckpt() -> dict:
+    """Tiny MiniCPM (bf16) on cuda: three fleet SOR steps through
+    Trainer.run with a checkpoint after the last. The port on the cpu
+    restores it into a cpu state: every leaf bit for bit the cuda state's.
+    A fresh cuda Trainer whose state starts from seed 1 `maybe_restore`s it:
+    `start_step` 3 and the same bits."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_map
+    cfg = get_config("minicpm_2b", tiny=True)
+    where = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(where, ignore_errors=True)
+
+    def slice_on(dev, seed):
+        params = registry.build(cfg).init(
+            torch.Generator(device="cpu").manual_seed(seed))
+        params = tree_map(lambda a: a.to(dev, copy=True), params)
+        return train_slice(cfg, params, dev, chips=8, batch=2, seq=32,
+                           steps=3, refresh_every=2)
+
+    try:
+        make, state, _, _ = slice_on("cuda", 0)
+        trainer = make(state, 3, ckpt_every=3, ckpt_dir=str(where))
+        trainer.run()
+        if trainer.ckpt.list_steps() != [3] or trainer.ckpt_writes != 1:
+            raise AssertionError(f"tiny_train_ckpt wrote "
+                                 f"{trainer.ckpt.list_steps()}")
+        want = host_bits(trainer.state)
+        _, cpu_state, _, _ = slice_on("cpu", 1)
+        step, restored = CheckpointManager(str(where)).restore(cpu_state)
+        if step != 3 or host_bits(restored) != want:
+            raise AssertionError("tiny_train_ckpt: the cpu restore differs "
+                                 "from the cuda state")
+        make1, state1, _, _ = slice_on("cuda", 1)
+        fresh = make1(state1, 6, ckpt_dir=str(where))
+        if not fresh.maybe_restore() or fresh.start_step != 3:
+            raise AssertionError("tiny_train_ckpt: no restore on cuda")
+        if host_bits(fresh.state) != want:
+            raise AssertionError("tiny_train_ckpt: the cuda restore differs")
+        return dict(steps=3, leaves=len(want), bytes=sum(
+            len(v) for v in want.values() if isinstance(v, bytes)),
+            ckpt_bytes=trainer.ckpt.timings["bytes"],
+            cpu_restore="bit for bit", cuda_restore="bit for bit",
+            start_step=fresh.start_step)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+# the main_train_ckpt run: one node failure, drawn before step 3 (the fail
+# draws of steps 0-2, then 3, then 2-3 again: 0.2616, 0.2985, 0.8142,
+# 0.0919, 0.6001, 0.7286 from np.random.default_rng(2))
+CKPT_FAULTS = dict(fail_prob=0.15, seed=2)
+CKPT_STEPS, CKPT_EVERY = 4, 2
+# Zamba2-1.2B as `main_train_zamba` trains it: a checkpoint is ~16.4 GB
+# (bf16 params, f32 moments, the ef zeros). MiniCPM-2B's is ~46 GB, and
+# two of them do not fit the card machine's 80 GB of disk.
+TRAIN_CKPT = TRAIN_ZAMBA
+CKPT_MIN_FREE_GB = 40.0       # two checkpoints beside each other
+CKPT_PEAK_GB = 1.0            # peak's distance from the same config's
+
+
+def mem_available_gb() -> float:
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
+    """Full-width, full-depth TRAIN_CKPT (Zamba2-1.2B, f32 AdamW moments)
+    as its `main_train_*` phase trains it, through Trainer.run with
+    checkpoints (every 2 steps and after step 4, async)
+    and one injected node failure before step 3: steps 0 and 1, the save
+    of the state after step 1 (step_2), step 2, the failure, the restore
+    of step_2, steps 2 and 3 again, the save of step_4. Holds: the state
+    after the restore is the state at the step_2 save bit for bit (a digest
+    of every leaf taken on the card at the save and after the restore);
+    the re-run of step 2 gives the loss bits and the plane of its first
+    run; restarts 1, checkpoint writes 2; launches exact for 5 steps; peak
+    memory within CKPT_PEAK_GB of that phase's (`main_peak_gb`). Reports the checkpoint's
+    bytes (the ef zeros among them), the save's host-blocking snapshot and
+    its background write, the restore, and the free disk and host memory
+    before the phase."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import FaultConfig
+    draws = np.random.default_rng(CKPT_FAULTS["seed"]).random(6)
+    fails = (draws < CKPT_FAULTS["fail_prob"]).tolist()
+    if fails != [False, False, False, True, False, False]:
+        raise AssertionError(f"the fault draws {draws} do not fail once, "
+                             f"before step 3")
+    where = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(where, ignore_errors=True)
+    where.mkdir(parents=True)
+    free_gb = shutil.disk_usage(where).free / 1e9
+    host_gb = mem_available_gb()
+    if free_gb < CKPT_MIN_FREE_GB:
+        raise RuntimeError(f"{free_gb:.1f} GB free under {where}; "
+                           f"main_train_ckpt needs {CKPT_MIN_FREE_GB}")
+    spec = TRAIN_CKPT
+    cfg = get_config(spec["arch"])
+    B, T = spec["batch"], spec["seq"]
+    try:
+        params = registry.build(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(a.numel() for a in tree_leaves(params))
+        make, state, _, scfg = train_slice(
+            cfg, params, dev, chips=spec["chips"], batch=B, seq=T,
+            steps=CKPT_STEPS, refresh_every=2,
+            opt_cfg=adamw.AdamWConfig(state_dtype=spec["adamw_state"]))
+        del params
+        ef_bytes = sum(a.numel() * 4 for a in tree_leaves(state["ef"]))
+        trainer = make(state, CKPT_STEPS, ckpt_every=CKPT_EVERY,
+                       ckpt_dir=str(where), async_ckpt=True,
+                       faults=FaultConfig(**CKPT_FAULTS))
+        mgr, step_fn = trainer.ckpt, trainer.train_step
+        calls, saves, restores = [], [], []
+
+        def plane_bits(plane):
+            return hashlib.sha256(bytes(torch.cat([
+                getattr(plane, f).view(torch.int32) for f in
+                ("v_core", "v_hbm", "v_io", "comp_level", "energy_j",
+                 "step")]).cpu().numpy())).hexdigest()
+
+        def recorded_step(*args):
+            out = step_fn(*args)
+            i = len(calls)
+            calls.append(dict(
+                loss_bits=out[-1]["loss"].detach().view(torch.int32).item(),
+                plane=plane_bits(out[2]), tick=out[4].tick,
+                state=state_digest(dict(zip(
+                    ("params", "opt", "plane", "ef", "sor"), out[:5])))
+                if i in (2, 3) else None))
+            return out
+
+        save, restore = mgr.save, mgr.restore
+
+        def recorded_save(step, state, fleet=None):
+            digest = state_digest(state)
+            t0 = time.perf_counter()
+            path = save(step, state, fleet=fleet)
+            saves.append(dict(step=step, digest=digest,
+                              host_blocking_s=time.perf_counter() - t0,
+                              snapshot_s=mgr.timings["snapshot_s"]))
+            return path
+
+        def recorded_restore(state_like, *a, **kw):
+            written = dict(mgr.timings)   # the step_2 writer has finished
+            step, out = restore(state_like, *a, **kw)
+            restores.append(dict(step=step, digest=state_digest(out),
+                                 restore_s=mgr.timings["restore_s"],
+                                 restore_bytes=mgr.timings["restore_bytes"],
+                                 write_s=written["write_s"],
+                                 ckpt_bytes=written["bytes"]))
+            return step, out
+
+        trainer.train_step = recorded_step
+        mgr.save, mgr.restore = recorded_save, recorded_restore
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        last_write_s, last_bytes = mgr.timings["write_s"], \
+            mgr.timings["bytes"]
+        steps_logged = [r.step for r in trainer.log.records]
+        losses = [r.loss for r in trainer.log.records]
+
+        if steps_logged != [0, 1, 2, 2, 3] or len(calls) != 5:
+            raise AssertionError(f"main_train_ckpt ran steps {steps_logged}")
+        if (trainer.restarts, trainer.ckpt_writes) != (1, 2) \
+                or mgr.list_steps() != [2, 4]:
+            raise AssertionError(
+                f"main_train_ckpt: restarts {trainer.restarts}, writes "
+                f"{trainer.ckpt_writes}, checkpoints {mgr.list_steps()}")
+        if [s["step"] for s in saves] != [2, 4] or len(restores) != 1 \
+                or restores[0]["step"] != 2:
+            raise AssertionError("main_train_ckpt: saves or restore out of "
+                                 "order")
+        # check 1: the restored state is the saved one, bit for bit
+        if restores[0]["digest"] != saves[0]["digest"]:
+            bad = [k for k in saves[0]["digest"]
+                   if restores[0]["digest"].get(k) != saves[0]["digest"][k]]
+            raise AssertionError(f"main_train_ckpt: the restore differs from "
+                                 f"the save at {bad[:8]}")
+        # check 2: the re-run of step 2 repeats its first run
+        first, again = calls[2], calls[3]
+        if (first["loss_bits"], first["plane"]) != (again["loss_bits"],
+                                                    again["plane"]):
+            raise AssertionError(f"main_train_ckpt: step 2 re-ran to "
+                                 f"{again} after {first}")
+        rerun_state_equal = first["state"] == again["state"]
+        # check 4: launches for the five steps that ran
+        refits = sum(1 for c in calls if c["tick"] % scfg.refresh_every == 0)
+        want = model_launches(cfg, len(calls))
+        want.update(fleet_stats=len(calls), sor_refit=refits)
+        if launches != want:
+            raise AssertionError(f"main_train_ckpt launch counts {launches} "
+                                 f"!= {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"main_train_ckpt losses {losses}")
+        # check 5: no second state on the device
+        if abs(peak_gb - main_peak_gb) > CKPT_PEAK_GB:
+            raise AssertionError(f"main_train_ckpt peak {peak_gb:.3f} GB, "
+                                 f"the config's {main_peak_gb:.3f} GB")
+        r = restores[0]
+        gb = 1e9
+        return dict(
+            arch=cfg.name, n_layers=cfg.n_layers, params=n_params, batch=B,
+            seq=T, n_chips=spec["chips"], dtype=cfg.dtype,
+            adamw_state=spec["adamw_state"], faults=CKPT_FAULTS,
+            steps_logged=steps_logged, losses=losses,
+            restarts=trainer.restarts, ckpt_writes=trainer.ckpt_writes,
+            restore_bit_exact=True, leaves=len(saves[0]["digest"]),
+            rerun_loss_bits_equal=True, rerun_plane_equal=True,
+            rerun_state_equal=rerun_state_equal,
+            launches=launches, expected_launches=want,
+            sor_ticks=[c["tick"] for c in calls],
+            peak_mem_gb=peak_gb, config_peak_mem_gb=main_peak_gb,
+            free_disk_gb_before=free_gb, mem_available_gb_before=host_gb,
+            ckpt_bytes=r["ckpt_bytes"], ckpt_bytes_step4=last_bytes,
+            ef_zero_bytes=ef_bytes,
+            save_host_blocking_s=[s["host_blocking_s"] for s in saves],
+            save_snapshot_s=[s["snapshot_s"] for s in saves],
+            save_write_s=[r["write_s"], last_write_s],
+            save_write_gb_per_s=[r["ckpt_bytes"] / gb / r["write_s"],
+                                 last_bytes / gb / last_write_s],
+            restore_s=r["restore_s"], restore_bytes=r["restore_bytes"],
+            restore_gb_per_s=r["restore_bytes"] / gb / r["restore_s"],
+            run_s=run_s, step_ms=[x * 1e3 for x in trainer.step_times])
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 17-20: the hybrid and ssm families' training paths
 # ---------------------------------------------------------------------------
 
 # tiny Zamba2 / RWKV6 `forward_train` gradients, cuda against cpu, f32: on
@@ -2886,7 +3227,7 @@ def train_step_split(make, state, family: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 14-15: the error-feedback gradient sync (K10) through Trainer.run
+# phases 15-16: the error-feedback gradient sync (K10) through Trainer.run
 # ---------------------------------------------------------------------------
 
 EF_SYNCS = ("ef_int8", "ef_int8_topk", "auto")
@@ -3276,6 +3617,7 @@ def main() -> int:
 
     emit({"phase": "tiny_train", **run_tiny_train()})
     emit({"phase": "tiny_train_host", **run_tiny_train_host()})
+    emit({"phase": "tiny_train_ckpt", **run_tiny_train_ckpt()})
     result = run_main_train(dev)
     by_path["train"] = result["launches"]
     emit({"phase": "main_train", **result})
@@ -3291,6 +3633,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # main_train_ef's MiniCPM state is gone
 
+    peaks = {}
     for tiny, phase, path, spec in (
             ("tiny_train_zamba", "main_train_zamba", "train-zamba",
              TRAIN_ZAMBA),
@@ -3299,10 +3642,18 @@ def main() -> int:
         emit({"phase": tiny, **run_tiny_train_family(spec["arch"])})
         result = run_main_train_family(dev, spec)
         by_path[path] = result["launches"]
+        peaks[spec["arch"]] = result["peak_mem_gb"]
         emit({"phase": phase, **result})
         del result
         gc.collect()
         torch.cuda.empty_cache()   # the model's training state is gone
+
+    result = run_main_train_ckpt(dev, peaks[TRAIN_CKPT["arch"]])
+    by_path["train-ckpt"] = result["launches"]
+    emit({"phase": "main_train_ckpt", **result})
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()       # main_train_ckpt's training state is gone
 
     rows = []
     for name in ops.KERNELS:

@@ -26,7 +26,7 @@ only and still run the whole sequence (quantize, a gather of one, the
 dequantize-sum), so the codec runs twice per leaf as in the reference's op
 sequence. A `torch.distributed` world larger than one raises
 `NotImplementedError`: the multi-process sync and `shard_map_ef_step` wait
-for ROADMAP.md §1 item 8 (Sharding).
+for ROADMAP.md's open item 'Sharding'.
 
 Unlike the reference's pure `ef_compress`, the port's updates the residual
 tree in place (the counterpart of a donated buffer) and returns it.
@@ -119,8 +119,8 @@ def axis_size(axis_name) -> int:
         raise NotImplementedError(
             f"error-feedback gradient sync over axis {axis_name!r} in a "
             f"world of {dist.get_world_size()} is not yet ported: the port "
-            f"runs the reference's one-device data mesh only (ROADMAP.md "
-            f"§1 item 8, Sharding)")
+            f"runs the reference's one-device data mesh only (ROADMAP.md, "
+            f"open item 'Sharding')")
     return 1
 
 

@@ -62,12 +62,16 @@ class PowerPlaneState:
 
     @staticmethod
     def from_fleet(fleet: FleetSpec, device="cuda") -> "PowerPlaneState":
-        """Fleet state with every chip at its own per-chip nominal point."""
+        """Fleet state with every chip at its own per-chip nominal point.
+        The rails are copies of the FleetSpec's arrays (a CPU tensor made
+        from a numpy array would share its memory, and a restore writes
+        the plane in place)."""
         n = fleet.n_chips
+        f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
         return PowerPlaneState(
-            v_core=as_f32(fleet.v_core_nominal, device),
-            v_hbm=as_f32(fleet.v_hbm_nominal, device),
-            v_io=as_f32(fleet.v_io_nominal, device),
+            v_core=f32(fleet.v_core_nominal),
+            v_hbm=f32(fleet.v_hbm_nominal),
+            v_io=f32(fleet.v_io_nominal),
             comp_level=torch.full((n,), ecollectives.LEVEL_LOSSLESS,
                                   dtype=torch.int32, device=device),
             energy_j=torch.zeros(n, dtype=torch.float32, device=device),

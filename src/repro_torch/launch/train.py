@@ -13,13 +13,20 @@ device from seed 0. Unlike the JAX launcher, `--tiny`
 is honoured: without it the full configuration is built (with per-layer
 remat, as the reference does for non-tiny configs).
 
-Not ported yet (each raises `NotImplementedError`): `--dry-run`, and
-checkpoints (`--ckpt-dir`, `--resume`).
+`--ckpt-dir DIR` writes checkpoints there (every max(10, steps // 5)
+steps and after the last, the reference's layout); without `--resume` the
+directory is emptied first, as the reference launcher does. `--resume`
+restores the latest checkpoint in `--ckpt-dir` and continues from its
+step. Unlike the reference, which defaults to `/tmp/repro_train_ckpt`,
+no directory means no checkpoint.
+
+Not ported yet (raises `NotImplementedError`): `--dry-run`.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 
 import torch
 
@@ -49,15 +56,16 @@ def main(argv=None):
     ap.add_argument("--policy", choices=list(POLICIES), default="phase-aware")
     ap.add_argument("--control-path", choices=("in-graph", "host"),
                     default="in-graph")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="write checkpoints here (none without it)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoint in --ckpt-dir")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.dry_run:
         raise NotImplementedError("--dry-run is not yet ported")
-    if args.ckpt_dir is not None or args.resume:
-        raise NotImplementedError("checkpoints (--ckpt-dir, --resume) are "
-                                  "not yet ported")
+    if args.resume and args.ckpt_dir is None:
+        ap.error("--resume needs --ckpt-dir")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, tiny=args.tiny)
@@ -82,12 +90,18 @@ def main(argv=None):
     step = make_train_step(api.loss_fn, opt_cfg, sched, profile,
                            StepConfig(policy=policy if in_graph else None))
     data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+    if args.ckpt_dir is not None and not args.resume:
+        shutil.rmtree(args.ckpt_dir, ignore_errors=True)
     controller = None if in_graph else HostRailController(policy)
     trainer = Trainer(step, data,
                       TrainerConfig(total_steps=args.steps,
+                                    ckpt_every=max(10, args.steps // 5),
+                                    ckpt_dir=args.ckpt_dir,
                                     controller=controller, device=device),
                       {"params": params, "opt": opt, "plane": plane,
                        "ef": ef})
+    if args.resume and trainer.maybe_restore():
+        print(f"resumed from step {trainer.start_step}")
     log = trainer.run()
     rec = list(log.records)
     print(f"loss {rec[0].loss:.4f} -> {rec[-1].loss:.4f}; "

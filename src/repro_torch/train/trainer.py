@@ -1,7 +1,8 @@
-"""Trainer (port of `repro/train/trainer.py`): the step loop, injected
-straggler events with deadline-based mitigation (host numpy rng, the same
-draws as the reference), host-path power control, the telemetry log and
-the SOR summary.
+"""Trainer (port of `repro/train/trainer.py`): the step loop with
+checkpoints on a cadence and restart, simulated node-failure recovery,
+injected straggler events with deadline-based mitigation (host numpy rng,
+the same draws as the reference), host-path power control, the telemetry
+log and the SOR summary.
 
 One host sync per step: the loss is read back (as the reference blocks on
 it) and the step's wall time taken after it; the telemetry record then
@@ -9,10 +10,24 @@ costs one more device-to-host copy of an already-finished step. A host
 controller (`TrainerConfig.controller`) runs one `control_step` between
 steps and reads the plane back itself.
 
-Not ported yet (each raises `NotImplementedError`): checkpoints, so
-`TrainerConfig` has no checkpoint fields and `maybe_restore` raises;
-simulated node failures (`FaultConfig.fail_prob > 0`), whose recovery
-reloads a checkpoint; and the sharded fleet state (`mesh`).
+Checkpoints (`checkpoint/ckpt.py`, the reference's layout) are written
+only when `TrainerConfig.ckpt_dir` names a directory; the reference
+defaults to `/tmp/repro_ckpt`. Given one, the cadence is the reference's:
+after every `ckpt_every`-th step and after the last. A restore writes into
+the live state's tensors.
+
+The node failure is drawn BEFORE the step runs, where the reference draws
+it after the step and drops the step's result: the port's step updates
+the parameters, the moments and the residuals in place, so a failure
+drawn after it could not be undone. The draws depend on nothing the step
+computes, so the fail draw before the step and the straggler draw after
+it give the reference's sequence of events. As in the reference, a
+failure with no checkpoint to go back to restarts the span at the step it
+started from, with the state as it stands, so the log repeats those
+steps.
+
+Not ported yet: the sharded fleet state (`mesh`, raises
+`NotImplementedError`).
 """
 
 from __future__ import annotations
@@ -23,6 +38,8 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch.checkpoint.ckpt import (CheckpointManager, remap_plane,
+                                         remap_sor)
 from repro_torch.core import ecollectives
 from repro_torch.core import sor as sor_mod
 from repro_torch.core.control_plane import as_controller, sor_summary_of
@@ -32,8 +49,10 @@ from repro_torch.core.telemetry import TelemetryLog
 from repro_torch.models.common import resolve_device
 from repro_torch.models.lm import tree_leaves
 
-_CKPT = ("checkpoints are not yet ported (ROADMAP.md, open item "
-         "'Checkpoint and recovery')")
+
+class SimulatedNodeFailure(RuntimeError):
+    """An injected node loss (`FaultConfig.fail_prob`); `Trainer.run`
+    recovers from it."""
 
 
 @dataclasses.dataclass
@@ -48,12 +67,19 @@ class FaultConfig:
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int
+    ckpt_every: int = 50
+    # None writes no checkpoint (the reference defaults to a /tmp path)
+    ckpt_dir: "str | None" = None
+    async_ckpt: bool = True
     # host-path (SW analogue) control plane: a controller, or a bare Policy
     # (wrapped into a decide-only HostDecisionController); pass a
     # HostRailController to also pay PMBus actuation. The in-graph path is
     # configured on the step (StepConfig.policy).
     controller: Any = None
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    # fleet provenance: checkpointed beside the plane, so a restart onto a
+    # fleet of another size remaps per-chip state explicitly
+    fleet: "FleetSpec | None" = None
     # the SorConfig the train step was built with (FleetStepConfig.sor):
     # with it (and init_state["sor"]) the trainer threads the SorState
     # through the 6-arg step and folds the learned view into summary()
@@ -63,10 +89,6 @@ class TrainerConfig:
 
     def __post_init__(self):
         self.controller = as_controller(self.controller, host=True)
-        if self.faults.fail_prob:
-            raise NotImplementedError(
-                f"FaultConfig.fail_prob > 0 recovers from a checkpoint; "
-                f"{_CKPT}")
         if self.mesh is not None:
             raise NotImplementedError(
                 "the sharded fleet state (TrainerConfig.mesh) is not yet "
@@ -87,8 +109,14 @@ class Trainer:
         self.data = data
         self.cfg = cfg
         self.state = dict(init_state)
+        self.ckpt = (CheckpointManager(cfg.ckpt_dir,
+                                       async_save=cfg.async_ckpt)
+                     if cfg.ckpt_dir is not None else None)
         self.log = TelemetryLog()
+        self.start_step = 0
+        self.restarts = 0
         self.straggler_events = 0
+        self.ckpt_writes = 0
         self._rng = np.random.default_rng(cfg.faults.seed)
         self._step_times: list[float] = []
         ss = self.state.get("sor")
@@ -111,11 +139,49 @@ class Trainer:
         with injected straggler time)."""
         return list(self._step_times)
 
+    # -- checkpoint/restart ----------------------------------------------------
     def maybe_restore(self) -> bool:
-        raise NotImplementedError(_CKPT)
+        """Restore the latest complete checkpoint, if there is one, into
+        the live state and continue from its step."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return False
+        self.start_step = self._restore()
+        return True
+
+    def _restore(self) -> int:
+        step, restored = self.ckpt.restore(self.state, optional=("sor",))
+        self.state.update(restored)
+        self._remap_restored_plane()
+        return step
+
+    def _remap_restored_plane(self) -> None:
+        """Elastic fleet restore: when this run's FleetSpec differs in size
+        from the checkpoint's, remap the restored plane (and SorState) onto
+        the current fleet explicitly: survivors keep their per-chip state,
+        joiners start at their own nominal point and the cold-start pin."""
+        if self.cfg.fleet is None:
+            return
+        n_target = self.cfg.fleet.n_chips
+        plane = self.state["plane"]
+        if not (plane.is_fleet and plane.n_chips == n_target):
+            self.state["plane"] = remap_plane(plane, self.cfg.fleet)
+        ss = self.state.get("sor")
+        if ss is not None and ss.history.chip_shape \
+                and ss.history.chip_shape[0] != n_target:
+            self.state["sor"] = remap_sor(ss, self.cfg.fleet)
+
+    def _save(self, step: int):
+        self.ckpt.save(step, self.state, fleet=self.cfg.fleet)
+        self.ckpt_writes += 1
 
     # -- fault injection ---------------------------------------------------------
-    def _inject_faults(self, t_step: float) -> float:
+    def _inject_failure(self, step: int) -> None:
+        """The fail draw of `step`, made before the step runs."""
+        f = self.cfg.faults
+        if f.fail_prob and self._rng.random() < f.fail_prob:
+            raise SimulatedNodeFailure(f"node lost at step {step}")
+
+    def _inject_straggler(self, t_step: float) -> float:
         f = self.cfg.faults
         if f.straggler_prob and self._rng.random() < f.straggler_prob:
             # a straggling node would stretch the step by straggler_factor;
@@ -131,8 +197,27 @@ class Trainer:
 
     # -- the loop -----------------------------------------------------------------
     def run(self) -> TelemetryLog:
-        step = 0
+        step = self.start_step
         while step < self.cfg.total_steps:
+            try:
+                step = self._run_span(step)
+            except SimulatedNodeFailure:
+                # recovery: reload the last complete checkpoint and resume
+                # (the data pipeline is stateless in step); without one,
+                # restart the span from the in-memory state
+                self.restarts += 1
+                if self.ckpt is not None:
+                    self.ckpt.wait()
+                    if self.ckpt.latest_step() is not None:
+                        step = self._restore()
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        return self.log
+
+    def _run_span(self, step: int) -> int:
+        cfg = self.cfg
+        while step < cfg.total_steps:
+            self._inject_failure(step)
             batch = self.data.torch_batch(step, self.device)
             t0 = time.perf_counter()
             if "sor" in self.state:
@@ -147,21 +232,24 @@ class Trainer:
                     self.state["plane"], self.state["ef"], batch)
             metrics["loss"].item()     # the step's one host sync
             wall = time.perf_counter() - t0
-            wall = self._inject_faults(wall)
+            wall = self._inject_straggler(wall)
             self._step_times.append(wall)
 
             self.state.update(params=params, opt=opt, plane=plane, ef=ef)
             if sor_state is not None:
                 self.state["sor"] = sor_state
             # host-path control (SW analogue): decide + PMBus-actuate
-            if self.cfg.controller is not None:
-                self.state["plane"] = self.cfg.controller.control_step(
+            if cfg.controller is not None:
+                self.state["plane"] = cfg.controller.control_step(
                     plane, metrics)
                 metrics = self._with_sor_metrics(metrics)
             self.log.append_from(step, metrics["loss"], metrics,
                                  self.state["plane"])
             step += 1
-        return self.log
+            if self.ckpt is not None and (step % cfg.ckpt_every == 0
+                                          or step == cfg.total_steps):
+                self._save(step)
+        return step
 
     def _with_sor_metrics(self, metrics: dict[str, Any]) -> dict[str, Any]:
         """Fold the host controller's learned safe-operating-region view
@@ -180,10 +268,9 @@ class Trainer:
                 else None)
         out = {
             **t,
-            # no node failures or checkpoints yet
-            "restarts": 0,
+            "restarts": self.restarts,
             "straggler_events": self.straggler_events,
-            "ckpt_writes": 0,
+            "ckpt_writes": self.ckpt_writes,
             "host_actuations": ctrl.actuations if ctrl else 0,
             "host_actuation_s": ctrl.actuation_seconds if ctrl else 0.0,
             "host_skipped_actuations": ctrl.skipped_actuations if ctrl else 0,

@@ -39,8 +39,10 @@ def _imported_modules(path):
 @pytest.mark.parametrize("path", PORT_FILES + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_reference(path):
+    # nor msgpack, which the card's machine lacks: the checkpoint manifest
+    # goes through the port's own codec
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -52,7 +54,8 @@ def test_port_files_found():
             "mamba2.py", "mamba2_ssd.py", "zamba2_1p2b.py", "codecs.py",
             "regulator.py", "pmbus.py", "settling.py", "power_manager.py",
             "fleet.py", "control_plane.py", "fleet_telemetry.py",
-            "fleet_compare.py", "sor_compare.py", "profile_windows.py"} <= names
+            "fleet_compare.py", "sor_compare.py", "profile_windows.py",
+            "ckpt.py", "_msgpack.py"} <= names
 
 
 @pytest.fixture
@@ -158,12 +161,41 @@ def test_host_path_launchers_default_device_needs_a_card(no_card):
                            "--control-path", "host"])
 
 
-@pytest.mark.parametrize("flags", [["--dry-run"], ["--resume"],
-                                   ["--ckpt-dir", "ckpt"]])
+@pytest.mark.parametrize("flags", [["--dry-run"]])
 def test_train_launcher_refuses_unported_paths(flags):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         launch_train.main(["--arch", "minicpm_2b", "--tiny", "--device",
                            "cpu", *flags])
+
+
+def test_train_launcher_refuses_resume_without_ckpt_dir(capsys):
+    with pytest.raises(SystemExit) as exc:
+        launch_train.main(["--arch", "minicpm_2b", "--tiny", "--device",
+                           "cpu", "--resume"])
+    assert exc.value.code == 2
+    assert "--resume needs --ckpt-dir" in capsys.readouterr().err
+
+
+def test_train_launcher_writes_and_resumes(tmp_path, capsys):
+    """`--ckpt-dir` writes the reference's layout on its cadence
+    (max(10, steps // 5)) and after the last step; `--resume` continues
+    from the latest; without `--resume` the directory is emptied first."""
+    ckpt = tmp_path / "ckpt"
+    base = ["--arch", "minicpm_2b", "--tiny", "--batch", "2", "--seq", "16",
+            "--device", "cpu", "--ckpt-dir", str(ckpt)]
+    ops.reset_launch_counts()
+    launch_train.main(base + ["--steps", "12"])
+    out = capsys.readouterr().out
+    assert "'ckpt_writes': 2" in out and "resumed" not in out
+    assert sorted(os.listdir(ckpt)) == ["step_00000010", "step_00000012"]
+    assert sorted(os.listdir(ckpt / "step_00000012")) == [
+        ".complete", "arrays.npz", "manifest.msgpack"]
+    launch_train.main(base + ["--steps", "14", "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 12" in out and "'steps': 2" in out
+    launch_train.main(base + ["--steps", "3"])
+    assert os.listdir(ckpt) == ["step_00000003"]
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_cpu_train_step_launches_no_kernel(capsys):

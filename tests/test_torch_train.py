@@ -4,7 +4,8 @@ batches: `forward_train` loss and gradients (tiny MiniCPM and a padded-head
 variant, remat "none" and "full"), the fleet train step with in-graph SOR
 learning over several steps (loss, params, AdamW state, plane, SOR
 estimate, every `fleet/*` metric), the scalar step with PhaseAware and with
-two microbatches, and `Trainer.run` with straggler injection.
+two microbatches, and `Trainer.run` with straggler injection, checkpoints,
+resume and node-failure recovery.
 
 The fleet step's random draws (`fleet_draws` / `jax.random`) differ between
 the packages; with `telemetry_noise=0` and `straggler_prob=0` they have no
@@ -58,6 +59,13 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 # (m / sqrt(v)) turns a last-bit gradient difference into up to ~1e-3 of
 # lr where |g| is tiny, so params are held to lr-scaled absolute error
 PARAM_TOL = dict(rtol=1e-4, atol=2e-6)
+# twenty-odd scalar steps (peak lr 1e-3): the few-step PARAM_TOL no longer
+# holds, because an element whose gradient sits at rounding level can take
+# a sign-flipped normalized step. Measured between the packages: 4.3e-5
+# after 20 uninterrupted steps (9 elements past PARAM_TOL), 1.0e-4 (0.1 of
+# the peak lr) after the 31 steps of the fail_prob=0.15, seed=3 recovery
+# run; 5.9e-7 after 3 steps. Held at 2x the largest:
+LONG_PARAM_TOL = dict(rtol=1e-4, atol=2e-4)
 # the plane and metrics without a learned envelope: f32 elementwise
 PLANE_TOL = dict(rtol=1e-5, atol=1e-7)
 # Trajectories through SOR refits. The refit at tick 2 solves from two
@@ -331,9 +339,6 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="Sharding"):
             tstep.make_fleet_train_step(*args, tstep.StepConfig(),
                                         tstep.FleetStepConfig(spec=fs, **kw))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        ttrainer.TrainerConfig(total_steps=1, device="cpu",
-                               faults=ttrainer.FaultConfig(fail_prob=0.1))
 
 
 def test_fleet_draws_are_device_side_and_well_distributed():
@@ -367,7 +372,9 @@ def test_trainer_run_matches_reference(tmp_path):
                                sor=jscfg), js)
     tt = ttrainer.Trainer(
         tfn, TSynth(TData(jcfg.vocab_size, 32, 4)),
-        ttrainer.TrainerConfig(total_steps=4,
+        ttrainer.TrainerConfig(total_steps=4, ckpt_every=100,
+                               ckpt_dir=str(tmp_path / "port"),
+                               async_ckpt=False,
                                faults=ttrainer.FaultConfig(**faults),
                                sor=tscfg, device="cpu"), ts)
     jt.run()
@@ -386,8 +393,8 @@ def test_trainer_run_matches_reference(tmp_path):
     js_, ts_ = jt.summary(), tt.summary()
     assert set(ts_) == set(js_)
     assert ts_["straggler_events"] == js_["straggler_events"] > 0
-    # the port writes no checkpoint yet; the reference writes the last step
-    assert ts_["ckpt_writes"] == 0 and js_["ckpt_writes"] == 1
+    # both write the last step
+    assert ts_["ckpt_writes"] == js_["ckpt_writes"] == 1
     for k in ("steps", "energy_j", "mean_power_w", "time_s",
               "fleet_energy_j", "restarts", "host_actuations", "n_chips"):
         np.testing.assert_allclose(ts_[k], js_[k], **TRAJ_METRIC_TOL,
@@ -407,3 +414,173 @@ def test_launcher_tiny_cpu_trains(capsys):
                        "--batch", "2", "--seq", "16", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "minicpm-tiny" in out and "'steps': 3" in out
+
+
+# -- checkpoints, resume and recovery --------------------------------------------
+
+def _leaf_bits(tree):
+    """Every leaf of a port state tree as bytes, in checkpoint order."""
+    from repro_torch.checkpoint import ckpt as tckpt
+    out = {}
+
+    def take(path, x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            x = x.contiguous().view(torch.uint8) if x.dim() else \
+                x.reshape(1).view(torch.uint8)
+            out[tckpt._path_key(path)] = bytes(x.numpy())
+        else:
+            out[tckpt._path_key(path)] = x
+
+    tckpt._map_with_path(take, tree)
+    return out
+
+
+def test_trainer_resumes_bit_for_bit(tmp_path):
+    """The fleet SOR step through the port's Trainer: 3 steps, a checkpoint,
+    then a Trainer on another state restores it and runs to 6; its losses
+    and its final state (params, moments, plane, ef, SOR ring and tick)
+    are those of 6 steps run straight, bit for bit."""
+    fs = TFleetSpec.sample(N_CHIPS, seed=0)
+
+    def trainer(steps, where, perturb=False):
+        _, tfn, _, ts, jcfg, (_, tscfg) = _fleet_pair("minicpm_tiny")
+        if perturb:
+            with torch.no_grad():
+                for p in tadamw.leaf_paths(ts["params"]):
+                    tadamw.get_path(ts["params"], p).add_(0.5)
+        return ttrainer.Trainer(
+            tfn, TSynth(TData(jcfg.vocab_size, 32, 4)),
+            ttrainer.TrainerConfig(total_steps=steps, ckpt_every=3,
+                                   ckpt_dir=str(tmp_path / where),
+                                   fleet=fs, sor=tscfg, device="cpu"), ts)
+
+    straight = trainer(6, "a")
+    straight.run()
+    first = trainer(3, "b")
+    first.run()
+    assert first.ckpt_writes == 1 and first.ckpt.list_steps() == [3]
+    resumed = trainer(6, "b", perturb=True)
+    assert resumed.maybe_restore() and resumed.start_step == 3
+    resumed.run()
+    assert [r.step for r in resumed.log.records] == [3, 4, 5]
+    assert [r.loss for r in resumed.log.records] == \
+        [r.loss for r in straight.log.records][3:]
+    assert resumed.state["sor"].tick == straight.state["sor"].tick == 6
+    assert _leaf_bits(resumed.state) == _leaf_bits(straight.state)
+    assert resumed.summary()["ckpt_writes"] == 1    # step 6
+    assert trainer(6, "empty").maybe_restore() is False
+
+
+def _scalar_pair(tmp_path, faults, ckpt_every, port_ckpt=True, steps=20):
+    """The reference's and the port's Trainer over the scalar step (tiny
+    MiniCPM, the same weights and batches) with the same FaultConfig."""
+    jcfg, tcfg, jparams, tparams = _pair("minicpm_tiny")
+    prof = dict(flops_per_chip=6e9, hbm_bytes_per_chip=1.4e7,
+                ici_bytes_per_chip=4e6, grad_bytes_per_chip=4e6)
+    jfn = jstep.jit_train_step(jstep.make_train_step(
+        jreg.build(jcfg).loss_fn, jadamw.AdamWConfig(), _sched(jwsd),
+        JProfile(**prof), jstep.StepConfig()), donate=False)
+    tfn = tstep.make_train_step(
+        treg.build(tcfg).loss_fn, tadamw.AdamWConfig(), _sched(twsd),
+        TProfile(**prof), tstep.StepConfig())
+    jplane, jef = jtrainer.initial_plane_and_ef(jparams)
+    tplane, tef = ttrainer.initial_plane_and_ef(tparams)
+    jt = jtrainer.Trainer(
+        jfn, JSynth(JData(jcfg.vocab_size, 32, 4)),
+        jtrainer.TrainerConfig(total_steps=steps, ckpt_every=ckpt_every,
+                               ckpt_dir=str(tmp_path / "ref"),
+                               async_ckpt=False,
+                               faults=jtrainer.FaultConfig(**faults)),
+        {"params": jparams, "opt": jadamw.init_state(
+            jparams, jadamw.AdamWConfig()), "plane": jplane, "ef": jef})
+    tt = ttrainer.Trainer(
+        tfn, TSynth(TData(jcfg.vocab_size, 32, 4)),
+        ttrainer.TrainerConfig(
+            total_steps=steps, ckpt_every=ckpt_every,
+            ckpt_dir=str(tmp_path / "port") if port_ckpt else None,
+            faults=ttrainer.FaultConfig(**faults), device="cpu"),
+        {"params": tparams, "opt": tadamw.init_state(
+            tparams, tadamw.AdamWConfig()), "plane": tplane, "ef": tef})
+    return jt, tt
+
+
+def _same_run(jt, tt):
+    jrec, trec = list(jt.log.records), list(tt.log.records)
+    assert [r.step for r in trec] == [r.step for r in jrec]
+    np.testing.assert_allclose([r.loss for r in trec],
+                               [r.loss for r in jrec], **LOSS_TOL)
+    assert tt.restarts == jt.restarts
+    assert tt.summary()["restarts"] == jt.summary()["restarts"]
+    _close_trees(tt.state["params"], jt.state["params"], LONG_PARAM_TOL,
+                 "params")
+
+
+def test_trainer_recovers_from_failures_like_reference(tmp_path):
+    """FaultConfig(fail_prob=0.15, seed=3) over 20 steps with a checkpoint
+    every 5 (the reference's recovery test): the same restarts, the same
+    logged steps (a failed span's steps again after the restore), losses
+    within LOSS_TOL and params within LONG_PARAM_TOL; the same checkpoint
+    writes."""
+    jt, tt = _scalar_pair(tmp_path, dict(fail_prob=0.15, seed=3), 5)
+    jt.run()
+    tt.run()
+    steps = [r.step for r in tt.log.records]
+    assert tt.restarts >= 1 and len(steps) > len(set(steps)) and \
+        steps[-1] == 19
+    _same_run(jt, tt)
+    assert tt.ckpt_writes == jt.ckpt_writes
+    assert tt.ckpt.list_steps() == jt.ckpt.list_steps()
+
+
+def test_trainer_failure_without_checkpoint_restarts_the_span(tmp_path):
+    """With no checkpoint to go back to, both trainers restart the span at
+    the step it began with the state as it stands (the reference's
+    recovery without a checkpoint), so the log repeats those steps."""
+    jt, tt = _scalar_pair(tmp_path, dict(fail_prob=0.2, seed=1), 100,
+                          port_ckpt=False, steps=8)
+    jt.run()
+    tt.run()
+    steps = [r.step for r in tt.log.records]
+    assert tt.restarts >= 1 and steps.count(0) == tt.restarts + 1
+    _same_run(jt, tt)
+    assert tt.ckpt is None and tt.ckpt_writes == 0
+
+
+def test_trainer_remaps_restored_plane_onto_new_fleet(tmp_path):
+    """An elastic restart onto a fleet of another size: the trainer
+    restores the old [3] plane and its SorState and remaps both onto its
+    own FleetSpec."""
+    from repro_torch.checkpoint import ckpt as tckpt
+    from repro_torch.core.power_plane import PowerPlaneState as TPlane
+    fs_old = TFleetSpec.sample(3, seed=1)
+    plane_old = dataclasses.replace(TPlane.from_fleet(fs_old, "cpu"),
+                                    v_io=torch.tensor([0.81, 0.82, 0.83]))
+    scfg = tsor.SorConfig(ingest="frames", rails=TRAILS)
+    sor_old = tsor.init_state(scfg, 3, device="cpu")
+    sor_old = dataclasses.replace(sor_old, estimate=dataclasses.replace(
+        sor_old.estimate, confidence=torch.full((3, 3), 0.5)), tick=4)
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    mgr.save(5, {"plane": plane_old, "params": {"w": torch.zeros(2)},
+                 "opt": {"step": torch.tensor(5, dtype=torch.int32)},
+                 "ef": {}, "sor": sor_old}, fleet=fs_old)
+    fs_new = TFleetSpec.sample(5, seed=2)
+    tr = ttrainer.Trainer(
+        None, None,
+        ttrainer.TrainerConfig(total_steps=10, ckpt_dir=str(tmp_path),
+                               fleet=fs_new, sor=scfg, device="cpu"),
+        {"plane": TPlane.from_fleet(fs_new, "cpu"),
+         "params": {"w": torch.zeros(2)},
+         "opt": {"step": torch.tensor(0, dtype=torch.int32)}, "ef": {},
+         "sor": tsor.init_state(scfg, 5, device="cpu")})
+    assert tr.maybe_restore() and tr.start_step == 5
+    plane = tr.state["plane"]
+    assert plane.n_chips == 5
+    np.testing.assert_allclose(plane.v_io[:3].numpy(), [0.81, 0.82, 0.83],
+                               rtol=1e-6)
+    np.testing.assert_array_equal(plane.v_io[3:].numpy(),
+                                  fs_new.v_io_nominal[3:])
+    sor = tr.state["sor"]
+    assert sor.history.chip_shape == (5,) and sor.tick == 4
+    assert (sor.estimate.confidence[:, :3] == 0.5).all()
+    assert (sor.estimate.confidence[:, 3:] == 0).all()
