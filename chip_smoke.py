@@ -15,7 +15,8 @@ script exits nonzero:
 2. kernels    - each kernel's wrapper at its paths' shapes (the Qwen serve
                 path for K1 alone and for its fused refit on the history
                 ring at every ring state of the CPU tests, 3 x 64 and
-                3 x 1024 lanes, beside the composed sequence it replaced
+                3 x 1024 and 3 x 4096 lanes (the routed fleets), beside the
+                composed sequence it replaced
                 and the harness's floor; the host path for K7, also at
                 windows 7 to 64; the Qwen and the Zamba2
                 serve paths for K2 and K3, the training path for K2 and
@@ -65,16 +66,37 @@ script exits nonzero:
                 the simulated PMBus fleet at 400 kHz; exact launch counts,
                 the host round's time (bus simulation, SOR observe), its
                 plane reads, the bus's `stats()` and the decode breakdown;
-7. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
-8. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
+7. tiny_routed - routed serving (`ServeEngine.serve_trace`) cuda against
+                cpu on the routed world of tests/test_torch_serve_trace.py
+                (16 chips; 8 for the half-pinned migration world and the
+                host controller): the ledger equal on every discrete field
+                where the CPU tests hold the port to the reference exactly,
+                energies and rails within ROUTED_RTOL, exact launches (K1's
+                refit, K7 on the host path); the headroom router in the
+                learned world: both finish, the SLO summary within
+                ROUTED_SUMMARY_REL, the first split reported, one tick from
+                the same state through both devices' tick functions, and the
+                fused ledger equal to the loop ledger on each device;
+8. main_routed - the routed world at 1024 chips (serve_scale's weak-scaled
+                trace, unbatched; serve_batching's forced-pin trace weak-
+                scaled, batch_cap 4 with the decode profile, draining and
+                with migrate_after_ticks 6) and at 4096 chips (unbatched),
+                fused: ticks, ticks/s, us a tick and chip, the SLO summary,
+                peak memory, K1's refit launches exactly (48 + ticks) // 4,
+                one tick's kernels, copies and syncs with and without a
+                refit; the host controller's loop path at 64 chips (K7
+                exactly); `launch/serve.py --arch qwen2p5_14b --fleet-chips
+                1024 --router headroom --batch-cap 4` at full width;
+9. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
+10. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
                 64 heads x 64, d_ff 14336, vocab 65536) as phase 5, with its
                 own exact launch counts (K9 32 per prefill and per decoded
                 token) and decode-step breakdown (K9's device ms and the
                 copy kernels a step: the wkv state is written in place);
-9. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
+11. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
                 an 8-token sliding window that the shared block's KV cache
                 wraps;
-10. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
+12. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
                 d_model 2048, 64 SSD heads x 64, state 64; the shared
                 attention + MLP block after every 6th layer, 32/32 heads
                 x 64, window 4096) as phase 5, with its own exact launch
@@ -82,19 +104,19 @@ script exits nonzero:
                 prefill, K3 6 per decoded token after the first) and
                 decode-step breakdown (K8's device ms and the copy kernels
                 a step: the ssm state is written in place);
-11. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+13. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
-12. tiny_train_host - tiny MiniCPM in f32, four scalar steps through
+14. tiny_train_host - tiny MiniCPM in f32, four scalar steps through
                 `Trainer.run` with a `HostRailController(PhaseAware())`
                 between steps, cuda against cpu: losses allclose, host
                 actuations and their bus seconds equal;
-13. tiny_train_ckpt - tiny MiniCPM in bf16, three fleet SOR steps on cuda
+15. tiny_train_ckpt - tiny MiniCPM in bf16, three fleet SOR steps on cuda
                 through `Trainer.run` with a checkpoint after the last:
                 restored by the port on the cpu and by a fresh cuda
                 `Trainer` (`maybe_restore`, its state from seed 1), every
                 leaf bit for bit the cuda state's;
-14. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+16. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -103,14 +125,14 @@ script exits nonzero:
                 summary, and a torch.profiler window of 2 steps (the
                 device ms per step of K2, K4 and K5 beside the top
                 kernels);
-15. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
+17. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
                 losses, grad_error, comp_level, the compressed gradient
                 and residual (g_hat + r', flipped codes) and params; the
                 fused ef pass exactly once per leaf per step, K10 alone
                 never;
-16. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 14,
+18. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 16,
                 the scalar step with the ef gradient sync and BERBounded:
                 one warm-up step, then 8 steps each of `ef_int8`,
                 `ef_int8_topk` and `auto` on the same state, launch counts
@@ -120,14 +142,14 @@ script exits nonzero:
                 torch.profiler window of 2 `ef_int8` steps with the fused
                 ef pass's device ms beside its bound, and K2's, K4's and
                 K5's;
-17. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
+19. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
                 one `forward_train` gradient (on the card K8's and K2's
                 forward, the plain scan's and K4/K5's backward; every
                 leaf within TINY_GRAD_TOL, launches exact), then three
-                fleet SOR steps through `Trainer.run` as phase 11, at a
+                fleet SOR steps through `Trainer.run` as phase 13, at a
                 sequence of 80 tokens (past the shared block's 64-token
                 window and K8's 64-step chunk);
-18. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
+20. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
                 x seq 256, per-layer remat (a Mamba2 layer and the shared
                 block after it under one checkpoint), f32 AdamW moments,
                 the 64-chip fleet with in-graph SOR: one warm-up step,
@@ -139,11 +161,11 @@ script exits nonzero:
                 forward, the scan's backward (the plain version re-run
                 and walked back, as the reference's custom_vjp does), K2,
                 the flash backward and the rest;
-19. tiny_train_rwkv - tiny RWKV6 as phase 17 (K9);
-20. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 18 (K9 2 x
+21. tiny_train_rwkv - tiny RWKV6 as phase 19 (K9);
+22. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 20 (K9 2 x
                 32 a step), with the reference's int8 AdamW moments: f32
                 ones need ~91 GB beside the bf16 weights;
-21. main_train_ckpt - Zamba2-1.2B as phase 18 trains it, from a fresh
+23. main_train_ckpt - Zamba2-1.2B as phase 20 trains it, from a fresh
                 state through `Trainer.run` with async checkpoints every 2
                 steps and after step 4 and one injected node failure
                 before step 3 (steps 0, 1, the save, 2, the failure, the
@@ -152,7 +174,7 @@ script exits nonzero:
                 on the card at the save and after the restore), the re-run
                 of step 2 equal to its first run (loss, plane and whole
                 state bits), restarts 1, writes 2, launches exact for 5
-                steps, peak memory within 1 GB of phase 18's; the
+                steps, peak memory within 1 GB of phase 20's; the
                 checkpoint's bytes, the save's host-blocking snapshot and
                 background write, the restore, free disk and host memory
                 (MiniCPM-2B's 46 GB checkpoints, two at once, do not fit
@@ -664,19 +686,26 @@ def floor_ms(flush) -> float:
 # therefore pads each window with PROFILE_PAD_S of host time, spends its
 # first kernel on a lead kernel that is not counted, counts only what
 # starts between two witness kernels around the call, and takes a window
-# that lost a witness again, at most PROFILE_TRIES times
+# that lost a witness again, at most PROFILE_TRIES times. After the routed
+# phases' thousands of small kernels and host copies the profiler dropped
+# more than a window's first kernel (a lost witness in every window on the
+# H100), so the lead is PROFILE_LEADS kernels
 PROFILE_PAD_S = 0.005
 PROFILE_TRIES = 5
+PROFILE_LEADS = 4
+# the copies `device_activity` splits out by direction (a Memset last)
+COPY_KINDS = ("HtoD", "DtoH", "DtoD", "Memset")
 
 
 def device_activity(call) -> dict:
     """What one `call` (after a warm-up call) puts on the card and asks of
     the host's CUDA runtime (torch.profiler): device kernels, device memory
-    copies, their summed device time (us), and the stream or device
+    copies (also by direction: COPY_KINDS), their summed device time (us),
+    and the stream or device
     synchronisations the host waited on, less those of profiling a call
     that does nothing (the profiler's own). Each window, padded with
-    PROFILE_PAD_S of host time at both ends, runs a lead kernel, a
-    witness kernel, the call and the witness again; the device events
+    PROFILE_PAD_S of host time at both ends, runs PROFILE_LEADS lead
+    kernels, a witness kernel, the call and the witness again; the device events
     that start between the two witnesses are the call's. A window that
     did not record both witnesses is taken again (PROFILE_TRIES);
     `retaken` counts those windows."""
@@ -693,7 +722,8 @@ def device_activity(call) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
-            lead.neg_()
+            for _ in range(PROFILE_LEADS):
+                lead.neg_()
             witness.neg_()
             fn()
             witness.neg_()
@@ -711,9 +741,9 @@ def device_activity(call) -> dict:
     for _ in range(PROFILE_TRIES):
         _, device = window(lambda: None)
         names = [e.name for e in device]
-        twice = {n for n in names if names.count(n) == 2}
-        if len(twice) == 1:
-            witness_kernel = twice.pop()
+        # around a call that does nothing the last kernel is the witness
+        if names and names.count(names[-1]) == 2:
+            witness_kernel = names[-1]
             break
         retaken += 1
         seen.append(names)
@@ -725,6 +755,7 @@ def device_activity(call) -> dict:
     def profiled(fn):
         nonlocal retaken
         fn()
+        lost = []
         for _ in range(PROFILE_TRIES):
             events, device = window(fn)
             marks = [i for i, e in enumerate(device)
@@ -732,13 +763,20 @@ def device_activity(call) -> dict:
             if len(marks) >= 2:
                 break
             retaken += 1
+            lost.append([e.name[:40] for e in device[:8]])
         else:
             raise RuntimeError("device_activity: torch.profiler lost a "
-                               f"witness in {PROFILE_TRIES} windows")
+                               f"witness in {PROFILE_TRIES} windows (the "
+                               f"first kernels recorded: {lost})")
         out = {"kernels": 0, "copies": 0, "device_us": 0.0, "syncs": 0}
+        out.update(dict.fromkeys(COPY_KINDS, 0))
         for e in device[marks[0] + 1:marks[-1]]:
-            out["copies" if e.name.startswith(("Memcpy", "Memset"))
-                else "kernels"] += 1
+            if e.name.startswith(("Memcpy", "Memset")):
+                out["copies"] += 1
+                out[next(k for k in COPY_KINDS if k in e.name or
+                         k == "Memset")] += 1
+            else:
+                out["kernels"] += 1
             out["device_us"] += getattr(e, "device_time", 0.0)
         out["syncs"] = sum("Synchronize" in e.name for e in events
                            if e.device_type != DeviceType.CUDA)
@@ -769,7 +807,8 @@ def check_sor_refit(dev, flush) -> dict:
     """K1's refit on cadence (`sor_refit`, one launch: the ring's window
     inputs, the sums, the solve, the blend) at each ring state of
     `tests/test_torch_inputs.RING_CASES` on the serve paths' 3 x 64 lanes
-    and on 3 x 1024: against its plain version, the composed tensor
+    and on 3 x 1024 and 3 x 4096 (the routed fleets): against its plain
+    version, the composed tensor
     sequence, on the card (confidence > 0 masks exactly, every field within
     K1's tolerance, rtol 1e-4 and atol 1e-6; torch's sums block the rows),
     and against the same sequence with its sums added in row order
@@ -782,7 +821,8 @@ def check_sor_refit(dev, flush) -> dict:
     path (torch's input preparation, K1 alone, torch's blend); host us a
     refit both ways (`sor.update_estimate` and the composed sequence); the
     device work and host syncs of one refit fused, composed and split
-    (`device_activity`); the harness's floor."""
+    (`device_activity`); the harness's floor; the refit's device ms at the
+    routed fleets' 3 x 1024 and 3 x 4096 lanes beside their bounds."""
     import torch
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_inputs import RING_CASES, ring_state
@@ -829,7 +869,7 @@ def check_sor_refit(dev, flush) -> dict:
     gap_plain = dict.fromkeys(REFIT_FIELDS, 0.0)
     gap_row = dict.fromkeys(REFIT_FIELDS, 0.0)
     gap_sums = dict.fromkeys(SUMS, 0.0)
-    for n_chips in (MAIN["chips"], 1024):
+    for n_chips in (MAIN["chips"], 1024, 4096):
         for case in RING_CASES:
             st = ring_state(case, n_chips)
             hist, cfg, old, args, kw = on_card(st)
@@ -879,6 +919,18 @@ def check_sor_refit(dev, flush) -> dict:
     if gap_row["confidence"] and not gap_row["n_eff"]:
         sources.append("expf against torch.exp")
 
+    # the routed fleets' refit (3 x 1024 and 3 x 4096 lanes), timed alone
+    routed = {}
+    for n_chips in (1024, 4096):
+        hist_r, cfg_r, _, args_r, kw_r = on_card(ring_state("mid", n_chips))
+        lanes = 3 * n_chips
+        routed[n_chips] = dict(
+            ms=time_ms(lambda: ft.sor_refit(*args_r, **kw_r), 100, flush),
+            bound_ms=bound_ms(4 * 2 * cfg_r.capacity * lanes
+                              + cfg_r.capacity * lanes + 4 * 10 * lanes
+                              + 4 * 3, 13 * cfg_r.capacity * lanes
+                              + 40 * lanes, "float32")[0])
+
     st = ring_state("mid", MAIN["chips"])      # the main path's SorConfig
     hist, cfg, old, args, kw = on_card(st)
     cap, n = cfg.capacity, 3 * MAIN["chips"]
@@ -911,7 +963,7 @@ def check_sor_refit(dev, flush) -> dict:
         gap_to_plain=gap_plain, gap_to_row_order=gap_row,
         bit_equal_to_row_order=not any(gap_row.values()),
         k7_sums_gap_to_row_order=gap_sums, library_gap_sources=sources,
-        checked=checked, shape=dict(capacity=cap, n=n))
+        routed_fleets=routed, checked=checked, shape=dict(capacity=cap, n=n))
 
 
 def check_flash_bwd(dev, flush) -> list[dict]:
@@ -3526,6 +3578,496 @@ def run_main_train_ef(dev) -> dict:
         launches=launches, profile=profile)
 
 
+# ---------------------------------------------------------------------------
+# phases tiny_routed and main_routed: routed serving (serve_trace)
+# ---------------------------------------------------------------------------
+
+# cuda against cpu on the routed world: energies and the plane's rails (f32
+# elementwise on equal inputs, summed in float64 on the host) within
+# ROUTED_RTOL; a tick's floors and headroom within FLOOR_ATOL (K1's refit
+# against its plain version on equal windows); discrete fields exactly
+ROUTED_RTOL = 1e-5
+ROUTED_SUMMARY_REL = 0.02      # the SLO summary where placements part
+ROUTED_CHIPS = (1024, 4096)    # serve_scale's largest fleet; weak scaling
+ROUTED_HOST_CHIPS = 64
+ROUTED_MIGRATE_AFTER = 6
+ROUTED_TICK_S = 0.0138         # a tick near the world's fleet-mean step
+ROUTED_MAX_TICKS = 1500        # past the weak-scaled trace's drain
+
+
+def routed_params(dev):
+    """Tiny MiniCPM weights on `dev`: `serve_trace` runs no forward, the
+    engine only needs them to exist."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = get_config("minicpm_2b", tiny=True)
+    return cfg, registry.build(cfg).init(torch.Generator(device=dev)
+                                         .manual_seed(0))
+
+
+def routed_run(dev, n_chips: int, *, router="headroom", control="learned",
+               batch_cap=None, decode=False, trace=None, max_ticks=900,
+               warm=True, **serve_kw):
+    """One routed run in the serve_router world on `dev` (fresh engine,
+    warm-up, `trace` or the weak-scaled one): (engine, ledger, seconds of
+    serve_trace, the world's observe)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.serve.router import HeadroomRouter, RoundRobinRouter
+    from repro_torch.serve.traffic import bursty_trace
+    cfg, params = routed_params(dev)
+    cap = ti.ROUTED_CAPACITY
+    eng = ti.routed_engine(
+        n_chips, dev, params=params, cfg=cfg,
+        router=(HeadroomRouter(capacity=cap) if router == "headroom"
+                else RoundRobinRouter(capacity=cap)),
+        decode_profile=(StepProfile(**ti.ROUTED_DECODE_PROFILE)
+                        if decode else None),
+        control=control, batch_cap=batch_cap)
+    observe = ti.routed_observe(eng.fleet_spec,
+                                ti.routed_noise(n_chips, max_ticks), dev)
+    if warm:
+        ti.routed_warm_up(eng, observe)
+    if trace is None:
+        kn = ti.routed_trace_knobs(n_chips)
+        trace = bursty_trace(kn.pop("n_requests"), **kn)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ledger = eng.serve_trace(trace, observe=observe, max_ticks=max_ticks,
+                             error_bound=ti.ROUTED_BOUND, **serve_kw)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return eng, ledger, time.perf_counter() - t0, observe
+
+
+def first_split(a, b):
+    """The first request placed at another time or on another chip in
+    ledger `b` than in `a`: (rid, placement tick of `a`), or None."""
+    for ra, rb in zip(a.records(), b.records()):
+        if (ra.t_placed_s, ra.chip) != (rb.t_placed_s, rb.chip):
+            return ra.rid, ra.t_placed_s
+    return None
+
+
+def routed_analog_gap(ea, la, eb, lb) -> float:
+    """The largest relative gap of the energies and the rails between two
+    routed runs; raises past ROUTED_RTOL."""
+    import numpy as np
+    pairs = [(la.fleet_energy_j, lb.fleet_energy_j),
+             (ea.stats.fleet_energy_j, eb.stats.fleet_energy_j)]
+    pairs += [(ra.energy_j, rb.energy_j)
+              for ra, rb in zip(la.records(), lb.records())]
+    worst = 0.0
+    for x, y in pairs:
+        worst = max(worst, abs(x - y) / max(abs(y), 1e-9))
+    for f in ("v_core", "v_hbm", "v_io", "energy_j"):
+        x = getattr(ea.plane, f).cpu().numpy().astype(np.float64)
+        y = getattr(eb.plane, f).cpu().numpy().astype(np.float64)
+        worst = max(worst, float((np.abs(x - y)
+                                  / np.maximum(np.abs(y), 1e-9)).max()))
+    if worst > ROUTED_RTOL:
+        raise AssertionError(f"routed analog gap {worst} > {ROUTED_RTOL}")
+    return worst
+
+
+def routed_tick_pair(cpu_eng, observe_cpu, observe_gpu, gpu_eng,
+                     refit: bool) -> dict:
+    """The cpu engine's plane and SOR state after its run, through the cpu
+    and the cuda tick functions with the same busy fraction and tick (a
+    control round that refits, or one that does not): the bundle's energy
+    and step-time rows within ROUTED_RTOL, floors and headroom within
+    FLOOR_ATOL, the over row exactly, the pinned rows exactly on every
+    lane whose held voltage is not within FLOOR_ATOL of either floor."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+
+    from repro_torch.core.power_plane import PowerPlaneState
+    from repro_torch.core.sor import SorEstimate, SorState
+    from repro_torch.core.telemetry import FrameHistory
+    n = cpu_eng.n_chips
+    st = cpu_eng._sor_state
+    every = cpu_eng.controller.sor.refresh_every
+    st = dataclasses.replace(st, tick=(st.tick // every) * every
+                             + (every - 1 if refit else 0))
+
+    def moved(dev):
+        plane = PowerPlaneState(**{
+            f.name: getattr(cpu_eng.plane, f.name).to(dev)
+            for f in dataclasses.fields(PowerPlaneState)})
+        h = st.history
+        hist = dataclasses.replace(h, **{
+            f: getattr(h, f).to(dev)
+            for f in ("v", "obs", "age_s", "polled", "valid")})
+        est = SorEstimate(*(getattr(st.estimate, f.name).to(dev)
+                            for f in dataclasses.fields(SorEstimate)))
+        return plane, SorState(history=hist, estimate=est, tick=st.tick)
+
+    busy = (np.random.default_rng(3).integers(0, 5, n) / 4).astype(
+        np.float32)
+    out = {}
+    for dev, eng, obs in (("cpu", cpu_eng, observe_cpu),
+                          ("cuda", gpu_eng, observe_gpu)):
+        fn = eng._build_serve_tick(obs, ROUTED_TICK_S, ti.ROUTED_BOUND)
+        plane, state = moved(dev)
+        _, s2, bundle, _, _ = fn(plane, state, torch.from_numpy(
+            busy).to(dev), 7)
+        out[dev] = bundle.cpu().numpy().astype(np.float64)
+        assert (s2.tick % every == 0) == refit
+    a, b = out["cpu"], out["cuda"]
+    rel = np.abs(a[:3] - b[:3]) / np.maximum(np.abs(a[:3]), 1e-12)
+    if rel.max() > ROUTED_RTOL:
+        raise AssertionError(f"tick rows 0-2 differ by {rel.max()}")
+    floor_gap = float(np.abs(a[4:10] - b[4:10]).max())
+    if floor_gap > FLOOR_ATOL:
+        raise AssertionError(f"tick floors/headroom differ by {floor_gap}")
+    if not np.array_equal(a[3], b[3]):
+        raise AssertionError("tick over rows differ")
+    near = (np.abs(a[7:10]) < FLOOR_ATOL) | (np.abs(b[7:10]) < FLOOR_ATOL)
+    if not np.array_equal(a[10:13][~near], b[10:13][~near]):
+        raise AssertionError("tick pinned rows differ off the floors")
+    return dict(refit=refit, rows_rel_gap=float(rel.max()),
+                floor_gap=floor_gap, pinned_equal=bool(np.array_equal(
+                    a[10:13], b[10:13])), lanes_at_floor=int(near.sum()))
+
+
+def run_tiny_routed() -> dict:
+    """Routed serving cuda against cpu on the 16-chip routed world (the
+    tests' worlds, tests/test_torch_serve_trace.py): where the CPU tests
+    hold the port to the reference exactly (the round-robin router in the
+    learned world, fused and loop, batch_cap 4; the headroom router in the
+    static world; the half-pinned migration world; the host controller
+    on the loop path at 8 chips), cuda's ledger equals cpu's on every
+    discrete field and the analog values within ROUTED_RTOL. The headroom
+    router in the learned world: both finish every request, the first
+    split (if any) is reported, the SLO summary within ROUTED_SUMMARY_REL,
+    and one tick from the same state through both devices' tick
+    functions (`routed_tick_pair`). The port's fused ledger equals its
+    loop ledger on cuda. No kernel but K1's refit (in-graph) and K7 (the
+    host controller's split fit) launches."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+
+    from repro_torch.core.policy import Policy, RailRequest
+    from repro_torch.kernels import ops
+    from repro_torch.serve.traffic import bursty_trace
+
+    def learned_trace(n_requests=24):
+        return bursty_trace(n_requests, seed=ti.ROUTED_SEED,
+                            quiet_rate_hz=8.0, burst_rate_hz=40.0,
+                            decode_mean=48.0)
+
+    class HalfPinned(Policy):
+        """Even chips pinned at the VDD_HBM floor, odd ones at nominal."""
+        name = "half-pinned"
+
+        def decide(self, state, frame):
+            import torch
+            even = torch.arange(state.v_hbm.shape[0],
+                                device=state.device) % 2 == 0
+            return RailRequest(v_hbm=torch.where(even, 0.0,
+                                                 frame.v_nom_hbm),
+                               reason="pinned-at-floor")
+
+    def half_pinned(dev):
+        from repro_torch.core.hwspec import FleetSpec
+        from repro_torch.core.power_plane import StepProfile
+        from repro_torch.serve.engine import ServeEngine
+        from repro_torch.serve.router import HeadroomRouter
+        cfg, params = routed_params(dev)
+        eng = ServeEngine(
+            cfg, params, max_len=24,
+            batch_size=2, prefill_profile=StepProfile(**ti.ROUTED_PROFILE),
+            decode_profile=StepProfile(**ti.ROUTED_DECODE_PROFILE),
+            fleet=FleetSpec.sample(8, seed=ti.ROUTED_SEED),
+            policy=HalfPinned(), batch_cap=4, device=dev,
+            router=HeadroomRouter(capacity=4, drain_pinned=False))
+        t0 = time.perf_counter()
+        led = eng.serve_trace(bursty_trace(
+            96, seed=ti.ROUTED_SEED, quiet_rate_hz=16.0, burst_rate_hz=80.0,
+            decode_mean=96.0), max_ticks=4000, migrate_after_ticks=6)
+        return eng, led, time.perf_counter() - t0, None
+
+    worlds = {
+        "learned-roundrobin-fused": lambda d: routed_run(
+            d, 16, router="roundrobin", trace=learned_trace()),
+        "learned-roundrobin-loop": lambda d: routed_run(
+            d, 16, router="roundrobin", trace=learned_trace(), fused=False),
+        "learned-roundrobin-batch4": lambda d: routed_run(
+            d, 16, router="roundrobin", trace=learned_trace(), batch_cap=4,
+            decode=True),
+        "static-headroom-fused": lambda d: routed_run(
+            d, 16, control="static", trace=learned_trace()),
+        "static-headroom-batch4": lambda d: routed_run(
+            d, 16, control="static", trace=learned_trace(), batch_cap=4,
+            decode=True),
+        "half-pinned-migrate": half_pinned,
+        "host-roundrobin-loop": lambda d: routed_run(
+            d, 8, router="roundrobin", control="host",
+            trace=learned_trace()),
+    }
+    out, failures = {}, []
+    for name, run in worlds.items():
+        ops.reset_launch_counts()
+        gpu, lg, s_gpu, _ = run("cuda")
+        launches = ops.launch_counts()
+        cpu, lc, s_cpu, _ = run("cpu")
+        a, b = ti.ledger_discrete(cpu, lc), ti.ledger_discrete(gpu, lg)
+        ticks = gpu.last_trace["ticks"]
+        if a != b:
+            split = first_split(lc, lg)
+            failures.append(f"{name}: cuda ledger differs from cpu in "
+                            f"{[k for k in a if a[k] != b[k]]}; first "
+                            f"split {split}; ticks {ticks} / "
+                            f"{cpu.last_trace['ticks']}")
+            continue
+        try:
+            gap = routed_analog_gap(gpu, lg, cpu, lc)
+        except AssertionError as e:
+            failures.append(f"{name}: {e}")
+            continue
+        want = {k: 0 for k in ops.KERNELS}
+        if name.startswith("host"):
+            want["sor_accumulate"] = (ti.ROUTED_WARMUP + ticks) // 4
+        elif name.startswith("learned"):
+            want["sor_refit"] = (ti.ROUTED_WARMUP + ticks) // 4
+        if launches != want:
+            failures.append(f"{name}: launches {launches} != {want}")
+            continue
+        s = lg.summary()
+        out[name] = dict(equal=True, analog_rel_gap=gap, ticks=ticks,
+                         completed=s["completed"],
+                         migrations=s["migrations"],
+                         degraded_chip_ticks=gpu.last_trace[
+                             "degraded_chip_ticks"],
+                         launches={k: v for k, v in launches.items() if v},
+                         cuda_s=s_gpu, cpu_s=s_cpu)
+    if not out.get("half-pinned-migrate", {}).get("migrations", 1):
+        failures.append("the half-pinned world migrated nothing")
+
+    # the headroom router in the learned world: placements may part at a
+    # near-tie of the learned floors (K1's refit against its plain version)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        for fused in (True, False):
+            eng, led, _, obs = routed_run(dev, 16, trace=learned_trace(),
+                                          fused=fused)
+            runs[dev, fused] = (eng, led, obs)
+    for dev in ("cpu", "cuda"):
+        (ef, lf, _), (el, ll, _) = runs[dev, True], runs[dev, False]
+        if ti.ledger_discrete(ef, lf) != ti.ledger_discrete(el, ll):
+            raise AssertionError(f"tiny_routed {dev}: fused ledger differs "
+                                 f"from the loop ledger")
+    (ec, lc, oc), (eg, lg, og) = runs["cpu", True], runs["cuda", True]
+    sc, sg = lc.summary(), lg.summary()
+    if not sc["completed"] == sg["completed"] == len(lc):
+        raise AssertionError("tiny_routed learned headroom: unfinished")
+    rel = {k: abs(sg[k] - sc[k]) / abs(sc[k])
+           for k in ("tokens_per_joule", "p50_latency_s", "p95_latency_s",
+                     "p99_latency_s", "fleet_energy_j")}
+    if max(rel.values()) > ROUTED_SUMMARY_REL:
+        raise AssertionError(f"tiny_routed learned headroom: summary "
+                             f"{rel}")
+    split = first_split(lc, lg)
+    ticks = [routed_tick_pair(ec, oc, og, eg, refit)
+             for refit in (False, True)]
+    out["learned-headroom"] = dict(
+        fused_equals_loop=True, summary_rel_gap=rel,
+        first_split=(None if split is None else dict(
+            rid=split[0], t_s=split[1],
+            tick=round(split[1] / ec.last_trace["tick_s"]))),
+        completed=sg["completed"], tick_pairs=ticks)
+    if failures:
+        raise AssertionError("tiny_routed: " + "; ".join(failures)
+                             + f" (passed: {json.dumps(out)})")
+    return out
+
+
+def routed_tick_activity(eng, observe, refit: bool) -> dict:
+    """What one fused tick puts on the card and asks of the host, as the
+    trace loop runs it: the busy fraction's host-to-device copy, the tick
+    function, the bundle's device-to-host copy (`device_activity`), on a
+    control round that refits (K1) or one that does not; and its host
+    microseconds (`host_us`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+    fn = eng._serve_tick_jit(observe, ROUTED_TICK_S, ti.ROUTED_BOUND)
+    st = eng._sor_state
+    every = eng.controller.sor.refresh_every
+    st = dataclasses.replace(st, tick=(st.tick // every) * every
+                             + (every - 1 if refit else 0))
+    # as the trace loop sends it: from pinned memory, without a sync
+    busy = torch.from_numpy((np.arange(eng.n_chips) % 5 / 4).astype(
+        np.float32)).pin_memory()
+
+    def call():
+        _, _, bundle, _, _ = fn(eng.plane, st, busy.to(
+            eng.device, non_blocking=True), 0)
+        return bundle.cpu().numpy()
+
+    return dict(device_activity(call), host_us=host_us(call, 20, 3))
+
+
+# the process `routed_tick_activity` reads one tick in: torch.profiler, in a
+# process that has run the earlier phases and the routed traces, dropped
+# more than a window's PROFILE_LEADS first kernels (every window, on the
+# H100), so the tick is read in a fresh process
+ROUTED_TICK_FLAG = "--routed-tick"
+
+
+def run_routed_tick(dev, n_chips: int) -> dict:
+    """One fused tick of the routed world at `n_chips`, after the warm-up
+    and a few routed ticks: `routed_tick_activity` without and with K1's
+    refit. Runs as `python3 chip_smoke.py --routed-tick N`."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+
+    from repro_torch.serve.traffic import bursty_trace
+    eng, _, _, obs = routed_run(dev, n_chips, max_ticks=20,
+                                trace=bursty_trace(
+                                    n_chips, seed=ti.ROUTED_SEED))
+    return {"hold": routed_tick_activity(eng, obs, False),
+            "refit": routed_tick_activity(eng, obs, True)}
+
+
+def routed_tick_in_fresh_process(n_chips: int) -> dict:
+    """`run_routed_tick` in a process of its own (ROUTED_TICK_FLAG)."""
+    done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           ROUTED_TICK_FLAG, str(n_chips)],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise RuntimeError(f"routed tick process failed: "
+                           f"{done.stderr[-2000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def run_main_routed(dev) -> dict:
+    """Routed serving at fleet size on the card: the serve_router world
+    (learned, the headroom router, capacity 4, 48 warm-up rounds) at 1024
+    chips with serve_scale's weak-scaled trace, unbatched; then
+    `batch_cap=4` with serve_batching's decode profile on its forced-pin
+    (saturating) trace weak-scaled to 1024 chips, draining only and with
+    `migrate_after_ticks=6` (migration must move lanes); at 4096 chips
+    unbatched (fused); per run the
+    ticks, ticks/s, us a tick and a tick and chip, the SLO ledger's
+    summary, peak device memory, K1's refit launches exactly (48 + ticks)
+    // 4 and no other kernel, and (1024, 4096 unbatched) one tick's
+    kernels, copies and syncs with and without a refit, read in a fresh
+    process (`routed_tick_in_fresh_process`). Then the host
+    controller's routed loop path at 64 chips (K7 exactly (48 + ticks) //
+    4 launches, K1 none), and `launch/serve.py --arch qwen2p5_14b
+    --fleet-chips 1024 --router headroom --batch-cap 4` in-process at full
+    width and depth (its profiles from the full model's parameter count;
+    no learning, so no kernel)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_inputs as ti
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve.traffic import bursty_trace
+
+    def one(label, n, expect_kernel, **kw):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        eng, led, secs, _ = routed_run(dev, n, max_ticks=ROUTED_MAX_TICKS,
+                                       **kw)
+        launches = ops.launch_counts()
+        ticks = eng.last_trace["ticks"]
+        want = {k: 0 for k in ops.KERNELS}
+        want[expect_kernel] = (ti.ROUTED_WARMUP + ticks) // 4
+        if launches != want:
+            raise AssertionError(f"main_routed {label}: launches "
+                                 f"{launches} != {want}")
+        s = led.summary()
+        if not 0 < s["completed"] <= len(led):
+            raise AssertionError(f"main_routed {label}: completed "
+                                 f"{s['completed']}")
+        for k in ("fleet_energy_j", "tokens_per_joule", "p99_latency_s"):
+            if not math.isfinite(s[k]):
+                raise AssertionError(f"main_routed {label}: {k} = {s[k]}")
+        row = dict(n_chips=n, requests=len(led), ticks=ticks,
+                   serve_trace_s=secs, ticks_per_s=ticks / secs,
+                   us_per_tick=secs / ticks * 1e6,
+                   us_per_tick_per_chip=secs / ticks / n * 1e6,
+                   launches={k: v for k, v in launches.items() if v},
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   trace=eng.last_trace,
+                   slo={k: s[k] for k in (
+                       "completed", "placed", "defers", "defers_by_reason",
+                       "tokens_out", "fleet_energy_j", "tokens_per_joule",
+                       "p50_latency_s", "p95_latency_s", "p99_latency_s",
+                       "mean_queue_s", "migrations", "migration_stall_s")})
+        by_path[f"serve-routed-{label}"] = launches
+        return row
+
+    out, by_path = {}, {}
+    for n in ROUTED_CHIPS:
+        out[f"{n}"] = one(f"{n}", n, "sor_refit")
+        out[f"{n}"]["per_tick"] = routed_tick_in_fresh_process(n)
+    n = ROUTED_CHIPS[0]
+    kn = ti.routed_migration_knobs(n)
+    saturating = bursty_trace(kn.pop("n_requests"), **kn)
+    for label, kw in (("batch4", dict(batch_cap=4, decode=True)),
+                      ("batch4_migrate", dict(
+                          batch_cap=4, decode=True,
+                          migrate_after_ticks=ROUTED_MIGRATE_AFTER))):
+        out[f"{n}_{label}"] = one(f"{n}-{label}", n, "sor_refit",
+                                  trace=saturating, **kw)
+    if not out[f"{n}_batch4_migrate"]["trace"]["migrations"]:
+        raise AssertionError("main_routed: migration moved no lane")
+    out[f"host_{ROUTED_HOST_CHIPS}"] = one(
+        f"host-{ROUTED_HOST_CHIPS}", ROUTED_HOST_CHIPS, "sor_accumulate",
+        control="host", router="roundrobin")
+
+    # the launcher at full width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, led = launch_serve.main(["--arch", "qwen2p5_14b", "--fleet-chips",
+                                  "1024", "--router", "headroom",
+                                  "--batch-cap", "4"])
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"launcher: launches {launches}")
+    s = led.summary()
+    if s["completed"] != len(led) or not math.isfinite(
+            s["tokens_per_joule"]):
+        raise AssertionError(f"launcher: {s}")
+    from repro_torch.models.lm import tree_leaves
+    out["launcher_qwen2p5_14b_1024"] = dict(
+        params=sum(a.numel() for a in tree_leaves(eng.params)),
+        seconds=launcher_s, ticks=eng.last_trace["ticks"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        slo={k: s[k] for k in ("completed", "tokens_per_joule",
+                               "p50_latency_s", "p99_latency_s")})
+    by_path["serve-routed-launcher"] = launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, by_path=by_path)
+
+
 def sm90_hgmma(lib: Path) -> dict:
     """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each
     instantiation of the sm90 attention kernels (K2's forward, K4's dq,
@@ -3567,6 +4109,12 @@ def main() -> int:
 
     from repro_torch.kernels import _build, ops
 
+    if sys.argv[1:2] == [ROUTED_TICK_FLAG]:     # run_routed_tick's process
+        _build.build()
+        _build.load()
+        emit(run_routed_tick(dev, int(sys.argv[2])))
+        return 0
+
     t0 = time.perf_counter()
     lib = _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3603,6 +4151,12 @@ def main() -> int:
     emit({"phase": "main_host", **result})
     del result, params
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
+
+    emit({"phase": "tiny_routed", **run_tiny_routed()})
+    result = run_main_routed(dev)
+    by_path.update(result.pop("by_path"))
+    emit({"phase": "main_routed", **result})
+    del result
 
     for tiny, phase, path, spec in (
             ("tiny_rwkv", "main_rwkv", "serve-rwkv", RWKV),

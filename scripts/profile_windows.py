@@ -19,8 +19,8 @@ torch.quantile, the means). For each:
   negation, the call, an int16 bitwise not): how many windows recorded
   each marker, and the median lag (us) from each recorded marker's launch
   on the host to its start on the card, both on the profiler's clock;
-- `witnessed`: `--calls` readings of `chip_smoke.device_activity` (a
-  lead kernel first, the call between two witness kernels, a window that
+- `witnessed`: `--calls` readings of `chip_smoke.device_activity` (its
+  lead kernels first, the call between two witness kernels, a window that
   lost a witness taken again): each distinct reading of kernels / copies
   / syncs and how many windows were taken again in all.
 

@@ -140,6 +140,38 @@ def pinned_rails(plane: PowerPlaneState, request: RailRequest | None,
     return {name: masks[i].copy() for i, name in enumerate(names)}
 
 
+def pinned_lane_masks(plane: PowerPlaneState, request: RailRequest | None,
+                      rail_map: RailMap = TPU_V5E_RAIL_MAP,
+                      envelope: Any = None, atol: float = 1e-4
+                      ) -> torch.Tensor:
+    """`[n_rails, n_chips]` bool tensor on the plane's device in
+    `RAIL_LANES` order: the `pinned_rails` masks, with all-False rows for
+    rails the request left alone (no request, no pinning claim). No host
+    copy: the fused serve tick packs these rows into its one host bundle,
+    and `.any(0)` is the in-graph `pinned_chip_mask`."""
+    n = plane.n_chips
+    rows = []
+    for name in RAIL_LANES:
+        pinned = _pinned_lane(plane, request, name, envelope, rail_map,
+                              atol)
+        rows.append(torch.zeros(n, dtype=torch.bool, device=plane.device)
+                    if pinned is None
+                    else torch.atleast_1d(pinned).expand(n))
+    return torch.stack(rows)
+
+
+def pinned_chip_mask(plane: PowerPlaneState, request: RailRequest | None,
+                     rail_map: RailMap = TPU_V5E_RAIL_MAP,
+                     envelope: Any = None, atol: float = 1e-4) -> np.ndarray:
+    """[n_chips] bool on the host: chips pinned on any requested rail, the
+    drain mask headroom routing keeps new work off (serve/router.py)."""
+    out = np.zeros(plane.n_chips, bool)
+    for mask in pinned_rails(plane, request, rail_map, envelope,
+                             atol).values():
+        out |= mask
+    return out
+
+
 def worst_chip_pinned(plane: PowerPlaneState, request: RailRequest | None,
                       rail_map: RailMap = TPU_V5E_RAIL_MAP,
                       envelope: Any = None, atol: float = 1e-4) -> bool:

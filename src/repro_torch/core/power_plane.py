@@ -61,6 +61,29 @@ class PowerPlaneState:
             step=i(0))
 
     @staticmethod
+    def fleet(n_chips: int, spec: "ChipSpec | FleetSpec" = V5E,
+              device="cuda") -> "PowerPlaneState":
+        """State of an `n_chips` fleet: with a plain `ChipSpec` every chip
+        starts at the shared nominal point, with a `FleetSpec` at its own
+        process-varied nominals."""
+        if isinstance(spec, FleetSpec):
+            if spec.n_chips != n_chips:
+                raise ValueError(f"FleetSpec has {spec.n_chips} chips, "
+                                 f"asked for {n_chips}")
+            return PowerPlaneState.from_fleet(spec, device)
+        # ones * nominal, as the reference spells it (an f32 multiply)
+        ones = torch.ones(n_chips, dtype=torch.float32, device=device)
+        return PowerPlaneState(
+            v_core=ones * spec.nominal_v_core,
+            v_hbm=ones * spec.nominal_v_hbm,
+            v_io=ones * spec.nominal_v_io,
+            comp_level=torch.full((n_chips,), ecollectives.LEVEL_LOSSLESS,
+                                  dtype=torch.int32, device=device),
+            energy_j=torch.zeros(n_chips, dtype=torch.float32,
+                                 device=device),
+            step=torch.zeros(n_chips, dtype=torch.int32, device=device))
+
+    @staticmethod
     def from_fleet(fleet: FleetSpec, device="cuda") -> "PowerPlaneState":
         """Fleet state with every chip at its own per-chip nominal point.
         The rails are copies of the FleetSpec's arrays (a CPU tensor made
@@ -89,6 +112,15 @@ class PowerPlaneState:
     def n_chips(self) -> int:
         return int(self.v_core.shape[0]) if self.is_fleet else 1
 
+    def chip(self, i: int) -> "PowerPlaneState":
+        """Scalar view of chip `i` of a fleet state."""
+        if not self.is_fleet:
+            if i != 0:
+                raise IndexError("scalar state has exactly one chip")
+            return self
+        return PowerPlaneState(**{f.name: getattr(self, f.name)[i]
+                                  for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass(frozen=True)
 class StepProfile:
@@ -103,12 +135,17 @@ def _freq_scale(v, v_nom):
     return torch.clamp(v / v_nom, min=0.4)
 
 
-def _nominals(spec: ChipSpec, variation: dict | None):
-    """(v_core_nom, v_hbm_nom, v_io_nom, leak_scale) — spec scalars, or the
-    per-chip tensors of a FleetSpec variation."""
+def _nominals(spec: ChipSpec, variation: dict | None, device):
+    """(v_core_nom, v_hbm_nom, v_io_nom, leak_scale) — the spec's nominals
+    as f32 scalars on `device`, or the per-chip tensors of a FleetSpec
+    variation. The scalars are device tensors, not Python numbers: the
+    card divides a tensor by a Python number as a multiply by its f32
+    reciprocal, which parts from the CPU's (and the reference's) true
+    division in the last bit."""
     if variation is None:
-        return (_f32(spec.nominal_v_core), _f32(spec.nominal_v_hbm),
-                _f32(spec.nominal_v_io), 1.0)
+        return (as_f32(_f32(spec.nominal_v_core), device),
+                as_f32(_f32(spec.nominal_v_hbm), device),
+                as_f32(_f32(spec.nominal_v_io), device), 1.0)
     return (variation["v_core_nom"], variation["v_hbm_nom"],
             variation["v_io_nom"], variation["leak_scale"])
 
@@ -122,7 +159,8 @@ def step_terms(profile: StepProfile, state: PowerPlaneState,
                spec: ChipSpec = V5E, k_fraction: float = 0.25,
                variation: dict | None = None):
     """Three roofline terms (seconds) under the current rail state."""
-    v_core_nom, v_hbm_nom, v_io_nom, _ = _nominals(spec, variation)
+    v_core_nom, v_hbm_nom, v_io_nom, _ = _nominals(spec, variation,
+                                                   state.device)
     f_core = _freq_scale(state.v_core, v_core_nom)
     f_hbm = _freq_scale(state.v_hbm, v_hbm_nom)
     f_io = _freq_scale(state.v_io, v_io_nom)
@@ -164,11 +202,50 @@ def step_time_s(profile: StepProfile, state: PowerPlaneState,
     return overlap * t_max + (1.0 - overlap) * t_sum
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShares:
+    """How much of each roofline term a continuous-batching decode batch
+    shares across its resident lanes (1.0: one copy of the work serves
+    every lane; 0.0: the term scales linearly with the batch). Decode FLOPs
+    are per token; the HBM term is mostly the weights read, amortized over
+    every lane; collectives carry mostly weight-sharded traffic with a
+    per-lane activation tail."""
+    flops: float = 0.0
+    hbm: float = 0.9
+    ici: float = 0.7
+
+
+def batched_lane_time_s(t_comp, t_mem, t_coll, lanes,
+                        shares: BatchShares = BatchShares(),
+                        overlap: float = 1.0) -> torch.Tensor:
+    """Per-lane step time of a `lanes`-deep continuous decode batch from
+    the single-lane roofline terms: each term grows by its unshared
+    fraction per extra lane,
+
+        t_term' = t_term * (1 + (1 - share_term) * (b - 1)),  b = max(lanes, 1)
+
+    and the terms recombine as in `step_time_s`. At b == 1 every scale
+    factor is exactly 1.0f, so the result is bitwise `step_time_s` on the
+    same terms (the serve engine's batch_cap=1 oracle): the f32 arithmetic
+    is spelled in the reference's order."""
+    b = torch.clamp(as_f32(lanes, t_comp.device), min=1.0)
+    extra = b - 1.0
+    tc = t_comp * (1.0 + _f32(1.0 - shares.flops) * extra)
+    tm = t_mem * (1.0 + _f32(1.0 - shares.hbm) * extra)
+    tl = t_coll * (1.0 + _f32(1.0 - shares.ici) * extra)
+    t_max = torch.maximum(tc, torch.maximum(tm, tl))
+    t_sum = tc + tm + tl
+    return overlap * t_max + (1.0 - overlap) * t_sum
+
+
 def chip_power_w(state: PowerPlaneState, util_mxu, util_hbm, util_ici,
                  spec: ChipSpec = V5E,
                  variation: dict | None = None) -> torch.Tensor:
-    """Rail-resolved chip power (the reference's `chip_power_w_jnp`)."""
-    v_core_nom, v_hbm_nom, v_io_nom, leak = _nominals(spec, variation)
+    """Rail-resolved chip power. The reference spells it
+    `chip_power_w_jnp` (`repro/core/power_plane.py`); this is the same
+    function under the port's name."""
+    v_core_nom, v_hbm_nom, v_io_nom, leak = _nominals(spec, variation,
+                                                      state.device)
     sv_core = state.v_core / v_core_nom
     sv_hbm = state.v_hbm / v_hbm_nom
     sv_io = state.v_io / v_io_nom
@@ -210,17 +287,30 @@ def fleet_variation(fleet: FleetSpec, device) -> dict[str, torch.Tensor]:
     return {k: as_f32(v, device) for k, v in fleet.variation().items()}
 
 
+def fleet_nominals(variation: dict) -> dict[str, torch.Tensor]:
+    """The frame's per-chip nominal anchors, from a `fleet_variation`."""
+    return {"v_nom_core": variation["v_core_nom"],
+            "v_nom_hbm": variation["v_hbm_nom"],
+            "v_nom_io": variation["v_io_nom"]}
+
+
 def account_step_fleet(profile: StepProfile, state: PowerPlaneState,
                        spec: "ChipSpec | FleetSpec" = V5E,
-                       overlap: float = 1.0):
+                       overlap: float = 1.0,
+                       variation: dict | None = None):
     """`account_step` over a `[n_chips]` state; with a `FleetSpec` each chip
-    is accounted at its own process-varied nominals."""
+    is accounted at its own process-varied nominals. `variation` may carry
+    `fleet_variation(spec, device)` built once by the caller (a loop that
+    accounts every tick): the FleetSpec's arrays are then not copied to the
+    device again. The results are the same either way."""
     if isinstance(spec, FleetSpec):
         if spec.n_chips != state.n_chips:
             raise ValueError(f"FleetSpec has {spec.n_chips} chips but the "
                              f"state has {state.n_chips}")
+        if variation is None:
+            variation = fleet_variation(spec, state.device)
         return account_step(profile, state, spec.base, overlap,
-                            variation=fleet_variation(spec, state.device))
+                            variation=variation)
     return account_step(profile, state, spec, overlap)
 
 
@@ -243,17 +333,33 @@ def account_and_observe(profile: StepProfile, state: PowerPlaneState,
 
 def account_fleet_and_observe(profile: StepProfile, state: PowerPlaneState,
                               spec: "ChipSpec | FleetSpec" = V5E,
-                              overlap: float = 1.0):
+                              overlap: float = 1.0,
+                              variation: dict | None = None):
     """`account_step_fleet` returning (state', frame, metrics): the EXACT
     `[n_chips]` observation, anchored to each chip's process-varied nominal
-    voltages when `spec` is a `FleetSpec`."""
+    voltages when `spec` is a `FleetSpec`. A prebuilt `variation` (see
+    `account_step_fleet`) also supplies those anchors, so a call makes no
+    host-to-device copy."""
     from repro_torch.core.telemetry import TelemetryFrame
-    new, metrics = account_step_fleet(profile, state, spec, overlap)
     nominals = None
     if isinstance(spec, FleetSpec):
-        dev = state.device
-        nominals = {"v_nom_core": as_f32(spec.v_core_nominal, dev),
-                    "v_nom_hbm": as_f32(spec.v_hbm_nominal, dev),
-                    "v_nom_io": as_f32(spec.v_io_nominal, dev)}
+        if variation is None:
+            variation = fleet_variation(spec, state.device)
+        nominals = fleet_nominals(variation)
+    new, metrics = account_step_fleet(profile, state, spec, overlap,
+                                      variation=variation)
     frame = TelemetryFrame.from_account(new, metrics, nominals=nominals)
     return new, frame, metrics
+
+
+def fleet_summary(state: PowerPlaneState) -> dict[str, torch.Tensor]:
+    """Fleet-level reductions of a batched state (worst/best chip and
+    totals), as device tensors."""
+    if not state.is_fleet:
+        raise ValueError("fleet_summary needs a batched ([n_chips]) state")
+    return {
+        "v_core_min": state.v_core.min(), "v_core_max": state.v_core.max(),
+        "v_io_min": state.v_io.min(), "v_io_max": state.v_io.max(),
+        "energy_total_j": state.energy_j.sum(),
+        "comp_level_min": state.comp_level.min(),
+    }

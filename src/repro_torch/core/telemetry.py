@@ -248,7 +248,10 @@ class FrameHistory:
 
         def put(buf, x):
             buf = buf.clone()
-            buf[self.cursor] = x
+            if isinstance(x, float):
+                buf[self.cursor].fill_(x)   # no host tensor to copy over
+            else:
+                buf[self.cursor] = x
             return buf
 
         # unknown staleness (NaN) records as +inf: zero weight under

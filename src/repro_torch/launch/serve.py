@@ -1,8 +1,11 @@
-"""Serving launcher: batched prefill + decode with the power plane (port of
-`repro/launch/serve.py`, the `generate` path).
+"""Serving launcher: batched prefill + decode with the power plane, or a
+routed traffic trace over the fleet (port of `repro/launch/serve.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2p5_14b \
         --tiny --max-new 32 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2p5_14b \
+        --tiny --fleet-chips 16 --router headroom [--batch-cap 4] \
+        [--migrate-after-ticks 6] [--device cpu]
 
 Any ported architecture serves through it: the dense family (Qwen2.5,
 MiniCPM), the ssm family (`--arch rwkv6_7b`, whose decode cache is the
@@ -12,11 +15,19 @@ sliding-window attention block with a KV cache per occurrence).
 
 Weights are random, drawn on the device from seed 0, as the JAX launcher
 draws them. Unlike the JAX launcher, `--tiny` is honoured: without it the
-full configuration is built.
+full configuration is built (its parameter count sizes the roofline
+profiles).
 `--control-path host` serves with the SW-path analogue,
 `HostRailController(policy, n_chips=max(fleet_chips, 1))`: decisions
-between steps, actuated through the simulated PMBus fleet. Routed serving
-(`--router`) is not ported yet.
+between steps, actuated through the simulated PMBus fleet.
+`--router headroom|roundrobin` routes a seeded bursty trace
+(`--trace-requests`, `--trace-seed`) over the fleet instead of running
+`generate` and prints the per-request SLO ledger's summary: a 0.02 s tick,
+at most span / tick + 400 ticks, pinned chips kept eligible (the launcher
+world has no error telemetry, so every chip walks to its policy floor and
+reads as pinned). `--tick-path` picks the fused tick or the per-tick loop,
+`--batch-cap` continuous batching over that many lanes a chip,
+`--migrate-after-ticks` in-flight migration (headroom router only).
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ from repro_torch.core.power_plane import StepProfile
 from repro_torch.models import lm, registry
 from repro_torch.models.common import resolve_device
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.router import HeadroomRouter, RoundRobinRouter
+from repro_torch.serve.traffic import bursty_trace
 
 
 def main(argv=None):
@@ -52,11 +65,50 @@ def main(argv=None):
                          "process variation (0 = scalar single-chip)")
     ap.add_argument("--fleet-seed", type=int, default=0)
     ap.add_argument("--router", choices=("none", "headroom", "roundrobin"),
-                    default="none")
+                    default="none",
+                    help="route a seeded bursty traffic trace over the "
+                         "fleet by per-rail voltage headroom (or the "
+                         "round-robin baseline) instead of running "
+                         "generate(); needs --fleet-chips")
+    ap.add_argument("--trace-requests", type=int, default=48,
+                    help="requests in the bursty trace (--router only)")
+    ap.add_argument("--trace-seed", type=int, default=0)
+    ap.add_argument("--tick-path", choices=("auto", "fused", "loop"),
+                    default="auto",
+                    help="serve tick path (--router only): 'fused' the "
+                         "one-function tick, 'loop' the per-tick host "
+                         "loop, 'auto' fused for in-graph controllers")
+    ap.add_argument("--fast-forward", action="store_true",
+                    help="skip idle tick gaps (empty queue, no resident "
+                         "work) by jumping simulated time to the next "
+                         "arrival; fused tick path only")
+    ap.add_argument("--batch-cap", type=int, default=0,
+                    help="continuous batching: each chip decodes a "
+                         "token-level batch over up to BATCH_CAP resident "
+                         "lanes at the shared-roofline per-lane rate "
+                         "(0 = the full-rate-per-slot model; --router "
+                         "only; the cap becomes the router's capacity)")
+    ap.add_argument("--migrate-after-ticks", type=int, default=0,
+                    help="in-flight migration: move a chip's resident "
+                         "decode lanes after its pinned/over-bound flag "
+                         "held this many consecutive ticks (0 = off; "
+                         "needs --router headroom)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.router != "none":
-        raise NotImplementedError("--router is not yet ported")
+    if args.batch_cap < 0:
+        ap.error(f"--batch-cap must be >= 0, got {args.batch_cap}")
+    if args.migrate_after_ticks < 0:
+        ap.error(f"--migrate-after-ticks must be >= 0, got "
+                 f"{args.migrate_after_ticks}")
+    if args.batch_cap and args.router == "none":
+        ap.error("--batch-cap batches a router's lanes; pass --router "
+                 "headroom (or roundrobin)")
+    if args.migrate_after_ticks and args.router != "headroom":
+        ap.error("--migrate-after-ticks needs the headroom router's "
+                 "migration planner; pass --router headroom")
+    if args.router != "none" and not args.fleet_chips:
+        raise SystemExit("--router places work across a fleet; pass "
+                         "--fleet-chips N")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, tiny=args.tiny)
@@ -73,19 +125,51 @@ def main(argv=None):
                   if args.control_path == "in-graph"
                   else HostRailController(policy,
                                           n_chips=max(args.fleet_chips, 1)))
+    router = None
+    if args.router != "none":
+        # the launcher world has no error telemetry, so every chip walks to
+        # its policy floor and reads as pinned: a drain-pinned router would
+        # shed the whole trace, so pinned chips stay eligible here.
+        # --batch-cap sets the lane capacity (lanes are the router's
+        # slots); without it --batch slots a chip
+        lanes = args.batch_cap or args.batch
+        router = (HeadroomRouter(capacity=lanes, drain_pinned=False)
+                  if args.router == "headroom"
+                  else RoundRobinRouter(capacity=lanes))
     engine = ServeEngine(
         cfg, params, max_len=args.prompt_len + args.max_new + 8,
         batch_size=args.batch,
         prefill_profile=StepProfile(2.0 * n * args.batch * args.prompt_len,
                                     2.0 * n, 0.0),
         decode_profile=StepProfile(2.0 * n * args.batch, 2.0 * n, 0.0),
-        controller=controller, fleet=fleet,
-        device=device)
+        controller=controller, fleet=fleet, router=router,
+        batch_cap=args.batch_cap or None, device=device)
+    if router is not None:
+        trace = bursty_trace(args.trace_requests, seed=args.trace_seed)
+        # a serving-scale tick so the seconds-long trace spans hundreds of
+        # ticks; the run ends by the trace span plus drain slack, so a
+        # saturated fleet reports unplaced work instead of spinning
+        tick_s = 0.02
+        span = trace.requests[-1].t_arrival_s if trace.requests else 0.0
+        fused = {"auto": None, "fused": True, "loop": False}[args.tick_path]
+        ledger = engine.serve_trace(trace, tick_s=tick_s,
+                                    max_ticks=int(span / tick_s) + 400,
+                                    fused=fused,
+                                    fast_forward=args.fast_forward,
+                                    migrate_after_ticks=(
+                                        args.migrate_after_ticks or None))
+        print(f"{cfg.name} ({n/1e6:.1f}M): routed {len(trace)} requests "
+              f"over {engine.n_chips} chips ({args.router})")
+        print("trace:", engine.last_trace)
+        print("slo:", ledger.summary())
+        print("summary:", engine.summary())
+        return engine, ledger
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     out = engine.generate(prompts, max_new_tokens=args.max_new)
     print(f"{cfg.name} ({n/1e6:.1f}M): generated {out.shape} tokens")
     print("summary:", engine.summary())
+    return engine, out
 
 
 if __name__ == "__main__":

@@ -18,12 +18,26 @@ Everything lives on the engine's device ("cuda" unless the caller asks
 for the CPU). Per step the host reads back what the reference reads: the
 fleet-mean energy and step time (`scalar_view`) and, with `eos_id`, the
 end-of-sequence check (a host controller adds its own reads of the
-plane). Routed serving (`serve_trace`, `router=`,
-`batch_cap=`) and the sharded control round (`mesh=`) are not ported yet.
+plane).
+
+Routed serving (`router=`, `serve_trace`): a seeded traffic trace is
+placed over the fleet by per-rail voltage headroom (`serve/router.py`) in
+simulated time, no model forward. The fused path runs one tick function a
+tick (accounting, the caller's observables, the control round, the
+busy/idle energy rescale, the rate and over-bound flags), eager tensor code
+whose one device-to-host copy is the packed bundle and whose one
+host-to-device copy is the tick's busy fraction; slot bookkeeping is numpy
+over `[n_chips, capacity]` lanes. The per-tick host loop is kept as the
+oracle the fused path is held against, and is the only path a
+`HostRailController` runs. `batch_cap=` makes each chip a continuous decode
+batch over its lanes; `migrate_after_ticks=` moves resident decode lanes
+off chips that stay pinned or over the error bound. The sharded control
+round (`mesh=`) is not ported yet.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any
 
@@ -32,18 +46,29 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sor as sor_mod
-from repro_torch.core.control_plane import (InGraphRailController,
-                                            as_controller, pinned_rails,
-                                            sor_summary_of, with_sor)
+from repro_torch.core.control_plane import (RAIL_LANES,
+                                            InGraphRailController,
+                                            _run_policy, as_controller,
+                                            pinned_lane_masks, pinned_rails,
+                                            rail_floors, sor_summary_of,
+                                            with_sor)
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.policy import WorstChipGate
-from repro_torch.core.power_plane import (PowerPlaneState, StepProfile,
+from repro_torch.core.power_plane import (BatchShares, PowerPlaneState,
+                                          StepProfile, _f32,
                                           account_and_observe,
                                           account_fleet_and_observe,
+                                          as_f32, batched_lane_time_s,
+                                          chip_power_w, fleet_variation,
                                           step_time_s)
+from repro_torch.core.rails import TPU_V5E_RAIL_MAP
 from repro_torch.core.telemetry import scalar_view
 from repro_torch.models import registry
 from repro_torch.models.common import resolve_device
+
+# the per-rail failure observables a routed tick reads back (the over-bound
+# goodput-degrade signal): the caller's observe() extras and grad_error
+_OBS_KEYS = ("grad_error", "straggle_rate", "hbm_error_rate")
 
 
 @dataclasses.dataclass
@@ -68,13 +93,14 @@ class ServeEngine:
                  fleet: FleetSpec | None = None,
                  sor: "sor_mod.SorConfig | None" = None,
                  admission_gate: bool = False,
-                 router=None, mesh=None, batch_cap: "int | None" = None,
+                 router=None, mesh=None,
+                 shard_control: "bool | None" = None,
+                 batch_cap: "int | None" = None,
+                 batch_shares: "BatchShares | None" = None,
                  device="cuda"):
-        for name, value in (("router", router), ("mesh", mesh),
-                            ("batch_cap", batch_cap)):
-            if value is not None:
-                raise NotImplementedError(f"ServeEngine({name}=...) is not "
-                                          f"yet ported")
+        if mesh is not None or shard_control:
+            raise NotImplementedError("ServeEngine(mesh=...) is not yet "
+                                      "ported: the sharded control round")
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type or (
@@ -111,9 +137,42 @@ class ServeEngine:
         self.admission_gate = admission_gate
         self.last_shed_reason: str | None = None
         self._last_pinned_rails: list[str] = []
+        # headroom-aware placement (serve/router.py): serve_trace() routes a
+        # traffic trace over the fleet by per-rail voltage headroom
+        self.router = router
+        if router is not None and fleet is None:
+            raise ValueError("router= places work across a fleet; pass "
+                             "fleet=FleetSpec (n_chips=1 degenerates to the "
+                             "plain engine)")
+        self.last_trace: dict | None = None
+        # continuous batching: batch_cap=B makes each chip a token-level
+        # decode batch over its B resident lanes (the lanes are the
+        # router's slots, so the cap equals the router's capacity); None
+        # keeps the full-rate-per-slot model, and batch_cap=1 is exactly
+        # that model (the rate is bitwise the base model at b=1), so both
+        # build the unbatched tick
+        if batch_cap is not None:
+            if router is None:
+                raise ValueError("batch_cap batches a chip's resident "
+                                 "lanes; pass router= (the lanes are the "
+                                 "router's slots)")
+            if batch_cap < 1:
+                raise ValueError(f"batch_cap must be >= 1, got {batch_cap}")
+            if batch_cap != router.capacity:
+                raise ValueError(
+                    f"batch_cap={batch_cap} must equal the router's "
+                    f"capacity ({router.capacity}) — lanes are the "
+                    f"router's slots, one number describes both")
+        self.batch_cap = batch_cap
+        self.batch_shares = batch_shares or BatchShares()
+        self._batched = batch_cap is not None and batch_cap > 1
+        if batch_shares is not None and batch_cap is None:
+            raise ValueError("batch_shares= tunes the batched rate model; "
+                             "pass batch_cap= as well")
         self.prefill_profile = prefill_profile or StepProfile(1e9, 1e9, 0.0)
         self.decode_profile = decode_profile or StepProfile(1e8, 1e9, 0.0)
         self.stats = ServeStats()
+        self._tick_cache: dict = {}   # (observe id, tick_s, bound) -> tick
 
     @property
     def n_chips(self) -> int:
@@ -214,6 +273,622 @@ class ServeEngine:
                 break
         return torch.cat(out, dim=1).cpu().numpy()
 
+    # -- routed serving ------------------------------------------------------
+
+    def serve_trace(self, trace, *, max_ticks: int = 20_000,
+                    observe=None, tick_s: "float | None" = None,
+                    error_bound: float = 5e-3, degrade: float = 0.5,
+                    prefill_speedup: float = 8.0,
+                    fused: "bool | None" = None,
+                    fast_forward: bool = False,
+                    migrate_after_ticks: "int | None" = None,
+                    migrate_stall_s_per_token: float = 1e-3):
+        """Route a seeded traffic trace (`serve/traffic.py`) over the fleet
+        and return the per-request SLO ledger (`serve/router.py`).
+
+        A modeled continuous-batching loop in simulated time; no model
+        forward runs. Each tick:
+
+        1. arrivals with `t_arrival_s <= now` join the FIFO queue;
+        2. the fleet is accounted (`account_fleet_and_observe`) and the
+           caller's `observe(plane, frame, tick, busy_frac)` overlays the
+           per-rail failure observables;
+        3. the controller runs one round (SOR learning included);
+        4. per-rail headroom and the pinned-chip drain mask feed the
+           router, which places queued requests head-of-line FIFO (a
+           request it cannot place defers: reason `capacity` when every
+           slot is full, `pinned-drain` when only pinned chips had room);
+        5. resident requests progress at their chip's modeled rate
+           (`tick_s / t_step_chip` decode tokens a tick, prefill
+           `prefill_speedup` x faster); a chip whose observables sit over
+           `error_bound` delivers `degrade` of its rate;
+        6. energy is accounted busy/idle-blended per chip into the ledger
+           and the engine stats, each resident request charged its share
+           of its chip's busy energy.
+
+        `fused=None` resolves to the fused tick for in-graph controllers
+        (and controller-less engines) and to the per-tick host loop for a
+        host-actuated controller; `fused=False` forces the loop, the oracle
+        the fused ledger is held against. `fast_forward=True` (fused only)
+        jumps simulated time to the next arrival while the fleet is idle
+        and the queue empty; the skipped ticks run no accounting and no
+        control round. `migrate_after_ticks=K` (fused, headroom router)
+        moves a chip's resident decode lanes after its pinned/over flag
+        held K consecutive ticks, each paying a KV-transfer stall of
+        `migrate_stall_s_per_token` per token processed so far. `tick_s`
+        defaults to the fleet-mean decode step time at the current
+        operating point. Deterministic given (trace, observe, controller):
+        ties break on the lowest chip index."""
+        if self.router is None:
+            raise ValueError("serve_trace needs the engine built with "
+                             "router= (HeadroomRouter or RoundRobinRouter)")
+        if self.fleet_spec is None:
+            raise ValueError("serve_trace routes over a fleet plane; pass "
+                             "fleet=FleetSpec")
+        from repro_torch.serve.router import RequestLedger
+        # routers carry placement state (the round-robin cursor): reset it
+        # so back-to-back traces on one engine place identically
+        reset = getattr(self.router, "reset", None)
+        if callable(reset):
+            reset()
+        if fused is None:
+            fused = (self.controller is None
+                     or isinstance(self.controller, InGraphRailController))
+        if fused and self.controller is not None and not isinstance(
+                self.controller, InGraphRailController):
+            raise ValueError(
+                "fused=True runs the control round inside the serve "
+                "tick; a host-actuated controller (PMBus path) needs "
+                "fused=False")
+        if fast_forward and not fused:
+            raise ValueError("fast_forward rides the fused tick path; "
+                             "drop fused=False (or the host controller)")
+        if self._batched and not fused:
+            raise ValueError(
+                "continuous batching (batch_cap >= 2) rides the fused "
+                "tick path — the loop path is kept as the batch-cap=1 "
+                "semantics oracle; drop fused=False")
+        if migrate_after_ticks is not None:
+            if migrate_after_ticks < 1:
+                raise ValueError(f"migrate_after_ticks must be >= 1, got "
+                                 f"{migrate_after_ticks}")
+            if not fused:
+                raise ValueError("migration rides the fused tick path; "
+                                 "drop fused=False")
+            if not callable(getattr(self.router, "plan_migration", None)):
+                raise ValueError(
+                    "migrate_after_ticks needs a router with a migration "
+                    "planner (HeadroomRouter.plan_migration) — the "
+                    "round-robin baseline is headroom-blind and cannot "
+                    "pick destinations")
+        if tick_s is None:
+            tick_s = float(scalar_view(
+                step_time_s(self.decode_profile, self.plane)))
+        ledger = RequestLedger()
+        arrivals = sorted(trace, key=lambda r: (r.t_arrival_s, r.rid))
+        kw = dict(max_ticks=max_ticks, observe=observe, tick_s=tick_s,
+                  error_bound=error_bound, degrade=degrade,
+                  prefill_speedup=prefill_speedup)
+        if fused:
+            return self._serve_trace_fused(
+                arrivals, ledger, fast_forward=fast_forward,
+                migrate_after_ticks=migrate_after_ticks,
+                migrate_stall_s_per_token=migrate_stall_s_per_token, **kw)
+        return self._serve_trace_loop(arrivals, ledger, **kw)
+
+    # -- fused path: one tick function a tick, vectorized host bookkeeping --
+
+    def _serve_tick_jit(self, observe, tick_s: float, error_bound: float):
+        """The cached tick function for this (observe, tick_s, error_bound)
+        world (the reference jits it under this name; here it is built
+        once, with the fleet's variation on the device, and reused)."""
+        key = (id(observe), float(tick_s), float(error_bound))
+        fn = self._tick_cache.get(key)
+        if fn is None:
+            fn = self._build_serve_tick(observe, tick_s, error_bound)
+            self._tick_cache[key] = fn
+        return fn
+
+    def _build_serve_tick(self, observe, tick_s: float, error_bound: float):
+        """One serve tick as eager tensor code: accounting -> observe
+        overlay -> control round -> busy/idle energy rescale -> per-chip
+        rate and over-bound flags. Returns `tick(plane, sor_state,
+        busy_frac, tick) -> (plane', sor_state', bundle, request, env)`
+        where `bundle` is the packed `[13, n_chips]` f32 tensor: rows 0-3
+        `e_tick`, `e_busy`, `t_step`, `over`; rows 4-6 the per-rail
+        floors; rows 7-9 the per-rail headroom; rows 10-12 the per-rail
+        pinned masks (`RAIL_LANES` order). A batching engine (`batch_cap
+        >= 2`) grows it to `[15, n_chips]`: row 13 the batch depth the rate
+        was computed at (`max(round(busy_frac * batch_cap), 1)`) and row
+        14 the batched per-lane step time (`batched_lane_time_s`). The
+        tick reads nothing back from the device: its caller copies the
+        bundle to the host once. The fleet's variation is built on the
+        device here, once per tick function."""
+        spec = self.fleet_spec
+        dev = self.device
+        variation = fleet_variation(spec, dev)
+        profile = self.decode_profile
+        c = self.controller
+        n = self.n_chips
+        rail_map = (getattr(c, "rail_map", TPU_V5E_RAIL_MAP)
+                    if c is not None else TPU_V5E_RAIL_MAP)
+        use_sor = (c is not None and getattr(c, "sor", None) is not None
+                   and hasattr(c, "control_step_sor"))
+        ts = _f32(tick_s)
+        bound = _f32(error_bound)
+        batched = self._batched
+        cap = float(self.batch_cap) if batched else None
+        shares = self.batch_shares
+
+        def _b(x):
+            return torch.atleast_1d(as_f32(x, dev)).expand(n)
+
+        def tick(plane, sor_state, busy_frac, tick_idx):
+            plane, frame, m = account_fleet_and_observe(
+                profile, plane, spec, variation=variation)
+            if observe is not None:
+                frame = observe(plane, frame, tick_idx, busy_frac)
+            request = env = None
+            if c is None:
+                pass
+            elif use_sor:
+                plane, sor_state, request, env = c.control_round(
+                    plane, frame, sor_state)
+            else:
+                plane, request = _run_policy(c.policy, plane, frame,
+                                             rail_map)
+            # busy/idle-blended energy: accounting assumed every chip fully
+            # busy; rescale to this tick's occupancy (idle slots burn
+            # static and uncore power only) and rewrite the accumulator
+            p_busy = m["power_w"]
+            p_idle = chip_power_w(plane, 0.0, 0.0, 0.0, spec.base,
+                                  variation=variation)
+            p_eff = p_idle + (p_busy - p_idle) * busy_frac
+            e_tick = p_eff * ts
+            plane = dataclasses.replace(
+                plane, energy_j=plane.energy_j - m["energy_step_j"]
+                + e_tick)
+            over = torch.zeros(n, dtype=torch.bool, device=dev)
+            for key in _OBS_KEYS:
+                v = frame.get(key)
+                if v is None:
+                    continue
+                a = _b(v)
+                over = over | (~torch.isnan(a) & (a > bound))
+            floors = rail_floors(plane, env, rail_map)
+            held = torch.stack([_b(getattr(plane, f))
+                                for f in ("v_core", "v_hbm", "v_io")])
+            pinned = pinned_lane_masks(plane, request, rail_map,
+                                       envelope=env)
+            rows = [
+                torch.stack([_b(e_tick), _b((p_eff - p_idle) * ts),
+                             _b(m["t_step_s"]), over.to(torch.float32)]),
+                floors,
+                held - floors,
+                pinned.to(torch.float32),
+            ]
+            if batched:
+                # the batch depth from the busy fraction (occ / cap is
+                # exact in f32 for occ <= cap; round removes the dust) and
+                # the shared-roofline per-lane step time it implies
+                b_eff = torch.clamp(torch.round(_b(busy_frac) * cap),
+                                    min=1.0)
+                t_lane = batched_lane_time_s(
+                    _b(m["t_comp_s"]), _b(m["t_mem_s"]), _b(m["t_coll_s"]),
+                    b_eff, shares)
+                rows.append(torch.stack([b_eff, t_lane]))
+            return plane, sor_state, torch.cat(rows), request, env
+
+        return tick
+
+    def _serve_trace_fused(self, arrivals, ledger, *, max_ticks, observe,
+                           tick_s, error_bound, degrade, prefill_speedup,
+                           fast_forward, migrate_after_ticks=None,
+                           migrate_stall_s_per_token=1e-3):
+        """The fused serve loop: a tick is one call of the tick function,
+        one host-to-device copy (the busy fraction) and one device-to-host
+        copy (the bundle); slot progress and finish bookkeeping run as
+        numpy `[n_chips, capacity]` lane arrays. A batching engine reads
+        its per-lane rate from the bundle's grown rows; migration (when
+        armed) re-places decode-phase lanes off chips whose pinned/over
+        flag held K ticks, before placement sees the tick's queue."""
+        from repro_torch.serve.router import headroom_from_packed
+        n = self.n_chips
+        cap = self.router.capacity
+        c = self.controller
+        use_sor = (c is not None and getattr(c, "sor", None) is not None
+                   and hasattr(c, "control_step_sor"))
+        if use_sor and self._sor_state is None:
+            self._sor_state = c.init_sor(n if self.plane.is_fleet else None,
+                                         device=self.device)
+        tick_fn = self._serve_tick_jit(observe, tick_s, error_bound)
+
+        n_req = len(arrivals)
+        arr_t = np.asarray([r.t_arrival_s for r in arrivals], np.float64)
+        req_prefill = np.asarray([r.prefill_tokens for r in arrivals],
+                                 np.int64)
+        req_decode = np.asarray([r.decode_tokens for r in arrivals],
+                                np.int64)
+        # per-request busy-energy accumulator, charged to the ledger once
+        # at trace end: one float64 add per resident tick in tick order,
+        # float-equal to the loop path's per-tick ledger.charge
+        energy_acc = np.zeros(n_req, np.float64)
+        charged = np.zeros(n_req, bool)
+
+        slot_req = np.full((n, cap), -1, np.int64)   # arrival index; -1 free
+        slot_prefill = np.zeros((n, cap), np.float64)
+        slot_decode = np.zeros((n, cap), np.float64)
+        # KV-transfer stall left per lane (seconds): a migrated lane
+        # occupies its destination but makes no progress until it drains
+        slot_stall = np.zeros((n, cap), np.float64)
+        migrating = migrate_after_ticks is not None
+        streak = np.zeros(n, np.int64)   # consecutive pinned/over ticks
+        n_migrations = 0
+
+        pending: collections.deque = collections.deque()  # arrival indices
+        ai = 0
+        t = 0.0
+        max_occ = 0
+        degraded_ticks = 0
+        resident_degraded_ticks = 0
+        ticks_run = 0
+        ff_ticks = 0
+        # the busy fraction goes to the card from one pinned buffer without
+        # a stream sync; the buffer is rewritten only after the bundle's
+        # read has synchronized the stream, so the last copy has landed
+        on_card = self.device.type == "cuda"
+        busy_host = torch.empty(n, dtype=torch.float32, pin_memory=on_card)
+
+        for tick in range(max_ticks):
+            active = slot_req >= 0
+            resident = bool(active.any())
+            if ai >= n_req and not pending and not resident:
+                break
+            if (fast_forward and not pending and not resident
+                    and ai < n_req and arr_t[ai] > t):
+                # idle fleet, empty queue: jump simulated time to the first
+                # on-grid tick that reaches the next arrival
+                k = int(np.ceil((arr_t[ai] - t) / tick_s))
+                t += k * tick_s
+                ff_ticks += k
+            ticks_run += 1
+            while ai < n_req and arrivals[ai].t_arrival_s <= t:
+                ledger.admit(arrivals[ai])
+                pending.append(ai)
+                ai += 1
+            occ = active.sum(axis=1)
+            busy_host.numpy()[:] = np.minimum(occ.astype(np.float64),
+                                              cap) / cap
+            busy_frac = (busy_host.to(self.device, non_blocking=True)
+                         if on_card else busy_host.clone())
+
+            self.plane, self._sor_state, bundle, request, env = tick_fn(
+                self.plane, self._sor_state, busy_frac, tick)
+            if c is not None:
+                c.last_request = request
+                c.last_envelope = env
+            b = bundle.cpu().numpy().astype(np.float64)   # the one copy
+            e_np, e_busy, t_step = b[0], b[1], b[2]
+            over = b[3] > 0.5
+            headroom = headroom_from_packed(b[7:10])
+            pinned_rows = b[10:13] > 0.5
+            pinned = pinned_rows.any(axis=0)
+            # batching engines progress lanes at the per-lane step time of
+            # row 14; unbatched (and batch_cap=1) engines keep the base step
+            # time: the same host arithmetic either way
+            t_rate = b[14] if self._batched else t_step
+
+            self.stats.energy_j += float(e_np.mean())
+            self.stats.fleet_energy_j += float(e_np.sum())
+            self.stats.model_time_s += tick_s
+            ledger.tick_energy(float(e_np.sum()))
+            if resident:
+                chips, slots = np.nonzero(active)
+                idx = slot_req[chips, slots]
+                np.add.at(energy_acc, idx, e_busy[chips] / occ[chips])
+                charged[idx] = True
+                resident_degraded_ticks += int((over & (occ > 0)).sum())
+
+            # in-flight migration: a chip whose pinned/over flag held K
+            # consecutive ticks hands its decode-phase lanes to the
+            # planner, most decode left first; each migrated lane pays a
+            # token-proportional stall at its destination. Runs before
+            # placement, so this tick's admits see the moved occupancy.
+            if migrating:
+                streak = np.where(pinned | over, streak + 1, 0)
+                trig = streak >= migrate_after_ticks
+                cand = (active & trig[:, None] & (slot_prefill <= 0)
+                        if trig.any() else None)
+                if cand is not None and cand.any():
+                    c_chips, c_slots = np.nonzero(cand)
+                    left = slot_decode[c_chips, c_slots]
+                    order = np.lexsort(
+                        (slot_req[c_chips, c_slots], -left))
+                    reqs = [arrivals[int(slot_req[c_chips[k], c_slots[k]])]
+                            for k in order]
+                    dests = self.router.plan_migration(
+                        reqs, occ, headroom, pinned=pinned, exclude=trig)
+                    for k, dst in zip(order, dests):
+                        if dst is None:
+                            continue
+                        src_c, src_s = int(c_chips[k]), int(c_slots[k])
+                        i = int(slot_req[src_c, src_s])
+                        d_slot = int(np.argmin(slot_req[dst]))  # first free
+                        done_tokens = (req_prefill[i] + req_decode[i]
+                                       - slot_decode[src_c, src_s])
+                        stall_s = float(migrate_stall_s_per_token
+                                        * done_tokens)
+                        slot_req[dst, d_slot] = i
+                        slot_prefill[dst, d_slot] = 0.0
+                        slot_decode[dst, d_slot] = slot_decode[src_c, src_s]
+                        slot_stall[dst, d_slot] = stall_s
+                        slot_req[src_c, src_s] = -1
+                        slot_stall[src_c, src_s] = 0.0
+                        active[dst, d_slot] = True
+                        active[src_c, src_s] = False
+                        occ[dst] += 1
+                        occ[src_c] -= 1
+                        ledger.migrate(arrivals[i].rid, t, src_c, int(dst),
+                                       stall_s=stall_s,
+                                       src_streak=int(streak[src_c]))
+                        n_migrations += 1
+                if trig.any():
+                    # triggered chips had their turn (or nothing to move);
+                    # re-arm after another K hot ticks
+                    streak[trig] = 0
+
+            # placement: the whole pending queue in one router pass, FIFO
+            # head-of-line; an unplaceable head defers once and blocks the
+            # queue behind it
+            if pending:
+                placed = self.router.place_batch(
+                    [arrivals[i] for i in pending], occ, headroom, pinned)
+                for chip in placed:
+                    i = pending.popleft()
+                    ledger.place(arrivals[i].rid, t, chip)
+                    slot = int(np.argmin(slot_req[chip]))   # first free
+                    slot_req[chip, slot] = i
+                    slot_prefill[chip, slot] = float(
+                        arrivals[i].prefill_tokens)
+                    slot_decode[chip, slot] = float(
+                        arrivals[i].decode_tokens)
+                    slot_stall[chip, slot] = 0.0
+                    active[chip, slot] = True
+                    occ[chip] += 1
+                if pending:
+                    reason = ("capacity" if bool((occ >= cap).all())
+                              else "pinned-drain")
+                    ledger.defer(arrivals[pending[0]].rid, reason, tick_s)
+                    self.stats.decode_sheds += 1
+                    self.stats.sheds_by_reason[reason] = (
+                        self.stats.sheds_by_reason.get(reason, 0) + 1)
+                    if reason == "pinned-drain":
+                        for lane, rail in enumerate(RAIL_LANES):
+                            if pinned_rows[lane].any():
+                                self.stats.sheds_by_rail[rail] = (
+                                    self.stats.sheds_by_rail.get(rail, 0)
+                                    + 1)
+                    self.stats.defer_time_s += tick_s
+            max_occ = max(max_occ, int(occ.max()) if n else 0)
+
+            # progress: batched decode over the lane arrays; over-bound
+            # chips deliver degraded goodput this tick
+            rate = tick_s / np.maximum(t_rate, 1e-12)
+            if over.any():
+                degraded_ticks += int(over.sum())
+            rate = np.where(over, rate * degrade, rate)
+            t_end = t + tick_s
+            rate2d = np.broadcast_to(rate[:, None], (n, cap))
+            if migrating:
+                # migrated lanes sit out their stall: they occupy (and count
+                # toward the batch) but advance nothing until it drains
+                stalled = active & (slot_stall > 0)
+                if stalled.any():
+                    slot_stall[stalled] -= tick_s
+                    active = active & ~stalled
+            in_prefill = active & (slot_prefill > 0)
+            if in_prefill.any():
+                slot_prefill[in_prefill] -= (rate2d[in_prefill]
+                                             * prefill_speedup)
+                pf_done = in_prefill & (slot_prefill <= 0)
+                if pf_done.any():
+                    self.stats.prefill_tokens += int(
+                        req_prefill[slot_req[pf_done]].sum())
+            # a slot whose prefill crossed zero this tick decodes only from
+            # the next tick (the loop path's `continue`)
+            in_decode = active & ~in_prefill
+            if in_decode.any():
+                slot_decode[in_decode] -= rate2d[in_decode]
+                fin = in_decode & (slot_decode <= 0)
+                if fin.any():
+                    for chip, slot in zip(*np.nonzero(fin)):
+                        i = slot_req[chip, slot]
+                        self.stats.decode_tokens += int(req_decode[i])
+                        ledger.finish(arrivals[i].rid, t_end,
+                                      tokens_out=int(req_decode[i]))
+                    slot_req[fin] = -1
+            t = t_end
+
+        for i in np.nonzero(charged)[0]:
+            ledger.charge(arrivals[int(i)].rid, float(energy_acc[i]))
+
+        self.last_trace = {
+            "router": getattr(self.router, "name",
+                              type(self.router).__name__),
+            "ticks": ticks_run, "tick_s": tick_s,
+            "max_occupancy": max_occ, "capacity": cap,
+            "degraded_chip_ticks": degraded_ticks,
+            "resident_degraded_ticks": resident_degraded_ticks,
+            "unplaced": len(pending),
+            "unfinished": int((slot_req >= 0).sum()),
+            "fused": True,
+            "fast_forward_ticks": ff_ticks,
+            "batch_cap": self.batch_cap,
+            "migrations": n_migrations,
+        }
+        return ledger
+
+    # -- loop path: the per-tick host loop (the fused path's oracle) --------
+
+    def _serve_trace_loop(self, arrivals, ledger, *, max_ticks, observe,
+                          tick_s, error_bound, degrade, prefill_speedup):
+        """The per-tick host loop: accounting, one control round and
+        scattered device reads a tick, per-slot dict bookkeeping. Kept as
+        the semantics oracle the fused path is held against, and the only
+        path host-actuated (PMBus) controllers run."""
+        from repro_torch.serve.router import rail_headroom
+        n = self.n_chips
+        cap = self.router.capacity
+        spec = self.fleet_spec
+        variation = fleet_variation(spec, self.device)
+        account = lambda p: account_fleet_and_observe(
+            self.decode_profile, p, spec, variation=variation)
+        p_idle_fn = lambda p: chip_power_w(
+            p, 0.0, 0.0, 0.0, spec.base, variation=variation)
+        host = lambda x: x.cpu().numpy().astype(np.float64)
+
+        ai = 0
+        pending: collections.deque = collections.deque()
+        running: list[list[dict]] = [[] for _ in range(n)]
+        t = 0.0
+        max_occ = 0
+        degraded_ticks = 0
+        ticks_run = 0
+
+        for tick in range(max_ticks):
+            if ai >= len(arrivals) and not pending \
+                    and not any(running):
+                break
+            ticks_run += 1
+            while ai < len(arrivals) and arrivals[ai].t_arrival_s <= t:
+                ledger.admit(arrivals[ai])
+                pending.append(arrivals[ai])
+                ai += 1
+            occ = np.array([len(r) for r in running], np.float64)
+            busy_frac = torch.from_numpy(
+                (np.minimum(occ, cap) / cap).astype(np.float32)).to(
+                    self.device)
+
+            self.plane, frame, m = account(self.plane)
+            if observe is not None:
+                frame = observe(self.plane, frame, tick, busy_frac)
+            self._control_tick(frame)
+
+            # busy/idle-blended energy: the accounting above assumed every
+            # chip fully busy; rescale its step energy to this tick's
+            # occupancy and rewrite the plane's accumulator to match
+            p_busy = m["power_w"]
+            p_idle = p_idle_fn(self.plane)
+            p_eff = p_idle + (p_busy - p_idle) * busy_frac
+            e_tick = p_eff * _f32(tick_s)
+            self.plane = dataclasses.replace(
+                self.plane,
+                energy_j=self.plane.energy_j - m["energy_step_j"] + e_tick)
+            e_np = host(e_tick)
+            e_busy = host((p_eff - p_idle) * _f32(tick_s))
+            self.stats.energy_j += float(e_np.mean())
+            self.stats.fleet_energy_j += float(e_np.sum())
+            self.stats.model_time_s += tick_s
+            ledger.tick_energy(float(e_np.sum()))
+            for i in range(n):
+                if running[i]:
+                    share = e_busy[i] / len(running[i])
+                    for slot in running[i]:
+                        ledger.charge(slot["req"].rid, share)
+
+            # placement: headroom and the drain mask from the round just
+            # run, FIFO with head-of-line blocking; the pinned masks are
+            # read once a tick and reused by the defer path
+            envs = getattr(self.controller, "last_envelope", None) \
+                if self.controller is not None else None
+            req = getattr(self.controller, "last_request", None) \
+                if self.controller is not None else None
+            headroom = rail_headroom(self.plane, envs)
+            pin_masks = (pinned_rails(self.plane, req, envelope=envs)
+                         if req is not None else {})
+            pinned = np.zeros(n, bool)
+            for mask in pin_masks.values():
+                pinned |= mask
+            while pending:
+                occ_now = [len(r) for r in running]
+                chip = self.router.place(pending[0], occ_now, headroom,
+                                         pinned)
+                if chip is None:
+                    reason = ("capacity"
+                              if all(o >= cap for o in occ_now)
+                              else "pinned-drain")
+                    ledger.defer(pending[0].rid, reason, tick_s)
+                    self.stats.decode_sheds += 1
+                    self.stats.sheds_by_reason[reason] = (
+                        self.stats.sheds_by_reason.get(reason, 0) + 1)
+                    if reason == "pinned-drain":
+                        for rail, mask in pin_masks.items():
+                            if mask.any():
+                                self.stats.sheds_by_rail[rail] = (
+                                    self.stats.sheds_by_rail.get(rail, 0)
+                                    + 1)
+                    self.stats.defer_time_s += tick_s
+                    break
+                r = pending.popleft()
+                ledger.place(r.rid, t, chip)
+                running[chip].append({
+                    "req": r,
+                    "prefill_left": float(r.prefill_tokens),
+                    "decode_left": float(r.decode_tokens)})
+            max_occ = max(max_occ, max(len(r) for r in running))
+
+            # progress: every resident slot advances at the chip's modeled
+            # token rate; over-bound chips deliver degraded goodput
+            t_step = host(m["t_step_s"])
+            rate = tick_s / np.maximum(
+                np.broadcast_to(np.atleast_1d(t_step), (n,)), 1e-12)
+            over = np.zeros(n, bool)
+            for key in _OBS_KEYS:
+                v = frame.get(key)
+                if v is None:
+                    continue
+                a = host(v) if isinstance(v, torch.Tensor) \
+                    else np.asarray(v, np.float64)
+                a = np.broadcast_to(np.atleast_1d(a), (n,))
+                over |= (~np.isnan(a)) & (a > error_bound)
+            if over.any():
+                degraded_ticks += int(over.sum())
+            rate = np.where(over, rate * degrade, rate)
+            t_end = t + tick_s
+            for i in range(n):
+                if not running[i]:
+                    continue
+                finished = []
+                for slot in running[i]:
+                    if slot["prefill_left"] > 0:
+                        slot["prefill_left"] -= rate[i] * prefill_speedup
+                        if slot["prefill_left"] <= 0:
+                            self.stats.prefill_tokens += (
+                                slot["req"].prefill_tokens)
+                        continue
+                    slot["decode_left"] -= rate[i]
+                    if slot["decode_left"] <= 0:
+                        finished.append(slot)
+                for slot in finished:
+                    running[i].remove(slot)
+                    self.stats.decode_tokens += slot["req"].decode_tokens
+                    ledger.finish(slot["req"].rid, t_end,
+                                  tokens_out=slot["req"].decode_tokens)
+            t = t_end
+
+        self.last_trace = {
+            "router": getattr(self.router, "name",
+                              type(self.router).__name__),
+            "ticks": ticks_run, "tick_s": tick_s,
+            "max_occupancy": max_occ, "capacity": cap,
+            "degraded_chip_ticks": degraded_ticks,
+            "unplaced": len(pending),
+            "unfinished": sum(len(r) for r in running),
+            "fused": False,
+            "fast_forward_ticks": 0,
+        }
+        return ledger
+
     def summary(self) -> dict[str, Any]:
         toks = max(self.stats.decode_tokens, 1)
         out = {
@@ -234,7 +909,7 @@ class ServeEngine:
             out["comp_level_min"] = int(self.plane.comp_level.min())
         else:
             out["j_per_decoded_token"] = self.stats.energy_j / toks
-        if self.admission_gate:
+        if self.admission_gate or self.router is not None:
             out["decode_sheds"] = self.stats.decode_sheds
             out["defer_time_s"] = self.stats.defer_time_s
             out["decode_sheds_by_rail"] = dict(self.stats.sheds_by_rail)

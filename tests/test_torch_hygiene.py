@@ -55,7 +55,7 @@ def test_port_files_found():
             "regulator.py", "pmbus.py", "settling.py", "power_manager.py",
             "fleet.py", "control_plane.py", "fleet_telemetry.py",
             "fleet_compare.py", "sor_compare.py", "profile_windows.py",
-            "ckpt.py", "_msgpack.py"} <= names
+            "ckpt.py", "_msgpack.py", "router.py", "traffic.py"} <= names
 
 
 @pytest.fixture
@@ -118,6 +118,26 @@ def test_builders_default_device_needs_a_card(no_card, builder):
 def test_launcher_default_device_needs_a_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_serve.main(["--arch", "qwen2p5_14b", "--tiny"])
+
+
+def test_routed_launcher_default_device_needs_a_card(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.main(["--arch", "qwen2p5_14b", "--tiny",
+                           "--fleet-chips", "4", "--router", "headroom",
+                           "--batch-cap", "4"])
+
+
+def test_routed_engine_default_device_needs_a_card(no_card):
+    """A routed engine (router, batch_cap) on the default device raises
+    without a card, before any trace is served."""
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.serve.router import HeadroomRouter
+    cfg = get_config("qwen2p5_14b", tiny=True)
+    params = registry.build(cfg).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, max_len=16, batch_size=1,
+                    fleet=FleetSpec.sample(4, seed=0),
+                    router=HeadroomRouter(capacity=4), batch_cap=4)
 
 
 def test_train_launcher_default_device_needs_a_card(no_card):
@@ -225,9 +245,26 @@ def test_cpu_train_step_launches_no_kernel(capsys):
 
 
 def test_launcher_refuses_unported_paths():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """What the serve launcher still refuses: routing without a fleet (as
+    the reference's launcher does). `--router` itself is ported
+    (`test_routed_launcher_runs_on_cpu`)."""
+    with pytest.raises(SystemExit, match="--fleet-chips"):
         launch_serve.main(["--arch", "qwen2p5_14b", "--tiny",
                            "--router", "headroom", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("router", ["headroom", "roundrobin"])
+def test_routed_launcher_runs_on_cpu(capsys, router):
+    """`--router` routes a bursty trace over the fleet on the CPU and
+    launches no kernel."""
+    ops.reset_launch_counts()
+    launch_serve.main(["--arch", "qwen2p5_14b", "--tiny", "--fleet-chips",
+                       "4", "--router", router, "--trace-requests", "6",
+                       "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"routed 6 requests over 4 chips ({router})" in out
+    assert "'completed': 6" in out
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_cpu_generate_launches_no_kernel(capsys):

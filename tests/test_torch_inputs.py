@@ -346,3 +346,198 @@ class OpNames(TorchDispatchMode):
 # the aten ops that only take a view of a tensor
 VIEW_OPS = {"view", "_unsafe_view", "alias", "unbind", "select", "expand",
             "slice", "unsqueeze"}
+
+
+# ---------------------------------------------------------------------------
+# The routed-serving world: the reference's serve_router benchmark world
+# (benchmarks/serve_router.py, serve_scale.py, serve_batching.py), its
+# constants copied so that this file imports no JAX. The benchmark draws
+# each tick's observable noise with jax.random; the port cannot reproduce
+# those draws, so both packages read one numpy table made from a seed
+# (`routed_noise`) and index it by tick: rows [0, ROUTED_WARMUP) are the
+# warm-up rounds (ticks -ROUTED_WARMUP .. -1), row ROUTED_WARMUP + t the
+# trace's tick t.
+# ---------------------------------------------------------------------------
+
+ROUTED_PROFILE = dict(flops_per_chip=2e12, hbm_bytes_per_chip=8e9,
+                      ici_bytes_per_chip=4e9, grad_bytes_per_chip=3e9)
+# serve_batching's decode-shaped profile: FLOPs at the decode ratio
+ROUTED_DECODE_PROFILE = dict(ROUTED_PROFILE, flops_per_chip=8e10)
+ROUTED_BOUND = 5e-3
+ROUTED_LOG_SLOPE = 30.0     # decades of error per volt below the onset
+ROUTED_LOAD_SHIFT_V = 0.025
+ROUTED_SEED = 23
+ROUTED_CAPACITY = 4
+ROUTED_POLICY_FLOORS = {"VDD_CORE": 0.652, "VDD_HBM": 0.995,
+                        "VDD_IO": 0.725}
+ROUTED_ONSETS = {"VDD_CORE": (0.635, 0.05), "VDD_HBM": (0.935, 0.05),
+                 "VDD_IO": (0.665, 0.05)}
+ROUTED_WARMUP = 48
+ROUTED_SOR = dict(capacity=32, refresh_every=4, decay=0.96,
+                  error_bound=ROUTED_BOUND, guard_v=0.004,
+                  max_extension_v=0.12, ingest="frames")
+# the noise table's rows per tick, in this order
+ROUTED_NOISE_RAILS = ("VDD_IO", "VDD_CORE", "VDD_HBM")
+
+
+def routed_trace_knobs(n_chips: int, base_chips: int = 64) -> dict:
+    """serve_scale's weak-scaled load: int(1.5 n) requests, seed 23, quiet
+    and burst rates 8 and 40 Hz times n / base_chips, decode mean 48."""
+    scale = n_chips / base_chips
+    return dict(n_requests=int(1.5 * n_chips), seed=ROUTED_SEED,
+                quiet_rate_hz=8.0 * scale, burst_rate_hz=40.0 * scale,
+                decode_mean=48.0)
+
+
+def routed_migration_knobs(n_chips: int, base_chips: int = 64) -> dict:
+    """serve_batching's forced-pin migration scenario weak-scaled from its
+    16 chips: 6 requests a chip, quiet and burst rates 4 x 8 and 4 x 40 Hz
+    times n / base_chips (saturating), decode mean 96."""
+    scale = 4.0 * n_chips / base_chips
+    return dict(n_requests=6 * n_chips, seed=ROUTED_SEED,
+                quiet_rate_hz=8.0 * scale, burst_rate_hz=40.0 * scale,
+                decode_mean=96.0)
+
+
+def routed_noise(n_chips: int, ticks: int, seed: int = ROUTED_SEED,
+                 warmup: int = ROUTED_WARMUP) -> np.ndarray:
+    """The observables' multiplicative noise, 1 + 0.05 N(0, 1), as f32
+    `[warmup + ticks, 3, n_chips]` (rows per tick in ROUTED_NOISE_RAILS
+    order)."""
+    z = np.random.default_rng(seed).standard_normal(
+        (warmup + ticks, len(ROUTED_NOISE_RAILS), n_chips))
+    return (1.0 + 0.05 * z).astype(np.float32)
+
+
+def routed_onset_sources(fs) -> dict:
+    """{rail: [n_chips] float64}: the FleetSpec arrays each rail's onset
+    rides (VDD_CORE the leakage spread, VDD_HBM and VDD_IO the error
+    sensitivity); onset = base + spread * (f32(src) - 1), in f32."""
+    return {rail: np.asarray(fs.leakage_scale if rail == "VDD_CORE"
+                             else fs.error_sensitivity)
+            for rail in ROUTED_ONSETS}
+
+
+ROUTED_CONTROLS = ("learned", "static", "host")
+
+
+def routed_engine(n_chips: int, device, *, params, cfg, router,
+                  decode_profile=None, control: str = "learned", **kw):
+    """The port's engine in the routed world: the 23-seeded FleetSpec and
+    the envelope-blind walk over POLICY_FLOORS with backoff 1.01, which
+    learns through the in-graph SOR round (`control="learned"`), runs
+    without learning (`"static"`: the floors stay the rails' static ones),
+    or runs in a HostRailController deciding from the frames and learning
+    with the split fit (`"host"`); the benchmark's prefill profile and
+    `decode_profile` (default the same)."""
+    if control not in ROUTED_CONTROLS:
+        raise ValueError(f"control must be one of {ROUTED_CONTROLS}")
+    from repro_torch.core import sor
+    from repro_torch.core.control_plane import (HostRailController,
+                                                InGraphRailController)
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES
+    from repro_torch.serve.engine import ServeEngine
+    fs = FleetSpec.sample(n_chips, seed=ROUTED_SEED)
+    walk = envelope_blind_walk()
+    cfg_sor = sor.SorConfig(rails=ALL_RAIL_OBSERVABLES, **ROUTED_SOR)
+    ctrl = (HostRailController(walk, n_chips=n_chips, sor=cfg_sor)
+            if control == "host" else InGraphRailController(
+                walk, sor=cfg_sor if control == "learned" else None))
+    profile = StepProfile(**ROUTED_PROFILE)
+    return ServeEngine(cfg, params, max_len=24, batch_size=2,
+                       prefill_profile=profile,
+                       decode_profile=decode_profile or profile,
+                       fleet=fs, controller=ctrl, router=router,
+                       device=device, **kw)
+
+
+def envelope_blind_walk():
+    """The port's MultiRailClosedLoop walking to ROUTED_POLICY_FLOORS with
+    backoff 1.01 that ignores the envelopes when it decides (arbitration
+    still clamps per chip, so weak chips pin at their learned floors)."""
+    from repro_torch.core.policy import MultiRailClosedLoop
+
+    class EnvelopeBlindWalk(MultiRailClosedLoop):
+        def decide_env(self, state, frame, envelope=None):
+            return super().decide_env(state, frame, None)
+
+    return EnvelopeBlindWalk(floors=dict(ROUTED_POLICY_FLOORS),
+                             backoff=1.01, name="envelope-blind-walk")
+
+
+def routed_observe(fs, noise: np.ndarray, device):
+    """The port's measured error world for `serve_trace`: per-rail
+    frontier errors at onsets that move up with the chip's load
+    (busy_frac) on VDD_HBM and VDD_IO, the noise read from `noise`
+    (`routed_noise`), which goes to the device once here."""
+    import dataclasses
+
+    import torch
+    table = torch.from_numpy(noise).to(device)
+    v_on = {}
+    for rail, src in routed_onset_sources(fs).items():
+        base, spread = ROUTED_ONSETS[rail]
+        s = torch.from_numpy(src.astype(np.float32)).to(device)
+        v_on[rail] = base + spread * (s - 1.0)
+    rows = {rail: i for i, rail in enumerate(ROUTED_NOISE_RAILS)}
+
+    def err(v, v_onset, nz):
+        return ROUTED_BOUND * nz * 10.0 ** torch.clamp(
+            ROUTED_LOG_SLOPE * (v_onset - v), -6.0, 3.0)
+
+    def observe(plane, frame, tick, busy_frac):
+        nz = table[tick + ROUTED_WARMUP]
+        shift = ROUTED_LOAD_SHIFT_V * busy_frac
+        return dataclasses.replace(
+            frame,
+            grad_error=err(plane.v_io, v_on["VDD_IO"] + shift,
+                           nz[rows["VDD_IO"]]),
+            extras={**frame.extras,
+                    "straggle_rate": err(plane.v_core, v_on["VDD_CORE"],
+                                         nz[rows["VDD_CORE"]]),
+                    "hbm_error_rate": err(plane.v_hbm,
+                                          v_on["VDD_HBM"] + shift,
+                                          nz[rows["VDD_HBM"]])})
+
+    return observe
+
+
+def routed_warm_up(eng, observe, rounds: int = ROUTED_WARMUP) -> None:
+    """The benchmark's warm-up: `rounds` accounted control rounds on the
+    idle fleet (busy_frac 0, noise rows 0 .. rounds - 1) before the trace,
+    so placement reads learned margins."""
+    import torch
+
+    from repro_torch.core.power_plane import (account_fleet_and_observe,
+                                              fleet_variation)
+    idle = torch.zeros(eng.n_chips, dtype=torch.float32, device=eng.device)
+    variation = fleet_variation(eng.fleet_spec, eng.device)
+    for w in range(rounds):
+        eng.plane, frame, _ = account_fleet_and_observe(
+            eng.decode_profile, eng.plane, eng.fleet_spec,
+            variation=variation)
+        eng._control_tick(observe(eng.plane, frame, w - rounds, idle))
+
+
+def ledger_discrete(eng, ledger) -> dict:
+    """Every discrete quantity of a routed run, the fields the fused path
+    must equal the loop path on (the reference's `_discrete`, plus the
+    migration records)."""
+    out = {
+        "records": [(r.rid, r.t_placed_s, r.chip, r.t_done_s, r.tokens_out,
+                     r.defers, r.defer_time_s, r.migrations)
+                    for r in ledger.records()],
+        "defers_by_reason": dict(ledger.defers_by_reason),
+        "migration_events": list(ledger.migration_events),
+        "decode_sheds": eng.stats.decode_sheds,
+        "sheds_by_rail": dict(eng.stats.sheds_by_rail),
+        "sheds_by_reason": dict(eng.stats.sheds_by_reason),
+        "prefill_tokens": eng.stats.prefill_tokens,
+        "decode_tokens": eng.stats.decode_tokens,
+    }
+    out.update({k: eng.last_trace[k] for k in (
+        "ticks", "max_occupancy", "degraded_chip_ticks", "unplaced",
+        "unfinished")})
+    return out

@@ -1171,3 +1171,26 @@ def test_scan_function_refuses_state_out_and_serves_in_place(cuda, name):
     assert kernel.launches == 1 and st is buf and y.grad_fn is None
     want = kernel(*args, init_state=s0)
     assert torch.equal(y, want[0]) and torch.equal(buf, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [False, True], ids=["scalar", "fleet"])
+def test_plane_accounting_on_the_card_equals_the_cpu(cuda, fleet):
+    """The power plane's step time and power on the card, bit for bit the
+    CPU's: the spec's nominals divide as device scalars (a Python-number
+    divisor runs as a multiply by its reciprocal on the card), so the
+    routed trace's default tick and every rate built on it agree."""
+    from repro_torch.core import power_plane as pp
+    from repro_torch.core.hwspec import FleetSpec
+    prof = pp.StepProfile(2e12, 8e9, 4e9, 3e9)
+    spec = FleetSpec.sample(16, seed=23)
+    out = {}
+    for dev in ("cpu", cuda):
+        plane = (pp.PowerPlaneState.from_fleet(spec, dev) if fleet
+                 else pp.PowerPlaneState.fleet(16, device=dev))
+        var = pp.fleet_variation(spec, dev) if fleet else None
+        t = pp.step_time_s(prof, plane, variation=var)
+        p = pp.chip_power_w(plane, 0.3, 0.5, 0.2, spec.base, variation=var)
+        out[str(dev)] = (t.cpu(), p.cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)

@@ -130,10 +130,12 @@ def test_generate_matches_reference(name, mode):
 
 
 def test_engine_refuses_unported_options():
+    """The sharded control round (`mesh=`, `shard_control=True`) is not
+    ported; routed serving (`router=`, `batch_cap=`) is, and is tested in
+    tests/test_torch_serve_trace.py."""
     cfg = tget("qwen2p5_14b", tiny=True)
     params = treg.build(cfg).init(torch.Generator().manual_seed(0))
-    for kw in (dict(router=object()), dict(mesh=object()),
-               dict(batch_cap=2)):
+    for kw in (dict(mesh=object()), dict(shard_control=True)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             TEngine(cfg, params, max_len=16, batch_size=1, device="cpu",
                     **kw)
