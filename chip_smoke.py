@@ -18,9 +18,10 @@ script exits nonzero:
                 3 x 1024 and 3 x 4096 lanes (the routed fleets), beside the
                 composed sequence it replaced
                 and the harness's floor; the host path for K7, also at
-                windows 7 to 64; the Qwen and the Zamba2
-                serve paths for K2 and K3, the training path for K2 and
-                K4-K6 (K2 also in f32 at the Qwen prefill; K6 also as
+                windows 7 to 64; the Qwen2.5, Granite, Zamba2 and serve
+                example's paths for K2 and K3, the training paths
+                (MiniCPM-2B's, the train example's) for K2 and K4-K6 (K2
+                also in f32 at the Qwen prefill; K6 also as
                 `fleet_stats`, the fleet step's reduction tail in one
                 launch, at 1 to 20000 chips with ties at the p95's ranks
                 and NaN lanes, beside the composed sequence it replaced
@@ -29,7 +30,8 @@ script exits nonzero:
                 also at T around its 64-step chunk, and its decode step in
                 place, beside its bytes and operations bounds), the
                 ef training path's parameter leaves for K10 alone and for
-                its fused ef pass at both levels) against its plain version
+                its fused ef pass at both levels, the fused pass also at
+                the train example's leaves) against its plain version
                 (stated tolerances; K10 and the fused pass bit for bit, the
                 fused pass's two sums to EF_SUM_RTOL), timed
                 beside its bound, the plain version and one PyTorch call as
@@ -87,16 +89,26 @@ script exits nonzero:
                 refit; the host controller's loop path at 64 chips (K7
                 exactly); `launch/serve.py --arch qwen2p5_14b --fleet-chips
                 1024 --router headroom --batch-cap 4` at full width;
-9. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
-10. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
+9. tiny_granite - tiny Granite (dense, one KV head: 4 q heads, group 4,
+                head_dim 32) as phase 3;
+10. main_granite - full-width, full-depth Granite-20B (52 layers, d_model
+                6144, 48 q heads over the one KV head duplicated to 16 by
+                the tp=16 plan, head_dim 128, vocab 49152; 29.39 B
+                parameters, 58.8 GB in bf16) as phase 5, once the Qwen2.5
+                weights are freed (at most RESIDENT_GB_MAX still allocated
+                before its weights are made; peak under CARD_GB), with its
+                exact launch counts (K2 52, K3 52 x 31, K1's refit 8) and
+                decode-step breakdown beside the weights' byte floor;
+11. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
+12. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
                 64 heads x 64, d_ff 14336, vocab 65536) as phase 5, with its
                 own exact launch counts (K9 32 per prefill and per decoded
                 token) and decode-step breakdown (K9's device ms and the
                 copy kernels a step: the wkv state is written in place);
-11. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
+13. tiny_zamba - tiny Zamba2 (the hybrid family) as phase 3, plain and with
                 an 8-token sliding window that the shared block's KV cache
                 wraps;
-12. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
+14. main_zamba - full-width, full-depth Zamba2-1.2B (38 Mamba2 layers,
                 d_model 2048, 64 SSD heads x 64, state 64; the shared
                 attention + MLP block after every 6th layer, 32/32 heads
                 x 64, window 4096) as phase 5, with its own exact launch
@@ -104,19 +116,31 @@ script exits nonzero:
                 prefill, K3 6 per decoded token after the first) and
                 decode-step breakdown (K8's device ms and the copy kernels
                 a step: the ssm state is written in place);
-13. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
+15. examples   - the reference's examples (`repro_torch.examples.*`, each
+                `main(argv)` in this process) on the card at their own
+                defaults: `case_study_transceiver` and `quickstart` print
+                what their cpu runs print (the model's Fig 16 reductions
+                within PAPER_SAVINGS_ABS of the paper's 28.4 % and 29.3 %;
+                quickstart's achieved VDD_IO and transaction count);
+                `serve_decode` deterministic with exact launches (K2, K3);
+                `train_voltune_lm` (300 steps, ef_int8, injected failures
+                and stragglers, checkpoints under `build/`) with a finite,
+                falling loss, its printed restarts and checkpoints its
+                trainer's, and exact launches (K2, K4, K5, K10's fused ef
+                pass);
+16. tiny_train - tiny MiniCPM in f32 from one seed on cuda and on cpu, three
                 fleet SOR train steps through `Trainer.run`: losses, params,
                 plane and SOR estimate allclose;
-14. tiny_train_host - tiny MiniCPM in f32, four scalar steps through
+17. tiny_train_host - tiny MiniCPM in f32, four scalar steps through
                 `Trainer.run` with a `HostRailController(PhaseAware())`
                 between steps, cuda against cpu: losses allclose, host
                 actuations and their bus seconds equal;
-15. tiny_train_ckpt - tiny MiniCPM in bf16, three fleet SOR steps on cuda
+18. tiny_train_ckpt - tiny MiniCPM in bf16, three fleet SOR steps on cuda
                 through `Trainer.run` with a checkpoint after the last:
                 restored by the port on the cpu and by a fresh cuda
                 `Trainer` (`maybe_restore`, its state from seed 1), every
                 leaf bit for bit the cuda state's;
-16. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
+19. main_train - full-width, full-depth MiniCPM-2B in bf16 (random weights
                 from a seed), batch 4 x seq 512, per-layer remat, AdamW,
                 the launcher's WSD schedule, a 64-chip fleet with in-graph
                 SOR learning, through `Trainer.run`: one warm-up step, then
@@ -125,14 +149,14 @@ script exits nonzero:
                 summary, and a torch.profiler window of 2 steps (the
                 device ms per step of K2, K4 and K5 beside the top
                 kernels);
-17. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
+20. tiny_train_ef - tiny MiniCPM in f32 from one seed on cuda and on cpu,
                 four scalar steps of each error-feedback level (`ef_int8`,
                 `ef_int8_topk`) with BERBounded through `Trainer.run`:
                 losses, grad_error, comp_level, the compressed gradient
                 and residual (g_hat + r', flipped codes) and params; the
                 fused ef pass exactly once per leaf per step, K10 alone
                 never;
-18. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 16,
+21. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 19,
                 the scalar step with the ef gradient sync and BERBounded:
                 one warm-up step, then 8 steps each of `ef_int8`,
                 `ef_int8_topk` and `auto` on the same state, launch counts
@@ -142,14 +166,14 @@ script exits nonzero:
                 torch.profiler window of 2 `ef_int8` steps with the fused
                 ef pass's device ms beside its bound, and K2's, K4's and
                 K5's;
-19. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
+22. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
                 one `forward_train` gradient (on the card K8's and K2's
                 forward, the plain scan's and K4/K5's backward; every
                 leaf within TINY_GRAD_TOL, launches exact), then three
-                fleet SOR steps through `Trainer.run` as phase 13, at a
+                fleet SOR steps through `Trainer.run` as phase 16, at a
                 sequence of 80 tokens (past the shared block's 64-token
                 window and K8's 64-step chunk);
-20. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
+23. main_train_zamba - full-width, full-depth Zamba2-1.2B in bf16, batch 4
                 x seq 256, per-layer remat (a Mamba2 layer and the shared
                 block after it under one checkpoint), f32 AdamW moments,
                 the 64-chip fleet with in-graph SOR: one warm-up step,
@@ -161,11 +185,11 @@ script exits nonzero:
                 forward, the scan's backward (the plain version re-run
                 and walked back, as the reference's custom_vjp does), K2,
                 the flash backward and the rest;
-21. tiny_train_rwkv - tiny RWKV6 as phase 19 (K9);
-22. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 20 (K9 2 x
+24. tiny_train_rwkv - tiny RWKV6 as phase 22 (K9);
+25. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 23 (K9 2 x
                 32 a step), with the reference's int8 AdamW moments: f32
                 ones need ~91 GB beside the bf16 weights;
-23. main_train_ckpt - Zamba2-1.2B as phase 20 trains it, from a fresh
+26. main_train_ckpt - Zamba2-1.2B as phase 23 trains it, from a fresh
                 state through `Trainer.run` with async checkpoints every 2
                 steps and after step 4 and one injected node failure
                 before step 3 (steps 0, 1, the save, 2, the failure, the
@@ -174,13 +198,14 @@ script exits nonzero:
                 on the card at the save and after the restore), the re-run
                 of step 2 equal to its first run (loss, plane and whole
                 state bits), restarts 1, writes 2, launches exact for 5
-                steps, peak memory within 1 GB of phase 20's; the
+                steps, peak memory within 1 GB of phase 23's; the
                 checkpoint's bytes, the save's host-blocking snapshot and
                 background write, the restore, free disk and host memory
                 (MiniCPM-2B's 46 GB checkpoints, two at once, do not fit
                 the card machine's 80 GB of disk).
 
-Each model's weights are freed before the next model loads its own.
+Each model's weights are freed before the next model loads its own. Each
+phase line carries `elapsed_s`, the seconds since the script started.
 Then the `{"kernels": [...]}` line (launches summed over the main paths'
 checked runs, and by path), the card's name and power limit, and the
 final `{"ok": true, ...}` line. Exits nonzero without printing a result when no
@@ -199,11 +224,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
+CARD_GB = 80.0                       # the H100's device memory
+# what a main serve path may find still allocated before it makes its
+# weights: the previous model's are freed (Granite-20B's 58.8 GB do not
+# fit beside Qwen2.5-14B's 31.6)
+RESIDENT_GB_MAX = 1.0
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
               "float32": 67e12}       # non-tensor-core f32 rate
 
 # the serve paths driven on the card: full width and depth
 MAIN = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, chips=64)
+GRANITE = dict(arch="granite_20b", batch=4, prompt=256, new=32, chips=64)
 RWKV = dict(arch="rwkv6_7b", batch=4, prompt=256, new=32, chips=64)
 ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
@@ -229,7 +260,14 @@ SCAN_KERNELS = ("ssd_chunk", "ssd_decode", "wkv_chunk", "wkv_decode")
 COPY_KERNELS = ("copy", "Memcpy")
 
 
+# the script's start on the host clock: each phase line carries the
+# seconds since (`elapsed_s`), so where the time limit goes reads off them
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
     print(json.dumps(obj), flush=True)
 
 
@@ -281,14 +319,34 @@ def bound_ms(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def attention_serve_paths() -> dict:
+    """{path: (configuration, spec)} of each serve path that runs K2 and
+    K3: the dense and hybrid main paths and the serve example (its
+    `batch`, `prompt` and `new`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_decode
+    out = {path: (get_config(spec["arch"]), spec) for path, spec in (
+        ("serve-qwen", MAIN), ("serve-granite", GRANITE),
+        ("serve-zamba", ZAMBA))}
+    out["example-serve"] = (serve_decode.CONFIG, dict(
+        batch=serve_decode.BATCH, prompt=serve_decode.PROMPT,
+        new=serve_decode.NEW))
+    return out
+
+
+def example_train_config():
+    """The train example's configuration and arguments at its defaults."""
+    from repro_torch.examples import train_voltune_lm
+    args = train_voltune_lm.parser().parse_args([])
+    return train_voltune_lm.model_config(args), args
+
+
 def attn_paths() -> dict:
     """The attention shapes of each serve path that runs K2 and K3, from
     its configuration: (batch, padded q heads, padded kv heads, head_dim,
     sliding window, prompt, KV-cache length)."""
-    from repro_torch.configs import get_config
     out = {}
-    for path, spec in (("serve-qwen", MAIN), ("serve-zamba", ZAMBA)):
-        cfg = get_config(spec["arch"])
+    for path, (cfg, spec) in attention_serve_paths().items():
         plan = cfg.head_plan()
         max_len = spec["prompt"] + spec["new"] + 8     # as `slice_engine`
         out[path] = (spec["batch"], plan.n_q_pad, plan.n_kv_pad,
@@ -309,6 +367,10 @@ def flash_paths() -> dict:
     out["train-minicpm"] = (TRAIN["batch"], plan.n_q_pad, plan.n_kv_pad,
                             cfg.head_dim_, cfg.sliding_window, TRAIN["seq"])
     out["train-zamba"] = train_zamba_heads()
+    cfg, args = example_train_config()
+    plan = cfg.head_plan()
+    out["example-train"] = (args.batch, plan.n_q_pad, plan.n_kv_pad,
+                            cfg.head_dim_, cfg.sliding_window, args.seq)
     return out
 
 
@@ -490,7 +552,8 @@ def check_decode(dev, flush) -> dict:
     from repro_torch.kernels import decode_attention as da
     gen = torch.Generator(device=dev).manual_seed(12)
     err, checked, paths = 0.0, [], {}
-    specs = {"serve-qwen": MAIN, "serve-zamba": ZAMBA}
+    specs = {path: spec
+             for path, (_, spec) in attention_serve_paths().items()}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for path, (B, Hq, Hkv, Dh, window, Tp, S) in attn_paths().items():
         group = Hq // Hkv
@@ -678,18 +741,24 @@ def floor_ms(flush) -> float:
     return time_ms(lambda: tiny.zero_(), 100, flush)
 
 
-# torch.profiler drops device events of short windows: now and then the
-# first kernel of a window (on the H100 its start lags its launch by
-# ~1-2 ms on the profiler's clock), in a process that ran the kernel
+# torch.profiler drops device events at the start of a window: now and
+# then the first kernel of a window (on the H100 its start lags its launch
+# by ~1-2 ms on the profiler's clock), in a process that ran the kernel
 # checks before K6's that first kernel in almost every window
-# (`scripts/profile_windows.py --after-checks`). `device_activity`
-# therefore pads each window with PROFILE_PAD_S of host time, spends its
-# first kernel on a lead kernel that is not counted, counts only what
-# starts between two witness kernels around the call, and takes a window
-# that lost a witness again, at most PROFILE_TRIES times. After the routed
-# phases' thousands of small kernels and host copies the profiler dropped
-# more than a window's first kernel (a lost witness in every window on the
-# H100), so the lead is PROFILE_LEADS kernels
+# (`scripts/profile_windows.py --after-checks`), and in a process that
+# had profiled a full-width decode (thousands of events) every kernel
+# before the window's first synchronize (all four leads and the first
+# witness, in every window). `GuardedProfile` therefore opens each window
+# with a warm-up step (the profiler traces and drops what it records:
+# PROFILE_LEADS lead kernels, a synchronize and PROFILE_PAD_S of host
+# time), then in the recorded step runs PROFILE_LEADS more lead kernels
+# and a synchronize, and counts only what starts between two witness
+# kernels around the call; a window that lost a witness is taken again,
+# at most PROFILE_TRIES times, each with four times the leads.
+# `device_activity` (one call's kernels, copies and syncs) and the serve
+# and train breakdowns (`decode_breakdown`, `train_breakdown`: busy ms and
+# kernels by name) read their windows through it, so a lost window is
+# taken again rather than read as an idle device
 PROFILE_PAD_S = 0.005
 PROFILE_TRIES = 5
 PROFILE_LEADS = 4
@@ -697,94 +766,133 @@ PROFILE_LEADS = 4
 COPY_KINDS = ("HtoD", "DtoH", "DtoD", "Memset")
 
 
-def device_activity(call) -> dict:
-    """What one `call` (after a warm-up call) puts on the card and asks of
-    the host's CUDA runtime (torch.profiler): device kernels, device memory
-    copies (also by direction: COPY_KINDS), their summed device time (us),
-    and the stream or device
-    synchronisations the host waited on, less those of profiling a call
-    that does nothing (the profiler's own). Each window, padded with
-    PROFILE_PAD_S of host time at both ends, runs PROFILE_LEADS lead
-    kernels, a witness kernel, the call and the witness again; the device events
-    that start between the two witnesses are the call's. A window that
-    did not record both witnesses is taken again (PROFILE_TRIES);
-    `retaken` counts those windows."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class GuardedProfile:
+    """torch.profiler windows whose device events can be trusted: a
+    warm-up step whose events are dropped (lead kernels, a synchronize,
+    PROFILE_PAD_S of host time), then the recorded step: lead kernels, a
+    synchronize, a witness kernel, the call (and a synchronize), the
+    witness again and PROFILE_PAD_S of host time. The device events that
+    start between the two witnesses are the call's. A window that did not
+    record both witnesses is taken again with four times the leads
+    (PROFILE_TRIES; `retaken` counts them), after `setup` runs anew."""
 
-    lead = torch.zeros(1, dtype=torch.int32, device="cuda")
-    witness = torch.zeros(1, dtype=torch.int16, device="cuda")
-    retaken = 0
+    def __init__(self):
+        import torch
+        self.lead = torch.zeros(1, dtype=torch.int32, device="cuda")
+        self.witness = torch.zeros(1, dtype=torch.int16, device="cuda")
+        self.retaken = 0
+        seen = []
+        for attempt in range(PROFILE_TRIES):
+            _, device, _ = self._window(lambda: None, attempt)
+            names = [e.name for e in device]
+            # around a call that does nothing the last kernel is the witness
+            if names and names.count(names[-1]) == 2:
+                self.witness_kernel = names[-1]
+                return
+            self.retaken += 1
+            seen.append(names[-3:])
+        raise RuntimeError("GuardedProfile: torch.profiler recorded no two "
+                           f"witness kernels in {PROFILE_TRIES} windows: "
+                           f"{seen}")
 
-    def window(fn):
+    def _window(self, fn, attempt: int):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+        leads = PROFILE_LEADS * 4 ** attempt
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(leads):          # warm-up: traced, dropped
+                self.lead.neg_()
+            torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-            for _ in range(PROFILE_LEADS):
-                lead.neg_()
-            witness.neg_()
+            prof.step()
+            for _ in range(leads):
+                self.lead.neg_()
+            torch.cuda.synchronize()
+            self.witness.neg_()
+            t0 = time.perf_counter()
             fn()
-            witness.neg_()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            self.witness.neg_()
             # a kernel still running when the profiler stops goes
             # unrecorded: the window ends after the call's last kernel
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
+            prof.step()
         events = prof.events()
         device = sorted((e for e in events
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        return events, device
+        return events, device, wall_s
 
-    seen = []
-    for _ in range(PROFILE_TRIES):
-        _, device = window(lambda: None)
-        names = [e.name for e in device]
-        # around a call that does nothing the last kernel is the witness
-        if names and names.count(names[-1]) == 2:
-            witness_kernel = names[-1]
-            break
-        retaken += 1
-        seen.append(names)
-    else:
-        raise RuntimeError("device_activity: torch.profiler recorded no "
-                           f"two witness kernels in {PROFILE_TRIES} "
-                           f"windows: {seen}")
+    def take(self, fn, setup=None):
+        """(host events of the window, the call's device events, the call's
+        host seconds up to its synchronize)."""
+        from torch.autograd import DeviceType
+        lost = []
+        for attempt in range(PROFILE_TRIES):
+            if setup is not None:
+                setup()
+            events, device, wall_s = self._window(fn, attempt)
+            marks = [i for i, e in enumerate(device)
+                     if e.name == self.witness_kernel]
+            if len(marks) >= 2:
+                host = [e for e in events if e.device_type != DeviceType.CUDA]
+                return host, device[marks[0] + 1:marks[-1]], wall_s
+            self.retaken += 1
+            lost.append([e.name[:40] for e in device[:8]])
+        raise RuntimeError("GuardedProfile: torch.profiler lost a witness "
+                           f"in {PROFILE_TRIES} windows (the first kernels "
+                           f"recorded: {lost})")
+
+
+def device_us(event) -> float:
+    return getattr(event, "device_time", 0.0)
+
+
+def by_name(device_events) -> dict:
+    """{kernel name: (calls, device us)} of a window's device events."""
+    out = {}
+    for e in device_events:
+        calls, us = out.get(e.name, (0, 0.0))
+        out[e.name] = (calls + 1, us + device_us(e))
+    return out
+
+
+def device_activity(call) -> dict:
+    """What one `call` (after a warm-up call) puts on the card and asks of
+    the host's CUDA runtime (a `GuardedProfile` window): device kernels,
+    device memory copies (also by direction: COPY_KINDS), their summed
+    device time (us), and the stream or device synchronisations the host
+    waited on, less those of profiling a call that does nothing (the
+    profiler's and the window's own); `retaken` counts the windows taken
+    again for a lost witness."""
+    guard = GuardedProfile()
 
     def profiled(fn):
-        nonlocal retaken
         fn()
-        lost = []
-        for _ in range(PROFILE_TRIES):
-            events, device = window(fn)
-            marks = [i for i, e in enumerate(device)
-                     if e.name == witness_kernel]
-            if len(marks) >= 2:
-                break
-            retaken += 1
-            lost.append([e.name[:40] for e in device[:8]])
-        else:
-            raise RuntimeError("device_activity: torch.profiler lost a "
-                               f"witness in {PROFILE_TRIES} windows (the "
-                               f"first kernels recorded: {lost})")
+        host, device, _ = guard.take(fn)
         out = {"kernels": 0, "copies": 0, "device_us": 0.0, "syncs": 0}
         out.update(dict.fromkeys(COPY_KINDS, 0))
-        for e in device[marks[0] + 1:marks[-1]]:
+        for e in device:
             if e.name.startswith(("Memcpy", "Memset")):
                 out["copies"] += 1
                 out[next(k for k in COPY_KINDS if k in e.name or
                          k == "Memset")] += 1
             else:
                 out["kernels"] += 1
-            out["device_us"] += getattr(e, "device_time", 0.0)
-        out["syncs"] = sum("Synchronize" in e.name for e in events
-                           if e.device_type != DeviceType.CUDA)
+            out["device_us"] += device_us(e)
+        out["syncs"] = sum("Synchronize" in e.name for e in host)
         return out
 
     base = profiled(lambda: None)
     out = {k: v - base[k] for k, v in profiled(call).items()}
-    return dict(out, retaken=retaken)
+    return dict(out, retaken=guard.retaken)
 
 
 def row_order_sums(x, y, w):
@@ -1020,7 +1128,8 @@ def check_flash_bwd(dev, flush) -> list[dict]:
     paths = {}
     for path, (nb, hq, hkv, _, window, T) in (
             ("train-minicpm", (B, Hq, Hkv, Dh, 0, TRAIN["seq"])),
-            ("train-zamba", train_zamba_heads())):
+            ("train-zamba", train_zamba_heads()),
+            ("example-train", flash_paths()["example-train"])):
         paths[path] = flash_bwd_path(fa, inputs(nb, T, hq, hkv), hq // hkv,
                                      window, flush)
         for name in ("dq", "dkv"):
@@ -1570,13 +1679,14 @@ def device_busy(call) -> dict:
                             for e in device) / 1e3)
 
 
-def ef_leaf_sizes() -> list[int]:
-    """The element counts of MiniCPM-2B's parameter leaves, the shapes K10
-    quantizes on the ef train path (twice each per step)."""
+def ef_leaf_sizes(cfg=None) -> list[int]:
+    """The element counts of the parameter leaves of `cfg` (MiniCPM-2B's
+    by default), the shapes K10 quantizes on an ef train path (twice each
+    per step)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.optim import adamw
-    shapes = lm.param_shapes(get_config(TRAIN["arch"]))
+    shapes = lm.param_shapes(cfg or get_config(TRAIN["arch"]))
     return [math.prod(adamw.get_path(shapes, p))
             for p in adamw.leaf_paths(shapes)]
 
@@ -1672,13 +1782,15 @@ def check_ef_sync_leaf(dev, flush) -> dict:
     from the same r, restored outside the timed region: the level-2
     thresholds are those of that r + g, the mask a real step applies. No
     single PyTorch call computes the pass. The row's top-level times are
-    the 283.1 M leaf's at level 1."""
+    the 283.1 M leaf's at level 1. The train example's leaves (its ef
+    path at level 1) are checked and timed alike (`example_leaves`)."""
     import torch
 
     from repro_torch.core import ecollectives as ec
     from repro_torch.kernels import quant_codec as qc
     leaves = ef_leaf_sizes()
-    sizes = sorted(set(leaves), reverse=True)
+    example_leaves = ef_leaf_sizes(example_train_config()[0])
+    sizes = sorted(set(leaves) | set(example_leaves), reverse=True)
     gen = torch.Generator(device=dev).manual_seed(21)
     timed, worst = {}, dict(num=0.0, den_ulps=0)
     for n in sizes:
@@ -1737,7 +1849,8 @@ def check_ef_sync_leaf(dev, flush) -> dict:
                 max_abs_err=0.0, sums=dict(worst, rtol=EF_SUM_RTOL),
                 **top, timed=timed, per_ef_step=per_step,
                 shape=dict(n=sizes[1], block=256, g="bfloat16", r="float32",
-                           level=1, leaves=leaves))
+                           level=1, leaves=leaves,
+                           example_leaves=example_leaves))
 
 
 # ---------------------------------------------------------------------------
@@ -2156,6 +2269,9 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
         if not math.isfinite(summary[k]):
             raise AssertionError(f"summary[{k!r}] = {summary[k]}")
 
+    if not peak_gb < CARD_GB:
+        raise AssertionError(f"{cfg.name}: peak {peak_gb} GB")
+
     eng = engine()                     # prefill + first token alone
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2164,11 +2280,15 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
     prefill_s = time.perf_counter() - t0
     decode_s = (total_s - prefill_s) / (new - 1)
     profile = decode_breakdown(engine, prompts)
+    weight_bytes = sum(a.numel() * a.element_size()
+                       for a in tree_leaves(params))
     return dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
                 d_model=cfg.d_model, params=n_params,
                 batch=B, prompt=Tp, new_tokens=new, n_chips=chips,
                 dtype=cfg.dtype, init_s=init_s, generate_s=total_s,
                 prefill_ms=prefill_s * 1e3, decode_ms_per_token=decode_s * 1e3,
+                weights_gb=weight_bytes / 1e9,
+                weights_read_floor_ms=weight_bytes / H100_BYTES_PER_S * 1e3,
                 tokens_per_s=B * new / total_s,
                 decode_tokens_per_s=B / decode_s,
                 peak_mem_gb=peak_gb, launches=launches,
@@ -2311,15 +2431,14 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
     run of 1 + `steps` tokens less a run of 1 token (the prefill and first
     token), per decode step. On the host clock (synchronized, best of two)
     with the control round and without it, so their difference is the
-    control round's cost; then under torch.profiler for the device's busy
+    control round's cost; then in `GuardedProfile` windows (a window that
+    lost a witness is taken again, `retaken`) for the device's busy
     share, the kernels that fill it, K3's part (its device ms and calls a
     step), K8's and K9's (`scan_*`) and the copy kernels' (`copy_*`: the
     cache writes of the conv and token-shift states; K8 and K9 write the
     recurrent state in place). `engine(control)` makes a fresh engine of
     the main path, with or without its controller."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     def wall_ms(control, n):
         eng = engine(control)
@@ -2334,24 +2453,18 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
                    for _ in range(2)) / steps
 
     step_with, step_without = step_ms(True), step_ms(False)
-
-    def dev_us(evt):
-        return getattr(evt, "device_time_total",
-                       getattr(evt, "cuda_time_total", 0.0))
+    guard = GuardedProfile()
 
     def profiled(n):
-        eng = engine(True)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.generate(prompts, n)
+        made = {}
+
+        def setup():
+            made["engine"] = engine(True)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # device-side events only (kernels, copies, fills): the CPU ops
-        # that launched them report the same time again
-        return wall, {e.key: (e.count, dev_us(e)) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA}
+
+        _, device, wall_s = guard.take(
+            lambda: made["engine"].generate(prompts, n), setup=setup)
+        return wall_s * 1e3, by_name(device)
 
     wall_1, kern_1 = profiled(1)
     wall_n, kern_n = profiled(1 + steps)
@@ -2359,11 +2472,13 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
                          us - kern_1.get(name, (0, 0.0))[1])
                   for name, (calls, us) in kern_n.items()}
     busy_ms = sum(us for _, us in per_kernel.values()) / 1e3 / steps
+    if busy_ms <= 0.0:
+        raise AssertionError(f"decode_breakdown: {busy_ms} busy ms a step")
     profiled_step_ms = (wall_n - wall_1) / steps
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][1],
                  reverse=True)[:12]
     return dict(
-        steps=steps, decode_step_ms=step_with,
+        steps=steps, retaken=guard.retaken, decode_step_ms=step_with,
         decode_step_without_control_ms=step_without,
         control_round_ms=step_with - step_without,
         profiled_step_ms=profiled_step_ms, device_busy_ms_per_step=busy_ms,
@@ -2383,6 +2498,148 @@ def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
             if any(k in name for k in names)) / steps
            for what, names in (("scan", SCAN_KERNELS), ("copy", COPY_KERNELS))
            for unit in ("ms", "calls")})
+
+
+# ---------------------------------------------------------------------------
+# phase examples: the reference's examples on the port
+# ---------------------------------------------------------------------------
+
+# the paper's Fig 16 reductions of the 10 Gbps TX rail's power at the
+# near-zero-BER and the BER <= 1e-6 boundaries (%), and the bound
+# tests/test_transceiver.py holds the model to (percentage points)
+PAPER_SAVINGS_PCT = {0.869: 28.4, 0.864: 29.3}
+PAPER_SAVINGS_ABS = 0.2
+
+
+def run_example(name: str, argv: list[str]):
+    """`repro_torch.examples.<name>.main(argv)` in this process: (its
+    printed text, what it returned, the kernel launches it made, its
+    seconds to the last synchronize)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import ops
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    text = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    return (text.getvalue(), result, ops.launch_counts(),
+            time.perf_counter() - t0)
+
+
+def printed_line(text: str, start: str) -> str:
+    return next(line for line in text.splitlines() if line.startswith(start))
+
+
+def run_examples() -> dict:
+    """The four examples in this process on the card, at their own
+    defaults (the train example's checkpoints under `build/`, removed
+    after): the case study's text equal to a cpu run's and the model's
+    Fig 16 reductions within PAPER_SAVINGS_ABS of the paper's 28.4 % and
+    29.3 %; quickstart's text (the achieved VDD_IO and the PMBus
+    transaction count among it) equal to a cpu run's; serve_decode's
+    `deterministic generation: True`, K2 once a layer a generate and K3
+    once a layer a decoded token after the first (two generates); the
+    train example's losses finite and falling (`improved`), its printed
+    restarts, stragglers and checkpoints those of its trainer, K2, K4 and
+    K5 once a layer a step run and K10's fused ef pass once a leaf a step
+    run (steps re-run after a restart included), no other kernel."""
+    import shutil
+    import statistics
+
+    from repro_torch.core.transceiver import GtxLinkModel
+    from repro_torch.examples import serve_decode
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    out, by_path, printed = {}, {}, {}
+    none = {name: 0 for name in ops.KERNELS}
+
+    for name in ("case_study_transceiver", "quickstart"):
+        text, _, launches, secs = run_example(name, ["--device", "cuda"])
+        cpu_text = run_example(name, ["--device", "cpu"])[0]
+        if text != cpu_text or launches != none:
+            raise AssertionError(f"{name}: the card's run printed\n{text}\n"
+                                 f"the cpu's\n{cpu_text}; launches "
+                                 f"{launches}")
+        out[name] = dict(seconds=secs, text_equals_cpu=True)
+        printed[name] = text
+    model = GtxLinkModel()
+    p_nom = model.rail_power_w("tx", 1.0, 10.0)
+    savings = {v: 100.0 * (1.0 - model.rail_power_w("tx", v, 10.0) / p_nom)
+               for v in PAPER_SAVINGS_PCT}
+    for v, paper in PAPER_SAVINGS_PCT.items():
+        if not abs(savings[v] - paper) <= PAPER_SAVINGS_ABS:
+            raise AssertionError(f"case study: {savings[v]} % at {v} V, "
+                                 f"the paper {paper} %")
+    out["case_study_transceiver"].update(
+        savings_pct_at={str(v): x for v, x in savings.items()},
+        fig16=[line.strip() for line in
+               printed["case_study_transceiver"].splitlines()
+               if "saving" in line])
+    line = printed_line(printed["quickstart"], "TPU VDD_IO")
+    out["quickstart"].update(
+        v_io_achieved=float(line.split("achieved ")[1].split(" V")[0]),
+        transactions=int(line.split("(")[-1].split()[0]))
+
+    text, _, launches, secs = run_example("serve_decode", ["--device",
+                                                           "cuda"])
+    L, new = serve_decode.CONFIG.n_layers, serve_decode.NEW
+    want = dict(none, flash_attention_fwd=2 * L,
+                decode_attention=2 * L * (new - 1))
+    if "deterministic generation: True" not in text or launches != want:
+        raise AssertionError(f"serve_decode: launches {launches} != {want}"
+                             f"\n{text}")
+    by_path["example-serve"] = launches
+    out["serve_decode"] = dict(
+        seconds=secs, deterministic=True, launches=launches,
+        energy=printed_line(text, "energy:"),
+        rails=printed_line(text, "rails after decode phase:"))
+
+    cfg, args = example_train_config()
+    ckpt_dir = ROOT / "build" / "example_ckpt"
+    text, trainer, launches, secs = run_example(
+        "train_voltune_lm", ["--device", "cuda", "--ckpt-dir",
+                             str(ckpt_dir)])
+    shutil.rmtree(ckpt_dir)
+    head, tail = (float(x) for x in
+                  printed_line(text, "loss:").split()[1:4:2])
+    losses = [r.loss for r in trainer.log.records]
+    s = trainer.summary()
+    faults = (f"fault tolerance: {s['restarts']} restarts, "
+              f"{s['straggler_events']} stragglers mitigated, "
+              f"{s['ckpt_writes']} checkpoints")
+    if not (all(math.isfinite(x) for x in losses) and tail < head
+            and "(improved)" in text and faults in text
+            and len(losses) == args.steps
+            and s["ckpt_writes"] >= args.steps // 50):
+        raise AssertionError(f"train_voltune_lm: {s}\n{text}")
+    runs = len(trainer.step_times)         # re-runs after a restart too
+    n_leaves = len(ef_leaf_sizes(cfg))
+    want = dict(none, flash_attention_fwd=cfg.n_layers * runs,
+                flash_attention_bwd_dq=cfg.n_layers * runs,
+                flash_attention_bwd_dkv=cfg.n_layers * runs,
+                ef_sync_leaf=n_leaves * runs)
+    if launches != want:
+        raise AssertionError(f"train_voltune_lm: launches {launches} != "
+                             f"{want}")
+    by_path["example-train"] = launches
+    out["train_voltune_lm"] = dict(
+        seconds=secs, steps=args.steps, steps_run=runs,
+        params=sum(a.numel() for a in lm.tree_leaves(
+            trainer.state["params"])),
+        loss_head=head, loss_tail=tail, restarts=s["restarts"],
+        straggler_events=s["straggler_events"],
+        ckpt_writes=s["ckpt_writes"],
+        step_ms_median=statistics.median(trainer.step_times) * 1e3,
+        launches=launches, energy=printed_line(text, "energy:"),
+        saving=printed_line(text, "VolTune saving"))
+    return dict(out, by_path=by_path)
 
 
 # ---------------------------------------------------------------------------
@@ -2711,32 +2968,30 @@ def model_launches(cfg, passes: int) -> dict:
 
 def train_breakdown(make, state, steps: int, watch: tuple[str, ...] = ()
                     ) -> dict:
-    """`steps` more train steps under torch.profiler: the device's busy
-    time per step (sum of device-side events), its share of the host wall
-    time of the same steps, the kernels that fill it and, for each name in
-    `watch`, the device ms and calls per step of the kernels whose name
-    holds it."""
+    """`steps` more train steps in a `GuardedProfile` window (a window
+    that lost a witness is taken again, with a fresh trainer on the state
+    as it then stands: `retaken`): the device's busy time per step (sum of
+    device-side events), its share of the host wall time of the same
+    steps, the kernels that fill it and, for each name in `watch`, the
+    device ms and calls per step of the kernels whose name holds it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(evt):
-        return getattr(evt, "device_time_total",
-                       getattr(evt, "cuda_time_total", 0.0))
+    made = {}
 
-    trainer = make(state, steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.run()
+    def setup():
+        made["trainer"] = make(state, steps)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kern = {e.key: (e.count, dev_us(e)) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA}
+
+    guard = GuardedProfile()
+    _, device, wall_s = guard.take(lambda: made["trainer"].run(),
+                                   setup=setup)
+    wall_ms = wall_s * 1e3 / steps
+    kern = by_name(device)
     busy_ms = sum(us for _, us in kern.values()) / 1e3 / steps
+    if busy_ms <= 0.0:
+        raise AssertionError(f"train_breakdown: {busy_ms} busy ms a step")
     top = sorted(kern.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
-    out = dict(steps=steps, profiled_step_ms=wall_ms,
+    out = dict(steps=steps, retaken=guard.retaken, profiled_step_ms=wall_ms,
                device_busy_ms_per_step=busy_ms,
                device_busy_share=busy_ms / wall_ms,
                top_kernels=[dict(name=name[:90], calls_per_step=c / steps,
@@ -4159,15 +4414,28 @@ def main() -> int:
     del result
 
     for tiny, phase, path, spec in (
+            ("tiny_granite", "main_granite", "serve-granite", GRANITE),
             ("tiny_rwkv", "main_rwkv", "serve-rwkv", RWKV),
             ("tiny_zamba", "main_zamba", "serve-zamba", ZAMBA)):
         emit({"phase": tiny, **run_tiny(spec["arch"])})
+        resident_gb = torch.cuda.memory_allocated() / 1e9
+        if resident_gb > RESIDENT_GB_MAX:
+            raise AssertionError(f"{phase}: {resident_gb} GB still "
+                                 f"allocated before its weights")
         cfg, params, init_s = init_main(dev, spec)
         result = run_main(dev, spec, cfg, params, init_s)
+        result["resident_before_init_gb"] = resident_gb
         by_path[path] = result["launches"]
         emit({"phase": phase, **result})
         del result, params
         torch.cuda.empty_cache()   # the model's weights are gone
+
+    result = run_examples()
+    by_path.update(result.pop("by_path"))
+    emit({"phase": "examples", **result})
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()       # the examples' models are gone
 
     emit({"phase": "tiny_train", **run_tiny_train()})
     emit({"phase": "tiny_train_host", **run_tiny_train_host()})

@@ -59,7 +59,8 @@ class ModelConfig:
 
 # the architectures this package carries so far (dense, ssm and hybrid
 # families)
-ARCH_IDS = ("minicpm_2b", "qwen2p5_14b", "rwkv6_7b", "zamba2_1p2b")
+ARCH_IDS = ("granite_20b", "minicpm_2b", "qwen2p5_14b", "rwkv6_7b",
+            "zamba2_1p2b")
 
 
 def get_config(arch: str, tiny: bool = False) -> ModelConfig:

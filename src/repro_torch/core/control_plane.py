@@ -27,7 +27,7 @@ copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -40,6 +40,9 @@ from repro_torch.core.power_manager import ControlPath
 from repro_torch.core.power_plane import PowerPlaneState, as_f32
 from repro_torch.core.rails import TPU_V5E_RAIL_MAP, RailMap
 from repro_torch.core.telemetry import Provenance, TelemetryFrame, as_frame
+
+# a controller accepts the typed observation or a metrics dict
+Telemetry = TelemetryFrame | dict[str, Any]
 
 # TPU logical rails in PowerPlaneState field order.
 RAIL_LANES = {"VDD_CORE": 0, "VDD_HBM": 1, "VDD_IO": 2}
@@ -262,6 +265,21 @@ class ControlPlaneStats:
     poll_decisions: int = 0          # decisions made from POLLED frames
     skipped_actuations: int = 0      # writes held back by the deadband
     relaxed_polls: int = 0           # poll rounds at a relaxed interval
+
+
+@runtime_checkable
+class RailController(Protocol):
+    """The one actuation interface. `control_step` takes the current rail
+    state and the latest observation (TelemetryFrame, or a metrics dict),
+    runs the policy, arbitrates, actuates, and returns the achieved state;
+    `stats` reports what the control path cost."""
+
+    name: str
+
+    def control_step(self, plane: PowerPlaneState,
+                     telemetry: Telemetry) -> PowerPlaneState: ...
+
+    def stats(self) -> ControlPlaneStats: ...
 
 
 def as_controller(policy_or_controller: Any, *, host: bool = False):

@@ -8,12 +8,17 @@ A policy reads a typed `TelemetryFrame` and returns a declarative
 broadcast. It never mutates the plane; arbitration against the safety
 envelopes lives in `control_plane.arbitrate`. Every decision is elementwise
 on tensors, so one decide() serves a scalar plane and a `[n_chips]` fleet.
-The reference's deprecated `update_*` dict shims are not ported.
+
+The pre-redesign API, `update_jax/update_host/update_fleet(state,
+telemetry dict) -> state`, survives as thin deprecated shims over decide()
+with the reference's names (warning: `ControlAPIDeprecationWarning`); no
+module of the package calls them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -21,7 +26,20 @@ import torch
 from repro_torch.core import ecollectives
 from repro_torch.core.hwspec import V5E, ChipSpec
 from repro_torch.core.power_plane import PowerPlaneState, as_f32
-from repro_torch.core.telemetry import RAIL_OBSERVABLE_KEYS, TelemetryFrame
+from repro_torch.core.telemetry import (RAIL_OBSERVABLE_KEYS, TelemetryFrame,
+                                        ndim)
+
+
+class ControlAPIDeprecationWarning(DeprecationWarning):
+    """Raised by the legacy `Policy.update_*` shims."""
+
+
+def _warn_legacy(name: str) -> None:
+    warnings.warn(
+        f"Policy.{name}(state, telemetry_dict) is deprecated; implement/call "
+        f"decide(state, frame) -> RailRequest and actuate through a "
+        f"RailController (see docs/control_api.md)",
+        ControlAPIDeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +111,32 @@ class Policy:
         """decide() under learned `sor.SafeEnvelope`s (a single VDD_IO
         envelope or a {rail: SafeEnvelope} dict); the base ignores them."""
         return self.decide(state, frame)
+
+    # -- deprecated dict-interface shims: the raw merge of decide()'s
+    # request, as the old state-mutating update_* methods did
+    def _legacy_update(self, state: PowerPlaneState,
+                       telemetry) -> PowerPlaneState:
+        frame = TelemetryFrame.from_dict(telemetry, state=state)
+        return apply_request(state, self.decide(state, frame))
+
+    def update_jax(self, state: PowerPlaneState, telemetry) -> PowerPlaneState:
+        _warn_legacy("update_jax")
+        return self._legacy_update(state, telemetry)
+
+    def update_host(self, state: PowerPlaneState,
+                    telemetry) -> PowerPlaneState:
+        _warn_legacy("update_host")
+        return self._legacy_update(state, telemetry)
+
+    def update_fleet(self, state: PowerPlaneState,
+                     telemetry) -> PowerPlaneState:
+        """Scalar entries broadcast to `[n_chips]` on the plane's device;
+        the elementwise decide() then serves every chip at once."""
+        _warn_legacy("update_fleet")
+        n = state.v_core.shape[0]
+        telem = {k: torch.as_tensor(v, device=state.device).expand(n)
+                 if ndim(v) == 0 else v for k, v in telemetry.items()}
+        return self._legacy_update(state, telem)
 
 
 @dataclasses.dataclass
@@ -308,6 +352,19 @@ class WorstChipGate(Policy):
         if envelope is None:
             return self.inner.decide(state, frame)
         return self.inner.decide_env(state, frame, envelope)
+
+    def update_fleet(self, state, telemetry):
+        # the legacy shim, override for override with the old API: reduce
+        # the dict, then delegate to the inner policy's fleet shim
+        _warn_legacy("update_fleet")
+        telem = dict(telemetry)
+        for k in self.reduce_keys:
+            if k in telem and ndim(telem[k]) >= 1:
+                v = torch.as_tensor(telem[k], device=state.device)
+                telem[k] = v.max().expand(v.shape)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", ControlAPIDeprecationWarning)
+            return self.inner.update_fleet(state, telem)
 
 
 @dataclasses.dataclass

@@ -40,6 +40,11 @@ from repro_torch.core.telemetry import (DEFAULT_RAIL_OBSERVABLES,
                                         TelemetryFrame)
 from repro_torch.kernels import ops, ref
 
+# the clip of the log10 observables a fit reads (zero-error samples clamp
+# at the detection floor); spelled once, beside the oracle that applies it
+LOG10_ERR_FLOOR = ref.LOG10_ERR_FLOOR
+LOG10_ERR_CEIL = ref.LOG10_ERR_CEIL
+
 
 @dataclasses.dataclass(frozen=True)
 class SorConfig:
@@ -260,6 +265,18 @@ def rail_envelopes(est: SorEstimate, cfg: SorConfig
             v_max=None, confidence=est.confidence[i],
             max_extension_v=cfg.max_extension_v, rail=spec.rail)
     return out
+
+
+def safe_envelope(est: SorEstimate, cfg: SorConfig) -> SafeEnvelope:
+    """Back-compat single-envelope view: the VDD_IO rail's envelope (or the
+    sole fitted rail's, for a 1-rail config on another rail)."""
+    envs = rail_envelopes(est, cfg)
+    if "VDD_IO" in envs:
+        return envs["VDD_IO"]
+    if len(envs) == 1:
+        return next(iter(envs.values()))
+    raise KeyError("safe_envelope needs a VDD_IO (or single) rail; "
+                   "use rail_envelopes for multi-rail estimates")
 
 
 def envelope_for(envelope, rail: str = "VDD_IO"):

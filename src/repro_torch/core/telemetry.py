@@ -19,6 +19,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import json
 from typing import Any
 
 import numpy as np
@@ -344,7 +345,9 @@ class TelemetryLog:
                          **{f"s/{f}": getattr(state, f)
                             for f in _PLANE_FIELDS}})
         loss = host["loss"]
-        metrics = {k: host[f"m/{k}"] for k in metrics}
+        # in sorted key order, as the reference's `jax.device_get` returns
+        # the dict: the record's extras, per_chip and fleet keep its order
+        metrics = {k: host[f"m/{k}"] for k in sorted(metrics)}
         state_v = {f: host[f"s/{f}"] for f in _PLANE_FIELDS}
 
         v_core_a = np.asarray(state_v["v_core"])
@@ -416,3 +419,16 @@ class TelemetryLog:
         return {"steps": len(self.records), "energy_j": e,
                 "mean_power_w": e / max(t, 1e-12), "time_s": t,
                 "fleet_energy_j": ef}
+
+    def per_chip_series(self, key: str) -> np.ndarray:
+        """[steps, n_chips] history of one per-chip metric (records lacking
+        the key are skipped)."""
+        rows = [r.per_chip[key] for r in self.records if key in r.per_chip]
+        if not rows:
+            raise KeyError(f"no per-chip telemetry recorded for {key!r}")
+        return np.asarray(rows)
+
+    def dump_jsonl(self, path: str) -> None:
+        with open(path, "w") as f:
+            for r in self.records:
+                f.write(json.dumps(dataclasses.asdict(r)) + "\n")

@@ -55,7 +55,10 @@ def test_port_files_found():
             "regulator.py", "pmbus.py", "settling.py", "power_manager.py",
             "fleet.py", "control_plane.py", "fleet_telemetry.py",
             "fleet_compare.py", "sor_compare.py", "profile_windows.py",
-            "ckpt.py", "_msgpack.py", "router.py", "traffic.py"} <= names
+            "ckpt.py", "_msgpack.py", "router.py", "traffic.py",
+            "transceiver.py", "overhead.py", "granite_20b.py",
+            "quickstart.py", "case_study_transceiver.py", "serve_decode.py",
+            "train_voltune_lm.py"} <= names
 
 
 @pytest.fixture
