@@ -45,7 +45,12 @@ script exits nonzero:
                 gradients bit for bit those of autograd through the plain
                 version on the card, one launch a forward and none a
                 backward, the backward's span and device time); K2, K4
-                and K5 also at Zamba2's shared-block training shape;
+                and K5 also at Zamba2's shared-block training shape and
+                InternVL2-2B's (16/16 x 128, T 512), and without the
+                causal mask at Whisper-base's encoder (T = S = 1500) and
+                cross attention (T 256 over S 1500); K2 and K3 also at
+                Qwen3-30B-A3B's serve path; K3 also at Whisper-base's
+                cross attention at decode (S 1500, every slot valid);
 3. tiny       - tiny Qwen2.5 in f32 from one seed on cuda and on cpu through
                 `ServeEngine.generate` with the slice's controller: equal
                 tokens, plane and SOR estimate allclose;
@@ -99,6 +104,16 @@ script exits nonzero:
                 before its weights are made; peak under CARD_GB), with its
                 exact launch counts (K2 52, K3 52 x 31, K1's refit 8) and
                 decode-step breakdown beside the weights' byte floor;
+10a. tiny_qwen3moe - tiny Qwen3-MoE (`run_tiny_family`): phase 3's
+                generate, the experts of every token's slots layer by
+                layer equal cuda against cpu where the top-(k+1) gap
+                passes NEAR_TIE, and one fleet SOR train step as phase 16;
+10b. main_qwen3moe - full-width, full-depth Qwen3-30B-A3B (48 layers,
+                d_model 2048, 128 experts top-8 of ff 768, 32 q over the
+                4 KV heads duplicated to 16, head_dim 128; 30.83 B
+                parameters, 61.7 GB in bf16) as phase 10, once Granite's
+                weights are freed: K2 48, K3 48 x 31, K1's refit 8; its
+                decode reads every expert (cap 1 a decode slot);
 11. tiny_rwkv  - tiny RWKV6 (the ssm family) as phase 3;
 12. main_rwkv  - full-width, full-depth RWKV6-7B (32 layers, d_model 4096,
                 64 heads x 64, d_ff 14336, vocab 65536) as phase 5, with its
@@ -158,7 +173,7 @@ script exits nonzero:
                 never;
 21. main_train_ef - full-width, full-depth MiniCPM-2B in bf16 as phase 19,
                 the scalar step with the ef gradient sync and BERBounded:
-                one warm-up step, then 8 steps each of `ef_int8`,
+                one warm-up step, then 4 steps each of `ef_int8`,
                 `ef_int8_topk` and `auto` on the same state, launch counts
                 exact (the fused ef pass 12 per ef step, K10 alone 0), step
                 times, tokens/s, MFU, peak
@@ -189,7 +204,32 @@ script exits nonzero:
 25. main_train_rwkv - full-width, full-depth RWKV6-7B as phase 23 (K9 2 x
                 32 a step), with the reference's int8 AdamW moments: f32
                 ones need ~91 GB beside the bf16 weights;
-26. main_train_ckpt - Zamba2-1.2B as phase 23 trains it, from a fresh
+25a. tiny_grok1, tiny_mistral - tiny Grok-1 (moe) and tiny Mistral-Large
+                (dense, head_dim 16, its train step under
+                remat="group") as phase 10a;
+25b. main_train_moe - Qwen3-30B-A3B at full width, its depth cut to 4
+                layers (3.15 B parameters, f32 AdamW moments), under the
+                two-level group remat (one group of 4), as phase 23: K2
+                2 x 4 a step (forward and the group's recompute), K4, K5
+                4; a positive load-balance loss each step; one step in a
+                guarded profile window;
+25c. tiny_internvl, main_train_internvl - tiny InternVL2 as phase 10a
+                (its train batches carry the stub image embeddings), then
+                full-width, full-depth InternVL2-2B (2.00 B) as phase
+                25b: 256 stub image tokens ahead of 256 text tokens a
+                row, per-layer remat, f32 moments;
+25d. tiny_whisper, main_whisper - tiny Whisper cuda against cpu (encoder
+                states and cross K/V allclose, 8 greedy decode steps with
+                equal tokens, exact launches; one train step), then
+                full-width, full-depth Whisper-base (185.4 M) trained as
+                phase 25b (batch 4, 1500 stub frames, 256 tokens; K2, K4,
+                K5 18 a step: 6 encoder layers non-causal, 6 decoder
+                self, 6 cross at T != S) and served from the trained
+                weights: encode, the cross K/V and 32 greedy decode steps
+                through `registry.build(cfg).decode_fn`, twice, with
+                equal tokens (K2 6 and K3 12 a step exactly);
+26. main_train_ckpt - Zamba2-1.2B as phase 23 trains it, its depth cut to
+                6 of 38 layers (for the script's time), from a fresh
                 state through `Trainer.run` with async checkpoints every 2
                 steps and after step 4 and one injected node failure
                 before step 3 (steps 0, 1, the save, 2, the failure, the
@@ -198,7 +238,8 @@ script exits nonzero:
                 on the card at the save and after the restore), the re-run
                 of step 2 equal to its first run (loss, plane and whole
                 state bits), restarts 1, writes 2, launches exact for 5
-                steps, peak memory within 1 GB of phase 23's; the
+                steps, peak memory within 1 GB of its own before the first
+                save; the
                 checkpoint's bytes, the save's host-blocking snapshot and
                 background write, the restore, free disk and host memory
                 (MiniCPM-2B's 46 GB checkpoints, two at once, do not fit
@@ -239,7 +280,9 @@ RWKV = dict(arch="rwkv6_7b", batch=4, prompt=256, new=32, chips=64)
 ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
 # the training path driven on the card: full width and depth
 TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
-             profiled_steps=2)
+             profiled_steps=2, ef_steps=4)
+# (`main_train_ef` runs ef_steps of each sync, cut from 8 for the
+# script's time)
 # the hybrid and ssm families' training paths: full width and depth, the
 # serve paths' traffic (4 x 256 tokens), one warm-up step and `steps`
 # steps with exact launch counts, then one step split by CUDA events.
@@ -249,6 +292,33 @@ TRAIN_ZAMBA = dict(arch="zamba2_1p2b", batch=4, seq=256, chips=64, steps=2,
                    adamw_state="float32")
 TRAIN_RWKV = dict(arch="rwkv6_7b", batch=4, seq=256, chips=64, steps=2,
                   adamw_state="int8")
+# the moe family served at full width and depth: Qwen3-30B-A3B (30.83 B
+# parameters, ~61.7 GB in bf16), made after Granite-20B's weights are freed
+QWEN3MOE = dict(arch="qwen3_moe_30b_a3b", batch=4, prompt=256, new=32,
+                chips=64)
+# the moe family trained: Qwen3-30B-A3B at full width, its depth cut to 4
+# layers (3.15 B parameters: ~38 GB with f32 AdamW moments; the 48 layers'
+# ~61.7 GB of bf16 weights leave no room for gradients and moments), under
+# the two-level group remat (one group of 4)
+TRAIN_MOE = dict(arch="qwen3_moe_30b_a3b", n_layers=4, batch=4, seq=256,
+                 chips=64, steps=2, adamw_state="float32", remat="group")
+# the vlm family trained at full width and depth: InternVL2-2B, 256 stub
+# image tokens ahead of 256 text tokens a row
+TRAIN_INTERNVL = dict(arch="internvl2_2b", batch=4, seq=256, chips=64,
+                      steps=2, adamw_state="float32", remat="full")
+# the encdec family at full width and depth: Whisper-base trained (1500
+# stub frames a row, 256 decoder tokens; the family keeps its activations,
+# as the reference's does), then served: encode, the cross K/V, `new`
+# greedy decode steps
+WHISPER = dict(arch="whisper_base", batch=4, seq=256, chips=64, steps=2,
+               adamw_state="float32", remat="none", new=32)
+# the tiny configurations of the families this slice added, each cuda
+# against cpu (`run_tiny_family`), by phase
+TINY_FAMILIES = {"tiny_qwen3moe": "qwen3_moe_30b_a3b",
+                 "tiny_grok1": "grok1_314b",
+                 "tiny_mistral": "mistral_large_123b",
+                 "tiny_internvl": "internvl2_2b",
+                 "tiny_whisper": "whisper_base"}
 # the bf16 attention kernels of the training path (K2, K4, K5), by name
 TRAIN_ATTENTION = ("flash_fwd_sm90", "flash_bwd_dq_sm90",
                    "flash_bwd_dkv_sm90")
@@ -321,13 +391,13 @@ def bound_ms(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 def attention_serve_paths() -> dict:
     """{path: (configuration, spec)} of each serve path that runs K2 and
-    K3: the dense and hybrid main paths and the serve example (its
+    K3: the dense, moe and hybrid main paths and the serve example (its
     `batch`, `prompt` and `new`)."""
     from repro_torch.configs import get_config
     from repro_torch.examples import serve_decode
     out = {path: (get_config(spec["arch"]), spec) for path, spec in (
         ("serve-qwen", MAIN), ("serve-granite", GRANITE),
-        ("serve-zamba", ZAMBA))}
+        ("serve-qwen3moe", QWEN3MOE), ("serve-zamba", ZAMBA))}
     out["example-serve"] = (serve_decode.CONFIG, dict(
         batch=serve_decode.BATCH, prompt=serve_decode.PROMPT,
         new=serve_decode.NEW))
@@ -367,11 +437,73 @@ def flash_paths() -> dict:
     out["train-minicpm"] = (TRAIN["batch"], plan.n_q_pad, plan.n_kv_pad,
                             cfg.head_dim_, cfg.sliding_window, TRAIN["seq"])
     out["train-zamba"] = train_zamba_heads()
+    out["train-internvl"] = train_internvl_heads()
     cfg, args = example_train_config()
     plan = cfg.head_plan()
     out["example-train"] = (args.batch, plan.n_q_pad, plan.n_kv_pad,
                             cfg.head_dim_, cfg.sliding_window, args.seq)
     return out
+
+
+def train_internvl_heads() -> tuple:
+    """InternVL2-2B's attention in training: (batch, q heads, kv heads,
+    head_dim, window, T = image tokens + text tokens)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_INTERNVL["arch"])
+    plan = cfg.head_plan()
+    return (TRAIN_INTERNVL["batch"], plan.n_q_pad, plan.n_kv_pad,
+            cfg.head_dim_, 0, cfg.n_img_tokens + TRAIN_INTERNVL["seq"])
+
+
+def noncausal_paths() -> dict:
+    """Whisper-base's non-causal attention, K2 in serving and training,
+    K4 and K5 in training: its encoder (T = S = the 1500 frames) and its
+    decoder's cross attention (the 256 training tokens over the frames),
+    (batch, T, S, q heads, kv heads, head_dim)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(WHISPER["arch"])
+    plan = cfg.head_plan()
+    B, S, T = WHISPER["batch"], cfg.enc_seq_len, WHISPER["seq"]
+    heads = (plan.n_q_pad, plan.n_kv_pad, cfg.head_dim_)
+    return {"whisper-encoder": (B, S, S) + heads,
+            "whisper-cross": (B, T, S) + heads}
+
+
+def flash_noncausal_case(fa, gen, dev, flush, B, T, S, Hq, Hkv, Dh) -> dict:
+    """K2 without the causal mask at T x S: checked against its plain
+    version (o within 2e-2, lse within 1e-3), timed beside its bound, the
+    plain version and one SDPA call."""
+    import torch
+    import torch.nn.functional as F
+    group = Hq // Hkv
+    kw = dict(causal=False, group=group)
+    q = torch.randn((B, T, Hq, Dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    d = (o.float() - o_ref.float()).abs().max().item()
+    d_lse = (lse - lse_ref).abs().max().item()
+    shape = dict(B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh, causal=False,
+                 dtype="bf16")
+    if not (math.isfinite(d) and d <= 2e-2 and d_lse <= 1e-3):
+        raise AssertionError(f"flash_attention {shape}: max|o-o_ref|={d}, "
+                             f"max|lse-lse_ref|={d_lse}")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20, flush)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), 5,
+                       flush)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20,
+                     flush)
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * T
+    b_ms, b_by = bound_ms(n_bytes, 4 * Dh * B * Hq * T * S, "bfloat16")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=d, max_lse_err=d_lse,
+                shape=shape)
 
 
 def train_zamba_heads() -> tuple:
@@ -388,7 +520,9 @@ def check_flash(dev, flush) -> dict:
     """K2 in bf16 at each serve path's prefill and the training path's
     forward (its T, and a ragged T of 200) against its plain version, timed
     at the path's T beside its bound, the plain version and one SDPA call;
-    then the f32 path at the Qwen2.5 prefill, checked and timed (`f32_ms`).
+    Whisper-base's non-causal encoder and cross attention at T != S
+    (`noncausal_paths`, `flash_noncausal_case`); then the f32 path at the
+    Qwen2.5 prefill, checked and timed (`f32_ms`).
     The row's top-level times are the Qwen2.5 path's; `paths` holds each
     path's."""
     import torch
@@ -441,6 +575,11 @@ def check_flash(dev, flush) -> dict:
                            bound_by=b_by, library_ms=lib_ms,
                            shape=dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh,
                                       window=window, dtype="bf16"))
+    # Whisper's non-causal encoder and cross attention (T != S)
+    for path, shape in noncausal_paths().items():
+        paths[path] = flash_noncausal_case(fa, gen, dev, flush, *shape)
+        err = max(err, paths[path]["max_abs_err"])
+        checked.append(dict(path=path, **paths[path]["shape"]))
     # the sliding window past its length at Zamba2's full head shapes:
     # causal, window 4096, a prompt of 4096 + 512 tokens, one batch row
     B, Hq, Hkv, Dh, window, _ = flash_paths()["serve-zamba"]
@@ -546,7 +685,9 @@ def check_decode(dev, flush) -> dict:
     against the plain version, timed beside its bound, the plain version and
     one masked SDPA call (`decode_case`); each path's wrapper host us a call
     at its ragged case (`host_us`). The row's top-level times are the
-    Qwen2.5 path's ragged case; `paths` holds each path's cases."""
+    Qwen2.5 path's ragged case; `paths` holds each path's cases, and
+    Whisper-base's cross attention at decode (`whisper-cross`: S 1500,
+    every slot valid)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -588,6 +729,19 @@ def check_decode(dev, flush) -> dict:
             checked.append(dict(path=path, case="window", **row["shape"]))
             paths[path]["window"] = row
         del q, k, v
+    # Whisper-base's cross attention at decode: the encoder's 1500 frames,
+    # every slot valid, no cache write
+    B, _, S, Hq, Hkv, Dh = noncausal_paths()["whisper-cross"]
+    q = torch.randn((B, 1, Hq, Dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    row = decode_case(da, q, k, v, lengths, Hq // Hkv, flush)
+    err = max(err, row["max_abs_err"])
+    checked.append(dict(path="whisper-cross", case="full", **row["shape"]))
+    paths["whisper-cross"] = row
+    del q, k, v
     top = {key: paths["serve-qwen"][key] for key in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us",
         "shape")}
@@ -1077,7 +1231,9 @@ def check_sor_refit(dev, flush) -> dict:
 def check_flash_bwd(dev, flush) -> list[dict]:
     """K4 and K5 at the training paths' shapes (MiniCPM-2B: 48/48 heads,
     head_dim 64, bf16, causal; Zamba2-1.2B's shared block: 32/32 heads x
-    64, window 4096, T 256), with K2's o and lse, each against its plain
+    64, window 4096, T 256; InternVL2-2B: 16/16 x 128, T 512; Whisper-base's
+    non-causal encoder, T = S = 1500, and cross attention, T 256 over S
+    1500, 16/16 x 64), with K2's o and lse, each against its plain
     version; plus a ragged T, a window and a ragged T at batch 2 (a tile
     past T must not read the next batch row). Each path is timed
     (`flash_bwd_path`); the row's top-level times are MiniCPM-2B's. The
@@ -1089,10 +1245,7 @@ def check_flash_bwd(dev, flush) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(13)
 
     def inputs(nb, T, hq, hkv):
-        return tuple(torch.randn(shape, generator=gen, device=dev,
-                                 dtype=torch.bfloat16)
-                     for shape in ((nb, T, hq, Dh), (nb, T, hkv, Dh),
-                                   (nb, T, hkv, Dh), (nb, T, hq, Dh)))
+        return bwd_inputs(gen, dev, nb, T, T, hq, hkv, Dh)
 
     err = {"dq": 0.0, "dkv": 0.0}
     for nb, T, hq, hkv, window in ((B, 500, 12, 4, 0), (B, 300, 8, 8, 96),
@@ -1126,14 +1279,21 @@ def check_flash_bwd(dev, flush) -> list[dict]:
                                      f"max |ref| {scale}")
             err[key] = max(err[key], d)
     paths = {}
-    for path, (nb, hq, hkv, _, window, T) in (
+    for path, (nb, hq, hkv, dh, window, T) in (
             ("train-minicpm", (B, Hq, Hkv, Dh, 0, TRAIN["seq"])),
             ("train-zamba", train_zamba_heads()),
+            ("train-internvl", train_internvl_heads()),
             ("example-train", flash_paths()["example-train"])):
-        paths[path] = flash_bwd_path(fa, inputs(nb, T, hq, hkv), hq // hkv,
-                                     window, flush)
+        paths[path] = flash_bwd_path(
+            fa, bwd_inputs(gen, dev, nb, T, T, hq, hkv, dh), hq // hkv,
+            window, flush)
+    for path, (nb, T, S, hq, hkv, dh) in noncausal_paths().items():
+        paths[path] = flash_bwd_path(
+            fa, bwd_inputs(gen, dev, nb, T, S, hq, hkv, dh), hq // hkv, 0,
+            flush, causal=False)
+    for row in paths.values():
         for name in ("dq", "dkv"):
-            err[name] = max(err[name], paths[path][f"{name}_max_abs_err"])
+            err[name] = max(err[name], row[f"{name}_max_abs_err"])
     shape = dict(B=B, T=TRAIN["seq"], Hq=Hq, Hkv=Hkv, Dh=Dh, dtype="bf16",
                  also_B_T_Hq_Hkv_window=[[B, 500, 12, 4, 0],
                                          [B, 300, 8, 8, 96],
@@ -1154,8 +1314,19 @@ def check_flash_bwd(dev, flush) -> list[dict]:
                  shape=shape, paths=paths)]
 
 
-def flash_bwd_path(fa, qkvdo, group: int, window: int, flush) -> dict:
-    """K4 and K5 at one training path's shape (bf16, causal, `window`):
+def bwd_inputs(gen, dev, B, T, S, Hq, Hkv, Dh):
+    """Random bf16 q, k, v, do ([B,T,Hq,Dh], [B,S,Hkv,Dh] twice,
+    [B,T,Hq,Dh]) on the card."""
+    import torch
+    return tuple(torch.randn(shape, generator=gen, device=dev,
+                             dtype=torch.bfloat16)
+                 for shape in ((B, T, Hq, Dh), (B, S, Hkv, Dh),
+                               (B, S, Hkv, Dh), (B, T, Hq, Dh)))
+
+
+def flash_bwd_path(fa, qkvdo, group: int, window: int, flush, *,
+                   causal: bool = True) -> dict:
+    """K4 and K5 at one training path's shape (bf16, `causal`, `window`):
     checked against their plain versions (1e-2 of the largest |grad|),
     timed beside their bounds, their plain versions and the backward of
     one SDPA call (dq, dk, dv together; masked where the window is inside
@@ -1164,7 +1335,8 @@ def flash_bwd_path(fa, qkvdo, group: int, window: int, flush) -> dict:
     import torch.nn.functional as F
     q, k, v, do = qkvdo
     B, T, Hq, Dh = q.shape
-    kw = dict(causal=True, group=group, sliding_window=window)
+    S = k.shape[1]
+    kw = dict(causal=causal, group=group, sliding_window=window)
     o, lse = fa.flash_attention(q, k, v, **kw)
     delta = fa.bwd_delta(o, do)
     args = (q, k, v, do, lse, delta)
@@ -1199,13 +1371,16 @@ def flash_bwd_path(fa, qkvdo, group: int, window: int, flush) -> dict:
     kt, vt = (a.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
               .requires_grad_() for a in (k, v))
     rows = torch.arange(T, device=q.device)
-    keep = rows[None, :] <= rows[:, None]          # causal: keys <= row
+    keys = torch.arange(S, device=q.device)
+    keep = keys[None, :] <= rows[:, None]          # causal: keys <= row
+    if not causal:
+        keep = torch.ones((T, S), dtype=torch.bool, device=q.device)
     if window:
-        keep &= rows[None, :] > rows[:, None] - window
+        keep &= keys[None, :] > rows[:, None] - window
     windowed = 0 < window < T
     ot = F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=keep if windowed else None,
-        is_causal=not windowed)
+        is_causal=causal and not windowed)
     dot = do.transpose(1, 2).contiguous()
     out["library_ms"] = time_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True), 20, flush)
@@ -1218,8 +1393,8 @@ def flash_bwd_path(fa, qkvdo, group: int, window: int, flush) -> dict:
     # K5 reads q, k, v, do, lse, delta, writes dk, dv; s, dp, dv, dk
     out["dkv_bound_ms"], out["dkv_bound_by"] = bound_ms(
         2 * qb + 4 * kb + stats, 8 * Dh * pairs, "bfloat16")
-    out["shape"] = dict(B=B, T=T, Hq=Hq, Hkv=Hkv, Dh=Dh, window=window,
-                        dtype="bf16")
+    out["shape"] = dict(B=B, T=T, S=S, Hq=Hq, Hkv=Hkv, Dh=Dh,
+                        window=window, causal=causal, dtype="bf16")
     return out
 
 
@@ -2426,7 +2601,7 @@ def host_round_breakdown(engine, prompts, steps: int = 8) -> dict:
                 round_ms_each=[r[0] * 1e3 for r in decode])
 
 
-def decode_breakdown(engine, prompts, steps: int = 8) -> dict:
+def decode_breakdown(engine, prompts, steps: int = 4) -> dict:
     """Where a decode step's time goes, read through `generate` alone: a
     run of 1 + `steps` tokens less a run of 1 token (the prefill and first
     token), per decode step. On the host clock (synchronized, best of two)
@@ -2653,7 +2828,9 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
     in-graph SOR learning on a `chips`-chip fleet (margin-coupled error,
     straggler and HBM-error observables, learned three-rail control round,
     refit every `refresh_every` steps), AdamW (`opt_cfg`, by default f32
-    moments), the launcher's WSD schedule and roofline profile. Returns
+    moments), the launcher's WSD schedule, roofline profile and data
+    (`FrontendData`: the vlm and encdec families' batches carry their stub
+    frontend inputs). Returns
     (make_trainer, initial state, data, sor config); make_trainer(state,
     total_steps, **trainer_config) builds a `Trainer` (of the fleet's
     provenance and the given `TrainerConfig` fields) that continues from
@@ -2663,7 +2840,8 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
     from repro_torch.core.policy import MultiRailClosedLoop
     from repro_torch.core.power_plane import StepProfile
     from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import FrontendData
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves
     from repro_torch.optim import adamw
@@ -2694,7 +2872,8 @@ def train_slice(cfg, params, dev, *, chips: int, batch: int, seq: int,
     state = {"params": params, "opt": adamw.init_state(params, opt_cfg),
              "plane": plane, "ef": ef,
              "sor": sor.init_state(scfg, chips, device=dev)}
-    data = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch))
+    # the vlm and encdec families' batches carry their stub frontends
+    data = FrontendData(DataConfig(cfg.vocab_size, seq, batch), cfg)
 
     def make_trainer(state, total_steps, **trainer_config):
         return Trainer(step, data,
@@ -2719,12 +2898,13 @@ TINY_TRAIN_TOL = dict(loss=dict(rtol=1e-4, atol=0.0),
                       sor=dict(rtol=5e-2, atol=1e-2))
 
 
-def run_tiny_train(arch: str = "minicpm_2b", seq: int = 32) -> dict:
-    """Tiny `arch` in f32, the same weights on cuda and cpu, three fleet
+def run_tiny_train(arch: str = "minicpm_2b", seq: int = 32, steps: int = 3,
+                   remat: str = "full") -> dict:
+    """Tiny `arch` in f32, the same weights on cuda and cpu, `steps` fleet
     SOR steps (refit every second step) of batch 2 x `seq` through
-    Trainer.run: losses, params, plane (comp_level exact) and SOR estimate
-    (usable lanes exact) allclose at TINY_TRAIN_TOL; the largest
-    differences are reported."""
+    Trainer.run under `remat`: losses, params, plane (comp_level exact) and
+    SOR estimate (usable lanes exact) allclose at TINY_TRAIN_TOL; the
+    largest differences are reported."""
     import dataclasses
 
     import torch
@@ -2739,8 +2919,9 @@ def run_tiny_train(arch: str = "minicpm_2b", seq: int = 32) -> dict:
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda a: a.to(dev, copy=True), params)
         make, state, _, scfg = train_slice(cfg, p, dev, chips=8, batch=2,
-                                           seq=seq, steps=3, refresh_every=2)
-        trainer = make(state, 3)
+                                           seq=seq, steps=steps,
+                                           refresh_every=2, remat=remat)
+        trainer = make(state, steps)
         trainer.run()
         runs[dev] = trainer
     cpu, gpu = runs["cpu"], runs["cuda"]
@@ -2947,22 +3128,28 @@ def run_main_train(dev) -> dict:
         profile=profile)
 
 
-def model_launches(cfg, passes: int) -> dict:
+def model_launches(cfg, passes: int, remat: str = "full") -> dict:
     """The exact launch counts of `passes` forward and backward passes of
-    `cfg` with per-layer remat: K2 and the scan (K8, K9) twice a layer
-    that runs them (the forward and the remat recompute), K4 and K5 once;
-    every other kernel never."""
+    `cfg`: K2 and the scan (K8, K9) once a layer that runs them in the
+    forward and, under remat ("full" or "group"), once more in its
+    recompute; K4 and K5 once. The encdec family (which keeps every
+    activation) runs attention once an encoder layer and twice a decoder
+    layer (self and cross). Every other kernel never."""
     from repro_torch.kernels import ops
     L = cfg.n_layers
-    attention = {"dense": L, "ssm": 0,
-                 "hybrid": L // max(cfg.attn_every, 1)}[cfg.family]
+    if cfg.family == "encdec":
+        attention, remat = (cfg.n_enc_layers or L) + 2 * L, "none"
+    else:
+        attention = {"ssm": 0, "hybrid": L // max(cfg.attn_every, 1)}.get(
+            cfg.family, L)
+    forward = 1 if remat == "none" else 2
     want = {name: 0 for name in ops.KERNELS}
-    want.update(flash_attention_fwd=2 * attention * passes,
+    want.update(flash_attention_fwd=forward * attention * passes,
                 flash_attention_bwd_dq=attention * passes,
                 flash_attention_bwd_dkv=attention * passes)
     scan = {"hybrid": "mamba2_ssd", "ssm": "rwkv6_scan"}.get(cfg.family)
     if scan:
-        want[scan] = 2 * L * passes
+        want[scan] = forward * L * passes
     return want
 
 
@@ -3130,12 +3317,15 @@ def run_tiny_train_ckpt() -> dict:
 # 0.0919, 0.6001, 0.7286 from np.random.default_rng(2))
 CKPT_FAULTS = dict(fail_prob=0.15, seed=2)
 CKPT_STEPS, CKPT_EVERY = 4, 2
-# Zamba2-1.2B as `main_train_zamba` trains it: a checkpoint is ~16.4 GB
-# (bf16 params, f32 moments, the ef zeros). MiniCPM-2B's is ~46 GB, and
-# two of them do not fit the card machine's 80 GB of disk.
-TRAIN_CKPT = TRAIN_ZAMBA
+# Zamba2-1.2B as `main_train_zamba` trains it, its depth cut from 38 to 6
+# layers (one occurrence of the shared block) to keep the script inside
+# its time: a checkpoint is then ~5.5 GB (bf16 params, f32 moments, the ef
+# zeros; ~16.4 GB at full depth). MiniCPM-2B's is ~46 GB, and two of them
+# do not fit the card machine's 80 GB of disk.
+TRAIN_CKPT = dict(TRAIN_ZAMBA, n_layers=6)
 CKPT_MIN_FREE_GB = 40.0       # two checkpoints beside each other
-CKPT_PEAK_GB = 1.0            # peak's distance from the same config's
+CKPT_PEAK_GB = 1.0            # peak's distance from the config's own peak
+                              # before its first checkpoint
 
 
 def mem_available_gb() -> float:
@@ -3145,10 +3335,10 @@ def mem_available_gb() -> float:
     raise RuntimeError("no MemAvailable in /proc/meminfo")
 
 
-def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
-    """Full-width, full-depth TRAIN_CKPT (Zamba2-1.2B, f32 AdamW moments)
-    as its `main_train_*` phase trains it, through Trainer.run with
-    checkpoints (every 2 steps and after step 4, async)
+def run_main_train_ckpt(dev) -> dict:
+    """Full-width TRAIN_CKPT (Zamba2-1.2B at 6 of its 38 layers, f32
+    AdamW moments) as its `main_train_*` phase trains it, through
+    Trainer.run with checkpoints (every 2 steps and after step 4, async)
     and one injected node failure before step 3: steps 0 and 1, the save
     of the state after step 1 (step_2), step 2, the failure, the restore
     of step_2, steps 2 and 3 again, the save of step_4. Holds: the state
@@ -3156,10 +3346,12 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
     of every leaf taken on the card at the save and after the restore);
     the re-run of step 2 gives the loss bits and the plane of its first
     run; restarts 1, checkpoint writes 2; launches exact for 5 steps; peak
-    memory within CKPT_PEAK_GB of that phase's (`main_peak_gb`). Reports the checkpoint's
+    memory within CKPT_PEAK_GB of the peak of steps 0 and 1, before the
+    first save. Reports the checkpoint's
     bytes (the ef zeros among them), the save's host-blocking snapshot and
     its background write, the restore, and the free disk and host memory
     before the phase."""
+    import dataclasses
     import hashlib
     import shutil
 
@@ -3186,7 +3378,8 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
         raise RuntimeError(f"{free_gb:.1f} GB free under {where}; "
                            f"main_train_ckpt needs {CKPT_MIN_FREE_GB}")
     spec = TRAIN_CKPT
-    cfg = get_config(spec["arch"])
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["n_layers"])
     B, T = spec["batch"], spec["seq"]
     try:
         params = registry.build(cfg).init(
@@ -3202,7 +3395,7 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
                        ckpt_dir=str(where), async_ckpt=True,
                        faults=FaultConfig(**CKPT_FAULTS))
         mgr, step_fn = trainer.ckpt, trainer.train_step
-        calls, saves, restores = [], [], []
+        calls, saves, restores, pre_save_peaks = [], [], [], []
 
         def plane_bits(plane):
             return hashlib.sha256(bytes(torch.cat([
@@ -3224,6 +3417,8 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
         save, restore = mgr.save, mgr.restore
 
         def recorded_save(step, state, fleet=None):
+            torch.cuda.synchronize()
+            pre_save_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
             digest = state_digest(state)
             t0 = time.perf_counter()
             path = save(step, state, fleet=fleet)
@@ -3292,9 +3487,11 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"main_train_ckpt losses {losses}")
         # check 5: no second state on the device
+        main_peak_gb = pre_save_peaks[0]
         if abs(peak_gb - main_peak_gb) > CKPT_PEAK_GB:
             raise AssertionError(f"main_train_ckpt peak {peak_gb:.3f} GB, "
-                                 f"the config's {main_peak_gb:.3f} GB")
+                                 f"the config's {main_peak_gb:.3f} GB "
+                                 f"before its first save")
         r = restores[0]
         gb = 1e9
         return dict(
@@ -3308,7 +3505,7 @@ def run_main_train_ckpt(dev, main_peak_gb: float) -> dict:
             rerun_state_equal=rerun_state_equal,
             launches=launches, expected_launches=want,
             sor_ticks=[c["tick"] for c in calls],
-            peak_mem_gb=peak_gb, config_peak_mem_gb=main_peak_gb,
+            peak_mem_gb=peak_gb, pre_save_peak_mem_gb=main_peak_gb,
             free_disk_gb_before=free_gb, mem_available_gb_before=host_gb,
             ckpt_bytes=r["ckpt_bytes"], ckpt_bytes_step4=last_bytes,
             ef_zero_bytes=ef_bytes,
@@ -3401,13 +3598,19 @@ def run_tiny_train_family(arch: str) -> dict:
                 **run_tiny_train(arch, seq=TINY_FAMILY_SEQ))
 
 
-def run_main_train_family(dev, spec: dict) -> dict:
-    """Full-width, full-depth `spec["arch"]` (Zamba2-1.2B or RWKV6-7B) in
-    bf16 through Trainer.run as `run_main_train`, with `spec`'s AdamW
-    moments and a refit every second step: one warm-up step, then
-    spec["steps"] steps whose launch counts are checked exactly, finite
-    losses and a peak under the card's 80 GB; then one step split by CUDA
-    events (`train_step_split`)."""
+def run_main_train_family(dev, spec: dict, then=None) -> dict:
+    """Full-width `spec["arch"]` in bf16 through Trainer.run as
+    `run_main_train`, at its full depth or `spec["n_layers"]`, under
+    `spec["remat"]` (by default per layer), with `spec`'s AdamW moments
+    and a refit every second step: one warm-up step, then spec["steps"]
+    steps whose launch counts are checked exactly, finite losses (and a
+    positive load-balance loss for the moe family) and a peak under the
+    card's 80 GB; then, for the scan families (Zamba2-1.2B, RWKV6-7B), one
+    step split by CUDA events (`train_step_split`), for the others one
+    step in a guarded profile window (`train_breakdown`). `then(cfg,
+    params)`, if given, runs on the trained weights and its dict joins the
+    result."""
+    import dataclasses
     import statistics
 
     import torch
@@ -3418,6 +3621,9 @@ def run_main_train_family(dev, spec: dict) -> dict:
     from repro_torch.models.lm import tree_leaves
     from repro_torch.optim import adamw
     cfg = get_config(spec["arch"])
+    if "n_layers" in spec:            # a depth cut, listed in PERF.md
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    remat = spec.get("remat", "full")
     B, T, steps = spec["batch"], spec["seq"], spec["steps"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
@@ -3425,7 +3631,7 @@ def run_main_train_family(dev, spec: dict) -> dict:
     n_params = sum(a.numel() for a in tree_leaves(params))
     make, state, _, scfg = train_slice(
         cfg, params, dev, chips=spec["chips"], batch=B, seq=T, steps=steps,
-        refresh_every=2,
+        refresh_every=2, remat=remat,
         opt_cfg=adamw.AdamWConfig(state_dtype=spec["adamw_state"]))
     del params
     torch.cuda.synchronize()
@@ -3451,7 +3657,7 @@ def run_main_train_family(dev, spec: dict) -> dict:
 
     refits = sum(1 for t in range(tick0 + 1, tick0 + steps + 1)
                  if t % scfg.refresh_every == 0)
-    want = model_launches(cfg, steps)
+    want = model_launches(cfg, steps, remat)
     want.update(fleet_stats=steps, sor_refit=refits)
     if launches != want:
         raise AssertionError(f"train {cfg.name} launch counts {launches} "
@@ -3459,22 +3665,35 @@ def run_main_train_family(dev, spec: dict) -> dict:
     losses = [r.loss for r in trainer.log.records]
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train {cfg.name} losses {losses}")
-    if peak_gb >= 80:
+    moe_aux = [r.extras.get("moe_aux") for r in trainer.log.records]
+    if cfg.family == "moe" and not all(a is not None and math.isfinite(a)
+                                       and a > 0 for a in moe_aux):
+        raise AssertionError(f"train {cfg.name} moe_aux {moe_aux}")
+    if peak_gb >= CARD_GB:
         raise AssertionError(f"train {cfg.name} peak {peak_gb} GB")
     step_s = statistics.median(trainer.step_times)
-    tokens = B * T
-    split = train_step_split(make, trainer.state, cfg.family)
+    # tokens a step through the decoder stack: the vlm's image prefix too
+    tokens = B * (T + (cfg.n_img_tokens if cfg.family == "vlm" else 0))
+    if cfg.family in ("hybrid", "ssm"):
+        extra = dict(split=train_step_split(make, trainer.state,
+                                            cfg.family))
+    else:
+        extra = dict(profile=train_breakdown(make, trainer.state, 1,
+                                             watch=TRAIN_ATTENTION))
+    if then is not None:
+        extra.update(then(cfg, trainer.state["params"]))
     return dict(
         arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
         params=n_params, batch=B, seq=T, n_chips=spec["chips"],
-        dtype=cfg.dtype, remat="full", adamw_state=spec["adamw_state"],
+        dtype=cfg.dtype, remat=remat, adamw_state=spec["adamw_state"],
         init_s=init_s, warmup_step_s=warm_s, steps=steps,
         step_ms_median=step_s * 1e3,
         step_ms=[x * 1e3 for x in trainer.step_times], run_s=run_s,
         tokens_per_s=tokens / step_s,
         mfu=6.0 * n_params * tokens / step_s / PEAK_FLOPS["bfloat16"],
-        peak_mem_gb=peak_gb, losses=losses, launches=launches,
-        expected_launches=want, sor_tick_before=tick0, split=split)
+        peak_mem_gb=peak_gb, losses=losses, moe_aux=moe_aux,
+        launches=launches, expected_launches=want, sor_tick_before=tick0,
+        **extra)
 
 
 def train_step_split(make, state, family: str) -> dict:
@@ -3743,7 +3962,7 @@ def run_tiny_train_ef() -> dict:
 def run_main_train_ef(dev) -> dict:
     """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run with
     the error-feedback gradient sync and BERBounded: one warm-up step, then
-    TRAIN["steps"] checked steps of each of `ef_int8`, `ef_int8_topk` and
+    TRAIN["ef_steps"] checked steps of each of `ef_int8`, `ef_int8_topk` and
     `auto` on the same state (the last measures the compression's cost in
     the same run), exact launch counts (the fused ef pass once per leaf
     per step, K10 alone never), then a torch.profiler window of
@@ -3758,7 +3977,7 @@ def run_main_train_ef(dev) -> dict:
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves
     cfg = get_config(TRAIN["arch"])
-    B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["ef_steps"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -4323,6 +4542,252 @@ def run_main_routed(dev) -> dict:
     return dict(out, by_path=by_path)
 
 
+# ---------------------------------------------------------------------------
+# the moe, vlm and encdec families: tiny cuda-vs-cpu phases, Whisper's
+# encode-then-decode serve path
+# ---------------------------------------------------------------------------
+
+# a gap between a token's k-th and (k+1)-th router probabilities below this
+# is a near-tie, where the card's and the host's f32 router products may
+# pick different experts (tests/test_torch_moe.py's NEAR_TIE)
+NEAR_TIE = 1e-6
+
+
+def moe_routes(params, tokens, cfg) -> list:
+    """Each moe layer's routing of a prefill of `tokens`: (expert indices
+    [B,T,K], top-(k+1) gap [B,T]) a layer, on the device of `params`."""
+    import torch
+
+    from repro_torch.models import attention, common, lm, mlp
+    x = lm.embed_tokens(params, tokens, cfg)
+    spec = lm.moe_spec(cfg)
+    out = []
+    for i in range(cfg.n_layers):
+        p = lm._layer(params, i)
+        h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
+        a, _ = attention.attention_full(p["attn"], h, lm.attn_spec(cfg))
+        x = x + a
+        h = common.rms_norm(x, p["ln2_w"], cfg.norm_eps)
+        probs = torch.softmax(h.float() @ p["moe"]["router"], dim=-1)
+        top = torch.topk(probs, spec.k + 1, dim=-1).values
+        out.append((mlp.moe_route(p["moe"], h, spec)[1].cpu(),
+                    (top[..., spec.k - 1] - top[..., spec.k]).cpu()))
+        x = x + mlp.moe_apply(p["moe"], h, spec)[0]
+    return out
+
+
+def moe_routing_check(cfg, params, prompts) -> dict:
+    """The experts each token's slots go to, layer by layer in a prefill of
+    `prompts`, cuda against cpu from the same weights: equal wherever the
+    host's top-(k+1) gap exceeds NEAR_TIE; the near-ties are counted."""
+    import torch
+
+    from repro_torch.models.lm import tree_map
+    runs = {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            runs[dev] = moe_routes(tree_map(lambda a: a.to(dev), params),
+                                   torch.from_numpy(prompts).to(dev), cfg)
+    ties = 0
+    for i, ((idx_c, gap), (idx_g, _)) in enumerate(zip(runs["cpu"],
+                                                       runs["cuda"])):
+        clear = gap > NEAR_TIE
+        ties += int((~clear).sum())
+        if not torch.equal(idx_c[clear], idx_g[clear]):
+            raise AssertionError(f"{cfg.name} layer {i}: cuda routes "
+                                 f"tokens to other experts than cpu")
+    return dict(routing_equal=True, near_ties=ties,
+                min_gap=min(float(g.min()) for _, g in runs["cpu"]),
+                near_tie=NEAR_TIE)
+
+
+def whisper_decode(params, frames, cfg, new: int):
+    """Whisper's serve path through `registry.build(cfg).decode_fn`: encode
+    the frames, the stacked cross K/V, then `new` greedy steps from token 0
+    -> (tokens [B, new] numpy, seconds for encode + cross K/V, seconds for
+    the steps). Times are host clock after a synchronize on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import encdec, registry
+    api = registry.build(cfg)
+    B = frames.shape[0]
+    dev = frames.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        xkv = encdec.cross_kv(params, encdec.encode(params, frames, cfg),
+                              cfg)
+        sync()
+        t1 = time.perf_counter()
+        cache = api.init_decode_cache(B, new + 8, dev)
+        tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        out = []
+        for i in range(new):
+            logits, cache = api.decode_fn(params, cache, {
+                "tokens": tok, "cur_index": i, "cross_kv": xkv})
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1).to(
+                torch.int32)[:, None]
+            out.append(tok)
+        tokens = torch.cat(out, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+    return np.asarray(tokens), t1 - t0, t2 - t1
+
+
+# tiny Whisper's encoder states and cross K/V, cuda against cpu in f32:
+# sums in another order through 2 layers
+WHISPER_TINY_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def run_tiny_encdec(arch: str = "whisper_base") -> dict:
+    """Tiny Whisper in f32, the same weights on cuda and cpu: the encoder's
+    states and the cross K/V allclose (WHISPER_TINY_TOL), 8 greedy decode
+    steps with equal tokens; the cuda run's launches exact (K2 once an
+    encoder layer, K3 twice a decoder layer a step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import stub_frontend_inputs
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, registry
+    from repro_torch.models.lm import tree_map
+    cfg = dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    params = registry.build(cfg).init(
+        torch.Generator(device="cpu").manual_seed(0))
+    frames = stub_frontend_inputs(cfg, cfg.family, 2, device="cpu")["frames"]
+    new = 8
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), params)
+        f = frames.to(dev)
+        with torch.no_grad():
+            enc = encdec.encode(p, f, cfg)
+            xkv = encdec.cross_kv(p, enc, cfg)
+        ops.reset_launch_counts()
+        tokens, _, _ = whisper_decode(p, f, cfg, new)
+        runs[dev] = (tokens, enc.cpu(), {k: v.cpu() for k, v in xkv.items()},
+                     ops.launch_counts())
+    (t_cpu, e_cpu, x_cpu, _), (t_gpu, e_gpu, x_gpu, launches) = \
+        runs["cpu"], runs["cuda"]
+    if not np.array_equal(t_cpu, t_gpu):
+        raise AssertionError(f"tiny whisper: cuda tokens {t_gpu.tolist()} "
+                             f"!= cpu tokens {t_cpu.tolist()}")
+    gaps = {}
+    for name, a, b in (("encode", e_cpu, e_gpu), ("cross_k", x_cpu["k"],
+                                                  x_gpu["k"]),
+                       ("cross_v", x_cpu["v"], x_gpu["v"])):
+        if not torch.allclose(a, b, **WHISPER_TINY_TOL):
+            raise AssertionError(f"tiny whisper {name}: max diff "
+                                 f"{(a - b).abs().max().item()}")
+        gaps[name] = (a - b).abs().max().item()
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention_fwd=cfg.n_enc_layers,
+                decode_attention=2 * cfg.n_layers * new)
+    if launches != want:
+        raise AssertionError(f"tiny whisper launches {launches} != {want}")
+    return dict(tokens_equal=True, shape=list(t_gpu.shape),
+                max_abs_diff=gaps, launches=launches,
+                tolerance=WHISPER_TINY_TOL)
+
+
+def run_tiny_family(arch: str) -> dict:
+    """Tiny `arch` of the families this slice added (and Mistral-Large) in
+    f32, cuda against cpu: serving (`run_tiny`: `ServeEngine.generate`,
+    tokens equal, plane and SOR estimate allclose; Whisper:
+    `run_tiny_encdec`), the MoE's routing layer by layer
+    (`moe_routing_check`), and one fleet SOR train step (`run_tiny_train`,
+    Mistral-Large under remat="group")."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = get_config(arch, tiny=True)
+    out = dict(family=cfg.family)
+    if cfg.family == "encdec":
+        out["serve"] = run_tiny_encdec(arch)
+    else:
+        out["serve"] = run_tiny(arch)
+    if cfg.family == "moe":
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        params = registry.build(f32).init(
+            torch.Generator(device="cpu").manual_seed(0))
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 16)).astype(np.int32)
+        out["routing"] = moe_routing_check(f32, params, prompts)
+    remat = "group" if arch == "mistral_large_123b" else "full"
+    out["train"] = dict(remat=remat,
+                        **run_tiny_train(arch, steps=1, remat=remat))
+    return out
+
+
+def run_main_whisper(dev) -> dict:
+    """Whisper-base at full width and depth: trained as
+    `run_main_train_family` (WHISPER), then served from the trained
+    weights: encode the stub frames, the cross K/V, WHISPER["new"] greedy
+    decode steps through `registry.build(cfg).decode_fn`, twice: equal
+    tokens, exact launches (K2 once an encoder layer, K3 twice a decoder
+    layer a step), the encode and per-token times, and the decode's busy
+    share in a guarded profile window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import stub_frontend_inputs
+    from repro_torch.kernels import ops
+
+    def serve(cfg, params):
+        B, new = WHISPER["batch"], WHISPER["new"]
+        frames = stub_frontend_inputs(cfg, cfg.family, B, device=dev)[
+            "frames"]
+        whisper_decode(params, frames, cfg, 2)           # warm-up
+        runs = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            tokens, enc_s, dec_s = whisper_decode(params, frames, cfg, new)
+            runs.append((tokens, enc_s, dec_s, ops.launch_counts(),
+                         torch.cuda.max_memory_allocated() / 1e9))
+        want = {name: 0 for name in ops.KERNELS}
+        want.update(flash_attention_fwd=cfg.n_enc_layers,
+                    decode_attention=2 * cfg.n_layers * new)
+        for tokens, _, _, launches, _ in runs:
+            if launches != want:
+                raise AssertionError(f"whisper serve launches {launches} "
+                                     f"!= {want}")
+            if tokens.shape != (B, new) or tokens.min() < 0 or \
+                    tokens.max() >= cfg.vocab_size:
+                raise AssertionError(f"whisper tokens {tokens.shape}")
+        if not np.array_equal(runs[0][0], runs[1][0]):
+            raise AssertionError("whisper: two decodes of the same frames "
+                                 "gave other tokens")
+        guard = GuardedProfile()
+        _, device, wall_s = guard.take(
+            lambda: whisper_decode(params, frames, cfg, new))
+        busy_ms = sum(us for _, us in by_name(device).values()) / 1e3
+        return dict(serve=dict(
+            batch=B, frames=cfg.enc_seq_len, new_tokens=new,
+            tokens_equal=True, first_tokens=runs[0][0][:, :8].tolist(),
+            encode_ms=[r[1] * 1e3 for r in runs],
+            decode_ms_per_token=[r[2] * 1e3 / new for r in runs],
+            peak_mem_gb=max(r[4] for r in runs), launches=runs[0][3],
+            expected_launches=want, profiled_ms=wall_s * 1e3,
+            device_busy_ms=busy_ms,
+            device_busy_share=busy_ms / (wall_s * 1e3),
+            retaken=guard.retaken))
+
+    return run_main_train_family(dev, WHISPER, then=serve)
+
+
 def sm90_hgmma(lib: Path) -> dict:
     """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each
     instantiation of the sm90 attention kernels (K2's forward, K4's dq,
@@ -4415,9 +4880,11 @@ def main() -> int:
 
     for tiny, phase, path, spec in (
             ("tiny_granite", "main_granite", "serve-granite", GRANITE),
+            ("tiny_qwen3moe", "main_qwen3moe", "serve-qwen3moe", QWEN3MOE),
             ("tiny_rwkv", "main_rwkv", "serve-rwkv", RWKV),
             ("tiny_zamba", "main_zamba", "serve-zamba", ZAMBA)):
-        emit({"phase": tiny, **run_tiny(spec["arch"])})
+        run = run_tiny_family if tiny in TINY_FAMILIES else run_tiny
+        emit({"phase": tiny, **run(spec["arch"])})
         resident_gb = torch.cuda.memory_allocated() / 1e9
         if resident_gb > RESIDENT_GB_MAX:
             raise AssertionError(f"{phase}: {resident_gb} GB still "
@@ -4455,7 +4922,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # main_train_ef's MiniCPM state is gone
 
-    peaks = {}
     for tiny, phase, path, spec in (
             ("tiny_train_zamba", "main_train_zamba", "train-zamba",
              TRAIN_ZAMBA),
@@ -4464,13 +4930,32 @@ def main() -> int:
         emit({"phase": tiny, **run_tiny_train_family(spec["arch"])})
         result = run_main_train_family(dev, spec)
         by_path[path] = result["launches"]
-        peaks[spec["arch"]] = result["peak_mem_gb"]
         emit({"phase": phase, **result})
         del result
         gc.collect()
         torch.cuda.empty_cache()   # the model's training state is gone
 
-    result = run_main_train_ckpt(dev, peaks[TRAIN_CKPT["arch"]])
+    for tiny in ("tiny_grok1", "tiny_mistral"):
+        emit({"phase": tiny, **run_tiny_family(TINY_FAMILIES[tiny])})
+    for tiny, phase, path, run in (
+            (None, "main_train_moe", "train-moe",
+             lambda: run_main_train_family(dev, TRAIN_MOE)),
+            ("tiny_internvl", "main_train_internvl", "train-internvl",
+             lambda: run_main_train_family(dev, TRAIN_INTERNVL)),
+            ("tiny_whisper", "main_whisper", "whisper",
+             lambda: run_main_whisper(dev))):
+        if tiny is not None:
+            emit({"phase": tiny, **run_tiny_family(TINY_FAMILIES[tiny])})
+        result = run()
+        by_path[path] = result["launches"]
+        if "serve" in result:
+            by_path[path + "-serve"] = result["serve"]["launches"]
+        emit({"phase": phase, **result})
+        del result
+        gc.collect()
+        torch.cuda.empty_cache()   # the model's training state is gone
+
+    result = run_main_train_ckpt(dev)
     by_path["train-ckpt"] = result["launches"]
     emit({"phase": "main_train_ckpt", **result})
     del result

@@ -43,7 +43,7 @@ class ModelConfig:
     # numerics / distribution
     dtype: str = "bfloat16"
     tp: int = 16                # model-axis size the head plan targets
-    remat_group: int = 0
+    remat_group: int = 0        # 0 -> auto (largest divisor of n_layers <= 8)
 
     @property
     def head_dim_(self) -> int:
@@ -56,15 +56,26 @@ class ModelConfig:
     def head_plan(self) -> HeadPlan:
         return plan_head_padding(self.n_heads, self.n_kv_heads, self.tp)
 
+    @property
+    def remat_group_(self) -> int:
+        """Layers a group of the two-level remat (`remat="group"`)."""
+        if self.remat_group:
+            return self.remat_group
+        for g in (8, 7, 6, 5, 4, 3, 2, 1):
+            if self.n_layers % g == 0:
+                return g
+        return 1
 
-# the architectures this package carries so far (dense, ssm and hybrid
-# families)
-ARCH_IDS = ("granite_20b", "minicpm_2b", "qwen2p5_14b", "rwkv6_7b",
-            "zamba2_1p2b")
+
+# every architecture of the reference: the dense, moe, vlm, ssm, hybrid and
+# encdec families
+ARCH_IDS = ("granite_20b", "grok1_314b", "internvl2_2b", "minicpm_2b",
+            "mistral_large_123b", "qwen2p5_14b", "qwen3_moe_30b_a3b",
+            "rwkv6_7b", "whisper_base", "zamba2_1p2b")
 
 
 def get_config(arch: str, tiny: bool = False) -> ModelConfig:
     if arch not in ARCH_IDS:
-        raise ValueError(f"{arch!r} is not yet ported; have {ARCH_IDS}")
+        raise ValueError(f"{arch!r} is not an architecture; have {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.TINY if tiny else mod.CONFIG

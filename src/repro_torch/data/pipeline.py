@@ -1,6 +1,7 @@
 """Deterministic synthetic token pipeline, copied from
 `repro/data/pipeline.py` (numpy; the batches are identical bit for bit),
-with `torch_batch` in place of `jax_batch`.
+with `torch_batch` in place of `jax_batch`, and the stub modality
+frontends (`stub_frontend_inputs`).
 
 The pipeline is stateless given (seed, step): any batch can be recomputed
 without coordination, so a restart resumes exactly. Mixture of n-gram-ish
@@ -66,9 +67,33 @@ class SyntheticLM:
         return {"tokens": out[:, :-1],
                 "labels": out[:, 1:].astype(np.int32)}
 
-    def torch_batch(self, step: int, device="cuda") -> dict[str, torch.Tensor]:
+    def torch_batch(self, step: int, device="cuda",
+                    extra: dict | None = None) -> dict[str, torch.Tensor]:
         """`batch(step)` as int32 tensors on `device` (one host-to-device
-        copy per array)."""
+        copy per array), `extra`'s entries merged in (the reference's
+        `jax_batch(step, extra)`)."""
         device = resolve_device(device)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in self.batch(step).items()}
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in self.batch(step).items()}
+        if extra:
+            batch.update(extra)
+        return batch
+
+
+def stub_frontend_inputs(cfg, family: str, global_batch: int,
+                         seed: int = 0, device="cuda") -> dict:
+    """The stub modality frontends: precomputed patch (vlm: `img_embeds`
+    [B, n_img_tokens, D]) or frame (encdec: `frames` [B, enc_seq_len, D])
+    embeddings, the reference's numpy draws (f32, x 0.02) as tensors on
+    `device`; nothing for the other families."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    if family == "vlm":
+        key, n = "img_embeds", cfg.n_img_tokens
+    elif family == "encdec":
+        key, n = "frames", cfg.enc_seq_len
+    else:
+        return {}
+    x = rng.standard_normal((global_batch, n, cfg.d_model)).astype(
+        np.float32) * 0.02
+    return {key: torch.from_numpy(x).to(device)}

@@ -72,6 +72,8 @@
 //    atomic and reloads, cost several microseconds more; gathering every
 //    state into one CTA's shared memory, more as n_split grew.)
 // 5. One design for every dtype and head_dim: nothing here is bf16-only.
+//    A row is at least four 16-byte chunks, so head_dim 16 (Mistral-Large's
+//    tiny config) is taken in f32 only.
 //
 // Shared memory: the ring, then the inbox of the cluster's states,
 // n_split x group x (head_dim + 2) f32; 48 KB + 7.6 KB at the Qwen2.5
@@ -558,6 +560,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k,
     return launch_dh<__nv_bfloat16>(head_dim, q, k, v, lengths, o, B, S, Hq,
                                     Hkv, group, split_keys, n_split,
                                     scale_log2, st);
+  if (head_dim == 16)   // f32 only: a bf16 row of 16 is two 16-byte chunks
+    return launch_g<float, 16>(q, k, v, lengths, o, B, S, Hq, Hkv, group,
+                               split_keys, n_split, scale_log2, st);
   return launch_dh<float>(head_dim, q, k, v, lengths, o, B, S, Hq, Hkv,
                           group, split_keys, n_split, scale_log2, st);
 }

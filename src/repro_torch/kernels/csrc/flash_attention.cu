@@ -22,10 +22,11 @@
 // 32-key tiles of K and V staged in shared memory, and skips tiles that the
 // causal or window mask empties entirely. Each warp owns 16 q rows, each
 // lane one key of the tile for the scores and head_dim/32 output columns
-// for the accumulator, so m, l and acc live in registers in f32. Ragged T
+// for the accumulator (at head_dim 16, the first 16 lanes one column each,
+// the others none), so m, l and acc live in registers in f32. Ragged T
 // and S tails are masked here, so prompts of any length are taken.
-// Inputs are f32 at head_dim 32, 64 or 128, or bf16 at head_dim 32;
-// layout [B, T, H, Dh].
+// Inputs are f32 at head_dim 16, 32, 64 or 128, or bf16 at head_dim 16 or
+// 32 (Mistral-Large's tiny config has head_dim 16); layout [B, T, H, Dh].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +74,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Tq, int S, int Hq, int Hkv,
                  int group, int causal, int window, float scale) {
-  constexpr int NT = DH / 32;     // accumulator columns per lane
+  constexpr int NT = (DH + 31) / 32;   // accumulator columns per lane
   constexpr int KST = DH + 4;     // K row stride: conflict-free float4 reads
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // [BQ][DH]
@@ -93,6 +94,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int q0 = qt * BQ;
   const int rbase = warp * ROWS;
+  // whether this lane owns output columns (all do but at head_dim 16)
+  const bool cols = DH % 32 == 0 || lane < DH;
 
   for (int idx = tid; idx < BQ * DH; idx += WARPS * 32) {
     const int r = idx / DH, d = idx % DH;
@@ -184,7 +187,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-        for (int t = 0; t < NT; ++t) vv[jj][t] = Vs[(j + jj) * DH + lane + 32 * t];
+        for (int t = 0; t < NT; ++t)
+          vv[jj][t] = cols ? Vs[(j + jj) * DH + lane + 32 * t] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4 p4 = *reinterpret_cast<const float4*>(prow + r * BK + j);
@@ -203,8 +207,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Tq) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
     T* orow = o + (((size_t)b * Tq + row) * Hq + h) * DH;
+    if (cols) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) store(acc[r][t] / l_safe, orow + lane + 32 * t);
+      for (int t = 0; t < NT; ++t)
+        store(acc[r][t] / l_safe, orow + lane + 32 * t);
+    }
     if (lane == 0) lse[((size_t)b * Hq + h) * Tq + row] = m[r] + logf(l_safe);
   }
 }
@@ -231,6 +238,9 @@ int launch_f32(int head_dim, const void* q, const void* k, const void* v,
                int group, int causal, int window, float scale,
                cudaStream_t stream) {
   switch (head_dim) {
+    case 16:
+      return launch<float, 16>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
+                               causal, window, scale, stream);
     case 32:
       return launch<float, 32>(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
                                causal, window, scale, stream);
@@ -261,9 +271,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int window, float scale, void* stream) {
   if ((long long)B * Hq * Tq == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+  if (is_bf16 && head_dim >= 64)   // 64 and 128: the tensor-core kernel
     return flash_attention_fwd_sm90(q, k, v, o, lse, B, Tq, S, Hq, Hkv, group,
                                     head_dim, causal, window, scale, stream);
+  if (is_bf16 && head_dim == 16)
+    return launch<__nv_bfloat16, 16>(q, k, v, o, lse, B, Tq, S, Hq, Hkv,
+                                     group, causal, window, scale, st);
   if (is_bf16)
     return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, Tq, S, Hq, Hkv,
                                      group, causal, window, scale, st);

@@ -43,9 +43,10 @@
 //       in registers: 2 x 8 x head_dim/32 floats per thread, 64 at head_dim
 //       128, which keeps the two [32, 128] f32 accumulators (32 KB) in the
 //       register file instead of shared memory.
-// Inputs are f32 at head_dim 32, 64 or 128 or bf16 at head_dim 32, layout
-// [B, T, H, Dh] for q, do, dq and [B, S, Hkv, Dh] for k, v, dk, dv; lse and
-// delta [B, Hq, T].
+// At head_dim 16 (Mistral-Large's tiny config) the first 16 lanes own one
+// column each and the others none. Inputs are f32 at head_dim 16, 32, 64 or
+// 128 or bf16 at head_dim 16 or 32, layout [B, T, H, Dh] for q, do, dq and
+// [B, S, Hkv, Dh] for k, v, dk, dv; lse and delta [B, Hq, T].
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +114,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int Tq, int S, int Hq, int Hkv, int group, int causal,
                     int window, float scale) {
-  constexpr int NT = DH / 32;     // dq columns per lane
+  constexpr int NT = (DH + 31) / 32;   // dq columns per lane
   constexpr int KST = DH + 4;     // K/V row stride: conflict-free float4 reads
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // [BQ][DH], scaled
@@ -133,6 +134,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int q0 = qt * BQ;
   const int rbase = warp * ROWS;
+  // whether this lane owns dq columns (all do but at head_dim 16)
+  const bool cols = DH % 32 == 0 || lane < DH;
 
   stage<T, DH, DH>(Qs, q, b, q0, BQ, Tq, Hq, h, scale);
   stage<T, DH, DH>(Ds, dout, b, q0, BQ, Tq, Hq, h, 1.f);
@@ -208,7 +211,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-        for (int t = 0; t < NT; ++t) kk[jj][t] = Ks[(j + jj) * KST + lane + 32 * t];
+        for (int t = 0; t < NT; ++t)
+          kk[jj][t] = cols ? Ks[(j + jj) * KST + lane + 32 * t] : 0.f;
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float4 d4 = *reinterpret_cast<const float4*>(srow + r * BK + j);
@@ -226,8 +230,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + rbase + r;
     if (row >= Tq) continue;
     T* drow = dq + (((size_t)b * Tq + row) * Hq + h) * DH;
+    if (cols) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) store(acc[r][t] * scale, drow + lane + 32 * t);
+      for (int t = 0; t < NT; ++t)
+        store(acc[r][t] * scale, drow + lane + 32 * t);
+    }
   }
 }
 
@@ -246,7 +253,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int Tq, int S, int Hq, int Hkv,
                      int group, int causal, int window, float scale) {
-  constexpr int NT = DH / 32;     // accumulator columns per lane
+  constexpr int NT = (DH + 31) / 32;   // accumulator columns per lane
   constexpr int KST = DH + 4;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;               // [BK][KST]
@@ -269,6 +276,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = kt * BK;
   const int rbase = warp * ROWS;
   const int kbase = warp * KPW;
+  // whether this lane owns dk/dv columns (all do but at head_dim 16)
+  const bool cols = DH % 32 == 0 || lane < DH;
 
   stage<T, DH, KST>(Ks, k, b, k0, BK, S, Hkv, hk, 1.f);
   stage<T, DH, KST>(Vs, v, b, k0, BK, S, Hkv, hk, 1.f);
@@ -333,8 +342,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float qi[NT], di[NT];
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
-          qi[t] = Qs[i * DH + lane + 32 * t];
-          di[t] = Ds[i * DH + lane + 32 * t];
+          qi[t] = cols ? Qs[i * DH + lane + 32 * t] : 0.f;
+          di[t] = cols ? Ds[i * DH + lane + 32 * t] : 0.f;
         }
         const float4 p0 = *reinterpret_cast<const float4*>(Ps + i * BK + kbase);
         const float4 p1 = *reinterpret_cast<const float4*>(Ps + i * BK + kbase + 4);
@@ -356,7 +365,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < KPW; ++j) {
     const int s = k0 + kbase + j;
-    if (s >= S) continue;
+    if (s >= S || !cols) continue;
     const size_t off = (((size_t)b * S + s) * Hkv + hk) * DH;
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
@@ -407,6 +416,9 @@ int dq_f32(int head_dim, const void* q, const void* k, const void* v,
            int B, int Tq, int S, int Hq, int Hkv, int group, int causal,
            int window, float scale, cudaStream_t st) {
   switch (head_dim) {
+    case 16:
+      return launch_dq<float, 16>(q, k, v, dout, lse, delta, dq, B, Tq, S,
+                                  Hq, Hkv, group, causal, window, scale, st);
     case 32:
       return launch_dq<float, 32>(q, k, v, dout, lse, delta, dq, B, Tq, S,
                                   Hq, Hkv, group, causal, window, scale, st);
@@ -426,6 +438,10 @@ int dkv_f32(int head_dim, const void* q, const void* k, const void* v,
             void* dv, int B, int Tq, int S, int Hq, int Hkv, int group,
             int causal, int window, float scale, cudaStream_t st) {
   switch (head_dim) {
+    case 16:
+      return launch_dkv<float, 16>(q, k, v, dout, lse, delta, dk, dv, B, Tq,
+                                   S, Hq, Hkv, group, causal, window, scale,
+                                   st);
     case 32:
       return launch_dkv<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, Tq,
                                    S, Hq, Hkv, group, causal, window, scale,
@@ -466,10 +482,14 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       float scale, void* stream) {
   if ((long long)B * Hq * Tq == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+  if (is_bf16 && head_dim >= 64)   // 64 and 128: the tensor-core kernel
     return flash_attention_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, B, Tq,
                                        S, Hq, Hkv, group, head_dim, causal,
                                        window, scale, stream);
+  if (is_bf16 && head_dim == 16)
+    return launch_dq<__nv_bfloat16, 16>(q, k, v, dout, lse, delta, dq, B, Tq,
+                                        S, Hq, Hkv, group, causal, window,
+                                        scale, st);
   if (is_bf16)
     return launch_dq<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, B, Tq,
                                         S, Hq, Hkv, group, causal, window,
@@ -487,10 +507,14 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int window, float scale, void* stream) {
   if ((long long)B * Hkv * S == 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16 && head_dim != 32)   // 64 and 128: the tensor-core kernel
+  if (is_bf16 && head_dim >= 64)   // 64 and 128: the tensor-core kernel
     return flash_attention_bwd_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, B,
                                         Tq, S, Hq, Hkv, group, head_dim,
                                         causal, window, scale, stream);
+  if (is_bf16 && head_dim == 16)
+    return launch_dkv<__nv_bfloat16, 16>(q, k, v, dout, lse, delta, dk, dv,
+                                         B, Tq, S, Hq, Hkv, group, causal,
+                                         window, scale, st);
   if (is_bf16)
     return launch_dkv<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dk, dv,
                                          B, Tq, S, Hq, Hkv, group, causal,

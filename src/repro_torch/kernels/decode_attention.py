@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)    # 16 in f32 only (a row of 4+ chunks)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 8   # MAXG in the kernel
 MAX_SPLITS = 8        # MAX_SPLITS in the kernel: a portable cluster
@@ -75,9 +75,11 @@ def decode_attention(q, k, v, lengths, *, group: int = 1):
         raise ValueError(f"shapes {tuple(q.shape)} / {tuple(k.shape)} do "
                          f"not match group={group}")
     if Dh not in HEAD_DIMS or q.dtype not in DTYPES or \
+            (Dh == 16 and q.dtype != torch.float32) or \
             not 1 <= group <= MAX_GROUP:
-        raise ValueError(f"decode_attention takes head_dim in {HEAD_DIMS}, "
-                         f"dtype in {DTYPES} and group <= {MAX_GROUP}; got "
+        raise ValueError(f"decode_attention takes head_dim in {HEAD_DIMS} "
+                         f"(16 in f32 only), dtype in {DTYPES} and group <= "
+                         f"{MAX_GROUP}; got "
                          f"{Dh}, {q.dtype}, {group}")
     for a in (q, k, v):
         if a.device != q.device or a.dtype != q.dtype or \

@@ -17,8 +17,9 @@ is set by memory. Each entry point has two kernels behind it:
   for a 64-key tile (K Q^T, V dO^T, p^T dO, dS^T Q), each owning its output
   tile (no atomics, the same bits every run); p and dS are rounded to bf16
   before their products.
-- f32, and bf16 at head_dim 32, run FMA kernels on shared-memory tiles
-  (TF32 would lose the f32 callers' digits; these are the tiny configs).
+- f32, and bf16 at head_dim 16 and 32, run FMA kernels on shared-memory
+  tiles (TF32 would lose the f32 callers' digits; these are the tiny
+  configs, Mistral-Large's at head_dim 16).
 
 See the sources' header notes for what bounds each and why.
 
@@ -38,7 +39,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

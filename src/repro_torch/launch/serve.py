@@ -7,11 +7,16 @@ routed traffic trace over the fleet (port of `repro/launch/serve.py`).
         --tiny --fleet-chips 16 --router headroom [--batch-cap 4] \
         [--migrate-after-ticks 6] [--device cpu]
 
-Any ported architecture serves through it: the dense family (Qwen2.5,
-MiniCPM), the ssm family (`--arch rwkv6_7b`, whose decode cache is the
-recurrent state) and the hybrid family (`--arch zamba2_1p2b`: Mamba2
-layers, whose decode cache is the conv and SSD state, and one shared
-sliding-window attention block with a KV cache per occurrence).
+Every decoder-only architecture serves through it: the dense family
+(Qwen2.5, MiniCPM, Granite, Mistral-Large), the moe family (`--arch
+qwen3_moe_30b_a3b`, `--arch grok1_314b`), the vlm family (`--arch
+internvl2_2b`, tokens only, as the reference serves it), the ssm family
+(`--arch rwkv6_7b`, whose decode cache is the recurrent state) and the
+hybrid family (`--arch zamba2_1p2b`: Mamba2 layers, whose decode cache is
+the conv and SSD state, and one shared sliding-window attention block
+with a KV cache per occurrence). The encdec family (`--arch
+whisper_base`) has no prefill and is refused, as the reference refuses
+it.
 
 Weights are random, drawn on the device from seed 0, as the JAX launcher
 draws them. Unlike the JAX launcher, `--tiny` is honoured: without it the
@@ -112,6 +117,10 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, tiny=args.tiny)
+    if cfg.family == "encdec":
+        raise SystemExit("whisper serving uses cross-attention: encode the "
+                         "frames, then `registry.build(cfg).decode_fn` with "
+                         "the encoder's `cross_kv` (models/encdec.py)")
     api = registry.build(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(0))
     n = sum(p.numel() for p in lm.tree_leaves(params))

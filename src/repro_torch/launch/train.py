@@ -4,13 +4,15 @@
         --tiny --steps 4 [--device cpu]
 
 The scalar train step (`make_train_step`) with AdamW and the WSD schedule,
-driven through `Trainer.run`, for any ported architecture: the dense
-family (MiniCPM, Qwen2.5), the ssm family (`--arch rwkv6_7b`) and the
-hybrid family (`--arch zamba2_1p2b`), with the in-graph controller in the
-step or (`--control-path host`) a `HostRailController` between steps,
-actuated through the simulated PMBus. Weights are random, drawn on the
-device from seed 0. Unlike the JAX launcher, `--tiny`
-is honoured: without it the full configuration is built (with per-layer
+driven through `Trainer.run`, for every architecture: the dense, moe,
+ssm and hybrid families, the vlm family (`--arch internvl2_2b`: each
+batch carries the stub frontend's `n_img_tokens` patch embeddings ahead
+of `--seq` tokens) and the encdec family (`--arch whisper_base`: each
+batch carries `enc_seq_len` stub frame embeddings), with the in-graph
+controller in the step or (`--control-path host`) a `HostRailController`
+between steps, actuated through the simulated PMBus. Weights are random,
+drawn on the device from seed 0. Unlike the JAX launcher, `--tiny` is
+honoured: without it the full configuration is built (with per-layer
 remat, as the reference does for non-tiny configs).
 
 `--ckpt-dir DIR` writes checkpoints there (every max(10, steps // 5)
@@ -34,7 +36,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.control_plane import HostRailController
 from repro_torch.core.policy import POLICIES
 from repro_torch.core.power_plane import StepProfile
-from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                       stub_frontend_inputs)
 from repro_torch.models import lm, registry
 from repro_torch.models.common import resolve_device
 from repro_torch.optim import adamw
@@ -42,6 +45,20 @@ from repro_torch.optim.schedule import wsd
 from repro_torch.train.step import StepConfig, make_train_step
 from repro_torch.train.trainer import (Trainer, TrainerConfig,
                                        initial_plane_and_ef)
+
+
+class FrontendData(SyntheticLM):
+    """`SyntheticLM` whose batches carry the model's stub frontend inputs
+    (the reference launcher's `_Data`): the same draws every step."""
+
+    def __init__(self, data_cfg: DataConfig, model_cfg):
+        super().__init__(data_cfg)
+        self.model_cfg = model_cfg
+
+    def torch_batch(self, step: int, device="cuda", extra=None):
+        return super().torch_batch(step, device, stub_frontend_inputs(
+            self.model_cfg, self.model_cfg.family, self.cfg.global_batch,
+            device=device))
 
 
 def main(argv=None):
@@ -89,7 +106,8 @@ def main(argv=None):
     in_graph = args.control_path == "in-graph"
     step = make_train_step(api.loss_fn, opt_cfg, sched, profile,
                            StepConfig(policy=policy if in_graph else None))
-    data = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+    data = FrontendData(DataConfig(cfg.vocab_size, args.seq, args.batch),
+                        cfg)
     if args.ckpt_dir is not None and not args.resume:
         shutil.rmtree(args.ckpt_dir, ignore_errors=True)
     controller = None if in_graph else HostRailController(policy)

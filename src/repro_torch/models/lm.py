@@ -1,16 +1,18 @@
-"""Decoder-only LM assembly for the dense family, the ssm family (RWKV6)
-and the hybrid family (Zamba2: Mamba2 layers with one shared attention +
-MLP block), ported from the matching branches of `repro/models/lm.py`.
+"""Decoder-only LM assembly for the dense family, the moe family (a MoE
+layer in place of the MLP), the vlm family (dense, with an image prefix in
+training), the ssm family (RWKV6) and the hybrid family (Zamba2: Mamba2
+layers with one shared attention + MLP block), ported from
+`repro/models/lm.py`.
 
 Parameters are a nested dict of tensors with the per-layer weights stacked
 on a leading `[n_layers]` axis (`params["blocks"]`), exactly the reference
 layout, so weights carry over one to one; the hybrid family's shared block
-(`params["shared"]`) is not stacked. The reference's `lax.scan` over
-layers is a Python loop over that axis; its sharding constraints have no
-counterpart on one card. Decode caches, which `decode_step` updates in
-place:
+(`params["shared"]`) and the vlm family's `img_proj` are not stacked. The
+reference's `lax.scan` over layers is a Python loop over that axis; its
+sharding constraints have no counterpart on one card. Decode caches,
+which `decode_step` updates in place:
 
-- dense: the KV cache `{"k", "v": [n_layers, B, S, nkv, Dh]}`;
+- dense, moe, vlm: the KV cache `{"k", "v": [n_layers, B, S, nkv, Dh]}`;
 - ssm: the recurrent state `{"wkv": [n_layers, B, H, Dh, Dh] f32,
   "tm_last", "cm_last": [n_layers, B, 1, D]}`;
 - hybrid: `{"mamba": {"conv_x": [n_layers, B, W-1, d_inner], "conv_B",
@@ -26,13 +28,16 @@ The recurrent states (`wkv`, `ssm`) are written by the scans themselves:
 output state (`state_out`), so no step copies a state into the cache; the
 conv and token-shift states, which are small, are copied.
 
-`forward_train` trains the three families and checkpoints each layer
-(`remat="full"`) with `torch.utils.checkpoint`; a hybrid layer and the
-shared block that follows it sit under one checkpoint, as the reference's
-`lax.cond` sits inside its rematted layer body. The training path hands
-the scans no state buffer: K8 and K9 run as differentiable calls
-(`ops.mamba2_scan`, `ops.rwkv6_scan`). The reference's two-level group
-remat (`remat="group"`) is not ported yet.
+`forward_train` trains every family. `remat="full"` checkpoints each
+layer with `torch.utils.checkpoint`; a hybrid layer and the shared block
+that follows it sit under one checkpoint, as the reference's `lax.cond`
+sits inside its rematted layer body. `remat="group"` is the reference's
+two-level remat: one checkpoint a group of `cfg.remat_group_` layers and
+none inside it, so the backward keeps one residual a group and
+recomputes a group at a time. The training path hands the scans no state
+buffer: K8 and K9 run as differentiable calls (`ops.mamba2_scan`,
+`ops.rwkv6_scan`). A moe layer returns its load-balance loss beside x,
+also under a checkpoint, and `forward_train` adds their sum to the loss.
 """
 
 from __future__ import annotations
@@ -47,11 +52,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mamba2, mlp, rwkv6
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.mamba2 import Mamba2Spec
+from repro_torch.models.mlp import MoESpec
 from repro_torch.models.rwkv6 import Rwkv6Spec
 
 MOE_AUX_COEF = 0.01
-REMAT_MODES = ("none", "full")
-FAMILIES = ("dense", "ssm", "hybrid")        # served and trained
+REMAT_MODES = ("none", "full", "group")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")   # this module's
 RWKV_CACHE_KEYS = ("wkv", "tm_last", "cm_last")   # the ssm decode cache
 CONV_KEYS = ("conv_x", "conv_B", "conv_C")         # the hybrid's conv states
 
@@ -59,7 +65,8 @@ CONV_KEYS = ("conv_x", "conv_B", "conv_C")         # the hybrid's conv states
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not yet ported (have {FAMILIES})")
+            f"family {cfg.family!r} is not a decoder-only LM family (have "
+            f"{FAMILIES}; the encdec family is `models/encdec.py`)")
 
 
 def tree_map(fn, tree, *rest):
@@ -84,6 +91,11 @@ def attn_spec(cfg: ModelConfig, *, sliding: bool = False) -> AttnSpec:
         d_model=cfg.d_model, head_dim=cfg.head_dim_, plan=cfg.head_plan(),
         qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta, causal=True,
         sliding_window=cfg.sliding_window if sliding else 0)
+
+
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    return MoESpec(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                   n_experts=cfg.n_experts, k=cfg.experts_per_token)
 
 
 def mamba_spec(cfg: ModelConfig) -> Mamba2Spec:
@@ -114,6 +126,9 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
     elif cfg.family == "hybrid":
         block = {"ln1_w": (D,),
                  "mamba": mamba2.param_shapes(mamba_spec(cfg))}
+    elif cfg.family == "moe":
+        block = {"ln1_w": (D,), "attn": a, "ln2_w": (D,),
+                 "moe": mlp.param_shapes(moe_spec(cfg))}
     else:
         block = attn_mlp
     shapes = {"embed": (cfg.vocab_padded, D), "final_norm_w": (D,),
@@ -121,17 +136,20 @@ def param_shapes(cfg: ModelConfig) -> dict[str, Any]:
               "blocks": tree_map(lambda s: (L,) + s, block)}
     if cfg.family == "hybrid":
         shapes["shared"] = attn_mlp      # one block, reused: not stacked
+    if cfg.family == "vlm":
+        shapes["img_proj"] = (D, D)
     return shapes
 
 
 def param_dtypes(cfg: ModelConfig) -> dict[str, Any]:
     """The parameter tree's dtypes: `cfg.dtype`, except the leaves the
     reference creates in f32 (the RWKV6 decay base and bonus; the Mamba2
-    A_log, D and dt_bias)."""
+    A_log, D and dt_bias; the MoE router)."""
     dtype = common.default_dtype(cfg.dtype)
     dtypes = tree_map(lambda s: dtype, param_shapes(cfg))
     f32 = {"ssm": ("rwkv_tm", rwkv6.F32_PARAMS),
-           "hybrid": ("mamba", mamba2.F32_PARAMS)}.get(cfg.family)
+           "hybrid": ("mamba", mamba2.F32_PARAMS),
+           "moe": ("moe", mlp.F32_PARAMS)}.get(cfg.family)
     if f32 is not None:
         sub, names = f32
         for name in names:
@@ -152,6 +170,11 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, dtype):
     if cfg.family == "hybrid":
         return {"ln1_w": vec(1.0),
                 "mamba": mamba2.init_mamba2(gen, mamba_spec(cfg), dtype)}
+    if cfg.family == "moe":
+        return {"ln1_w": vec(1.0),
+                "attn": attn.init_attention(gen, attn_spec(cfg), dtype),
+                "ln2_w": vec(1.0),
+                "moe": mlp.init_moe(gen, moe_spec(cfg), dtype)}
     return _init_attn_mlp(gen, cfg, dtype, attn_spec(cfg))
 
 
@@ -180,50 +203,73 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
         "final_norm_w": torch.ones(D, dtype=dtype, device=dev),
         "lm_head": common.dense_init(gen, (D, Vp), D, dtype),
     }
-    blocks = tree_map(lambda s, dt: torch.empty(s, dtype=dt, device=dev),
-                      param_shapes(cfg)["blocks"],
-                      param_dtypes(cfg)["blocks"])
-    for i in range(cfg.n_layers):
-        tree_map(lambda dst, src: dst[i].copy_(src), blocks,
-                 _init_block(gen, cfg, dtype))
-    params["blocks"] = blocks
+    params["blocks"] = draw_stacked(
+        param_shapes(cfg)["blocks"], param_dtypes(cfg)["blocks"],
+        cfg.n_layers, lambda: _init_block(gen, cfg, dtype), dev)
     if cfg.family == "hybrid":
         # zamba2: one *shared* attention + MLP block reused every
         # attn_every Mamba2 layers, with a sliding-window attention
         params["shared"] = _init_attn_mlp(gen, cfg, dtype,
                                           attn_spec(cfg, sliding=True))
+    if cfg.family == "vlm":
+        params["img_proj"] = common.dense_init(gen, (D, D), D, dtype)
     return params
+
+
+def draw_stacked(shapes, dtypes, n: int, draw, device):
+    """`n` layers, each drawn by `draw()` (a tree of tensors), into stacked
+    buffers of the trees `shapes` and `dtypes` on `device`: the f32
+    scratch of the draws is one layer, not the stack."""
+    blocks = tree_map(lambda s, dt: torch.empty(s, dtype=dt, device=device),
+                      shapes, dtypes)
+    for i in range(n):
+        tree_map(lambda dst, src: dst[i].copy_(src), blocks, draw())
+    return blocks
 
 
 def _layer(params, i: int):
     return tree_map(lambda a: a[i], params["blocks"])
 
 
-def _layers(params, n_layers: int):
-    """Per-layer views of the stacked blocks for a differentiated pass:
-    one `unbind` per stacked leaf, whose backward is one stack. (Indexing
+def layer_views(blocks, n_layers: int):
+    """Per-layer views of stacked blocks for a differentiated pass: one
+    `unbind` per stacked leaf, whose backward is one stack. (Indexing
     `a[i]` per layer, as `_layer` does, would allocate a zero tensor of the
     whole stacked leaf in each select's backward.)"""
-    split = tree_map(lambda a: torch.unbind(a, 0), params["blocks"])
+    split = tree_map(lambda a: torch.unbind(a, 0), blocks)
     return [tree_map(lambda parts: parts[i], split) for i in range(n_layers)]
 
 
 def _train_layer(p, shared, x, positions, i: int, cfg: ModelConfig):
     """Layer i of a differentiated pass (the reference's `_apply_layer`):
-    dense, attention + MLP; ssm, an RWKV6 layer from zero state; hybrid, a
-    Mamba2 layer and, after every attn_every-th, the shared block (params
-    `shared`), whose attention writes no cache."""
+    dense and vlm, attention + MLP; moe, attention + MoE; ssm, an RWKV6
+    layer from zero state; hybrid, a Mamba2 layer and, after every
+    attn_every-th, the shared block (params `shared`), whose attention
+    writes no cache. Returns (x, the layer's MoE load-balance loss, or
+    None outside the moe family)."""
     if cfg.family == "ssm":
-        return _rwkv_layer(p, x, cfg)[0]
+        return _rwkv_layer(p, x, cfg)[0], None
     if cfg.family == "hybrid":
         spec = attn_spec(cfg, sliding=True)
         x, _ = _mamba_layer(p, x, cfg)
         return _shared_block(
             shared, x, i, cfg,
-            lambda pa, h, occ: attn.attention_full(pa, h, spec, positions)[0])
+            lambda pa, h, occ: attn.attention_full(pa, h, spec,
+                                                   positions)[0]), None
     h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
     a, _ = attn.attention_full(p["attn"], h, attn_spec(cfg), positions)
-    return _block_tail(p, x + a, cfg)
+    return _ffn(p, x + a, cfg)
+
+
+def _train_group(ps, shared, x, positions, i0: int, cfg: ModelConfig):
+    """Layers i0, i0 + 1, ... (params `ps`, one dict a layer) in turn, as
+    `_train_layer`: (x, the sum of their MoE losses, or None)."""
+    aux = None
+    for j, p in enumerate(ps):
+        x, a = _train_layer(p, shared, x, positions, i0 + j, cfg)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
@@ -240,29 +286,47 @@ def logits_from(params, x, cfg: ModelConfig):
 
 
 def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
-    """batch: {'tokens': [B,T] int, 'labels': [B,T] int (-1 = masked)} ->
-    (loss, metrics). `remat="full"` recomputes each layer's activations in
-    the backward (non-reentrant `torch.utils.checkpoint` around the layer,
-    the reference's per-layer `jax.checkpoint`); `"none"` keeps them."""
+    """batch: {'tokens': [B,T] int, 'labels': [B,T] int (-1 = masked),
+    optional 'img_embeds': [B,Ti,D] (vlm)} -> (loss, metrics).
+
+    `remat="full"` recomputes each layer's activations in the backward
+    (non-reentrant `torch.utils.checkpoint` around the layer, the
+    reference's per-layer `jax.checkpoint`); `"group"` checkpoints groups
+    of `cfg.remat_group_` layers and nothing inside them (the reference's
+    outer checkpoint alone); `"none"` keeps every activation. The vlm
+    family puts `img_embeds @ img_proj` ahead of the token embeddings,
+    their labels -1. The loss is the cross entropy plus MOE_AUX_COEF times
+    the layers' mean MoE load-balance loss (`moe_aux`, their sum; zero
+    outside the moe family)."""
     _check_family(cfg)
     if remat not in REMAT_MODES:
         raise NotImplementedError(
-            f"remat={remat!r} is not yet ported (have {REMAT_MODES}); the "
-            f"two-level group remat stands in ROADMAP.md")
+            f"remat={remat!r} is not a remat mode (have {REMAT_MODES})")
     x = embed_tokens(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        img = batch["img_embeds"].to(x.dtype) @ params["img_proj"]
+        x = torch.cat([img, x], dim=1)
+        labels = torch.cat([labels.new_full(img.shape[:2], -1), labels],
+                           dim=1)
     B, T = x.shape[0], x.shape[1]
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device)[None].expand(B, T)
     shared = params.get("shared")
-    for i, p in enumerate(_layers(params, cfg.n_layers)):
-        if remat == "full":
-            x = checkpoint(_train_layer, p, shared, x, positions, i, cfg,
-                           use_reentrant=False)
-        else:
-            x = _train_layer(p, shared, x, positions, i, cfg)
-    logits = logits_from(params, x, cfg)
-    loss = common.softmax_cross_entropy(logits, batch["labels"])
+    layers = layer_views(params["blocks"], cfg.n_layers)
+    G = cfg.remat_group_ if remat == "group" else 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i0 in range(0, cfg.n_layers, G):
+        if remat == "none":
+            x, a = _train_group(layers[i0:i0 + G], shared, x, positions, i0,
+                                cfg)
+        else:
+            x, a = checkpoint(_train_group, layers[i0:i0 + G], shared, x,
+                              positions, i0, cfg, use_reentrant=False)
+        if a is not None:
+            aux = aux + a
+    logits = logits_from(params, x, cfg)
+    loss = common.softmax_cross_entropy(logits, labels)
     total = loss + MOE_AUX_COEF * aux / max(cfg.n_layers, 1)
     return total, {"ce_loss": loss, "moe_aux": aux}
 
@@ -294,9 +358,19 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     return stack(c, cfg.n_layers)
 
 
-def _block_tail(p, x, cfg: ModelConfig):
+def _ffn(p, x, cfg: ModelConfig):
+    """x + the layer's feed-forward on rms_norm(x): the MoE where the layer
+    has one, else the SwiGLU. Returns (x, the MoE's load-balance loss or
+    None)."""
     h = common.rms_norm(x, p["ln2_w"], cfg.norm_eps)
-    return x + mlp.swiglu(p["mlp"], h)
+    if "moe" in p:
+        m, am = mlp.moe_apply(p["moe"], h, moe_spec(cfg))
+        return x + m, am["moe_aux"]
+    return x + mlp.swiglu(p["mlp"], h), None
+
+
+def _block_tail(p, x, cfg: ModelConfig):
+    return _ffn(p, x, cfg)[0]
 
 
 def _mamba_layer(p, x, cfg: ModelConfig, state=None, ssm_out=None):

@@ -250,6 +250,11 @@ class ServeEngine:
         if B != self.batch_size:
             raise ValueError(f"batch {B} != engine batch_size "
                              f"{self.batch_size}")
+        if self.api.prefill_fn is None:
+            raise NotImplementedError(
+                f"{self.cfg.family} serving has no prefill: drive "
+                f"`registry.build(cfg).decode_fn` with the encoder's "
+                f"`cross_kv` (`models/encdec.py`)")
         toks = torch.as_tensor(np.asarray(prompts, np.int32)).to(self.device)
 
         logits, cache, _ = self.api.prefill_fn(self.params, toks,

@@ -105,7 +105,9 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
 
     def one(mb):
         loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the batch leaves unused (a vlm's img_proj on a batch
+        # without images) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 

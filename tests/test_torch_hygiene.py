@@ -75,8 +75,12 @@ def test_engine_default_device_needs_a_card(no_card):
 
 
 def _default_device_builders():
-    from repro_torch.models import attention, lm, mamba2, rwkv6
+    from repro_torch.data.pipeline import DataConfig, stub_frontend_inputs
+    from repro_torch.launch.train import FrontendData
+    from repro_torch.models import attention, encdec, lm, mamba2, rwkv6
     cfg = get_config("qwen2p5_14b", tiny=True)
+    whisper = get_config("whisper_base", tiny=True)
+    vlm = get_config("internvl2_2b", tiny=True)
     ssm = get_config("rwkv6_7b", tiny=True)
     hybrid = get_config("zamba2_1p2b", tiny=True)
     api = registry.build(cfg)
@@ -96,6 +100,13 @@ def _default_device_builders():
             hybrid, 1, 8),
         "mamba2.init_mamba2_state": lambda: mamba2.init_mamba2_state(
             1, lm.mamba_spec(hybrid)),
+        "encdec.init_decode_cache": lambda: encdec.init_decode_cache(
+            whisper, 1, 8),
+        "api.init_decode_cache[encdec]": lambda: registry.build(
+            whisper).init_decode_cache(1, 8),
+        "stub_frontend_inputs": lambda: stub_frontend_inputs(vlm, "vlm", 1),
+        "FrontendData.torch_batch": lambda: FrontendData(
+            DataConfig(64, 8, 1), whisper).torch_batch(0),
     }
 
 
@@ -112,7 +123,11 @@ def _synthetic():
                                      "lm.init_decode_cache[ssm]",
                                      "rwkv6.init_rwkv6_state",
                                      "lm.init_decode_cache[hybrid]",
-                                     "mamba2.init_mamba2_state"])
+                                     "mamba2.init_mamba2_state",
+                                     "encdec.init_decode_cache",
+                                     "api.init_decode_cache[encdec]",
+                                     "stub_frontend_inputs",
+                                     "FrontendData.torch_batch"])
 def test_builders_default_device_needs_a_card(no_card, builder):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _default_device_builders()[builder]()

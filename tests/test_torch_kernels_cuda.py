@@ -182,6 +182,49 @@ def test_decode_kernel_groups_and_head_dims(cuda, dtype, Dh, group):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_decode_kernel_head_dim_16_in_f32(cuda, group):
+    """Mistral-Large's tiny config (8 q / 2 kv heads x 16) on the f32
+    kernel, ragged lengths across several splits; bf16 at head_dim 16 is
+    refused (its row is two 16-byte chunks)."""
+    q, k, v, lens = _decode_case(cuda, torch.float32, 300, 2 * group, 2, 16,
+                                 [300, 129, 1, 250], 16 + group)
+    o = tda.decode_attention(q, k, v, lens, group=group)
+    want = tda.decode_attention_plain(q, k, v, lens, group=group)
+    tol = ATT_TOL[torch.float32]
+    torch.testing.assert_close(o, want, rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="head_dim"):
+        tda.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), lens,
+                             group=group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,causal", [
+    (2, 40, 40, 8, 2, True),       # Mistral-Large's tiny heads x 16
+    (2, 100, 100, 4, 4, True),     # ragged past a 64-row q tile
+    (2, 33, 70, 4, 2, False),      # non-causal at T != S
+])
+def test_flash_kernels_head_dim_16_match_plain(cuda, dtype, B, T, S, Hq, Hkv,
+                                               causal):
+    """K2, K4 and K5 at head_dim 16 (the FMA kernels: lanes 16-31 own no
+    column) against their plain versions."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(B, T, S, Hq, Hkv, 16, seed=T + S))
+    do = torch.from_numpy(qkv(B, T, S, Hq, Hkv, 16, seed=T + 1)[0]).to(
+        cuda, dtype)
+    kw = dict(causal=causal, group=Hq // Hkv)
+    o, lse = tfa.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, **kw)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    bwd_close(got, want, BWD_TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hq,Hkv,Dh,lengths", [
     (296, 48, 16, 128, [1, 98, 257, 296]),   # 5 splits, the merge's order
@@ -478,6 +521,44 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, B, T, Hq, Hkv, Dh,
     o, lse = tfa.flash_attention(q, k, v, **kw)
     got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    bwd_close(got, want, BWD_TOL[dtype])
+
+
+# non-causal attention at T != S: the encoder-decoder's paths (Whisper-base's
+# 8 heads x 64 zero-padded to 16 / 16 by the tp=16 plan; its encoder at
+# T = S = 1500, whose last 64-key tile holds 28 keys, and its cross
+# attention, 256 decoder tokens over 1500 frames), and ragged and reversed
+# cases: T past S, a GQA group, head_dim 128, the FMA kernels (f32 and
+# head_dim 32)
+NONCAUSAL = [
+    (1, 1500, 1500, 16, 16, 64),   # Whisper's encoder (one row of its 4)
+    (2, 256, 1500, 16, 16, 64),    # Whisper's cross attention
+    (2, 77, 200, 8, 4, 128),       # ragged T and S, group 2, head_dim 128
+    (2, 300, 65, 6, 2, 64),        # T past S, S one key past a tile
+    (2, 40, 130, 4, 4, 32),        # head_dim 32 (the FMA kernels)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,Dh", NONCAUSAL)
+def test_flash_kernels_noncausal_at_t_not_s_match_plain(cuda, dtype, B, T,
+                                                        S, Hq, Hkv, Dh):
+    """K2 forward (o, lse) and K4 + K5 backward (dq, dk, dv) without the
+    causal mask at T != S, each against its plain version."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in qkv(B, T, S, Hq, Hkv, Dh, seed=T + S))
+    do = torch.from_numpy(qkv(B, T, S, Hq, Hkv, Dh, seed=T + 1)[0]).to(
+        cuda, dtype)
+    kw = dict(causal=False, group=Hq // Hkv)
+    o, lse = tfa.flash_attention(q, k, v, **kw)
+    o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, **kw)
+    tol = ATT_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-4)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert all(torch.isfinite(g.float()).all() for g in got)
     bwd_close(got, want, BWD_TOL[dtype])
 
 

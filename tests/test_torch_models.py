@@ -128,6 +128,12 @@ def test_params_from_jax_rejects_a_wrong_tree():
 
 
 def test_non_dense_family_is_refused():
-    cfg = dataclasses.replace(tget("qwen2p5_14b", tiny=True), family="moe")
-    with pytest.raises(NotImplementedError):
+    """Every family of the reference builds (the moe, vlm and encdec ones
+    in tests/test_torch_{moe,vlm,encdec}.py); a family the reference does
+    not have is refused."""
+    cfg = dataclasses.replace(tget("qwen2p5_14b", tiny=True),
+                              family="diffusion")
+    with pytest.raises(NotImplementedError, match="family"):
         treg.build(cfg)
+    assert set(tlm.FAMILIES) | {"encdec"} == {
+        "dense", "moe", "vlm", "ssm", "hybrid", "encdec"}

@@ -174,9 +174,89 @@ def test_forward_train_loss_and_grads_match_reference(name, remat):
 
 
 def test_forward_train_refuses_group_remat():
+    """`remat="group"` is ported (`test_group_remat_matches_reference`);
+    what `forward_train` refuses is a remat mode the reference does not
+    have."""
     cfg = tget("minicpm_2b", tiny=True)
     with pytest.raises(NotImplementedError, match="remat"):
-        treg.build(cfg, remat="group").loss_fn({}, {"tokens": None})
+        treg.build(cfg, remat="selective").loss_fn({}, {"tokens": None})
+    assert tlm.REMAT_MODES == ("none", "full", "group")
+
+
+# tiny configs at 4 layers in groups of 2: the dense family (Mistral-Large,
+# whose CONFIG sets remat_group=8) and the moe family (its aux loss summed
+# across the groups' checkpoints)
+GROUP_ARCHS = ("mistral_large_123b", "qwen3_moe_30b_a3b")
+
+
+@pytest.mark.parametrize("arch", GROUP_ARCHS)
+def test_group_remat_matches_reference(arch, monkeypatch):
+    """`remat="group"` at 4 layers and remat_group=2 against the
+    reference's "group" (its outer checkpoint alone): loss, metrics and
+    every gradient; against the port's "full" and "none" bit for bit (the
+    CPU recomputes each op as it first ran it). One checkpoint a group:
+    2 for "group", 4 for "full", none for "none"."""
+    variants = {arch: lambda get: dataclasses.replace(
+        get(arch, tiny=True), n_layers=4, remat_group=2)}
+    jcfg, tcfg, jparams, tparams = _pair(arch, variants)
+    assert tcfg.remat_group_ == jcfg.remat_group_ == 2
+    (jb, tb), = _batches(jcfg, 1, seq=24, batch=2)
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jlm.forward_train(p, jb, jcfg, remat="group"),
+        has_aux=True))(jparams)
+    calls = []
+    real = tlm.checkpoint
+    monkeypatch.setattr(tlm, "checkpoint",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    paths = tadamw.leaf_paths(tparams)
+    leaves = [tadamw.get_path(tparams, p) for p in paths]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    runs = {}
+    for remat in ("group", "full", "none"):
+        calls.clear()
+        loss, met = treg.build(tcfg, remat=remat).loss_fn(tparams, tb)
+        runs[remat] = (loss, met, torch.autograd.grad(loss, leaves))
+        assert len(calls) == {"group": 2, "full": 4, "none": 0}[remat]
+    loss, met, grads = runs["group"]
+    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
+    for key in ("ce_loss", "moe_aux"):
+        np.testing.assert_allclose(met[key].item(), float(jmet[key]),
+                                   **LOSS_TOL, err_msg=key)
+    for path, g in zip(paths, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(_leaf(jgrads, path)),
+                                   **GRAD_TOL, err_msg=str(path))
+    for remat in ("full", "none"):
+        assert runs[remat][0].item() == loss.item()
+        for g, h in zip(grads, runs[remat][2]):
+            np.testing.assert_array_equal(h.numpy(), g.numpy())
+
+
+NEW_ARCHS = ("grok1_314b", "internvl2_2b", "mistral_large_123b",
+             "qwen3_moe_30b_a3b", "whisper_base")
+
+
+@pytest.mark.parametrize("tiny", [False, True], ids=["CONFIG", "TINY"])
+def test_configs_equal_the_reference(tiny):
+    """Every architecture of the reference, CONFIG and TINY, field for
+    field, with its head plan and remat group."""
+    from repro.configs.base import ARCH_IDS as JARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert sorted(ARCH_IDS) == sorted(JARCH_IDS)
+    assert set(NEW_ARCHS) <= set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        tcfg, jcfg = tget(arch, tiny=tiny), jget(arch, tiny=tiny)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), arch
+        assert tcfg.remat_group_ == jcfg.remat_group_, arch
+        tplan, jplan = tcfg.head_plan(), jcfg.head_plan()
+        for f in ("n_q", "n_kv", "n_q_pad", "n_kv_pad", "group", "kv_src",
+                  "q_src"):
+            assert tuple(np.atleast_1d(getattr(tplan, f))) == \
+                tuple(np.atleast_1d(getattr(jplan, f))), (arch, f)
+    if not tiny:
+        q3 = tget("qwen3_moe_30b_a3b").head_plan()
+        assert (q3.n_q_pad, q3.n_kv_pad, q3.group) == (32, 16, 2)
+        assert tget("mistral_large_123b").remat_group_ == 8
 
 
 def test_softmax_cross_entropy_masks_labels_like_reference():
