@@ -84,6 +84,16 @@ script exits nonzero:
                 ROUTED_SUMMARY_REL, the first split reported, one tick from
                 the same state through both devices' tick functions, and the
                 fused ledger equal to the loop ledger on each device;
+7a. tiny_sharded - rank processes of this script (`--shard-rank`,
+                started together and joined by a deadline; a rank that
+                fails fails the phase): an NCCL world of one, where the
+                forced sharded paths (shard_control=True on a one-rank
+                chips mesh) equal the unsharded fleet step, routed run and
+                K6 reduce bit for bit; and a gloo world of 2 sharing the
+                card, each rank's block cuda against its cpu run
+                (TINY_SHARD_RTOL, ROUTED_RTOL), against the unsharded cuda
+                run's slice bit for bit, and the ef collectives over the
+                bound data axis cuda against cpu bit for bit;
 8. main_routed - the routed world at 1024 chips (serve_scale's weak-scaled
                 trace, unbatched; serve_batching's forced-pin trace weak-
                 scaled, batch_cap 4 with the decode profile, draining and
@@ -94,6 +104,13 @@ script exits nonzero:
                 refit; the host controller's loop path at 64 chips (K7
                 exactly); `launch/serve.py --arch qwen2p5_14b --fleet-chips
                 1024 --router headroom --batch-cap 4` at full width;
+8a. main_sharded_routed - main_routed's 4096-chip world (its trace,
+                seed and headroom router) over 4 gloo ranks of 1024 chips
+                sharing the card: every ledger field and energy, and each
+                rank's plane and SOR state against the unsharded run's
+                slice, bit for bit; K1's refit (48 + ticks) // 4 a rank;
+                ticks/s and one tick's kernels, copies and syncs a rank
+                (`lockstep_activity`);
 9. tiny_granite - tiny Granite (dense, one KV head: 4 q heads, group 4,
                 head_dim 32) as phase 3;
 10. main_granite - full-width, full-depth Granite-20B (52 layers, d_model
@@ -181,6 +198,16 @@ script exits nonzero:
                 torch.profiler window of 2 `ef_int8` steps with the fused
                 ef pass's device ms beside its bound, and K2's, K4's and
                 K5's;
+21a. main_train_dp - MiniCPM-2B at full width, 4 of its 40 layers (bf16,
+                random weights from seed 0), over 4 data-parallel gloo
+                ranks sharing the card (TRAIN_DP: one 512-token row a rank,
+                the 64-chip fleet 16 chips a rank, shard_control, the ef
+                int8 sync with BERBounded): params equal across the ranks
+                after every step, exact launches a rank, then a
+                one-process oracle of the same four-rank sequence on the
+                card (rank 0's params bit for bit, the loss within
+                DP_LOSS_RTOL); step ms, gathered bytes and seconds, peak
+                GB a rank;
 22. tiny_train_zamba - tiny Zamba2 in f32 from one seed, cuda against cpu:
                 one `forward_train` gradient (on the card K8's and K2's
                 forward, the plain scan's and K4/K5's backward; every
@@ -258,6 +285,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -338,7 +366,8 @@ STARTED = time.perf_counter()
 def emit(obj) -> None:
     if "phase" in obj:
         obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=lambda o: o.tolist()
+                     if hasattr(o, "tolist") else str(o)), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -3416,12 +3445,12 @@ def run_main_train_ckpt(dev) -> dict:
 
         save, restore = mgr.save, mgr.restore
 
-        def recorded_save(step, state, fleet=None):
+        def recorded_save(step, state, fleet=None, **kw):
             torch.cuda.synchronize()
             pre_save_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
             digest = state_digest(state)
             t0 = time.perf_counter()
-            path = save(step, state, fleet=fleet)
+            path = save(step, state, fleet=fleet, **kw)
             saves.append(dict(step=step, digest=digest,
                               host_blocking_s=time.perf_counter() - t0,
                               snapshot_s=mgr.timings["snapshot_s"]))
@@ -4489,12 +4518,21 @@ def run_main_routed(dev) -> dict:
                        "p50_latency_s", "p95_latency_s", "p99_latency_s",
                        "mean_queue_s", "migrations", "migration_stall_s")})
         by_path[f"serve-routed-{label}"] = launches
+        if label == f"{SHARD_ROUTED_CHIPS}":
+            UNSHARDED_ROUTED.update(
+                state=routed_state(eng), ticks=ticks,
+                ticks_per_s=ticks / secs, fleet_energy_j=led.fleet_energy_j,
+                energies=[r.energy_j for r in led.records()],
+                discrete=json.loads(json.dumps(
+                    ti.ledger_discrete(eng, led),
+                    default=lambda o: o.tolist())))
         return row
 
     out, by_path = {}, {}
     for n in ROUTED_CHIPS:
         out[f"{n}"] = one(f"{n}", n, "sor_refit")
         out[f"{n}"]["per_tick"] = routed_tick_in_fresh_process(n)
+    UNSHARDED_ROUTED["per_tick"] = out[f"{SHARD_ROUTED_CHIPS}"]["per_tick"]
     n = ROUTED_CHIPS[0]
     kn = ti.routed_migration_knobs(n)
     saturating = bursty_trace(kn.pop("n_requests"), **kn)
@@ -4788,6 +4826,748 @@ def run_main_whisper(dev) -> dict:
     return run_main_train_family(dev, WHISPER, then=serve)
 
 
+# ---------------------------------------------------------------------------
+# sharding over torch.distributed: rank processes that share the card
+# ---------------------------------------------------------------------------
+
+# `python3 chip_smoke.py SHARD_FLAG job rank world backend dir` is one rank
+# of a sharded phase (`SHARD_JOBS[job]`) in a world its parent started
+# (`run_worlds`); the process group comes from a file store in `dir`
+SHARD_FLAG = "--shard-rank"
+SHARD_DIR = ROOT / "build" / "shard"
+SHARD_RANKS = 4
+SHARD_ROUTED_CHIPS = 4096
+# a sharded step's state and metrics, each rank's cuda against its cpu:
+# elementwise f32 on the two devices (transcendentals to an ulp) and the
+# loss's sums in another order, before any refit (3 steps, refit every 4)
+TINY_SHARD_RTOL = 1e-5
+# main_routed's unsharded run at SHARD_ROUTED_CHIPS, as main_sharded_routed
+# compares its ranks with it: the final plane and SOR state, the ledger,
+# ticks/s
+UNSHARDED_ROUTED: dict = {}
+# the routed state the ranks' blocks are held to bit for bit
+ROUTED_STATE = ("v_core", "v_hbm", "v_io", "energy_j", "comp_level",
+                "step", "history_v", "history_obs", "history_age_s",
+                "history_valid", "intercept", "slope", "v_frontier",
+                "confidence", "n_eff")
+# main_train_dp: MiniCPM-2B at full width cut to 4 of its 40 layers, one
+# row of 512 tokens a rank, the 64-chip fleet 16 chips a rank, the ef int8
+# sync, a warm-up step and two measured ones; the SOR refits every 2
+# steps, so the measured steps hold one refit
+TRAIN_DP = dict(arch="minicpm_2b", n_layers=4, batch=4, seq=512, chips=64,
+                steps=3, warm=1, refresh_every=2)
+# the one-process oracle against the ranks: the same kernels on the same
+# inputs in the same order, so params are expected equal bit for bit; the
+# loss is the ranks' mean, summed by gloo in its own order
+DP_LOSS_RTOL = 1e-6
+
+
+def run_worlds(jobs, timeout_s: float) -> dict:
+    """Start every `(job, world, backend)` of `jobs` at once, each world a
+    process of this script per rank, and join them all by a deadline. A
+    rank that exits non-zero, or a world past the deadline, kills every
+    other rank and fails the phase with the ranks' error tails. Returns
+    {job: [each rank's last JSON line]}."""
+    procs = {}
+    for job, world, backend in jobs:
+        where = SHARD_DIR / job
+        shutil.rmtree(where, ignore_errors=True)
+        where.mkdir(parents=True)
+        procs[job] = []
+        for r in range(world):
+            with open(where / f"rank{r}.out", "w") as out, \
+                    open(where / f"rank{r}.err", "w") as err:
+                procs[job].append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), SHARD_FLAG,
+                     job, str(r), str(world), backend, str(where)],
+                    stdout=out, stderr=err))
+    every = [(job, r, p) for job, ps in procs.items()
+             for r, p in enumerate(ps)]
+    deadline = time.monotonic() + timeout_s
+    failed = None
+    try:
+        while failed is None:
+            bad = [(job, r, p.returncode) for job, r, p in every
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"{bad[0][0]} rank {bad[0][1]} exited {bad[0][2]}"
+            elif all(p.poll() == 0 for _, _, p in every):
+                break
+            elif time.monotonic() > deadline:
+                failed = f"ranks still running after {timeout_s} s"
+            else:
+                time.sleep(0.2)
+    finally:
+        for _, _, p in every:
+            if p.poll() is None:
+                p.kill()
+        for _, _, p in every:
+            p.wait()
+    if failed:
+        tails = "\n".join(
+            f"{job} rank {r}: "
+            + (SHARD_DIR / job / f"rank{r}.err").read_text()[-2000:]
+            for job, r, _ in every)
+        raise RuntimeError(f"sharded phase: {failed}\n{tails}")
+    return {job: [json.loads((SHARD_DIR / job / f"rank{r}.out").read_text()
+                             .strip().splitlines()[-1])
+                  for r in range(len(ps))]
+            for job, ps in procs.items()}
+
+
+def shard_rank(dev) -> dict:
+    """One rank (SHARD_FLAG's arguments): start the process group from the
+    parent's file store on the named backend, run the job, stop it."""
+    import torch
+    import torch.distributed as dist
+    job, rank, world = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+    backend, where = sys.argv[5], Path(sys.argv[6])
+    sys.path.insert(0, str(ROOT / "tests"))
+    torch.cuda.set_device(dev)
+    # the ranks share the host's cores: two intra-op threads each
+    torch.set_num_threads(2)
+    dist.init_process_group(backend, init_method=f"file://{where}/store",
+                            rank=rank, world_size=world)
+    try:
+        return dict(SHARD_JOBS[job](dev, rank, world, where), job=job,
+                    rank=rank, world=world, backend=backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def equal_arrays(a: dict, b: dict, label: str) -> None:
+    """Raise unless every array of `a` equals `b`'s bit for bit."""
+    import numpy as np
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if not np.array_equal(x, y):
+            gap = np.abs(x.astype(np.float64) - y.astype(np.float64)).max()
+            raise AssertionError(f"{label}: {k} differs (max gap {gap})")
+
+
+def shard_tiny_nccl(dev, rank, world, where) -> dict:
+    """An NCCL world of one, the production backend's code path: the
+    forced sharded paths (shard_control=True on a one-rank chips mesh)
+    against the unsharded ones on the card, bit for bit: the tiny fleet
+    step (3 steps of the reference test's linear model, 16 chips, the
+    gathered tail), the 16-chip routed world (learned, headroom) and
+    `sharded_fleet_reduce` forced through its collectives."""
+    import numpy as np
+    import torch
+    import sharded_worlds as sw
+
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_chips_mesh
+    mesh = make_chips_mesh(device_type=dev.type)
+    fs = FleetSpec.sample(sw.N, seed=sw.STEP_FLEET_SEED)
+    runs = {}
+    for label, kw in (("unsharded", {}),
+                      ("sharded", dict(mesh=mesh, shard_control=True))):
+        ops.reset_launch_counts()
+        state, metrics = sw.run_fleet_step(*sw.fleet_step(fs, device=dev,
+                                                          **kw))
+        runs[label] = (sw.state_arrays(state["plane"], state["sor"]),
+                       metrics, ops.launch_counts())
+    (a, ma, la), (b, mb, lb) = runs["unsharded"], runs["sharded"]
+    equal_arrays(a, b, "tiny_nccl fleet step")
+    equal_arrays(ma, mb, "tiny_nccl fleet step metrics")
+    if la != lb or lb["fleet_stats"] != sw.STEPS:
+        raise AssertionError(f"tiny_nccl fleet step launches {lb} / {la}")
+    serve = {}
+    for label, kw in (("unsharded", {}),
+                      ("sharded", dict(mesh=mesh, shard_control=True))):
+        ops.reset_launch_counts()
+        eng, led = sw.routed_run("headroom", device=dev, **kw)
+        arrays = sw.serve_arrays(eng, led)
+        arrays.pop("summary")
+        serve[label] = (arrays, ops.launch_counts(), eng.last_trace["ticks"])
+    (sa, sla, ta), (sb, slb, tb) = serve["unsharded"], serve["sharded"]
+    if sa["discrete"] != sb["discrete"]:
+        raise AssertionError("tiny_nccl routed: the ledger differs")
+    for k in sa:
+        if k != "discrete" and not np.array_equal(sa[k], sb[k]):
+            raise AssertionError(f"tiny_nccl routed: {k} differs")
+    want = {k: 0 for k in ops.KERNELS}
+    want["sor_refit"] = (48 + tb) // 4
+    if slb != want or sla != want:
+        raise AssertionError(f"tiny_nccl routed launches {slb} / {sla} != "
+                             f"{want}")
+    x = torch.from_numpy(sw.reduce_input()).to(dev)
+    ops.reset_launch_counts()
+    got = ops.sharded_fleet_reduce(x, mesh=mesh, use_shard_map=True)
+    for g, w in zip(got, ops.fleet_reduce(x)):
+        if not torch.equal(g, w):
+            raise AssertionError("tiny_nccl sharded_fleet_reduce differs")
+    return dict(fleet_step_equal=True, routed_equal=True, ticks=tb,
+                fleet_reduce_equal=True, fleet_step_launches=sw.STEPS,
+                routed_refits=want["sor_refit"])
+
+
+def shard_tiny_gloo(dev, rank, world, where) -> dict:
+    """A gloo world of 2 sharing the card: the sharded fleet step and the
+    routed world (learned, round-robin) over the two ranks on cuda and on
+    cpu, each rank's cuda against its cpu (metrics and state within
+    TINY_SHARD_RTOL, the ledger exact, the routed analog values within
+    ROUTED_RTOL), the cuda blocks against the unsharded cuda runs' slices
+    bit for bit, and the ef collectives over the bound data axis (the
+    int8 sum and K10's fused pass with its codes gathered) cuda against
+    cpu bit for bit."""
+    import numpy as np
+    import torch
+    import sharded_worlds as sw
+
+    from repro_torch.core import ecollectives as ec
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_chips_mesh, make_mesh
+    import test_torch_inputs as ti
+    mesh = make_chips_mesh(device_type=dev.type)
+    fs = FleetSpec.sample(sw.N, seed=sw.STEP_FLEET_SEED)
+    lo, hi = ops.chip_block(mesh, sw.N)
+    out = {}
+    step, serve, engines = {}, {}, {}
+    for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        ops.reset_launch_counts()
+        state, metrics = sw.run_fleet_step(*sw.fleet_step(fs, mesh=mesh,
+                                                          device=d))
+        eng, led = sw.routed_run("roundrobin", mesh=mesh, device=d)
+        step[label] = (sw.state_arrays(state["plane"], state["sor"]),
+                       metrics)
+        engines[label] = (eng, led)
+        serve[label] = ops.launch_counts()
+    (ga, gm), (ca, cm) = step["cuda"], step["cpu"]
+    worst = 0.0
+    for k in ga:
+        x = np.asarray(ga[k], np.float64)
+        y = np.asarray(ca[k], np.float64)
+        worst = max(worst, float((np.abs(x - y) / np.maximum(np.abs(y),
+                                                            1e-9)).max()))
+    for k in gm:
+        x, y = np.asarray(gm[k], np.float64), np.asarray(cm[k], np.float64)
+        worst = max(worst, float((np.abs(x - y) / np.maximum(np.abs(y),
+                                                            1e-9)).max()))
+    if worst > TINY_SHARD_RTOL:
+        raise AssertionError(f"tiny_gloo fleet step cuda vs cpu {worst}")
+    (eg, lg), (ec_, lc) = engines["cuda"], engines["cpu"]
+    if ti.ledger_discrete(eg, lg) != ti.ledger_discrete(ec_, lc):
+        raise AssertionError("tiny_gloo routed: cuda ledger differs")
+    gap = routed_analog_gap(eg, lg, ec_, lc)
+    want = {k: 0 for k in ops.KERNELS}
+    want.update(fleet_stats=sw.STEPS,
+                sor_refit=(48 + eg.last_trace["ticks"]) // 4)
+    if serve["cuda"] != want:
+        raise AssertionError(f"tiny_gloo launches {serve['cuda']} != "
+                             f"{want}")
+    # the cuda blocks against the unsharded cuda runs' slices
+    state, metrics = sw.run_fleet_step(*sw.fleet_step(fs, device=dev))
+    whole = sw.state_arrays(state["plane"], state["sor"])
+    equal_arrays(ga, {k: (np.asarray(v)[..., lo:hi] if np.ndim(v) else v)
+                      for k, v in whole.items()}, "tiny_gloo block")
+    equal_arrays({k: v for k, v in gm.items() if k.startswith("fleet/")},
+                 {k: v for k, v in metrics.items() if k.startswith("fleet/")},
+                 "tiny_gloo tail")
+    e1, l1 = sw.routed_run("roundrobin", device=dev)
+    if ti.ledger_discrete(e1, l1) != ti.ledger_discrete(eg, lg):
+        raise AssertionError("tiny_gloo routed: sharded ledger differs "
+                             "from the unsharded one")
+    for f in ("v_core", "v_hbm", "v_io", "energy_j"):
+        if not torch.equal(getattr(e1.plane, f)[lo:hi],
+                           getattr(eg.plane, f)):
+            raise AssertionError(f"tiny_gloo routed: block {f} differs")
+    # the ef collectives over the bound data axis, cuda against cpu
+    dmesh = make_mesh((world,), ("data",), dev.type)
+    group = ops.axis_group(dmesh, "data")[0]
+    got = {}
+    g = torch.from_numpy(sw.dp_inputs(rank, 100_000))
+    r0 = torch.from_numpy(sw.dp_inputs(rank + 10, 100_000)) * 0.01
+    with ec.bound_axes({"data": group}):
+        for label, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            r = r0.to(d).clone()
+            red, num, den = ec.ef_sync_leaf_(g.to(d), r, ec.LEVEL_INT8,
+                                             "data")
+            got[label] = dict(psum=ec.psum_int8(g.to(d), "data").cpu(),
+                               red=red.cpu(), r=r.cpu(), num=num.cpu(),
+                               den=den.cpu())
+    for k in ("psum", "red", "r"):
+        if not torch.equal(got["cuda"][k], got["cpu"][k]):
+            raise AssertionError(f"tiny_gloo ef collective {k} differs")
+    for k in ("num", "den"):
+        if not torch.allclose(got["cuda"][k], got["cpu"][k], rtol=1e-6):
+            raise AssertionError(f"tiny_gloo ef sums {k} differ")
+    out.update(fleet_step_rel_gap=worst, routed_analog_rel_gap=gap,
+               routed_ticks=eg.last_trace["ticks"], block=[lo, hi],
+               launches={k: v for k, v in serve["cuda"].items() if v},
+               ef_collectives_equal=True)
+    return out
+
+
+def routed_state(eng) -> dict:
+    """A routed engine's plane and SOR state as host arrays."""
+    st, p = eng._sor_state, eng.plane
+    out = {f: getattr(p, f).cpu().numpy() for f in (
+        "v_core", "v_hbm", "v_io", "energy_j", "comp_level", "step")}
+    for f in ("v", "obs", "age_s", "valid"):
+        out["history_" + f] = getattr(st.history, f).cpu().numpy()
+    for f in ("intercept", "slope", "v_frontier", "confidence", "n_eff"):
+        out[f] = getattr(st.estimate, f).cpu().numpy()
+    return out
+
+
+def lockstep_activity(call, group) -> dict:
+    """`device_activity` for a call that holds collectives: every rank of
+    `group` takes the same windows (a window one rank lost is taken again
+    on all), so the collectives pair up."""
+    import torch
+    import torch.distributed as dist
+    guard = GuardedProfile()
+
+    def window(fn):
+        fn()
+        for attempt in range(PROFILE_TRIES):
+            events, device, _ = guard._window(fn, attempt)
+            marks = [i for i, e in enumerate(device)
+                     if e.name == guard.witness_kernel]
+            ok = torch.tensor([int(len(marks) >= 2)])
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=group)
+            if ok.item():
+                from torch.autograd import DeviceType
+                host = [e for e in events if e.device_type != DeviceType.CUDA]
+                return host, device[marks[0] + 1:marks[-1]]
+            guard.retaken += 1
+        raise RuntimeError("lockstep_activity: a witness lost in every "
+                           "window")
+
+    def count(fn):
+        host, device = window(fn)
+        out = {"kernels": 0, "copies": 0, "device_us": 0.0, "syncs": 0}
+        out.update(dict.fromkeys(COPY_KINDS, 0))
+        for e in device:
+            if e.name.startswith(("Memcpy", "Memset")):
+                out["copies"] += 1
+                out[next(k for k in COPY_KINDS if k in e.name or
+                         k == "Memset")] += 1
+            else:
+                out["kernels"] += 1
+            out["device_us"] += device_us(e)
+        out["syncs"] = sum("Synchronize" in e.name for e in host)
+        return out
+
+    base = count(lambda: None)
+    out = {k: v - base[k] for k, v in count(call).items()}
+    return dict(out, retaken=guard.retaken)
+
+
+def shard_routed(dev, rank, world, where) -> dict:
+    """One rank of the 4096-chip routed world over SHARD_RANKS ranks
+    sharing the card (main_routed's world, trace, seed and router: learned,
+    headroom, capacity 4): the warm-up on the whole plane, the fused trace
+    on the rank's 1024 chips with the bundles exchanged on the host. Saves
+    the rank's plane and SOR state; reports the ledger, ticks/s, K1's
+    refits and one tick's device activity (the tick function, the
+    bundle's copy, the host all_gather and the busy fraction's copy, in
+    windows every rank takes alike)."""
+    import numpy as np
+    import torch
+    import test_torch_inputs as ti
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_chips_mesh
+    from repro_torch.serve.router import HeadroomRouter
+    from repro_torch.serve.traffic import bursty_trace
+    mesh = make_chips_mesh(device_type=dev.type)
+    n = SHARD_ROUTED_CHIPS
+    cfg, params = routed_params(dev)
+    ops.reset_launch_counts()
+    eng = ti.routed_engine(n, dev, params=params, cfg=cfg,
+                           router=HeadroomRouter(
+                               capacity=ti.ROUTED_CAPACITY), mesh=mesh)
+    noise = ti.routed_noise(n, ROUTED_MAX_TICKS)
+    ti.routed_warm_up(eng, ti.routed_observe(eng.fleet_spec, noise, dev))
+    lo, hi = eng.chip_block
+    observe = ti.routed_observe(ops.shard_chip_tree(eng.fleet_spec, mesh, n),
+                                noise[..., lo:hi], dev)
+    kn = ti.routed_trace_knobs(n)
+    trace = bursty_trace(kn.pop("n_requests"), **kn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    led = eng.serve_trace(trace, observe=observe, max_ticks=ROUTED_MAX_TICKS,
+                          error_bound=ti.ROUTED_BOUND)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    ticks = eng.last_trace["ticks"]
+    np.savez(where / f"state{rank}.npz", **routed_state(eng))
+    # one tick on the rank, as the trace loop runs it
+    fn = eng._serve_tick_jit(observe, eng.last_trace["tick_s"],
+                             ti.ROUTED_BOUND)
+    group = ops.host_group(mesh)
+    busy = torch.from_numpy((np.arange(lo, hi) % 5 / 4).astype(
+        np.float32)).pin_memory()
+
+    def tick(refit):
+        st = eng._sor_state
+        every = eng.controller.sor.refresh_every
+        st = type(st)(history=st.history, estimate=st.estimate,
+                      tick=(st.tick // every) * every
+                      + (every - 1 if refit else 0))
+
+        def call():
+            _, _, bundle, _, _ = fn(eng.plane, st, busy.to(
+                dev, non_blocking=True), 0)
+            return ops.gather_stack(bundle.cpu(), group).numpy()
+
+        return call
+
+    per_tick = {"hold": lockstep_activity(tick(False), group),
+                "refit": lockstep_activity(tick(True), group)}
+    s = led.summary()
+    return dict(block=[lo, hi], ticks=ticks, serve_trace_s=secs,
+                ticks_per_s=ticks / secs, us_per_tick=secs / ticks * 1e6,
+                launches={k: v for k, v in launches.items() if v},
+                discrete=ti.ledger_discrete(eng, led),
+                fleet_energy_j=led.fleet_energy_j,
+                energies=[r.energy_j for r in led.records()],
+                slo={k: s[k] for k in ("completed", "placed", "defers",
+                                       "tokens_out", "fleet_energy_j",
+                                       "p99_latency_s")},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                per_tick=per_tick)
+
+
+def dp_model(dev):
+    """MiniCPM-2B cut to TRAIN_DP's layers, random bf16 weights from seed
+    0 on the card (the same on every rank)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(get_config(TRAIN_DP["arch"]),
+                              n_layers=TRAIN_DP["n_layers"])
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    return cfg, params
+
+
+def dp_setup(cfg, params, dev, *, chips_mesh=None, data_mesh=None):
+    """The main_train_dp step (the fleet train step with the ef int8 sync
+    and BERBounded, the SOR on a TRAIN_DP['chips']-chip fleet, the
+    launcher's schedule and profile) and its state; over the meshes when
+    given (the fleet's chips over `chips_mesh`, the batch and the ef sync
+    over `data_mesh`). Returns (step, state, data, loss_fn, opt_cfg,
+    schedule)."""
+    from repro_torch.core import sor
+    from repro_torch.core.hwspec import FleetSpec
+    from repro_torch.core.policy import BERBounded
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import (FleetStepConfig, StepConfig,
+                                        make_fleet_train_step,
+                                        shard_fleet_state, shard_map_ef_step)
+    from repro_torch.train.trainer import initial_plane_and_ef
+    n = sum(a.numel() for a in tree_leaves(params))
+    tokens = TRAIN_DP["batch"] * TRAIN_DP["seq"]
+    fleet = FleetSpec.sample(TRAIN_DP["chips"], seed=0)
+    scfg = sor.SorConfig(ingest="frames", rails=ALL_RAIL_OBSERVABLES,
+                         refresh_every=TRAIN_DP["refresh_every"])
+    opt_cfg = adamw.AdamWConfig()
+
+    def sched(s):
+        return wsd(s, peak_lr=3e-4, warmup_steps=10, stable_steps=7,
+                   decay_steps=2)
+
+    loss_fn = registry.build(cfg, remat="full").loss_fn
+    step = make_fleet_train_step(
+        loss_fn, opt_cfg, sched,
+        StepProfile(6.0 * n * tokens, 14.0 * n, 4.0 * n, 4.0 * n),
+        StepConfig(grad_sync="ef_int8", policy=BERBounded()),
+        FleetStepConfig(spec=fleet, hbm_error_base=1e-4,
+                        link_ber_floor=1e-3, sor=scfg, mesh=chips_mesh,
+                        shard_control=True if chips_mesh is not None
+                        else None))
+    plane, ef = initial_plane_and_ef(params, fleet)
+    state = {"params": params, "opt": adamw.init_state(params, opt_cfg),
+             "plane": plane, "ef": ef,
+             "sor": sor.init_state(scfg, TRAIN_DP["chips"], device=dev)}
+    if chips_mesh is not None:
+        state = shard_fleet_state(state, chips_mesh)
+    if data_mesh is not None:
+        step = shard_map_ef_step(step, data_mesh)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_DP["seq"],
+                                  TRAIN_DP["batch"]))
+    return step, state, data, loss_fn, opt_cfg, sched
+
+
+def params_digest(params) -> list:
+    from repro_torch.models.lm import tree_leaves
+    return [list(leaf_digest(a)) for a in tree_leaves(params)]
+
+
+def shard_train_dp(dev, rank, world, where) -> dict:
+    """One rank of main_train_dp: full-width MiniCPM-2B at TRAIN_DP's
+    depth, its row of the batch, its 16 of the 64 chips, the ef int8 sync
+    over the data axis (K10's fused pass a leaf, its codes and scales
+    all-gathered over gloo from the card, the dequantize-and-sum in rank
+    order). After every step the ranks' params must be equal bit for bit
+    (digests exchanged); the measured steps' launches exact. Rank 0 saves
+    its final params for the parent's one-process oracle."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import ecollectives as ec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import tree_leaves
+    cfg, params = dp_model(dev)
+    chips = make_mesh((world,), ("chips",), dev.type)
+    data_mesh = make_mesh((world,), ("data",), dev.type)
+    host = ops.host_group(chips)
+    step, state, data, *_ = dp_setup(cfg, params, dev, chips_mesh=chips,
+                                     data_mesh=data_mesh)
+    gathered = {"bytes": 0, "seconds": 0.0}
+    plain_gather = ec.gather_codes
+
+    def timed_gather(q, s, axis_name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qg, sg = plain_gather(q, s, axis_name)
+        torch.cuda.synchronize()
+        gathered["seconds"] += time.perf_counter() - t0
+        gathered["bytes"] += qg.numel() + sg.numel() * 4
+        return qg, sg
+
+    ec.gather_codes = timed_gather
+
+    def same_on_every_rank(label):
+        digests = [None] * world
+        dist.all_gather_object(digests, params_digest(state["params"]),
+                               group=host)
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f"main_train_dp: params differ across "
+                                 f"ranks {label}")
+
+    same_on_every_rank("at init")
+    losses, step_ms, launches = [], [], None
+    for i in range(TRAIN_DP["steps"]):
+        if i == TRAIN_DP["warm"]:
+            ops.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            gathered.update(bytes=0, seconds=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state["params"], state["opt"], state["plane"], state["ef"],
+         state["sor"], metrics) = step(
+            state["params"], state["opt"], state["plane"], state["ef"],
+            state["sor"], data.torch_batch(i, dev))
+        loss = metrics["loss"].item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        same_on_every_rank(f"after step {i}")
+    launches = ops.launch_counts()
+    measured = TRAIN_DP["steps"] - TRAIN_DP["warm"]
+    n_leaves = sum(1 for _ in tree_leaves(state["params"]))
+    want = model_launches(cfg, measured)
+    want.update(ef_sync_leaf=n_leaves * measured, fleet_stats=measured,
+                sor_refit=sum(1 for t in range(TRAIN_DP["warm"] + 1,
+                                               TRAIN_DP["steps"] + 1)
+                              if t % TRAIN_DP["refresh_every"] == 0))
+    if launches != want:
+        raise AssertionError(f"main_train_dp rank {rank}: launches "
+                             f"{launches} != {want}")
+    if rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    _flat_params(state["params"]).items()},
+                   where / "params_rank0.pt")
+    ec.gather_codes = plain_gather
+    return dict(losses=losses, step_ms=step_ms,
+                grad_error=float(metrics["grad_error"].float().mean()),
+                fleet={k: float(v) for k, v in metrics.items()
+                       if k.startswith("fleet/")},
+                gathered_bytes_per_step=gathered["bytes"] / measured,
+                gather_s_per_step=gathered["seconds"] / measured,
+                launches={k: v for k, v in launches.items() if v},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                params=sum(a.numel() for a in tree_leaves(state["params"])),
+                comp_level=state["plane"].comp_level.tolist())
+
+
+def _flat_params(params) -> dict:
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    return {"/".join(p): get_path(params, p) for p in leaf_paths(params)}
+
+
+def dp_oracle(dev, ranks: int) -> dict:
+    """main_train_dp's sequence in one process on the card: each step,
+    each rank's row through the same loss and gradient in turn, K10's fused
+    pass a leaf on that rank's own residual, then the codes of every rank
+    combined as `psum_int8` defines it (the dequantize-and-sum in rank
+    order, over the ranks) and the same AdamW update. Returns (params,
+    per-step mean losses)."""
+    import torch
+
+    from repro_torch.core import ecollectives as ec
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    from repro_torch.train.step import _accumulate_grads
+    cfg, params = dp_model(dev)
+    _, state, data, loss_fn, opt_cfg, sched = dp_setup(cfg, params, dev)
+    paths = leaf_paths(params)
+    resid = [ec.own_residuals(ec.zeros_like_residuals(params))
+             for _ in range(ranks)]
+    losses = []
+    for i in range(TRAIN_DP["steps"]):
+        batch = data.torch_batch(i, dev)
+        k = batch["tokens"].shape[0] // ranks
+        codes, loss_sum = [], []
+        for p in range(ranks):
+            rows = {key: v[p * k:(p + 1) * k] for key, v in batch.items()}
+            loss, _, grads = _accumulate_grads(loss_fn, params, rows, 1)
+            loss_sum.append(loss)
+            mine = []
+            for path in paths:
+                _, q, s, _, _ = ec.ops.ef_sync_leaf(
+                    get_path(grads, path).contiguous(),
+                    get_path(resid[p], path))
+                mine.append((q, s))
+            codes.append(mine)
+            del grads
+        reduced: dict = {}
+        for j, path in enumerate(paths):
+            qg = torch.stack([codes[p][j][0] for p in range(ranks)])
+            sg = torch.stack([codes[p][j][1] for p in range(ranks)])
+            leaf = get_path(params, path)
+            total = ec.dequantize_sum(qg, sg).reshape(-1)[:leaf.numel()]
+            node = reduced
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = ec._divide(total.reshape(leaf.shape), ranks)
+            for p in range(ranks):
+                codes[p][j] = None
+        losses.append(sum(float(x) for x in loss_sum) / ranks)
+        lr = sched(state["opt"]["step"])
+        adamw.apply_updates(params, reduced, state["opt"], lr, opt_cfg)
+        del reduced
+    return params, losses
+
+
+def run_tiny_sharded() -> dict:
+    """tiny_sharded: an NCCL world of one (the forced sharded paths against
+    the unsharded ones, bit for bit) and a gloo world of 2 sharing the
+    card (cuda against cpu, blocks against the unsharded slices), run at
+    once."""
+    t0 = time.perf_counter()
+    res = run_worlds([("tiny_nccl", 1, "nccl"), ("tiny_gloo", 2, "gloo")],
+                     timeout_s=300)
+    return dict(nccl_world_of_one=res["tiny_nccl"][0],
+                gloo_world_of_two=res["tiny_gloo"],
+                seconds=time.perf_counter() - t0)
+
+
+def run_main_sharded_routed() -> dict:
+    """main_sharded_routed: main_routed's 4096-chip world over SHARD_RANKS
+    ranks of 1024 chips sharing the card (gloo): every rank's ledger equal
+    to the unsharded run's on every discrete field, the energies equal,
+    each rank's plane and SOR state equal to the unsharded run's slice bit
+    for bit, K1's refits exactly (48 + ticks) // 4 a rank; ticks/s and one
+    tick's device activity a rank beside the unsharded run's."""
+    import numpy as np
+    t0 = time.perf_counter()
+    ranks = run_worlds([("routed", SHARD_RANKS, "gloo")],
+                       timeout_s=420)["routed"]
+    want = UNSHARDED_ROUTED
+    if not want:
+        raise AssertionError("main_sharded_routed: no unsharded run to hold "
+                             "the ranks to (main_routed)")
+    for r in ranks:
+        lo, hi = r["block"]
+        if json.loads(json.dumps(r["discrete"])) != want["discrete"]:
+            raise AssertionError(f"main_sharded_routed rank {r['rank']}: "
+                                 "the ledger differs from the unsharded "
+                                 "run's")
+        if r["energies"] != want["energies"] or \
+                r["fleet_energy_j"] != want["fleet_energy_j"]:
+            raise AssertionError(f"main_sharded_routed rank {r['rank']}: "
+                                 "energies differ")
+        with np.load(SHARD_DIR / "routed" / f"state{r['rank']}.npz") as z:
+            for k in ROUTED_STATE:
+                if not np.array_equal(z[k], want["state"][k][..., lo:hi]):
+                    raise AssertionError(
+                        f"main_sharded_routed rank {r['rank']}: {k} is not "
+                        f"the unsharded run's slice")
+        refits = (48 + r["ticks"]) // 4
+        if r["launches"] != {"sor_refit": refits}:
+            raise AssertionError(f"main_sharded_routed rank {r['rank']}: "
+                                 f"launches {r['launches']}")
+        del r["discrete"], r["energies"]
+    shutil.rmtree(SHARD_DIR / "routed", ignore_errors=True)
+    return dict(ranks=ranks, unsharded=dict(
+        ticks=want["ticks"], ticks_per_s=want["ticks_per_s"],
+        per_tick=want.get("per_tick")), state_equal=True,
+        ledger_equal=True, seconds=time.perf_counter() - t0,
+        launches={"sor_refit": sum(r["launches"]["sor_refit"]
+                                   for r in ranks)})
+
+
+def run_main_train_dp(dev) -> dict:
+    """main_train_dp: TRAIN_DP over SHARD_RANKS data-parallel ranks sharing
+    the card (gloo), then the one-process oracle of the same four-rank
+    sequence on the card: rank 0's params after the last step against the
+    oracle's bit for bit, the ranks' losses against the oracle's means
+    within DP_LOSS_RTOL."""
+    import torch
+
+    from repro_torch.models.lm import tree_leaves
+    t0 = time.perf_counter()
+    ranks = run_worlds([("train_dp", SHARD_RANKS, "gloo")],
+                       timeout_s=600)["train_dp"]
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["losses"] != ranks[0]["losses"]:
+            raise AssertionError("main_train_dp: the ranks' losses differ")
+    got = torch.load(SHARD_DIR / "train_dp" / "params_rank0.pt")
+    t1 = time.perf_counter()
+    params, losses = dp_oracle(dev, SHARD_RANKS)
+    oracle_s = time.perf_counter() - t1
+    worst = 0.0
+    equal = True
+    for name, leaf in _flat_params(params).items():
+        a = leaf.detach().cpu()
+        equal = equal and torch.equal(a, got[name])
+        worst = max(worst, float((a.float() - got[name].float()).abs()
+                                 .max()))
+    del params, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(SHARD_DIR / "train_dp", ignore_errors=True)
+    if not equal:
+        raise AssertionError(f"main_train_dp: rank 0's params differ from "
+                             f"the oracle's (max |d| {worst})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                  losses))
+    if rel > DP_LOSS_RTOL:
+        raise AssertionError(f"main_train_dp: loss {ranks[0]['losses']} "
+                             f"against the oracle's {losses}")
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(ranks=ranks, config=TRAIN_DP, oracle_losses=losses,
+                oracle_loss_rel_gap=rel, params_equal_oracle=True,
+                ranks_s=ranks_s, oracle_s=oracle_s, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+SHARD_JOBS = {"tiny_nccl": shard_tiny_nccl, "tiny_gloo": shard_tiny_gloo,
+              "routed": shard_routed, "train_dp": shard_train_dp}
+
+
 def sm90_hgmma(lib: Path) -> dict:
     """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each
     instantiation of the sm90 attention kernels (K2's forward, K4's dq,
@@ -4834,6 +5614,11 @@ def main() -> int:
         _build.load()
         emit(run_routed_tick(dev, int(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == [SHARD_FLAG]:           # a rank of a sharded phase
+        _build.build()
+        _build.load()
+        emit(shard_rank(dev))
+        return 0
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -4873,9 +5658,15 @@ def main() -> int:
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
 
     emit({"phase": "tiny_routed", **run_tiny_routed()})
+    emit({"phase": "tiny_sharded", **run_tiny_sharded()})
     result = run_main_routed(dev)
     by_path.update(result.pop("by_path"))
     emit({"phase": "main_routed", **result})
+    result = run_main_sharded_routed()
+    by_path["serve-routed-sharded"] = {
+        k: result["launches"].get(k, 0) for k in ops.KERNELS}
+    emit({"phase": "main_sharded_routed", **result})
+    UNSHARDED_ROUTED.clear()
     del result
 
     for tiny, phase, path, spec in (
@@ -4921,6 +5712,11 @@ def main() -> int:
     del result
     gc.collect()
     torch.cuda.empty_cache()       # main_train_ef's MiniCPM state is gone
+    result = run_main_train_dp(dev)
+    by_path["train-dp"] = {k: result["launches"].get(k, 0)
+                           for k in ops.KERNELS}
+    emit({"phase": "main_train_dp", **result})
+    del result
 
     for tiny, phase, path, spec in (
             ("tiny_train_zamba", "main_train_zamba", "train-zamba",

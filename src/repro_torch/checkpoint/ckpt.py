@@ -36,7 +36,17 @@ What the port does differently, each for a reason:
   on the live tensor's device. The host integers of the SOR state
   (`FrameHistory.cursor`, `.count`, `SorState.tick`) are written as int32
   0-d leaves, as the reference's arrays are, and read back as ints.
-- Restoring onto a device mesh (`shardings=`) waits for the Sharding item.
+- In a `torch.distributed` world larger than one, rank 0 writes and the
+  other ranks wait at a barrier until the checkpoint is complete (after the
+  write of a synchronous save, at the next `wait` of an asynchronous one),
+  so every rank sees it. With `save(mesh=)` the per-chip groups (`plane`,
+  `sor`) are each rank's block of chips (`train.step.shard_fleet_state`)
+  and are gathered over the mesh's chips axis first, so the files hold the
+  whole fleet in the reference's layout and restore bit for bit in a
+  world of one and in the reference. `restore` reads the whole state; the
+  caller takes its block again (`Trainer` does).
+- Restoring onto a device mesh (`shardings=`) waits for ROADMAP.md's open
+  item 'Sharding' (parameter placements).
 """
 
 from __future__ import annotations
@@ -143,6 +153,36 @@ def remap_sor(sor_state: SorState, target) -> SorState:
 
 
 # -- state trees ------------------------------------------------------------------
+
+def _world() -> int:
+    import torch.distributed as dist
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return (dist.get_rank()
+            if dist.is_available() and dist.is_initialized() else 0)
+
+
+def gather_fleet_state(state: dict, mesh, axis_name: str = "chips") -> dict:
+    """The whole fleet's per-chip groups from every rank's block (the
+    inverse of `train.step.shard_fleet_state`, a collective every rank of
+    the axis calls): `plane` and `sor` gathered along their trailing chip
+    axis in rank order; other groups pass through."""
+    from repro_torch.kernels import ops
+    out = dict(state)
+    plane = state.get("plane")
+    if plane is not None and plane.v_core.dim() == 1:
+        out["plane"] = ops.gather_chip_tree(plane, mesh,
+                                            plane.v_core.shape[0], axis_name)
+    ss = state.get("sor")
+    if ss is not None and ss.history.chip_shape:
+        out["sor"] = ops.gather_chip_tree(ss, mesh, ss.history.chip_shape[0],
+                                          axis_name)
+    return out
+
 
 def _map_with_path(fn, tree, path: tuple = ()):
     """Rebuild `tree` with fn(path, leaf) at each leaf, visiting leaves in
@@ -260,21 +300,33 @@ class CheckpointManager:
     # `restore_s` and `restore_bytes`
     timings: dict = dataclasses.field(default_factory=dict)
     _error: Exception | None = None
+    _barrier: bool = False      # a save every rank still has to wait for
 
     def __post_init__(self):
         os.makedirs(self.directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: dict[str, Any],
-             fleet: FleetSpec | None = None) -> str:
+             fleet: FleetSpec | None = None, mesh: Any = None,
+             axis_name: str = "chips") -> str:
         """state: dict of state trees, e.g. {'params': ..., 'opt': ...,
         'plane': ...}. Every leaf is copied to the host before this
         returns. `fleet` additionally records the FleetSpec (seed and the
         per-chip nominal arrays) the plane was seeded from, so an elastic
         restart onto a different fleet size can remap per-chip state
-        explicitly."""
+        explicitly. With `mesh` (a collective every rank calls) the
+        per-chip groups are this rank's block and are gathered first; in a
+        world larger than one only rank 0 writes (module docstring)."""
         self.wait()
         path = os.path.join(self.directory, f"step_{step:08d}")
+        if mesh is not None:
+            state = gather_fleet_state(state, mesh, axis_name)
+        writer = _rank() == 0
+        self._barrier = _world() > 1
+        if not writer:
+            if not self.async_save:
+                self.wait()
+            return path
         t0 = time.perf_counter()
         host = {name: _flatten(tree) for name, tree in state.items()}
         self.timings["snapshot_s"] = time.perf_counter() - t0
@@ -329,13 +381,20 @@ class CheckpointManager:
             self._thread.start()
         else:
             write()
+            self.wait()
         return path
 
     def wait(self):
-        """Join the writer of an async save; re-raise its exception."""
+        """Join the writer of an async save; in a world larger than one,
+        then wait for every rank at a barrier; re-raise the writer's
+        exception."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -371,6 +371,59 @@ class InGraphRailController:
         return ControlPlaneStats()
 
 
+def sharded_control_round(controller: InGraphRailController, mesh,
+                          axis_name: str = "chips"):
+    """The shard-parallel `InGraphRailController.control_round` over a 1-D
+    `axis_name` mesh. Each rank holds its block of chips
+    (`ops.shard_chip_tree`): its plane, its frame and its `SorState` (the
+    `[capacity, n_rails, n/P]` ring and the estimate). The round ingests
+    the rank's frame into its ring, refits on the replicated cadence (K1's
+    refit over the rank's lanes only; the host integer `tick` is the same
+    on every rank), derives the envelopes and runs decide + arbitrate, all
+    elementwise per chip, so a rank's result equals the unsharded round's
+    slice. The only traffic between ranks is the confidence summary: one
+    SUM and one MIN `all_reduce` of a scalar; plane and state never gather.
+
+    Returns `round(plane, frame, sor_state) -> (plane', sor_state',
+    conf_sum, conf_min)`: `conf_sum` the fleet-wide sum of the estimate's
+    confidence (divide by its global size for the mean), `conf_min` its
+    fleet-wide min. With `with_request=True` the round also returns the
+    request and the envelopes it arbitrated with. Draws the frame depends
+    on must be made on global chip indices (`train.step.fleet_draws`), so
+    sharded and unsharded trajectories stay equal.
+
+    Cross-chip policies (`policy.cross_chip`, e.g. `WorstChipGate`) are
+    rejected: their fleet reduction would cover the rank's chips only."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops as _ops
+    if controller.sor is None:
+        raise ValueError("sharded_control_round needs a controller built "
+                         "with sor=SorConfig(...): the per-shard resident "
+                         "state is the SorState")
+    if getattr(controller.policy, "cross_chip", False):
+        raise ValueError(
+            f"policy {getattr(controller.policy, 'name', '?')!r} reduces "
+            "across chips (cross_chip=True); inside the sharded control "
+            "round it would only see its local shard. Run it on the "
+            "unsharded path (FleetStepConfig.shard_control=False).")
+    group, _, _ = _ops.axis_group(mesh, axis_name)
+
+    def round(plane, frame, sor_state, *, with_request: bool = False):
+        plane, sor_state, request, env = controller.control_round(
+            plane, frame, sor_state)
+        conf = sor_state.estimate.confidence
+        conf_sum = conf.sum()
+        conf_min = conf.min()
+        dist.all_reduce(conf_sum, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(conf_min, op=dist.ReduceOp.MIN, group=group)
+        if with_request:
+            return plane, sor_state, conf_sum, conf_min, request, env
+        return plane, sor_state, conf_sum, conf_min
+
+    return round
+
+
 # ---------------------------------------------------------------------------
 # SW-path analogue: host-side decisions, PMBus-actuated over the fleet bus
 # ---------------------------------------------------------------------------

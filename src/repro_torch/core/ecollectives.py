@@ -19,14 +19,17 @@ reference leaves them to XLA. The train step's sync does not compose them:
 K10's codec fused with the arithmetic around it), equal to the composed
 sequence bit for bit (its two sums up to their order on the card).
 
-The world of one. The reference runs this path under `shard_map` on a
-one-device `data` mesh, where the all-gather stacks one copy, `psum(1)` is
-1 and `pmean(loss)` is the loss. The port's collectives take that world
-only and still run the whole sequence (quantize, a gather of one, the
-dequantize-sum), so the codec runs twice per leaf as in the reference's op
-sequence. A `torch.distributed` world larger than one raises
-`NotImplementedError`: the multi-process sync and `shard_map_ef_step` wait
-for ROADMAP.md's open item 'Sharding'.
+Axes and worlds. The reference's collectives name a `shard_map` axis;
+the port's name an axis bound to a `torch.distributed` process group by
+`train.step.shard_map_ef_step` (or `bound_axes`). An unbound axis is the
+reference's one-device world: the all-gather stacks one copy, `psum(1)`
+is 1 and `pmean(loss)` is the loss, and the whole sequence still runs
+(quantize, a gather of one, the dequantize-sum). A bound axis of P ranks
+runs the collectives over its group: `psum_lossless` is an `all_reduce`,
+`psum_int8` quantizes locally (K10), all-gathers the int8 codes and f32
+scales and adds the P dequantized payloads in rank order, as the
+reference's `jnp.sum(axis=0)` does. An unbound axis in a started world
+larger than one raises: the step must run under `shard_map_ef_step`.
 
 Unlike the reference's pure `ef_compress`, the port's updates the residual
 tree in place (the counterpart of a donated buffer) and returns it.
@@ -34,6 +37,7 @@ tree in place (the counterpart of a donated buffer) and returns it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -107,37 +111,118 @@ def topk_thresholds(x, k_fraction: float, block: int = DEFAULT_BLOCK):
 
 
 # ---------------------------------------------------------------------------
-# Compressed reduction over the data-parallel axis (a world of one)
+# Compressed reduction over a data-parallel axis
 # ---------------------------------------------------------------------------
 
-def axis_size(axis_name) -> int:
-    """Replicas along `axis_name`: 1. A `torch.distributed` world larger
-    than one is refused."""
+# axis name -> the process group it is bound to (`bound_axes`)
+_BOUND: dict = {}
+
+
+@contextlib.contextmanager
+def bound_axes(groups: dict):
+    """Bind axis names to `torch.distributed` process groups for the
+    collectives called inside (the counterpart of `shard_map`'s axis
+    names); `train.step.shard_map_ef_step` binds its mesh's DP axes."""
+    saved = dict(_BOUND)
+    _BOUND.update(groups)
+    try:
+        yield
+    finally:
+        _BOUND.clear()
+        _BOUND.update(saved)
+
+
+def axis_group(axis_name):
+    """The process group bound to `axis_name`, or None for the one-device
+    world (an unbound axis and no started world larger than one)."""
+    if axis_name in _BOUND:
+        return _BOUND[axis_name]
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"error-feedback gradient sync over axis {axis_name!r} in a "
-            f"world of {dist.get_world_size()} is not yet ported: the port "
-            f"runs the reference's one-device data mesh only (ROADMAP.md, "
-            f"open item 'Sharding')")
-    return 1
+        raise ValueError(
+            f"axis {axis_name!r} is not bound to a process group in a world "
+            f"of {dist.get_world_size()}: run the step under "
+            f"train.step.shard_map_ef_step (or ecollectives.bound_axes)")
+    return None
+
+
+def axis_size(axis_name) -> int:
+    """Replicas along `axis_name`: its group's size, 1 unbound."""
+    import torch.distributed as dist
+    group = axis_group(axis_name)
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _divide(x, size: int):
+    """x / size in x's dtype as a true division (the reference divides by
+    the traced `psum(1)`; torch on the card divides by a Python number as
+    a multiply by its reciprocal)."""
+    if size == 1:
+        return x
+    return x / torch.full((), size, dtype=x.dtype, device=x.device)
+
+
+def pmean(x, axis_name):
+    """The mean of x over `axis_name`'s replicas (x itself unbound)."""
+    import torch.distributed as dist
+    group = axis_group(axis_name)
+    if group is None:
+        return x
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return _divide(y, dist.get_world_size(group))
 
 
 def psum_lossless(x, axis_name):
-    axis_size(axis_name)
-    return x
+    import torch.distributed as dist
+    group = axis_group(axis_name)
+    if group is None:
+        return x
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
+def gather_codes(q, s, axis_name):
+    """All-gather one payload's int8 codes [nblk, block] and f32 scales
+    [nblk, 1] over `axis_name`: ([P, nblk, block], [P, nblk, 1]) in rank
+    order (P = 1, the payload itself, unbound)."""
+    group = axis_group(axis_name)
+    if group is None:
+        return q[None], s[None]
+    return ops.gather_stack(q, group), ops.gather_stack(s, group)
+
+
+# rows of blocks a dequantize-and-sum pass takes at once: one rank's f32
+# term over them is 64 MB at 256-element blocks
+SUM_ROWS = 1 << 16
+# rows of blocks the fused sync gathers at once: 64 MB of int8 codes a rank
+GATHER_ROWS = 1 << 18
+
+
+def dequantize_sum(qg, sg, out=None):
+    """sum_p qg[p] * sg[p] in f32, [nblk, block] (into `out` when given):
+    the ranks added in rank order (((d0 + d1) + d2) + ...), each product
+    rounded before its add, SUM_ROWS rows at a time."""
+    size, nblk, block = qg.shape
+    total = (torch.empty((nblk, block), dtype=torch.float32,
+                         device=qg.device) if out is None else out)
+    for lo in range(0, nblk, SUM_ROWS):
+        hi = min(nblk, lo + SUM_ROWS)
+        acc = total[lo:hi]
+        torch.mul(qg[0, lo:hi], sg[0, lo:hi], out=acc)
+        for p in range(1, size):
+            acc.add_(qg[p, lo:hi].to(torch.float32).mul_(sg[p, lo:hi]))
+    return total
 
 
 def psum_int8(x, axis_name, block: int = DEFAULT_BLOCK):
     """Bounded-error sum over `axis_name`: quantize locally to int8 (K10),
-    gather the codes and scales of every replica (one here), dequantize and
-    sum."""
-    axis_size(axis_name)
+    gather the codes and scales of every replica, dequantize and sum in
+    rank order."""
     q, s = quantize_int8(x, block)
-    qg, sg = q[None], s[None]                    # [P, nblk, block], P = 1
-    total = torch.sum(qg.to(torch.float32).mul_(sg), dim=0)
-    return dequantize_like(total, x)
+    return dequantize_like(dequantize_sum(*gather_codes(q, s, axis_name)), x)
 
 
 def psum_int8_topk(x, axis_name, k_fraction: float = 0.25,
@@ -157,7 +242,7 @@ def reduce_leaf(g, axis_name, level: int, k_fraction: float = 0.25,
         out = psum_int8_topk(g, axis_name, k_fraction)
     else:
         raise ValueError(f"unknown compression level {level}")
-    return out / axis_size(axis_name) if mean else out
+    return _divide(out, axis_size(axis_name)) if mean else out
 
 
 def reduce_gradients(grads, axis_name, level: int, k_fraction: float = 0.25,
@@ -194,13 +279,32 @@ def ef_sync_leaf_(g, r, level: int, axis_name, k_fraction: float = 0.25):
     reduced leaf, f32; sum (g - g_hat)^2; sum g^2). At level 2 the
     per-block thresholds are `topk_thresholds(g + r)`, an n-element f32
     temporary while they are taken (2.1 GB at MiniCPM-2B's 530.8 M-element
-    MLP leaves)."""
+    MLP leaves).
+
+    Unbound, the pass's own output is the reduced leaf (the world of one:
+    the mean is the sum). Over a bound axis of P ranks the pass's codes
+    and scales (the wire codec's) are all-gathered, GATHER_ROWS blocks at
+    a time, and the reduced leaf is their dequantize-and-sum in rank order
+    (`dequantize_sum`) divided by P in place; the pass's local dequantize
+    is dropped."""
     if level not in (LEVEL_INT8, LEVEL_INT8_TOPK):
         raise ValueError(f"ef_sync_leaf_ takes level 1 or 2, got {level}")
-    axis_size(axis_name)      # the world of one: the mean is the sum
+    group = axis_group(axis_name)
     thresholds = (topk_thresholds(r + g, k_fraction)
                   if level == LEVEL_INT8_TOPK else None)
-    out, _, _, num, den = ops.ef_sync_leaf(g.contiguous(), r, thresholds)
+    out, q, s, num, den = ops.ef_sync_leaf(g.contiguous(), r, thresholds)
+    if group is not None:
+        del out
+        total = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        for lo in range(0, q.shape[0], GATHER_ROWS):
+            hi = min(q.shape[0], lo + GATHER_ROWS)
+            qg, sg = gather_codes(q[lo:hi], s[lo:hi], axis_name)
+            dequantize_sum(qg, sg, out=total[lo:hi])
+            del qg, sg
+        size = axis_size(axis_name)
+        total.div_(torch.full((), size, dtype=torch.float32,
+                              device=total.device))
+        out = total.reshape(-1)[:g.numel()].reshape(g.shape)
     return out, num, den
 
 

@@ -100,6 +100,11 @@ def _obs(observed, state_value):
 
 class Policy:
     name = "base"
+    # True on policies whose decide reduces *across* chips (a fleet-wide
+    # worst-of gate): inside the sharded control round such a policy would
+    # reduce over its rank's chips only, so the sharded paths reject it.
+    # Elementwise per-chip policies keep the default False.
+    cross_chip = False
 
     def decide(self, state: PowerPlaneState,
                frame: TelemetryFrame) -> RailRequest:
@@ -334,6 +339,7 @@ class MultiRailClosedLoop(Policy):
 class WorstChipGate(Policy):
     """Gate every chip's decision on the worst chip's error telemetry; each
     chip keeps its own learned floor."""
+    cross_chip = True
     inner: Policy = dataclasses.field(default_factory=lambda: BERBounded())
     reduce_keys: tuple[str, ...] = ("grad_error", "straggle_rate",
                                     "hbm_error_rate")

@@ -320,6 +320,21 @@ def init_state(cfg: SorConfig, n_chips: int | None = None,
         tick=0)
 
 
+def partition_specs(state: SorState, axis_name: str = "chips"):
+    """The placement tree of a fleet `SorState` on a 1-D `axis_name` mesh:
+    the history ring `[capacity, n_rails, n]` and the estimate `[n_rails,
+    n]` shard their trailing chip axis (per-rank resident, never
+    gathered), while `tick` replicates (it drives the refit cadence, which
+    every rank decides alike on the host). Raises for non-fleet states:
+    there is no chip axis to shard."""
+    chip_shape = state.history.chip_shape
+    if len(chip_shape) != 1:
+        raise ValueError(
+            "partition_specs needs a fleet SorState with a 1-D chip axis, "
+            f"got chip_shape={chip_shape!r}")
+    return ops.chip_specs(state, chip_shape[0], axis_name)
+
+
 def observe(state: SorState, frame: TelemetryFrame,
             cfg: SorConfig, fused: bool = True) -> SorState:
     """Push one observation and refit (`fit_history(fused=...)`) on every

@@ -6,10 +6,24 @@ at first use) or raises. There is no switch and no fallback.
 
 Launch counts: each kernel wrapper carries a `launches` integer that it
 increments where it launches its kernel and nowhere else;
-`launch_counts()` reads them and `reset_launch_counts()` zeroes them."""
+`launch_counts()` reads them and `reset_launch_counts()` zeroes them.
+
+The fleet's chip axis over a mesh (`chip_specs`, `shard_chip_tree`,
+`gather_chip_tree`, `sharded_fleet_reduce`): a `torch.distributed` rank
+holds only its contiguous block of chips, `[r n/P, (r+1) n/P)` on the
+mesh's `chips` axis (the block layout of the reference's `NamedSharding`),
+as tensors of its own; a sharded tree is that rank's block. Where the
+reference's `shard_map` hands each device its slice of a global array, the
+port's rank already holds it, and the collectives run over the axis's
+process group."""
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import decode_attention as _da
@@ -170,3 +184,157 @@ def fleet_percentile(x, q: float):
     """`[n_chips]` stat vector -> the q-th percentile, [] f32. Sort-bound,
     so the plain version runs on every device, as in the reference."""
     return ref.fleet_percentile_reference(x, q)
+
+
+# ---------------------------------------------------------------------------
+# the fleet's chip axis over a mesh
+# ---------------------------------------------------------------------------
+
+def axis_group(mesh, axis_name: str):
+    """(process group, this rank's index, size) of `mesh`'s axis
+    `axis_name`; raises for an axis the mesh does not have."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name not in names:
+        raise ValueError(f"mesh has axes {names}, not {axis_name!r}")
+    return (mesh.get_group(axis_name), mesh.get_local_rank(axis_name),
+            mesh.size(names.index(axis_name)))
+
+
+def chip_block(mesh, n_chips: int, axis_name: str = "chips"
+               ) -> tuple[int, int]:
+    """This rank's chips on `mesh`'s `axis_name`: `[r n/P, (r+1) n/P)`."""
+    _, r, size = axis_group(mesh, axis_name)
+    if n_chips % size:
+        raise ValueError(f"n_chips={n_chips} is not divisible by the mesh "
+                         f"axis {axis_name!r} of size {size}")
+    k = n_chips // size
+    return r * k, (r + 1) * k
+
+
+def gather_stack(x, group):
+    """All-gather x over `group`: [P, *x.shape] in rank order, each rank's
+    copy landing in its row of one buffer (a collective every rank of the
+    group calls)."""
+    import torch.distributed as dist
+    out = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
+    return out
+
+
+def _is_array(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _map_tree(fn, tree):
+    """Rebuild `tree` with fn(leaf) at each tensor, ndarray or int leaf:
+    through dicts and every field of a dataclass (set on a copy, so no
+    `__post_init__` runs again); other values (the ring's rails, enums,
+    floats, None) stay as they are."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        out = copy.copy(tree)
+        for f in dataclasses.fields(tree):
+            object.__setattr__(out, f.name, _map_tree(fn, getattr(tree,
+                                                                 f.name)))
+        return out
+    if _is_array(tree) or (isinstance(tree, int)
+                           and not isinstance(tree, bool)):
+        return fn(tree)
+    return tree
+
+
+def _trailing(leaf, n: int) -> bool:
+    return _is_array(leaf) and leaf.ndim >= 1 and leaf.shape[-1] == n
+
+
+def chip_specs(tree, n_chips: int, axis_name: str = "chips"):
+    """Per-leaf placement tree for a fleet-state tree: any tensor leaf whose
+    *trailing* axis is the `[n_chips]` fleet axis shards it (`Shard(-1)`);
+    every other leaf (the host integers such as `SorState.tick`, the
+    window/rail leading axes of `FrameHistory`) replicates (`Replicate()`).
+    The chip axis is trailing everywhere (`PowerPlaneState` `[n]`,
+    `TelemetryFrame` `[n]`, `FrameHistory` `[capacity, n_rails, n]`,
+    `SorEstimate` `[n_rails, n]`), so trailing-axis matching is exact.
+    `axis_name` names the mesh axis the `Shard` placements stand for."""
+    from torch.distributed.tensor import Replicate, Shard
+    return _map_tree(lambda leaf: Shard(-1) if _trailing(leaf, n_chips)
+                     else Replicate(), tree)
+
+
+def shard_chip_tree(tree, mesh, n_chips: int, axis_name: str = "chips"):
+    """This rank's block of a fleet-state tree on `mesh`'s `axis_name`
+    (`chip_specs` placement): every leaf with the trailing `[n_chips]` axis
+    becomes its contiguous `[..., lo:hi]` copy (`chip_block`), on its own
+    device; replicated leaves pass through as they are. Works on any tree
+    of dicts and dataclasses, a `FleetSpec`'s numpy arrays included."""
+    lo, hi = chip_block(mesh, n_chips, axis_name)
+
+    def take(leaf):
+        if not _trailing(leaf, n_chips):
+            return leaf
+        block = leaf[..., lo:hi]
+        return (block.contiguous().clone() if isinstance(leaf, torch.Tensor)
+                else np.ascontiguousarray(block).copy())
+
+    return _map_tree(take, tree)
+
+
+def gather_chip_tree(tree, mesh, n_block: int, axis_name: str = "chips"):
+    """The inverse of `shard_chip_tree`, a collective every rank of the
+    axis calls: each tensor leaf with the trailing `[n_block]` axis (this
+    rank's block) is all-gathered over the axis's group and joined along
+    that axis in rank order, `[..., n_block * P]`; the rest passes through
+    as it is."""
+    group, _, _ = axis_group(mesh, axis_name)
+
+    def gather(leaf):
+        if not (isinstance(leaf, torch.Tensor) and _trailing(leaf, n_block)):
+            return leaf
+        if leaf.dtype == torch.bool:   # gloo gathers bytes, not bools
+            return gather(leaf.to(torch.uint8)).to(torch.bool)
+        return torch.cat(gather_stack(leaf, group).unbind(0), dim=-1)
+
+    return _map_tree(gather, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _host_groups(ranks: tuple[int, ...]):
+    import torch.distributed as dist
+    return dist.new_group(ranks=list(ranks), backend="gloo")
+
+
+def host_group(mesh, axis_name: str = "chips"):
+    """A gloo group over the ranks of `mesh`'s `axis_name` (every rank of
+    the world calls it, in the same order), for host (CPU) tensors
+    whatever the mesh's own backend: the serve engine's bundle exchange."""
+    import torch.distributed as dist
+    group, _, _ = axis_group(mesh, axis_name)
+    return _host_groups(tuple(dist.get_process_group_ranks(group)))
+
+
+def sharded_fleet_reduce(x, *, mesh=None, axis_name: str = "chips",
+                         use_shard_map: bool | None = None):
+    """`fleet_reduce` over a fleet axis sharded across ranks.
+
+    x is this rank's `[n_chips / P, n_fields]` block. When `mesh` spans more
+    than one rank, each rank reduces its block through K6 (`fleet_reduce`),
+    then the partials combine with `all_reduce` MAX, MIN and SUM over the
+    axis's group: the per-chip telemetry never gathers. With `mesh=None`
+    or a one-rank mesh it is the plain `fleet_reduce`; `use_shard_map=True`
+    forces the collective path (tests take it on a one-rank mesh), keeping
+    the reference's keyword."""
+    import torch.distributed as dist
+    if use_shard_map is None:
+        use_shard_map = mesh is not None and mesh.size() > 1
+    if not use_shard_map:
+        return fleet_reduce(x)
+    if mesh is None:
+        raise ValueError("sharded_fleet_reduce needs a mesh for its "
+                         "collectives")
+    group, _, _ = axis_group(mesh, axis_name)
+    mx, mn, sm = fleet_reduce(x)
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(mn, op=dist.ReduceOp.MIN, group=group)
+    dist.all_reduce(sm, op=dist.ReduceOp.SUM, group=group)
+    return mx, mn, sm

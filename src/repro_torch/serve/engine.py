@@ -31,8 +31,27 @@ over `[n_chips, capacity]` lanes. The per-tick host loop is kept as the
 oracle the fused path is held against, and is the only path a
 `HostRailController` runs. `batch_cap=` makes each chip a continuous decode
 batch over its lanes; `migrate_after_ticks=` moves resident decode lanes
-off chips that stay pinned or over the error bound. The sharded control
-round (`mesh=`) is not ported yet.
+off chips that stay pinned or over the error bound.
+
+The sharded control round (`mesh=`, a 1-D `chips` mesh over a
+`torch.distributed` world; `shard_control` as the reference's): every rank
+builds the same engine, and the fused `serve_trace` runs on its block of
+chips (`ops.chip_block`, `engine.chip_block`): the plane, the SOR state
+and the FleetSpec's block go to the rank at the trace's start
+(`ops.shard_chip_tree`), the tick function runs the sharded round
+(`control_plane.sharded_control_round`) on the block, and the caller's
+`observe` sees the block (its plane, frame and busy fraction are
+`[n/P]`). The host bookkeeping (placement, migration, the SLO ledger)
+needs the whole fleet: each rank makes the tick's one device-to-host copy
+of its block's bundle, and the ranks exchange those host bundles with one
+`all_gather` over a gloo group (`ops.host_group`), so every rank runs the
+same host loop on the same numbers and places alike. The busy fraction's
+host-to-device copy takes the rank's slice. A tick on a rank is then:
+its kernels, two scalar `all_reduce`s of the confidence (through the host
+under gloo), the bundle's copy, the host `all_gather` and the busy
+fraction's copy. After such a trace the engine holds its block;
+`summary()` gathers the plane and the SOR estimate (a collective), and
+`generate` and the loop path refuse a sharded state.
 """
 
 from __future__ import annotations
@@ -50,8 +69,9 @@ from repro_torch.core.control_plane import (RAIL_LANES,
                                             InGraphRailController,
                                             _run_policy, as_controller,
                                             pinned_lane_masks, pinned_rails,
-                                            rail_floors, sor_summary_of,
-                                            with_sor)
+                                            rail_floors,
+                                            sharded_control_round,
+                                            sor_summary_of, with_sor)
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.policy import WorstChipGate
 from repro_torch.core.power_plane import (BatchShares, PowerPlaneState,
@@ -63,6 +83,7 @@ from repro_torch.core.power_plane import (BatchShares, PowerPlaneState,
                                           step_time_s)
 from repro_torch.core.rails import TPU_V5E_RAIL_MAP
 from repro_torch.core.telemetry import scalar_view
+from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.models.common import resolve_device
 
@@ -98,9 +119,6 @@ class ServeEngine:
                  batch_cap: "int | None" = None,
                  batch_shares: "BatchShares | None" = None,
                  device="cuda"):
-        if mesh is not None or shard_control:
-            raise NotImplementedError("ServeEngine(mesh=...) is not yet "
-                                      "ported: the sharded control round")
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type or (
@@ -172,11 +190,71 @@ class ServeEngine:
         self.prefill_profile = prefill_profile or StepProfile(1e9, 1e9, 0.0)
         self.decode_profile = decode_profile or StepProfile(1e8, 1e9, 0.0)
         self.stats = ServeStats()
+        # fleet-scale serving: `mesh=` (a 1-D chips mesh) runs the fused
+        # tick's learned round sharded over the mesh's ranks (module
+        # docstring); `shard_control` None enables it when the mesh spans
+        # more than one rank, True forces it on a one-rank mesh (the
+        # bit-equality pin), False leaves a supplied mesh unused
+        self.mesh = mesh
+        if shard_control is None:
+            shard_control = mesh is not None and mesh.size() > 1
+        if shard_control:
+            if mesh is None:
+                raise ValueError("shard_control=True needs a mesh")
+            if fleet is None:
+                raise ValueError("mesh= shards the [n_chips] serve plane; "
+                                 "pass fleet=FleetSpec")
+            if not (isinstance(self.controller, InGraphRailController)
+                    and self.controller.sor is not None):
+                raise ValueError(
+                    "mesh= shards the in-tick learned control round; build "
+                    "the engine with an in-graph controller carrying "
+                    "sor=SorConfig(...) (cross-chip policies are rejected "
+                    "— their fleet reduction would only see one shard)")
+            if fleet.n_chips % mesh.size():
+                raise ValueError(
+                    f"n_chips={fleet.n_chips} is not divisible by the mesh "
+                    f"size {mesh.size()}")
+            self._sharded_round = sharded_control_round(self.controller,
+                                                        mesh)
+            self.chip_block = ops.chip_block(mesh, fleet.n_chips)
+            self._host_group = ops.host_group(mesh)
+        else:
+            self._sharded_round = None
+            self.chip_block = None
+        self.shard_control = bool(shard_control)
+        self._sharded_state = False   # plane and SOR state are the block
         self._tick_cache: dict = {}   # (observe id, tick_s, bound) -> tick
 
     @property
     def n_chips(self) -> int:
+        if self._sharded_state:
+            return self.fleet_spec.n_chips
         return self.plane.n_chips
+
+    def _refuse_sharded(self, what: str) -> None:
+        if self._sharded_state:
+            raise ValueError(
+                f"{what} needs the whole plane; this engine holds its "
+                f"rank's block of chips after a sharded serve_trace")
+
+    def _shard_state(self) -> None:
+        """This rank's block of the plane and the SOR state (once)."""
+        if self._sharded_state:
+            return
+        n = self.fleet_spec.n_chips
+        self.plane = ops.shard_chip_tree(self.plane, self.mesh, n)
+        if self._sor_state is not None:
+            self._sor_state = ops.shard_chip_tree(self._sor_state,
+                                                  self.mesh, n)
+        self._sharded_state = True
+
+    def _whole(self, tree, n_block: int):
+        """The whole fleet's tree from every rank's block (a collective);
+        the tree itself when the engine is not sharded."""
+        if not self._sharded_state:
+            return tree
+        return ops.gather_chip_tree(tree, self.mesh, n_block)
 
     def _control_tick(self, frame) -> None:
         """One controller round on `frame`."""
@@ -195,6 +273,7 @@ class ServeEngine:
             self.plane = c.control_step(self.plane, frame)
 
     def _account(self, profile: StepProfile, n: int = 1):
+        self._refuse_sharded("generate")
         for _ in range(n):
             if self.fleet_spec is not None:
                 self.plane, frame, m = account_fleet_and_observe(
@@ -366,9 +445,13 @@ class ServeEngine:
                     "planner (HeadroomRouter.plan_migration) — the "
                     "round-robin baseline is headroom-blind and cannot "
                     "pick destinations")
+        if self._sharded_round is not None and not fused:
+            raise ValueError("the sharded control round (mesh=) rides the "
+                             "fused tick path; drop fused=False")
         if tick_s is None:
-            tick_s = float(scalar_view(
-                step_time_s(self.decode_profile, self.plane)))
+            tick_s = float(scalar_view(step_time_s(
+                self.decode_profile,
+                self._whole(self.plane, self.plane.n_chips))))
         ledger = RequestLedger()
         arrivals = sorted(trace, key=lambda r: (r.t_arrival_s, r.rid))
         kw = dict(max_ticks=max_ticks, observe=observe, tick_s=tick_s,
@@ -409,12 +492,15 @@ class ServeEngine:
         tick reads nothing back from the device: its caller copies the
         bundle to the host once. The fleet's variation is built on the
         device here, once per tick function."""
-        spec = self.fleet_spec
+        sharded = self._sharded_round
+        spec = (ops.shard_chip_tree(self.fleet_spec, self.mesh,
+                                    self.fleet_spec.n_chips)
+                if sharded is not None else self.fleet_spec)
         dev = self.device
         variation = fleet_variation(spec, dev)
         profile = self.decode_profile
         c = self.controller
-        n = self.n_chips
+        n = spec.n_chips
         rail_map = (getattr(c, "rail_map", TPU_V5E_RAIL_MAP)
                     if c is not None else TPU_V5E_RAIL_MAP)
         use_sor = (c is not None and getattr(c, "sor", None) is not None
@@ -436,6 +522,11 @@ class ServeEngine:
             request = env = None
             if c is None:
                 pass
+            elif sharded is not None:
+                # the rank's block through the sharded round: the request
+                # and envelopes it arbitrated with feed the bundle's rows
+                plane, sor_state, _sum, _min, request, env = sharded(
+                    plane, frame, sor_state, with_request=True)
             elif use_sor:
                 plane, sor_state, request, env = c.control_round(
                     plane, frame, sor_state)
@@ -506,6 +597,10 @@ class ServeEngine:
         if use_sor and self._sor_state is None:
             self._sor_state = c.init_sor(n if self.plane.is_fleet else None,
                                          device=self.device)
+        lo, hi = 0, n
+        if self._sharded_round is not None:
+            self._shard_state()
+            lo, hi = self.chip_block
         tick_fn = self._serve_tick_jit(observe, tick_s, error_bound)
 
         n_req = len(arrivals)
@@ -542,7 +637,8 @@ class ServeEngine:
         # a stream sync; the buffer is rewritten only after the bundle's
         # read has synchronized the stream, so the last copy has landed
         on_card = self.device.type == "cuda"
-        busy_host = torch.empty(n, dtype=torch.float32, pin_memory=on_card)
+        busy_host = torch.empty(hi - lo, dtype=torch.float32,
+                                pin_memory=on_card)
 
         for tick in range(max_ticks):
             active = slot_req >= 0
@@ -562,7 +658,7 @@ class ServeEngine:
                 pending.append(ai)
                 ai += 1
             occ = active.sum(axis=1)
-            busy_host.numpy()[:] = np.minimum(occ.astype(np.float64),
+            busy_host.numpy()[:] = np.minimum(occ[lo:hi].astype(np.float64),
                                               cap) / cap
             busy_frac = (busy_host.to(self.device, non_blocking=True)
                          if on_card else busy_host.clone())
@@ -572,7 +668,12 @@ class ServeEngine:
             if c is not None:
                 c.last_request = request
                 c.last_envelope = env
-            b = bundle.cpu().numpy().astype(np.float64)   # the one copy
+            b = bundle.cpu()                               # the one copy
+            if self._sharded_round is not None:
+                # every rank's block of the bundle, in chip order
+                b = ops.gather_stack(b, self._host_group).permute(
+                    1, 0, 2).reshape(b.shape[0], n)
+            b = b.numpy().astype(np.float64)
             e_np, e_busy, t_step = b[0], b[1], b[2]
             over = b[3] > 0.5
             headroom = headroom_from_packed(b[7:10])
@@ -742,6 +843,7 @@ class ServeEngine:
         the semantics oracle the fused path is held against, and the only
         path host-actuated (PMBus) controllers run."""
         from repro_torch.serve.router import rail_headroom
+        self._refuse_sharded("the loop path")
         n = self.n_chips
         cap = self.router.capacity
         spec = self.fleet_spec
@@ -895,23 +997,26 @@ class ServeEngine:
         return ledger
 
     def summary(self) -> dict[str, Any]:
+        """The run's totals; on a sharded engine every rank calls it (the
+        plane and the SOR estimate are gathered)."""
         toks = max(self.stats.decode_tokens, 1)
+        plane = self._whole(self.plane, self.plane.n_chips)
         out = {
             "prefill_tokens": self.stats.prefill_tokens,
             "decode_tokens": self.stats.decode_tokens,
             "energy_j": self.stats.energy_j,
             "model_time_s": self.stats.model_time_s,
-            "v_core": scalar_view(self.plane.v_core),
-            "v_io": scalar_view(self.plane.v_io),
+            "v_core": scalar_view(plane.v_core),
+            "v_io": scalar_view(plane.v_io),
             "n_chips": self.n_chips,
         }
-        if self.plane.is_fleet:
+        if plane.is_fleet:
             out["fleet_energy_j"] = self.stats.fleet_energy_j
             out["fleet_j_per_decoded_token"] = (
                 self.stats.fleet_energy_j / toks)
-            out["v_core_min"] = float(self.plane.v_core.min())
-            out["v_io_min"] = float(self.plane.v_io.min())
-            out["comp_level_min"] = int(self.plane.comp_level.min())
+            out["v_core_min"] = float(plane.v_core.min())
+            out["v_io_min"] = float(plane.v_io.min())
+            out["comp_level_min"] = int(plane.comp_level.min())
         else:
             out["j_per_decoded_token"] = self.stats.energy_j / toks
         if self.admission_gate or self.router is not None:
@@ -922,8 +1027,10 @@ class ServeEngine:
             if self.last_shed_reason is not None:
                 out["shed_reason"] = self.last_shed_reason
         if self._sor_state is not None:
-            out["sor"] = sor_mod.summary(self._sor_state.estimate,
-                                         self.controller.sor)
+            est = self._sor_state.estimate
+            out["sor"] = sor_mod.summary(
+                self._whole(est, est.confidence.shape[-1]),
+                self.controller.sor)
         elif host_sor := sor_summary_of(self.controller):
             # a HostRailController(sor=...) learns on its own control_step
             out["sor"] = host_sor

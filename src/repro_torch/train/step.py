@@ -18,9 +18,25 @@ level over the data-parallel axis (a world of one, `core/ecollectives.py`),
 and the raw leaf is dropped before the next, so no second full f32
 gradient tree is held.
 
-Not ported yet (each raises `NotImplementedError`): the sharded fleet step
-(`FleetStepConfig.mesh`, `shard_control`) and the gradient sync over a
-`torch.distributed` world larger than one.
+Sharding over `torch.distributed` (the reference's `shard_map` paths):
+- `FleetStepConfig(mesh=, shard_control=)` runs the fleet step on this
+  rank's block of chips (`ops.chip_block`): its plane and `SorState` are
+  the block (`shard_fleet_state`), the accounting reads the block of the
+  `FleetSpec`, the draws hash the block's global chip indices (so they are
+  the unsharded step's slice), the control round is
+  `control_plane.sharded_control_round`, and the reduction tail gathers
+  the block's fields once (one `all_gather` of `[5 + 1 + n_rails, n/P]`
+  f32) and runs `ops.fleet_stats` on the whole fleet on every rank, so
+  every `fleet/*` metric equals the unsharded step's bit for bit (the
+  reference instead reduces worst and mean per shard and gathers only the
+  two p95 inputs; at 64 to 4096 chips the gather is 2-200 KB, one
+  collective and one launch in place of four collectives and two).
+- `shard_map_ef_step(step, mesh, dp_axes)` splits the batch over the data
+  ranks and binds the DP axes to their groups for the ef sync
+  (`core/ecollectives.py`): params and optimizer state stay replicated, the
+  loss is averaged over the ranks, and the ef residual, `grad_error` and
+  the plane stay each rank's own, where the reference declares them
+  replicated (`out_specs=P()`) and returns one device's.
 """
 
 from __future__ import annotations
@@ -32,7 +48,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core import ecollectives
-from repro_torch.core.control_plane import as_controller, with_sor
+from repro_torch.core.control_plane import (as_controller,
+                                            sharded_control_round, with_sor)
 from repro_torch.core.hwspec import FleetSpec
 from repro_torch.core.power_plane import (PowerPlaneState, StepProfile,
                                           account_and_observe,
@@ -65,7 +82,13 @@ class FleetStepConfig:
     straggler_margin_gain: float = 8.0
     hbm_error_base: float = 0.0
     hbm_error_gain: float = 24.0
-    mesh: Any = None                 # sharded fleet step: not ported yet
+    # the chips mesh: with it the step runs on this rank's block of chips
+    # (see the module docstring); `shard_control` None shards the learned
+    # round when the mesh spans more than one rank, True forces the sharded
+    # round and the gathered tail on a one-rank mesh (the bit-equality
+    # pin), False keeps it unsharded (a one-rank mesh only)
+    mesh: Any = None
+    shard_axis: str = "chips"
     shard_control: "bool | None" = None
     # in-graph safe-operating-region learning: the step threads a
     # `sor.SorState` through its signature (see make_fleet_train_step)
@@ -166,8 +189,8 @@ def _grads_and_update(loss_fn, opt_cfg, schedule_fn, step_cfg, params,
                                              step_cfg.microbatches)
     grad_error = torch.zeros((), dtype=torch.float32, device=loss.device)
     if step_cfg.grad_sync != "auto":
-        # pmean(loss) over the world of one is the loss itself
         grads, ef_resid, grad_error = _ef_sync(grads, ef_resid, step_cfg)
+        loss = ecollectives.pmean(loss, step_cfg.dp_axes[0])
     lr = schedule_fn(opt_state["step"])
     params, opt_state, opt_metrics = adamw.apply_updates(
         params, grads, opt_state, lr, opt_cfg)
@@ -213,15 +236,17 @@ def _hash32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def fleet_draws(seed: int, step: torch.Tensor, n: int):
+def fleet_draws(seed: int, step: torch.Tensor, n: int, first: int = 0):
     """(normal [n], uniform [n]) f32 draws for step `step` (a 0-d int
-    tensor on the plane's device) of the fleet step seeded with `seed`: a
-    counter-based generator hashing (seed, step, chip, stream) on the
-    device. It reads nothing back to the host, and a CPU and a CUDA plane
-    draw the same numbers. It does not reproduce `jax.random`: tests that
-    need equal draws in both packages inject them."""
+    tensor on the plane's device) of the fleet step seeded with `seed`, for
+    chips first .. first + n - 1: a counter-based generator hashing (seed,
+    step, chip, stream) on the device. It reads nothing back to the host, a
+    CPU and a CUDA plane draw the same numbers, and a rank's block of chips
+    (`first` its first global index) draws the whole fleet's slice. It does
+    not reproduce `jax.random`: tests that need equal draws in both
+    packages inject them."""
     dev = step.device
-    chip = torch.arange(n, dtype=torch.int64, device=dev)
+    chip = torch.arange(first, first + n, dtype=torch.int64, device=dev)
     base = _hash32((step.to(torch.int64) * 0x2545F491
                     + (seed & _MASK32)) & _MASK32)
 
@@ -253,10 +278,6 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
     from the state's integer tick) and decides under the learned
     envelopes."""
     _check_step_cfg(step_cfg)
-    if fleet_cfg.mesh is not None or fleet_cfg.shard_control:
-        raise NotImplementedError(
-            "the sharded fleet step (FleetStepConfig.mesh / shard_control) "
-            "is not yet ported (ROADMAP.md, open item 'Sharding')")
     controller = as_controller(step_cfg.policy)
     sor_cfg = fleet_cfg.sor
     if sor_cfg is not None:
@@ -265,8 +286,44 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
                              "(StepConfig.policy) to consume the learned "
                              "envelopes")
         controller = with_sor(controller, sor_cfg)
+
+    # the sharded-control-round knob, resolved once at factory time
+    mesh = fleet_cfg.mesh
+    shard_control = fleet_cfg.shard_control
+    if shard_control:
+        if mesh is None:
+            raise ValueError("FleetStepConfig.shard_control=True needs a mesh")
+        if sor_cfg is None:
+            raise ValueError("FleetStepConfig.shard_control shards the "
+                             "learned (SOR) control round — set "
+                             "FleetStepConfig.sor, or leave shard_control "
+                             "off (the reduction still shards via mesh=)")
+    multi = mesh is not None and mesh.size() > 1
+    if shard_control is None:
+        shard_control = multi and sor_cfg is not None
+    sharded_round = None
+    if shard_control:
+        sharded_round = sharded_control_round(controller, mesh,
+                                              fleet_cfg.shard_axis)
+    elif multi and sor_cfg is not None:
+        raise ValueError(
+            "FleetStepConfig.shard_control=False on a mesh of "
+            f"{mesh.size()} ranks: the port's ranks hold only their block "
+            "of chips, so the learned round runs sharded (shard_control "
+            "None or True)")
+    elif multi and getattr(getattr(controller, "policy", None),
+                           "cross_chip", False):
+        raise ValueError(
+            f"policy {controller.policy.name!r} reduces across chips "
+            "(cross_chip=True); on a mesh of several ranks it would only "
+            "see its rank's chips. Run it without the mesh.")
+    sharded = shard_control or multi
     fs = fleet_cfg.spec
     n = fs.n_chips
+    lo, hi = (ops.chip_block(mesh, n, fleet_cfg.shard_axis) if sharded
+              else (0, n))
+    fs_local = (ops.shard_chip_tree(fs, mesh, n, fleet_cfg.shard_axis)
+                if sharded else fs)
 
     def _step_body(params, opt_state, plane: PowerPlaneState, ef_resid,
                    sor_state, batch):
@@ -275,14 +332,15 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
                                          step_cfg, params, opt_state,
                                          ef_resid, batch)
         dev = plane.device
-        v_nom_core = as_f32(fs.v_core_nominal, dev)
-        v_nom_hbm = as_f32(fs.v_hbm_nominal, dev)
-        v_nom_io = as_f32(fs.v_io_nominal, dev)
-        sens = as_f32(fs.error_sensitivity, dev)
+        v_nom_core = as_f32(fs_local.v_core_nominal, dev)
+        v_nom_hbm = as_f32(fs_local.v_hbm_nominal, dev)
+        v_nom_io = as_f32(fs_local.v_io_nominal, dev)
+        sens = as_f32(fs_local.error_sensitivity, dev)
 
         plane, frame, power_metrics = account_fleet_and_observe(
-            profile, plane, fs)
-        normal, uniform = fleet_draws(fleet_cfg.seed, plane.step[0], n)
+            profile, plane, fs_local)
+        normal, uniform = fleet_draws(fleet_cfg.seed, plane.step[0], hi - lo,
+                                      first=lo)
 
         # per-chip measured error: the shared compression error (plus any
         # intrinsic link floor) seen through each chip's own BER curve,
@@ -315,18 +373,26 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
                     "straggle_rate": p_straggle, "hbm_error_rate": hbm_rate})
         telemetry = {**power_metrics, "grad_error": err, "t_chip_s": t_chip,
                      "straggle_rate": p_straggle, "hbm_error_rate": hbm_rate}
-        if sor_cfg is not None:
+        if sharded_round is not None:
+            # this rank's block through the sharded round: its frame lands
+            # in its own ring; the confidence summary crosses ranks
+            plane, sor_state, _conf_sum, _conf_min = sharded_round(
+                plane, frame, sor_state)
+        elif sor_cfg is not None:
             plane, sor_state = controller.control_step_sor(plane, frame,
                                                            sor_state)
         elif controller is not None:
             plane = controller.control_step(plane, frame)
 
         # the fleet reductions (worst/mean/p95, stragglers, the learned
-        # region's confidence) in one launch
-        fleet_metrics = ops.fleet_stats(
-            power_metrics["power_w"], t_chip, err,
-            power_metrics["energy_step_j"], plane.v_io, straggle,
-            None if sor_cfg is None else sor_state.estimate.confidence)
+        # region's confidence) in one launch, over the whole fleet
+        fields = (power_metrics["power_w"], t_chip, err,
+                  power_metrics["energy_step_j"], plane.v_io)
+        conf = None if sor_cfg is None else sor_state.estimate.confidence
+        if sharded:
+            fields, straggle, conf = _gather_tail(
+                mesh, fleet_cfg.shard_axis, fields, straggle, conf)
+        fleet_metrics = ops.fleet_stats(*fields, straggle, conf)
 
         out_metrics = {"loss": loss, **metrics, **opt_metrics, **telemetry,
                        **fleet_metrics}
@@ -342,3 +408,79 @@ def make_fleet_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
             return out[:4] + (out[5],)
 
     return train_step
+
+
+def _gather_tail(mesh, axis_name: str, fields, straggle, conf):
+    """The reduction tail's inputs of every rank's block, joined in chip
+    order, from one all-gather: five [n/P] f32 fields, the straggle mask
+    and the [n_rails, n/P] confidence (or None) -> the whole fleet's."""
+    group, _, _ = ops.axis_group(mesh, axis_name)
+    rows = [f.reshape(1, -1) for f in fields]
+    rows.append(straggle.to(torch.float32).reshape(1, -1))
+    if conf is not None:
+        rows.append(conf.reshape(-1, fields[0].shape[-1]))
+    packed = torch.cat(rows)
+    whole = ops.gather_stack(packed, group).permute(1, 0, 2).reshape(
+        packed.shape[0], -1)
+    full = tuple(whole[i].contiguous() for i in range(5))
+    whole_conf = None if conf is None else whole[6:].contiguous()
+    return full, whole[5] > 0.5, whole_conf
+
+
+def shard_fleet_state(state: dict, mesh, axis_name: str = "chips") -> dict:
+    """This rank's block of the per-chip groups of a trainer state dict
+    (`plane`, `sor`) on `mesh` (`ops.shard_chip_tree`: the ring [capacity,
+    n_rails, n] and the estimate [n_rails, n] take the block, the host
+    integers replicate). Model groups pass through untouched: the fleet
+    step is replicated over the model. Use after building (or restoring)
+    the whole state, before the first sharded step; `ckpt.save(mesh=)`
+    gathers the blocks again on the way out."""
+    out = dict(state)
+    plane = state.get("plane")
+    n_chips = None
+    if plane is not None and plane.v_core.dim() == 1:
+        n_chips = plane.v_core.shape[0]
+    for group in ("plane", "sor"):
+        tree = state.get(group)
+        if tree is None or n_chips is None:
+            continue
+        out[group] = ops.shard_chip_tree(tree, mesh, n_chips, axis_name)
+    return out
+
+
+def _dp_index(mesh, dp_axes) -> tuple[int, int]:
+    """(this rank's index, their count) over the product of `mesh`'s DP
+    axes, in the mesh's axis order."""
+    index, count = 0, 1
+    for name in dp_axes:
+        _, r, size = ops.axis_group(mesh, name)
+        index, count = index * size + r, count * size
+    return index, count
+
+
+def shard_map_ef_step(train_step, mesh, dp_axes=("data",)):
+    """Wrap a train step for error-feedback compressed data parallelism:
+    each rank takes its rows of the batch (the last argument) over the DP
+    axes, the DP axes are bound to their process groups for the ef sync
+    (`ecollectives.bound_axes`), and params and optimizer state stay
+    replicated (every rank applies the same reduced gradient). The wrapped
+    step takes the 5-argument signature or the SOR step's 6."""
+    groups = {name: ops.axis_group(mesh, name)[0] for name in dp_axes}
+    index, count = _dp_index(mesh, dp_axes)
+
+    def rows(a):
+        b = a.shape[0]
+        if b % count:
+            raise ValueError(f"a batch of {b} rows does not split over "
+                             f"{count} data-parallel ranks")
+        k = b // count
+        return a[index * k:(index + 1) * k]
+
+    def mapped(*args):
+        *state, batch = args
+        local = ({k: rows(v) for k, v in batch.items()}
+                 if isinstance(batch, dict) else rows(batch))
+        with ecollectives.bound_axes(groups):
+            return train_step(*state, local)
+
+    return mapped

@@ -26,8 +26,14 @@ failure with no checkpoint to go back to restarts the span at the step it
 started from, with the state as it stands, so the log repeats those
 steps.
 
-Not ported yet: the sharded fleet state (`mesh`, raises
-`NotImplementedError`).
+With `TrainerConfig.mesh` (the chips mesh of a sharded fleet step,
+`train.step.FleetStepConfig(mesh=)`) the per-chip groups (plane, SOR
+state) are this rank's block of chips: a checkpoint gathers them and rank
+0 writes the reference's layout (`CheckpointManager.save(mesh=)`), and a
+restore reads the whole state, remaps it to the run's fleet and takes the
+rank's block again (`train.step.shard_fleet_state`). Every rank runs the
+same loop, so the fault draws, the restarts and the checkpoint cadence
+are the same on each.
 """
 
 from __future__ import annotations
@@ -84,15 +90,15 @@ class TrainerConfig:
     # with it (and init_state["sor"]) the trainer threads the SorState
     # through the 6-arg step and folds the learned view into summary()
     sor: Any = None
-    mesh: Any = None                 # sharded fleet state: not ported yet
+    # the chips mesh of a sharded fleet step: restored per-chip state
+    # (plane, SorState) is re-sliced onto it after a restore or a remap,
+    # and checkpoints gather it first
+    mesh: Any = None
+    shard_axis: str = "chips"
     device: Any = "cuda"
 
     def __post_init__(self):
         self.controller = as_controller(self.controller, host=True)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the sharded fleet state (TrainerConfig.mesh) is not yet "
-                "ported (ROADMAP.md, open item 'Sharding')")
 
 
 class Trainer:
@@ -152,6 +158,12 @@ class Trainer:
         step, restored = self.ckpt.restore(self.state, optional=("sor",))
         self.state.update(restored)
         self._remap_restored_plane()
+        if self.cfg.mesh is not None:
+            # take this rank's block of the (whole, remapped) per-chip
+            # state again before the next sharded step
+            from repro_torch.train.step import shard_fleet_state
+            self.state = shard_fleet_state(self.state, self.cfg.mesh,
+                                           self.cfg.shard_axis)
         return step
 
     def _remap_restored_plane(self) -> None:
@@ -171,7 +183,8 @@ class Trainer:
             self.state["sor"] = remap_sor(ss, self.cfg.fleet)
 
     def _save(self, step: int):
-        self.ckpt.save(step, self.state, fleet=self.cfg.fleet)
+        self.ckpt.save(step, self.state, fleet=self.cfg.fleet,
+                       mesh=self.cfg.mesh, axis_name=self.cfg.shard_axis)
         self.ckpt_writes += 1
 
     # -- fault injection ---------------------------------------------------------

@@ -243,12 +243,15 @@ def test_reduce_gradients_matches_the_reference_on_one_device(level):
 
 
 def test_a_world_larger_than_one_raises(monkeypatch):
+    """In a started world larger than one an axis the step did not bind
+    (`train.step.shard_map_ef_step`, `ecollectives.bound_axes`) raises; the
+    bound world's collectives are tested in tests/test_torch_dp.py."""
     import torch.distributed as dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Sharding"):
+    with pytest.raises(ValueError, match="not bound"):
         tec.psum_int8(torch.ones(256), "data")
-    with pytest.raises(NotImplementedError, match="Sharding"):
+    with pytest.raises(ValueError, match="not bound"):
         tec.reduce_gradients({"w": torch.ones(4)}, "data", 0)
 
 

@@ -58,7 +58,34 @@ def test_port_files_found():
             "ckpt.py", "_msgpack.py", "router.py", "traffic.py",
             "transceiver.py", "overhead.py", "granite_20b.py",
             "quickstart.py", "case_study_transceiver.py", "serve_decode.py",
-            "train_voltune_lm.py"} <= names
+            "train_voltune_lm.py", "mesh.py"} <= names
+
+
+MESH = ROOT / "src" / "repro_torch" / "launch" / "mesh.py"
+
+
+@pytest.mark.parametrize("check", ["no_try", "no_environ", "no_init"])
+def test_mesh_module_switches_no_backend(check):
+    """`launch/mesh.py` (imports already scanned above) picks no backend:
+    no try/except to fall from one to another, no environment knob, and
+    no process group of its own (the caller starts it). Across the port,
+    only the train example starts one, on the backend its flag names."""
+    tree = ast.parse(MESH.read_text())
+    if check == "no_try":
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    elif check == "no_environ":
+        assert "environ" not in MESH.read_text()
+    else:
+        def starts(path):
+            return any(isinstance(n, ast.Call) and getattr(
+                n.func, "attr", getattr(n.func, "id", None))
+                == "init_process_group"
+                for n in ast.walk(ast.parse(path.read_text())))
+
+        starters = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
+                          if p.name != "chip_smoke.py" and starts(p))
+        assert starters == [
+            "src/repro_torch/examples/train_voltune_lm.py"], starters
 
 
 @pytest.fixture

@@ -130,13 +130,15 @@ def test_generate_matches_reference(name, mode):
 
 
 def test_engine_refuses_unported_options():
-    """The sharded control round (`mesh=`, `shard_control=True`) is not
-    ported; routed serving (`router=`, `batch_cap=`) is, and is tested in
-    tests/test_torch_serve_trace.py."""
+    """The sharded control round (`mesh=`, `shard_control=True`) needs a
+    mesh and a fleet, as the reference's does (the sharded serve path is
+    tested in tests/test_torch_sharding.py); routed serving (`router=`,
+    `batch_cap=`) is tested in tests/test_torch_serve_trace.py."""
     cfg = tget("qwen2p5_14b", tiny=True)
     params = treg.build(cfg).init(torch.Generator().manual_seed(0))
-    for kw in (dict(mesh=object()), dict(shard_control=True)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for kw, msg in ((dict(mesh=object(), shard_control=True), "fleet"),
+                    (dict(shard_control=True), "needs a mesh")):
+        with pytest.raises(ValueError, match=msg):
             TEngine(cfg, params, max_len=16, batch_size=1, device="cpu",
                     **kw)
     with pytest.raises(ValueError, match="params live on"):

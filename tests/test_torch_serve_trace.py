@@ -643,10 +643,11 @@ def test_engine_validation_errors():
     with pytest.raises(ValueError, match="batch_cap"):
         _tiny_engine(fleet=fs, router=trouter.HeadroomRouter(capacity=2),
                      batch_shares=BatchShares())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _tiny_engine(fleet=fs, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         _tiny_engine(fleet=fs, shard_control=True)
+    with pytest.raises(ValueError, match="sor"):
+        _tiny_engine(fleet=fs, mesh=object(), shard_control=True,
+                     policy=tpol.MultiRailClosedLoop())
 
 
 def test_serve_trace_validation_errors():

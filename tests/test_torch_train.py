@@ -415,8 +415,12 @@ def test_unported_options_raise():
     args = (api.loss_fn, tadamw.AdamWConfig(), _sched(twsd),
             TProfile(**PROFILE))
     fs = TFleetSpec.sample(2, seed=0)
-    for kw in (dict(mesh=object()), dict(shard_control=True)):
-        with pytest.raises(NotImplementedError, match="Sharding"):
+    # the sharded fleet step is ported (tests/test_torch_sharding.py); its
+    # knobs validate as the reference's do
+    for kw, msg in ((dict(shard_control=True), "needs a mesh"),
+                    (dict(mesh=object(), shard_control=True),
+                     "FleetStepConfig.sor")):
+        with pytest.raises(ValueError, match=msg):
             tstep.make_fleet_train_step(*args, tstep.StepConfig(),
                                         tstep.FleetStepConfig(spec=fs, **kw))
 
