@@ -301,29 +301,41 @@ RESIDENT_GB_MAX = 1.0
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core rate
               "float32": 67e12}       # non-tensor-core f32 rate
 
-# the serve paths driven on the card: full width and depth
+# the serve paths driven on the card: full width; Qwen2.5-14B at full
+# depth, the others cut to half their depth for the script's time
+# (Granite-20B 26 of 52 layers, RWKV6-7B 16 of 32, Zamba2-1.2B 18 of 38:
+# three shared-block occurrences, attn_every 6)
 MAIN = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, chips=64)
-GRANITE = dict(arch="granite_20b", batch=4, prompt=256, new=32, chips=64)
-RWKV = dict(arch="rwkv6_7b", batch=4, prompt=256, new=32, chips=64)
-ZAMBA = dict(arch="zamba2_1p2b", batch=4, prompt=256, new=32, chips=64)
-# the training path driven on the card: full width and depth
-TRAIN = dict(arch="minicpm_2b", batch=4, seq=512, chips=64, steps=8,
-             profiled_steps=2, ef_steps=4)
-# (`main_train_ef` runs ef_steps of each sync, cut from 8 for the
-# script's time)
-# the hybrid and ssm families' training paths: full width and depth, the
-# serve paths' traffic (4 x 256 tokens), one warm-up step and `steps`
-# steps with exact launch counts, then one step split by CUDA events.
-# RWKV6-7B's f32 AdamW moments would need ~91 GB with the bf16 weights
+GRANITE = dict(arch="granite_20b", n_layers=26, batch=4, prompt=256, new=32,
+               chips=64)
+RWKV = dict(arch="rwkv6_7b", n_layers=16, batch=4, prompt=256, new=32,
+            chips=64)
+ZAMBA = dict(arch="zamba2_1p2b", n_layers=18, batch=4, prompt=256, new=32,
+             chips=64)
+# the training path driven on the card: full width, cut to 20 of its 40
+# layers for the script's time
+TRAIN = dict(arch="minicpm_2b", n_layers=20, batch=4, seq=512, chips=64,
+             steps=8, profiled_steps=2, ef_steps=4, ef_layers=8)
+# (`main_train_ef` runs ef_steps of each sync, cut from 8, at ef_layers of
+# the 40 layers, for the script's time: the ef sync's leaves keep their
+# full width, the stacked ones hold 8 layers)
+# the hybrid and ssm families' training paths: full width, the serve
+# paths' traffic (4 x 256 tokens), one warm-up step and `steps` steps with
+# exact launch counts, then one step split by CUDA events. Their depth is
+# cut for the script's time (a step is nearly all the plain scans'
+# backward, a layer at a time): Zamba2-1.2B to 12 of its 38 layers (two
+# shared-block occurrences, attn_every 6), RWKV6-7B to 8 of 32. RWKV6-7B's
+# f32 AdamW moments would need ~91 GB at full depth with the bf16 weights
 # (12 B a parameter): its moments are the reference's int8 ones
-TRAIN_ZAMBA = dict(arch="zamba2_1p2b", batch=4, seq=256, chips=64, steps=2,
-                   adamw_state="float32")
-TRAIN_RWKV = dict(arch="rwkv6_7b", batch=4, seq=256, chips=64, steps=2,
-                  adamw_state="int8")
-# the moe family served at full width and depth: Qwen3-30B-A3B (30.83 B
-# parameters, ~61.7 GB in bf16), made after Granite-20B's weights are freed
-QWEN3MOE = dict(arch="qwen3_moe_30b_a3b", batch=4, prompt=256, new=32,
-                chips=64)
+TRAIN_ZAMBA = dict(arch="zamba2_1p2b", n_layers=12, batch=4, seq=256,
+                   chips=64, steps=2, adamw_state="float32")
+TRAIN_RWKV = dict(arch="rwkv6_7b", n_layers=8, batch=4, seq=256, chips=64,
+                  steps=2, adamw_state="int8")
+# the moe family served at full width: Qwen3-30B-A3B (30.83 B parameters,
+# ~61.7 GB in bf16 at its 48 layers), cut to 24 layers for the script's
+# time, made after Granite-20B's weights are freed
+QWEN3MOE = dict(arch="qwen3_moe_30b_a3b", n_layers=24, batch=4, prompt=256,
+                new=32, chips=64)
 # the moe family trained: Qwen3-30B-A3B at full width, its depth cut to 4
 # layers (3.15 B parameters: ~38 GB with f32 AdamW moments; the 48 layers'
 # ~61.7 GB of bf16 weights leave no room for gradients and moments), under
@@ -959,8 +971,9 @@ class GuardedProfile:
     record both witnesses is taken again with four times the leads
     (PROFILE_TRIES; `retaken` counts them), after `setup` runs anew."""
 
-    def __init__(self):
+    def __init__(self, host: bool = True):
         import torch
+        self.host = host            # record host events too (the syncs)
         self.lead = torch.zeros(1, dtype=torch.int32, device="cuda")
         self.witness = torch.zeros(1, dtype=torch.int16, device="cuda")
         self.retaken = 0
@@ -984,8 +997,8 @@ class GuardedProfile:
         from torch.profiler import ProfilerActivity, profile, schedule
         leads = PROFILE_LEADS * 4 ** attempt
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+        with profile(activities=([ProfilerActivity.CPU] if self.host
+                                 else []) + [ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             for _ in range(leads):          # warm-up: traced, dropped
@@ -1865,22 +1878,17 @@ def check_scan_backward(name, kernel, plain, args, s0, flush) -> dict:
 
 def device_busy(call) -> dict:
     """The device kernels and memory copies of one `call` (after a warm-up
-    call) and their summed device time, read by torch.profiler with device
-    activity only. Unguarded, unlike `device_activity`: the profiler may
-    drop a window's first kernel, one of thousands here."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    call) and their summed device time, read in a `GuardedProfile` window
+    (the events between its two witnesses; `retaken` counts the windows
+    taken again for a lost witness); device activity only, as the call
+    holds thousands of kernels and no host event is read."""
+    guard = GuardedProfile(host=False)
     call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _, device, _ = guard.take(call)
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
     return dict(kernels=len(device) - copies, copies=copies,
-                busy_ms=sum(getattr(e, "device_time", 0.0)
-                            for e in device) / 1e3)
+                busy_ms=sum(device_us(e) for e in device) / 1e3,
+                retaken=guard.retaken)
 
 
 def ef_leaf_sizes(cfg=None) -> list[int]:
@@ -2407,13 +2415,18 @@ def serve_launches(cfg, new: int) -> dict:
 
 
 def init_main(dev, spec: dict):
-    """`spec["arch"]` at full width and depth, random weights from seed 0
-    on the card: (cfg, params, seconds taken)."""
+    """`spec["arch"]` at full width, at its full depth or
+    `spec["n_layers"]`, random weights from seed 0 on the card: (cfg,
+    params, seconds taken)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import registry
     cfg = get_config(spec["arch"])
+    if "n_layers" in spec:            # a depth cut, listed in PERF.md
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -2737,11 +2750,80 @@ def run_example(name: str, argv: list[str]):
             time.perf_counter() - t0)
 
 
+def run_elastic_example(none: dict) -> dict:
+    """The elastic example at its defaults on the card (gloo worlds of 4
+    and then 8 ranks sharing it; its checkpoint under `build/`, removed
+    after): the continuity line OK, the restored step the 10th, and rank
+    0's launches exact in each world: K2, K4 and K5 once a layer a step
+    (no remat), 30 steps on 4 ranks (phase 1 and the uninterrupted 20)
+    and 10 on 8. Its text goes to a buffer of its own (not stdout), so it
+    can run in a thread beside other phases (`Beside`)."""
+    import io
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import elastic_restart as ex
+    ckpt_dir = ROOT / "build" / "elastic_ckpt"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    result = ex.main(["--ckpt-dir", str(ckpt_dir)], out=buf)
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if "elastic restore onto a larger mesh: OK" not in text or \
+            result["step"] != ex.STEPS:
+        raise AssertionError(f"elastic_restart:\n{text}")
+    L = get_config("minicpm_2b", tiny=True).n_layers
+    launches = {}
+    for world, steps in (("small", 3 * ex.STEPS), ("large", ex.STEPS)):
+        want = dict(none, **{k: L * steps for k in (
+            "flash_attention_fwd", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")})
+        if result["launches"][world] != want:
+            raise AssertionError(f"elastic_restart {world} world rank 0: "
+                                 f"launches {result['launches'][world]} != "
+                                 f"{want}")
+        for k, v in want.items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(seconds=secs, drift=result["drift"], l1=result["l1"],
+                l2=result["l2"], save_s=result["save_s"],
+                restore_s=result["restore_s"],
+                ckpt_bytes=result["ckpt_bytes"], launches=launches,
+                text=text.strip().splitlines())
+
+
+class Beside:
+    """`fn(*args)` in a thread, started beside the tiny sharded worlds
+    (their rank processes and this work share the card and the host; none
+    of it is timed for a claim) and joined before the next main phase:
+    `tiny_routed` (the only one of them that launches kernels in this
+    process, so its launch counts stay its own) and the elastic example,
+    whose result joins the `examples` phase."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self.result, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(fn, args))
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.result = fn(*args)
+        except BaseException as e:      # raised again by `join`
+            self.error = e
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
 def printed_line(text: str, start: str) -> str:
     return next(line for line in text.splitlines() if line.startswith(start))
 
 
-def run_examples() -> dict:
+def run_examples(elastic: dict) -> dict:
     """The four examples in this process on the card, at their own
     defaults (the train example's checkpoints under `build/`, removed
     after): the case study's text equal to a cpu run's and the model's
@@ -2753,7 +2835,9 @@ def run_examples() -> dict:
     train example's losses finite and falling (`improved`), its printed
     restarts, stragglers and checkpoints those of its trainer, K2, K4 and
     K5 once a layer a step run and K10's fused ef pass once a leaf a step
-    run (steps re-run after a restart included), no other kernel."""
+    run (steps re-run after a restart included), no other kernel; and
+    `elastic`, the elastic example's checked run (`run_elastic_example`,
+    made earlier beside the tiny sharded worlds)."""
     import shutil
     import statistics
 
@@ -2833,6 +2917,8 @@ def run_examples() -> dict:
         raise AssertionError(f"train_voltune_lm: launches {launches} != "
                              f"{want}")
     by_path["example-train"] = launches
+    out["elastic_restart"] = elastic
+    by_path["example-elastic"] = dict(none, **elastic["launches"])
     out["train_voltune_lm"] = dict(
         seconds=secs, steps=args.steps, steps_run=runs,
         params=sum(a.numel() for a in lm.tree_leaves(
@@ -3071,9 +3157,11 @@ def run_tiny_train_host() -> dict:
 
 
 def run_main_train(dev) -> dict:
-    """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run: one
-    warm-up step, then TRAIN["steps"] steps whose launch counts are checked
-    exactly, then a torch.profiler window of TRAIN["profiled_steps"]."""
+    """Full-width MiniCPM-2B (cut to TRAIN["n_layers"] layers) in bf16
+    through Trainer.run: one warm-up step, then TRAIN["steps"] steps whose
+    launch counts are checked exactly, then a torch.profiler window of
+    TRAIN["profiled_steps"]."""
+    import dataclasses
     import statistics
 
     import torch
@@ -3082,7 +3170,8 @@ def run_main_train(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves
-    cfg = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=TRAIN["n_layers"])
     B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
@@ -3989,14 +4078,16 @@ def run_tiny_train_ef() -> dict:
 
 
 def run_main_train_ef(dev) -> dict:
-    """Full-width, full-depth MiniCPM-2B in bf16 through Trainer.run with
-    the error-feedback gradient sync and BERBounded: one warm-up step, then
+    """Full-width MiniCPM-2B (cut to TRAIN["ef_layers"] layers) in bf16
+    through Trainer.run with the error-feedback gradient sync and
+    BERBounded: one warm-up step, then
     TRAIN["ef_steps"] checked steps of each of `ef_int8`, `ef_int8_topk` and
     `auto` on the same state (the last measures the compression's cost in
     the same run), exact launch counts (the fused ef pass once per leaf
     per step, K10 alone never), then a torch.profiler window of
     TRAIN["profiled_steps"] `ef_int8` steps with the fused pass's device
     time beside its bound."""
+    import dataclasses
     import statistics
 
     import torch
@@ -4005,7 +4096,8 @@ def run_main_train_ef(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.models.lm import tree_leaves
-    cfg = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=TRAIN["ef_layers"])
     B, T, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["ef_steps"]
     t0 = time.perf_counter()
     params = registry.build(cfg).init(
@@ -4852,10 +4944,11 @@ ROUTED_STATE = ("v_core", "v_hbm", "v_io", "energy_j", "comp_level",
                 "confidence", "n_eff")
 # main_train_dp: MiniCPM-2B at full width cut to 4 of its 40 layers, one
 # row of 512 tokens a rank, the 64-chip fleet 16 chips a rank, the ef int8
-# sync, a warm-up step and two measured ones; the SOR refits every 2
-# steps, so the measured steps hold one refit
+# sync, a warm-up step and one measured one (cut from two for the
+# script's time); the SOR refits every 2 steps, so the measured step holds
+# one refit
 TRAIN_DP = dict(arch="minicpm_2b", n_layers=4, batch=4, seq=512, chips=64,
-                steps=3, warm=1, refresh_every=2)
+                steps=2, warm=1, refresh_every=2)
 # the one-process oracle against the ranks: the same kernels on the same
 # inputs in the same order, so params are expected equal bit for bit; the
 # loss is the ranks' mean, summed by gloo in its own order
@@ -5457,17 +5550,26 @@ def dp_oracle(dev, ranks: int) -> dict:
     return params, losses
 
 
-def run_tiny_sharded() -> dict:
-    """tiny_sharded: an NCCL world of one (the forced sharded paths against
-    the unsharded ones, bit for bit) and a gloo world of 2 sharing the
-    card (cuda against cpu, blocks against the unsharded slices), run at
-    once."""
+def run_tiny_sharded() -> tuple[dict, dict]:
+    """tiny_sharded and tiny_fsdp, run at once: an NCCL world of one (the
+    forced sharded paths against the unsharded ones, bit for bit), a gloo
+    world of 2 sharing the card (cuda against cpu, blocks against the
+    unsharded slices) and tiny_fsdp's gloo world of 4
+    (`shard_tiny_fsdp`). Returns the two phases' results."""
     t0 = time.perf_counter()
-    res = run_worlds([("tiny_nccl", 1, "nccl"), ("tiny_gloo", 2, "gloo")],
-                     timeout_s=300)
-    return dict(nccl_world_of_one=res["tiny_nccl"][0],
-                gloo_world_of_two=res["tiny_gloo"],
-                seconds=time.perf_counter() - t0)
+    res = run_worlds([("tiny_nccl", 1, "nccl"), ("tiny_gloo", 2, "gloo"),
+                      ("tiny_fsdp", 4, "gloo")], timeout_s=300)
+    secs = time.perf_counter() - t0
+    launches = {}
+    for r in res["tiny_fsdp"]:
+        for run in r["runs"].values():
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return (dict(nccl_world_of_one=res["tiny_nccl"][0],
+                 gloo_world_of_two=res["tiny_gloo"], seconds=secs),
+            dict(rank0=res["tiny_fsdp"][0]["runs"], launches=launches,
+                 ranks=len(res["tiny_fsdp"]), blocks_equal_oracle=True,
+                 seconds=secs))
 
 
 def run_main_sharded_routed() -> dict:
@@ -5564,8 +5666,469 @@ def run_main_train_dp(dev) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# placed (FSDP) training: tiny_fsdp and main_train_fsdp
+# ---------------------------------------------------------------------------
+
+# tiny_fsdp: each rank's blocks against the one-process run on the card bit
+# for bit; that run against the same run on the cpu (elementwise f32 on
+# both devices, sums in other orders; AdamW moves an element whose
+# gradient is near zero by up to the learning rate: at most
+# TINY_FSDP_FLIP_FRAC of a leaf, each within TINY_FSDP_FLIP_GAP)
+TINY_FSDP_TOL = dict(rtol=1e-4, atol=1e-5)
+TINY_FSDP_LOSS_RTOL = 1e-5
+TINY_FSDP_FLIP_FRAC = 1e-3
+TINY_FSDP_FLIP_GAP = 2e-3
+# the MoE's router parts the devices where a token's k-th and (k+1)-th
+# expert probabilities are a near-tie (ROADMAP "MoE top-k near-ties"): a
+# token routed to another expert changes the gradients of many elements
+# (285 of 16,384 of tiny Qwen3-MoE's wv moved, by up to 8.3e-4), so the
+# MoE's params are held to the cpu run only by TINY_FSDP_FLIP_GAP per
+# element, the most two AdamW steps can part them
+TINY_FSDP_MOE_FLIP_FRAC = 1.0
+TINY_FSDP_CPU_MESH = "data4"
+TINY_FSDP_CPU_THREADS = 4
+# main_train_fsdp: MiniCPM-2B at full width cut to 4 of its 40 layers (the
+# ranks' memory on one card and the script's time), 4 rows of 512 tokens,
+# f32 AdamW moments, StepConfig(); placed over a `(data,)` mesh of 2 gloo
+# ranks for 2 steps, saved, restored onto 4 ranks for 2 more
+TRAIN_FSDP = dict(arch="minicpm_2b", n_layers=4, batch=4, seq=512,
+                  steps=2, save_ranks=2, restore_ranks=4)
+FSDP_CKPT = ROOT / "build" / "ckpt_fsdp"
+# the elastic example's bound, against the one-process oracle of the 4
+# steps (which adds the ranks' gradients in the same order, so the losses
+# and params are expected equal bit for bit)
+FSDP_LOSS_RTOL = 1e-3
+
+
+def blocks_close(got: dict, want: dict, label: str,
+                 flip_frac: float = TINY_FSDP_FLIP_FRAC) -> dict:
+    """Every leaf of `got` within TINY_FSDP_TOL of `want` but for flips:
+    at most `flip_frac` of the tree's elements (at least one), each within
+    TINY_FSDP_FLIP_GAP. Returns the largest gap and the flips' count."""
+    import numpy as np
+    apart = size = 0
+    worst = 0.0
+    for path, a in _leaf_items(got):
+        a, b = np.asarray(a, np.float64), np.asarray(_at(want, path))
+        gap = np.abs(a - b)
+        out = gap > TINY_FSDP_TOL["atol"] + TINY_FSDP_TOL["rtol"] * np.abs(b)
+        if gap.max(initial=0.0) > TINY_FSDP_FLIP_GAP:
+            raise AssertionError(f"{label} {path}: max gap {gap.max()}")
+        apart, size = apart + int(out.sum()), size + a.size
+        worst = max(worst, float(gap.max(initial=0.0)))
+    if apart > max(1, flip_frac * size):
+        raise AssertionError(f"{label}: {apart} of {size} elements apart")
+    return dict(max_gap=worst, apart=apart, elements=size)
+
+
+def shard_tiny_fsdp(dev, rank, world, where) -> dict:
+    """One rank of tiny_fsdp: every family of `sharded_worlds.FSDP_ARCHS`
+    (f32 tiny configs, the port's init from seed 0) through FSDP_STEPS
+    placed steps on the card over each mesh of FSDP_MESHES, under
+    `mesh_context`: the rank's launches exact (`model_launches`). Rank 0
+    runs the one-process run on the card and holds every rank's blocks
+    (gathered to it as host arrays) to that run's slices bit for bit, and
+    that run to the same run on the cpu on one mesh (TINY_FSDP_CPU_MESH: a
+    family's placements change only which blocks the ranks hold, and both
+    meshes' blocks are held to the card's one-process run)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import sharded_worlds as sw
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    for arch, kw in sw.FSDP_ARCHS:
+        cfg = sw.fsdp_config(get_config, arch)
+        for name, (shape, axes) in sw.FSDP_MESHES.items():
+            mesh = make_mesh(shape, axes, "cuda")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = sw.fsdp_run(arch, name, mesh, device=dev)
+            secs = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            want = model_launches(cfg, sw.FSDP_STEPS)
+            if launches != want:
+                raise AssertionError(f"tiny_fsdp {arch} {name} rank {rank}: "
+                                     f"launches {launches} != {want}")
+            every = [None] * world
+            dist.all_gather_object(every, got)
+            row = dict(seconds=secs, loss=got["loss"],
+                       launches={k: v for k, v in launches.items() if v})
+            out[f"{arch}/{name}"] = row
+            if rank != 0:
+                continue
+            oracle = sw.fsdp_oracle(arch, name, dev)
+            n_blocks = 0
+            for r, theirs in enumerate(every):
+                if theirs["loss"] != oracle["loss"] or \
+                        theirs["grad_norm"] != oracle["grad_norm"]:
+                    raise AssertionError(
+                        f"tiny_fsdp {arch} {name} rank {r}: losses "
+                        f"{theirs['loss']} != {oracle['loss']}")
+                for key in ("params", "m"):
+                    sh = shd.named_shardings(oracle[key], mesh, **kw)
+                    for path, full in _leaf_items(oracle[key]):
+                        block = full[shd.block_index(
+                            full.shape, _at(sh, path), theirs["coord"])]
+                        if not np.array_equal(_at(theirs[key], path), block):
+                            raise AssertionError(
+                                f"tiny_fsdp {arch} {name} rank {r}: {key} "
+                                f"{path} is not the one-process run's block")
+                        n_blocks += 1
+            row["blocks_equal_oracle"] = n_blocks
+            if name == TINY_FSDP_CPU_MESH:
+                torch.set_num_threads(TINY_FSDP_CPU_THREADS)
+                cpu = sw.fsdp_oracle(arch, name, "cpu")
+                torch.set_num_threads(2)
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(oracle["loss"], cpu["loss"]))
+                if rel > TINY_FSDP_LOSS_RTOL:
+                    raise AssertionError(f"tiny_fsdp {arch} {name}: cuda "
+                                         f"{oracle['loss']} cpu "
+                                         f"{cpu['loss']}")
+                row.update(cpu_loss_rel_gap=rel,
+                           cpu=blocks_close(
+                               {"params": oracle["params"],
+                                "m": oracle["m"]},
+                               {"params": cpu["params"], "m": cpu["m"]},
+                               f"tiny_fsdp {arch} {name}",
+                               TINY_FSDP_MOE_FLIP_FRAC if cfg.family == "moe"
+                               else TINY_FSDP_FLIP_FRAC))
+    return dict(runs=out)
+
+
+def _leaf_items(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def fsdp_model(dev):
+    """MiniCPM-2B cut to TRAIN_FSDP's layers, random bf16 weights from seed
+    0 on the card (the same on every rank), its loss and step i's
+    batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(get_config(TRAIN_FSDP["arch"]),
+                              n_layers=TRAIN_FSDP["n_layers"])
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_FSDP["seq"],
+                                  TRAIN_FSDP["batch"]))
+    return (cfg, params, registry.build(cfg, remat="full").loss_fn,
+            lambda i: data.torch_batch(i, dev))
+
+
+class CommMeter:
+    """Seconds and bytes of the placed step's collectives on this rank:
+    the gathers of whole leaves (`sharding.full_tensor`) and the gradient
+    reduction to blocks (`train.step._grad_block`), each timed between
+    two synchronizes (the wrappers are installed on the modules and
+    removed by `close`)."""
+
+    def __init__(self):
+        from repro_torch.parallel import sharding as shd
+        from repro_torch.train import step as step_mod
+        self.mods = (shd, step_mod)
+        self.plain = (shd.full_tensor, step_mod._grad_block)
+        self.reset()
+        shd.full_tensor = self._wrap(self.plain[0], "gather",
+                                     lambda out, a: out.numel()
+                                     * out.element_size())
+        step_mod._grad_block = self._wrap(
+            self.plain[1], "reduce",
+            lambda out, a: a[0].numel() * a[0].element_size())
+
+    def reset(self):
+        self.seconds = {"gather": 0.0, "reduce": 0.0}
+        self.bytes = {"gather": 0, "reduce": 0}
+
+    def _wrap(self, fn, kind, size):
+        import torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds[kind] += time.perf_counter() - t0
+            self.bytes[kind] += size(out, a)
+            return out
+        return timed
+
+    def close(self):
+        self.mods[0].full_tensor, self.mods[1]._grad_block = self.plain
+
+
+def fsdp_train(dev, step_fn, state, batch, first: int, steps: int,
+               meter) -> dict:
+    """`steps` placed steps from step `first`: losses, step ms, and the
+    collectives' seconds and GB a step."""
+    import torch
+    losses, norms, step_ms = [], [], []
+    meter.reset()
+    for i in range(first, first + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state["params"], state["opt"], state["plane"], state["ef"],
+         metrics) = step_fn(state["params"], state["opt"], state["plane"],
+                            state["ef"], batch(i))
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(metrics["grad_norm"].item())
+    return dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                gather_s_per_step=meter.seconds["gather"] / steps,
+                gather_gb_per_step=meter.bytes["gather"] / steps / 1e9,
+                reduce_s_per_step=meter.seconds["reduce"] / steps,
+                reduce_gb_per_step=meter.bytes["reduce"] / steps / 1e9)
+
+
+def fsdp_step_fn(cfg, loss_fn, mesh):
+    import sharded_worlds as sw
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import StepConfig, make_train_step
+    return make_train_step(loss_fn, adamw.AdamWConfig(),
+                           sw.fsdp_schedule(wsd),
+                           StepProfile(**sw.DP_PROFILE), StepConfig(),
+                           mesh=mesh)
+
+
+def block_digests(params, coord=None, mesh_shape=None) -> dict:
+    """`leaf_digest` of this rank's block of every params leaf (a placed
+    tree), or of the block at `coord` of a `(data,)` mesh of `mesh_shape`
+    (a whole tree)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import sharding as shd
+    out = {}
+    if coord is not None:
+        sh = shd.named_shardings(params, shd.SpecMesh(("data",),
+                                                      mesh_shape))
+    for path, leaf in _leaf_items(params):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.to_local()
+        else:
+            leaf = leaf[shd.block_index(tuple(leaf.shape), _at(sh, path),
+                                        coord)]
+        out["/".join(path)] = list(leaf_digest(leaf))
+    return out
+
+
+def shard_train_fsdp_save(dev, rank, world, where) -> dict:
+    """One rank of main_train_fsdp's first world: TRAIN_FSDP's model, its
+    params and f32 moments placed over a `(data,)` mesh of the world, two
+    placed steps with exact launches, then the placed checkpoint (every
+    rank gathers, rank 0 writes FSDP_CKPT)."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, params, loss_fn, batch = fsdp_model(dev)
+    mesh = make_mesh((world,), ("data",), "cuda")
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    plane, ef = initial_plane_and_ef(params)
+    state = {"params": shd.place(params, shd.named_shardings(params, mesh)),
+             "opt": shd.place(opt, shd.named_shardings(opt, mesh)),
+             "plane": plane, "ef": ef}
+    del params, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    meter = CommMeter()
+    ops.reset_launch_counts()
+    out = fsdp_train(dev, fsdp_step_fn(cfg, loss_fn, mesh), state, batch, 0,
+                     TRAIN_FSDP["steps"], meter)
+    meter.close()
+    launches = ops.launch_counts()
+    if launches != model_launches(cfg, TRAIN_FSDP["steps"]):
+        raise AssertionError(f"main_train_fsdp rank {rank}: launches "
+                             f"{launches}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    cm = CheckpointManager(str(FSDP_CKPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm.save(TRAIN_FSDP["steps"], {"params": state["params"],
+                                  "opt": state["opt"]})
+    out["save_s"] = time.perf_counter() - t0
+    out.update(ckpt_timings=dict(cm.timings),
+               launches={k: v for k, v in launches.items() if v})
+    return out
+
+
+def shard_train_fsdp_restore(dev, rank, world, where) -> dict:
+    """One rank of main_train_fsdp's second world: FSDP_CKPT restored with
+    `shardings=` onto a `(data,)` mesh of the world (each rank its block),
+    two more placed steps with exact launches; the digests of the rank's
+    params blocks for the parent's oracle."""
+    import torch
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, _, loss_fn, batch = fsdp_model_config(dev)
+    mesh = make_mesh((world,), ("data",), "cuda")
+    like = {"params": registry.abstract_params(cfg)}
+    like["opt"] = adamw.init_state(like["params"], adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm = CheckpointManager(str(FSDP_CKPT))
+    first, state = cm.restore(like, shardings={
+        k: shd.named_shardings(v, mesh) for k, v in like.items()})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state["plane"], state["ef"] = initial_plane_and_ef(state["params"])
+    torch.cuda.reset_peak_memory_stats()
+    meter = CommMeter()
+    ops.reset_launch_counts()
+    out = fsdp_train(dev, fsdp_step_fn(cfg, loss_fn, mesh), state, batch,
+                     first, TRAIN_FSDP["steps"], meter)
+    meter.close()
+    launches = ops.launch_counts()
+    if launches != model_launches(cfg, TRAIN_FSDP["steps"]):
+        raise AssertionError(f"main_train_fsdp rank {rank}: launches "
+                             f"{launches}")
+    out.update(first_step=first, restore_s=restore_s,
+               restore_timings=dict(cm.timings),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               coord=list(mesh.get_coordinate()),
+               digests=block_digests(state["params"]),
+               launches={k: v for k, v in launches.items() if v})
+    return out
+
+
+def fsdp_model_config(dev):
+    """`fsdp_model` without the weights (the restored world's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(get_config(TRAIN_FSDP["arch"]),
+                              n_layers=TRAIN_FSDP["n_layers"])
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_FSDP["seq"],
+                                  TRAIN_FSDP["batch"]))
+    return (cfg, None, registry.build(cfg, remat="full").loss_fn,
+            lambda i: data.torch_batch(i, dev))
+
+
+def fsdp_oracle(dev) -> dict:
+    """main_train_fsdp's one-process oracle of its 4 steps on the card
+    (`sharded_worlds.placed_oracle`: each step's DP ranks' rows in turn,
+    their gradients added in rank order, the norm block by block, 2 ranks'
+    split then 4's): its losses, norms and the digests of the params
+    blocks each of the 4 restored ranks holds after the last step."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import sharded_worlds as sw
+    t0 = time.perf_counter()
+    cfg, params, loss_fn, batch = fsdp_model(dev)
+    n_params = sum(a.numel() for a in _leaf_values(params))
+    steps = ([((TRAIN_FSDP["save_ranks"],), ("data",))] * TRAIN_FSDP["steps"]
+             + [((TRAIN_FSDP["restore_ranks"],), ("data",))]
+             * TRAIN_FSDP["steps"])
+    out = sw.placed_oracle(cfg, params, loss_fn, batch, steps,
+                           shares=False, host=False)
+    # digests as the ranks' come through their JSON lines
+    n = TRAIN_FSDP["restore_ranks"]
+    out["digests"] = [json.loads(json.dumps(block_digests(params, (r,),
+                                                          (n,))))
+                      for r in range(n)]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, params=n_params, seconds=time.perf_counter() - t0)
+
+
+def run_main_train_fsdp(dev) -> dict:
+    """main_train_fsdp: the one-process oracle (`fsdp_oracle`), then
+    TRAIN_FSDP placed over 2 gloo ranks sharing the card for 2 steps and
+    saved, restored with `shardings=` onto 4 ranks for 2 more: the losses
+    within FSDP_LOSS_RTOL of the oracle's and every rank's params blocks
+    equal to the oracle's bit for bit (digests)."""
+    t0 = time.perf_counter()
+    oracle = fsdp_oracle(dev)
+    shutil.rmtree(FSDP_CKPT, ignore_errors=True)
+    save = run_worlds([("fsdp_save", TRAIN_FSDP["save_ranks"], "gloo")],
+                      timeout_s=600)["fsdp_save"]
+    ckpt_gb = sum(f.stat().st_size for f in FSDP_CKPT.rglob("*")
+                  if f.is_file()) / 1e9
+    t1 = time.perf_counter()
+    restore = run_worlds([("fsdp_restore", TRAIN_FSDP["restore_ranks"],
+                           "gloo")], timeout_s=600)["fsdp_restore"]
+    ranks_s = (t1 - t0, time.perf_counter() - t1)
+    shutil.rmtree(FSDP_CKPT, ignore_errors=True)
+    for world in (save, restore):
+        if any(r["losses"] != world[0]["losses"] for r in world):
+            raise AssertionError("main_train_fsdp: the ranks' losses differ")
+    differ = []
+    for r in restore:
+        want = oracle["digests"][r["coord"][0]]
+        got = r.pop("digests")
+        differ += [f"{r['rank']}:{k}" for k in want if got[k] != want[k]]
+    if differ:
+        raise AssertionError(
+            f"main_train_fsdp: params blocks differ from the oracle's: "
+            f"{differ}; losses {save[0]['losses'] + restore[0]['losses']} "
+            f"norms {save[0]['grad_norms'] + restore[0]['grad_norms']}; "
+            f"oracle {oracle['loss']} {oracle['grad_norm']}; worlds "
+            f"{ranks_s} s; save {save[0]['save_s']} s, "
+            f"restore {restore[0]['restore_s']} s, steps "
+            f"{save[0]['step_ms']} {restore[0]['step_ms']} ms")
+    losses = save[0]["losses"] + restore[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle["loss"]))
+    if rel > FSDP_LOSS_RTOL:
+        raise AssertionError(f"main_train_fsdp: losses {losses} against the "
+                             f"oracle's {oracle['loss']}")
+    launches = {}
+    for r in save + restore:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return dict(save_ranks=save, restore_ranks=restore, config=TRAIN_FSDP,
+                params=oracle["params"], checkpoint_gb=ckpt_gb,
+                oracle_losses=oracle["loss"], losses=losses,
+                oracle_loss_rel_gap=rel, losses_equal_oracle=losses ==
+                oracle["loss"], params_equal_oracle=True,
+                worlds_s=ranks_s, oracle_s=oracle["seconds"],
+                launches=launches, seconds=time.perf_counter() - t0)
+
+
+def _leaf_values(tree):
+    return [leaf for _, leaf in _leaf_items(tree)]
+
+
 SHARD_JOBS = {"tiny_nccl": shard_tiny_nccl, "tiny_gloo": shard_tiny_gloo,
-              "routed": shard_routed, "train_dp": shard_train_dp}
+              "routed": shard_routed, "train_dp": shard_train_dp,
+              "tiny_fsdp": shard_tiny_fsdp,
+              "fsdp_save": shard_train_fsdp_save,
+              "fsdp_restore": shard_train_fsdp_restore}
 
 
 def sm90_hgmma(lib: Path) -> dict:
@@ -5657,8 +6220,15 @@ def main() -> int:
     del result, params
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
 
-    emit({"phase": "tiny_routed", **run_tiny_routed()})
-    emit({"phase": "tiny_sharded", **run_tiny_sharded()})
+    routed = Beside(run_tiny_routed)
+    elastic = Beside(run_elastic_example, {name: 0 for name in ops.KERNELS})
+    tiny_sharded, tiny_fsdp = run_tiny_sharded()
+    emit({"phase": "tiny_routed", **routed.join()})
+    emit({"phase": "tiny_sharded", **tiny_sharded})
+    emit({"phase": "tiny_fsdp", **tiny_fsdp})
+    elastic = elastic.join()
+    gc.collect()
+    torch.cuda.empty_cache()
     result = run_main_routed(dev)
     by_path.update(result.pop("by_path"))
     emit({"phase": "main_routed", **result})
@@ -5688,7 +6258,7 @@ def main() -> int:
         del result, params
         torch.cuda.empty_cache()   # the model's weights are gone
 
-    result = run_examples()
+    result = run_examples(elastic)
     by_path.update(result.pop("by_path"))
     emit({"phase": "examples", **result})
     del result
@@ -5716,6 +6286,11 @@ def main() -> int:
     by_path["train-dp"] = {k: result["launches"].get(k, 0)
                            for k in ops.KERNELS}
     emit({"phase": "main_train_dp", **result})
+    del result
+    result = run_main_train_fsdp(dev)
+    by_path["train-fsdp"] = {k: result["launches"].get(k, 0)
+                             for k in ops.KERNELS}
+    emit({"phase": "main_train_fsdp", **result})
     del result
 
     for tiny, phase, path, spec in (

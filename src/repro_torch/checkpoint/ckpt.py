@@ -29,7 +29,8 @@ What the port does differently, each for a reason:
   reference's does.
 - `restore` writes into `state_like`'s tensors, leaf by leaf, from host
   arrays (`copy_`), and returns them: no second copy of the state is ever
-  on the device. A broadcast-view leaf whose saved bytes are all zero stays
+  on the device. It reads `arrays.npz` through memory maps of its stored
+  members (`_NpzMembers`), not by copying each member out of the zip. A broadcast-view leaf whose saved bytes are all zero stays
   the view; one that is not gets memory of its own first. Where a leaf's
   saved shape or dtype differs from the live tensor's (a checkpoint of
   another fleet size, before `remap_plane`), it comes back as a new tensor
@@ -45,16 +46,30 @@ What the port does differently, each for a reason:
   whole fleet in the reference's layout and restore bit for bit in a
   world of one and in the reference. `restore` reads the whole state; the
   caller takes its block again (`Trainer` does).
-- Restoring onto a device mesh (`shardings=`) waits for ROADMAP.md's open
-  item 'Sharding' (parameter placements).
+- Placed groups (DTensor leaves, `parallel.sharding.place`) are written
+  whole: `save` gathers each such leaf on every rank
+  (`sharding.full_tensor`, a collective every rank of its mesh calls, leaf
+  by leaf so one whole leaf is on the device at a time) and rank 0 writes
+  it in the reference's layout, so a placed run's checkpoint restores in
+  the reference and in a world of any size.
+- `restore(shardings=)`: each leaf of a group named in `shardings` (a tree
+  of `sharding.NamedSharding`s like the group's) comes back as a DTensor on
+  that sharding's mesh, made from this rank's block of the host array
+  (`sharding.local_block` of the member's memory map: a rank reads and
+  copies to the device only its block); `state_like`'s leaves there give
+  only the tree (meta tensors do). A group not named there restores as above,
+  in place. This is how a run resumes on another number of ranks
+  (`examples/elastic_restart.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import struct
 import threading
 import time
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -152,6 +167,59 @@ def remap_sor(sor_state: SorState, target) -> SorState:
                                for f in _ESTIMATE_FIELDS)))
 
 
+# -- reading arrays.npz ------------------------------------------------------------
+
+_MAP_BYTES = 1 << 20        # members from this size up are memory-mapped
+
+
+class _NpzMembers:
+    """The members of an `arrays.npz` as numpy arrays, read without
+    copying the file: `np.savez` stores each `<key>.npy` uncompressed, so
+    a member from _MAP_BYTES up is a copy-on-write memory map of its bytes
+    in the file (a restore reads from the page cache only what it copies
+    on, a placed one its block), a smaller one is read whole. A member
+    stored compressed is read through `np.load`."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._zip = zipfile.ZipFile(path)
+        self._file = open(path, "rb")
+        self._infos = {i.filename[:-4] if i.filename.endswith(".npy")
+                       else i.filename: i for i in self._zip.infolist()}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._file.close()
+        self._zip.close()
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        info = self._infos[key]
+        if info.compress_type != zipfile.ZIP_STORED:
+            with self._zip.open(info) as f:
+                return np.lib.format.read_array(f)
+        f = self._file
+        f.seek(info.header_offset)
+        head = f.read(30)
+        name_len, extra_len = struct.unpack("<HH", head[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}.get(
+                           version)
+        if read_header is None:
+            with self._zip.open(info) as g:
+                return np.lib.format.read_array(g)
+        shape, fortran, dtype = read_header(f)
+        n_bytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        if n_bytes < _MAP_BYTES:
+            a = np.frombuffer(f.read(n_bytes), dtype=dtype).copy()
+            return a.reshape(shape, order="F" if fortran else "C")
+        return np.memmap(self.path, dtype=dtype, mode="c", offset=f.tell(),
+                         shape=shape, order="F" if fortran else "C")
+
+
 # -- state trees ------------------------------------------------------------------
 
 def _world() -> int:
@@ -213,15 +281,29 @@ def _is_broadcast(t: torch.Tensor) -> bool:
                                  zip(t.stride(), t.shape) if n > 1)
 
 
-def _to_host(leaf) -> tuple[np.ndarray, str]:
+def _is_placed(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
+def _to_host(leaf, keep: bool = True):
     """A leaf as (a numpy array that owns its bytes, its manifest dtype):
     bf16 as its uint16 bits, a broadcast view as a numpy broadcast view of
-    its one element, a host int as an int32 0-d array."""
+    its one element, a host int as an int32 0-d array; a placed leaf
+    gathered whole first (every rank calls this for it). None where `keep`
+    is false (a rank that does not write)."""
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return np.asarray(leaf, np.int32), "int32"
     if not isinstance(leaf, torch.Tensor):
         raise TypeError(f"cannot checkpoint a leaf of type "
                         f"{type(leaf).__name__}")
+    if _is_placed(leaf):
+        from repro_torch.parallel import sharding
+        leaf = sharding.full_tensor(leaf)
+    if not keep:
+        return None
     t = leaf.detach()
     bf16 = t.dtype == torch.bfloat16
     if bf16:
@@ -236,14 +318,22 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _flatten(tree) -> dict[str, tuple[np.ndarray, str]]:
+def _flatten(tree, keep: bool = True) -> dict[str, tuple[np.ndarray, str]]:
     flat = {}
 
     def go(path, leaf):
-        flat[_path_key(path)] = _to_host(leaf)
+        flat[_path_key(path)] = _to_host(leaf, keep)
 
     _map_with_path(go, tree)
     return flat
+
+
+def _has_placed(state: dict) -> bool:
+    found = []
+    for tree in state.values():
+        _map_with_path(lambda path, leaf: found.append(_is_placed(leaf)),
+                       tree)
+    return any(found)
 
 
 def _contiguous(a: np.ndarray) -> np.ndarray:
@@ -289,6 +379,27 @@ def _restore_leaf(live, a: np.ndarray, dtype: str):
     return live
 
 
+def _sharding_at(tree, path: tuple):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            raise KeyError(f"shardings has no leaf at {_path_key(path)}")
+        tree = tree[k]
+    return tree
+
+
+@torch.no_grad()
+def _placed_leaf(a: np.ndarray, dtype: str, sh):
+    """The saved array `a` as a DTensor under the NamedSharding `sh`, from
+    this rank's block of it."""
+    from repro_torch.parallel import sharding
+    block = sharding.local_block(_contiguous(a), sh)
+    dev = torch.device(sh.mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return sharding.from_block(_host_tensor(block, dtype).to(dev, copy=True),
+                               sh, a.shape)
+
+
 @dataclasses.dataclass
 class CheckpointManager:
     directory: str
@@ -323,11 +434,14 @@ class CheckpointManager:
             state = gather_fleet_state(state, mesh, axis_name)
         writer = _rank() == 0
         self._barrier = _world() > 1
+        t0 = time.perf_counter()
         if not writer:
+            if _has_placed(state):      # the gathers every rank joins
+                for tree in state.values():
+                    _flatten(tree, keep=False)
             if not self.async_save:
                 self.wait()
             return path
-        t0 = time.perf_counter()
         host = {name: _flatten(tree) for name, tree in state.items()}
         self.timings["snapshot_s"] = time.perf_counter() - t0
         # learned-region groups (sor.SorState) record their rail layout and
@@ -446,16 +560,15 @@ class CheckpointManager:
                 shardings: dict[str, Any] | None = None,
                 optional: tuple = ()) -> tuple[int, dict]:
         """Restore into the structure of `state_like`, writing into its
-        tensors (see the module docstring) and returning them. A group the
+        tensors (see the module docstring) and returning them; a group named
+        in `shardings` comes back placed as its tree of NamedShardings
+        says (module docstring), every rank reading its own block. A group
+        the
         checkpoint never recorded raises KeyError, unless named in
         `optional`, in which case it is skipped (absent from the returned
         dict): that is how a SOR-enabled trainer restores a pre-SOR
         checkpoint and keeps its in-memory cold start, without a missing
         required group silently restarting from fresh state."""
-        if shardings:
-            raise NotImplementedError(
-                "restoring onto a device mesh (shardings=) is not yet "
-                "ported (ROADMAP.md, open item 'Sharding')")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -464,7 +577,7 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step_{step:08d}")
         manifest = self._manifest(path)
         n_bytes = 0
-        with np.load(os.path.join(path, "arrays.npz")) as z:
+        with _NpzMembers(os.path.join(path, "arrays.npz")) as z:
             out = {}
             for name, tree in state_like.items():
                 if name not in manifest["groups"]:
@@ -489,12 +602,16 @@ class CheckpointManager:
                             f"config the state was learned under (or drop "
                             f"the group)")
                 metas = manifest["groups"][name]
+                placed = (shardings or {}).get(name)
 
-                def put(path, leaf, name=name, metas=metas):
+                def put(path, leaf, name=name, metas=metas, placed=placed):
                     nonlocal n_bytes
                     key = _path_key(path)
                     a = z[f"{name}::{key}"]
                     n_bytes += a.nbytes
+                    if placed is not None:
+                        return _placed_leaf(a, metas[key]["dtype"],
+                                            _sharding_at(placed, path))
                     return _restore_leaf(leaf, a, metas[key]["dtype"])
 
                 out[name] = _map_with_path(put, tree)

@@ -1,7 +1,8 @@
-"""Config schema: ModelConfig (architecture) and the arch registry, copied
-from `repro/configs/base.py`. One module per ported architecture lives next
-to this file; each exports CONFIG (the published hyperparameters) and TINY
-(a reduced same-family config for CPU tests)."""
+"""Config schema: ModelConfig (architecture), ShapeConfig (one cell's batch
+and sequence), the shape grid and the arch registry, copied from
+`repro/configs/base.py`. One module per ported architecture lives next to
+this file; each exports CONFIG (the published hyperparameters) and TINY (a
+reduced same-family config for CPU tests)."""
 
 from __future__ import annotations
 
@@ -67,11 +68,42 @@ class ModelConfig:
         return 1
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+# the shape grid: every LM arch x these four
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 # every architecture of the reference: the dense, moe, vlm, ssm, hybrid and
 # encdec families
 ARCH_IDS = ("granite_20b", "grok1_314b", "internvl2_2b", "minicpm_2b",
             "mistral_large_123b", "qwen2p5_14b", "qwen3_moe_30b_a3b",
             "rwkv6_7b", "whisper_base", "zamba2_1p2b")
+
+# the order `cells` walks the architectures in (the reference's registry
+# order; ARCH_IDS above is sorted)
+CELL_ORDER = ("zamba2_1p2b", "minicpm_2b", "granite_20b",
+              "mistral_large_123b", "qwen2p5_14b", "rwkv6_7b",
+              "internvl2_2b", "whisper_base", "grok1_314b",
+              "qwen3_moe_30b_a3b")
+
+# long_500k runs only for the sub-quadratic archs; whisper has a decoder
+# (enc-dec), so its decode shapes run, with 500k skipped (full attention)
+LONG_CONTEXT_ARCHS = ("zamba2_1p2b", "rwkv6_7b")
 
 
 def get_config(arch: str, tiny: bool = False) -> ModelConfig:
@@ -79,3 +111,13 @@ def get_config(arch: str, tiny: bool = False) -> ModelConfig:
         raise ValueError(f"{arch!r} is not an architecture; have {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.TINY if tiny else mod.CONFIG
+
+
+def cells(include_skips: bool = False):
+    """The (arch x shape) grid. Yields (arch, shape_name, runnable)."""
+    for arch in CELL_ORDER:
+        for sname in SHAPES:
+            runnable = not (sname == "long_500k"
+                            and arch not in LONG_CONTEXT_ARCHS)
+            if include_skips or runnable:
+                yield arch, sname, runnable

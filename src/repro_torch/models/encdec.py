@@ -8,7 +8,9 @@ positions. Decoder: causal self-attention + cross-attention + GELU MLP.
 
 Parameters keep the reference's tree and leaf names, the per-layer weights
 stacked on a leading layer axis (`enc_blocks`, `dec_blocks`). The
-reference's `lax.scan` over layers is a Python loop over that axis. The
+reference's `lax.scan` over layers is a Python loop over that axis, and
+its sharding constraints (on the encoder's and the decoder's inputs and on
+the logits) are `parallel.sharding.constrain` (`models/lm.py`). The
 decode cache, the decoder's self-attention KV cache `{"k", "v": [n_layers,
 B, S, nkv, Dh]}`, is written in place by `decode_step`; the cross K/V
 (`cross_kv`, stacked the same way over the encoder's S positions) is read
@@ -26,6 +28,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common, mlp
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.lm import draw_stacked, layer_views, tree_map
+from repro_torch.parallel.sharding import constrain
 
 DEC_POSITIONS = 4 * 32768       # the reference's learned decoder positions
 
@@ -128,7 +131,8 @@ def encode(params, frames, cfg: ModelConfig):
     """frames [B, enc_seq, D] (the stub frontend's output) -> encoder
     states [B, enc_seq, D]."""
     x = frames.to(common.default_dtype(cfg.dtype))
-    x = x + params["enc_pos"][None, : x.shape[1]]
+    x = constrain(x + params["enc_pos"][None, : x.shape[1]], "batch", "seq",
+                  "embed")
     spec = enc_attn_spec(cfg)
     ne = cfg.n_enc_layers or cfg.n_layers
     for p in layer_views(params["enc_blocks"], ne):
@@ -161,7 +165,8 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig):
     slots masked. Each layer computes its cross K/V from `enc_states`, so
     the pass differentiates through them."""
     B, T = tokens.shape
-    x = params["embed"][tokens.long()] + params["dec_pos"][None, :T]
+    x = constrain(params["embed"][tokens.long()] + params["dec_pos"][None, :T],
+                  "batch", "seq", "embed")
     sspec, cspec = dec_attn_spec(cfg), enc_attn_spec(cfg)
     for p in layer_views(params["dec_blocks"], cfg.n_layers):
         h = _ln(x, p["ln1"], cfg.norm_eps)
@@ -174,7 +179,8 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig):
         h = _ln(x, p["ln3"], cfg.norm_eps)
         x = x + mlp.gelu_mlp(p["mlp"], h)
     x = _ln(x, params["dec_ln"], cfg.norm_eps)
-    return _mask_vocab(x @ params["lm_head"], cfg)
+    return constrain(_mask_vocab(x @ params["lm_head"], cfg), "batch", "seq",
+                     "vocab")
 
 
 def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):

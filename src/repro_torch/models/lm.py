@@ -8,9 +8,13 @@ Parameters are a nested dict of tensors with the per-layer weights stacked
 on a leading `[n_layers]` axis (`params["blocks"]`), exactly the reference
 layout, so weights carry over one to one; the hybrid family's shared block
 (`params["shared"]`) and the vlm family's `img_proj` are not stacked. The
-reference's `lax.scan` over layers is a Python loop over that axis; its
-sharding constraints have no counterpart on one card. Decode caches,
-which `decode_step` updates in place:
+reference's `lax.scan` over layers is a Python loop over that axis. Its
+sharding constraints are `parallel.sharding.constrain` at the same places
+(after each layer's attention residual, at each layer's end, on the
+embeddings and on the logits): the identity without an active mesh, and
+under `mesh_context` a redistribution of a DTensor activation (the placed
+train step's activations are plain tensors, each rank's own rows). Decode
+caches, which `decode_step` updates in place:
 
 - dense, moe, vlm: the KV cache `{"k", "v": [n_layers, B, S, nkv, Dh]}`;
 - ssm: the recurrent state `{"wkv": [n_layers, B, H, Dh, Dh] f32,
@@ -54,6 +58,7 @@ from repro_torch.models.attention import AttnSpec
 from repro_torch.models.mamba2 import Mamba2Spec
 from repro_torch.models.mlp import MoESpec
 from repro_torch.models.rwkv6 import Rwkv6Spec
+from repro_torch.parallel.sharding import constrain
 
 MOE_AUX_COEF = 0.01
 REMAT_MODES = ("none", "full", "group")
@@ -248,17 +253,20 @@ def _train_layer(p, shared, x, positions, i: int, cfg: ModelConfig):
     writes no cache. Returns (x, the layer's MoE load-balance loss, or
     None outside the moe family)."""
     if cfg.family == "ssm":
-        return _rwkv_layer(p, x, cfg)[0], None
-    if cfg.family == "hybrid":
+        x, aux = _rwkv_layer(p, x, cfg)[0], None
+    elif cfg.family == "hybrid":
         spec = attn_spec(cfg, sliding=True)
         x, _ = _mamba_layer(p, x, cfg)
-        return _shared_block(
+        x, aux = _shared_block(
             shared, x, i, cfg,
             lambda pa, h, occ: attn.attention_full(pa, h, spec,
                                                    positions)[0]), None
-    h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
-    a, _ = attn.attention_full(p["attn"], h, attn_spec(cfg), positions)
-    return _ffn(p, x + a, cfg)
+    else:
+        h = common.rms_norm(x, p["ln1_w"], cfg.norm_eps)
+        a, _ = attn.attention_full(p["attn"], h, attn_spec(cfg), positions)
+        x = constrain(x + a, "batch", "seq", "embed")
+        x, aux = _ffn(p, x, cfg)
+    return constrain(x, "batch", "seq", "embed"), aux
 
 
 def _train_group(ps, shared, x, positions, i0: int, cfg: ModelConfig):
@@ -273,12 +281,12 @@ def _train_group(ps, shared, x, positions, i0: int, cfg: ModelConfig):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens.long()]
+    return constrain(params["embed"][tokens.long()], "batch", "seq", "embed")
 
 
 def logits_from(params, x, cfg: ModelConfig):
     x = common.rms_norm(x, params["final_norm_w"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = constrain(x @ params["lm_head"], "batch", "seq", "vocab")
     # mask padded vocab slots out of the softmax
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e9

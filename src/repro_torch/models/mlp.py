@@ -4,7 +4,13 @@ layer (top-k routing, capacity-based dispatch), ported from
 
 The MoE's products run where the reference runs them, outside any kernel:
 its einsums are `torch.bmm` over the experts here. The reference's
-expert-parallel sharding has no counterpart on one card."""
+constraints on the dispatch buffer, the activation and the expert output
+are `parallel.sharding.constrain` at the same places, on the port's
+expert-major layout (`[E, B*cap, ...]`, the reference's `[B, E, cap, ...]`
+with the expert axis first): the logical axes are given in that order.
+Its expert parallelism is the `moe_ep` placement profile
+(`parallel.sharding.PARAM_RULES_MOE_EP`); like the reference, the port has
+no all-to-all dispatch."""
 
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
+from repro_torch.parallel.sharding import batch_mean, constrain
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +112,10 @@ def moe_route(params, x, spec: MoESpec):
     gate_vals, idx = torch.topk(probs, spec.k, dim=-1)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    # the top-1 shares of the whole batch where a placed step splits it
+    # over ranks (no gradient flows through them, so each rank's
+    # E * sum(me * ce) averages to the global batch's loss and gradient)
+    ce = batch_mean(F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1)))
     return gate_vals, idx, E * (me * ce).sum()
 
 
@@ -146,11 +156,14 @@ def moe_apply(params, x, spec: MoESpec):
     xr = x.repeat_interleave(K, dim=1)                         # [B,TK,D]
     buf = x.new_zeros((n_rows + 1, D)).index_put(
         (dest.reshape(-1),), xr.reshape(-1, D))
-    buf = buf[:n_rows].view(E, B * cap, D)
+    buf = constrain(buf[:n_rows].view(E, B * cap, D), "experts", "batch",
+                    "embed")
     g = torch.bmm(buf, params["w_gate"])
     h = torch.bmm(buf, params["w_in"])
-    act = F.silu(g.float()).to(x.dtype) * h
-    out = torch.bmm(act, params["w_out"]).view(n_rows, D)
+    act = constrain(F.silu(g.float()).to(x.dtype) * h, "experts", "batch",
+                    "ff")
+    out = constrain(torch.bmm(act, params["w_out"]), "experts", "batch",
+                    "embed").view(n_rows, D)
     y_slots = out[torch.where(keep, slot, 0)]                  # [B,TK,D]
     y_slots = torch.where(keep[..., None], y_slots, 0)
     w = gate_vals.reshape(B, T * K, 1).to(x.dtype)

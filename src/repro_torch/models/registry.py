@@ -1,7 +1,12 @@
 """Model API over the two assembly families, the decoder-only LM (`lm`:
 dense, moe, vlm, ssm, hybrid) and the encoder-decoder (`encdec`) (port of
 `repro/models/registry.py`), plus `params_from_jax`, which carries a
-reference parameter tree (as numpy arrays) over into the port."""
+reference parameter tree (as numpy arrays) over into the port.
+
+`abstract_params`, `input_specs` and `abstract_decode_cache` are the
+reference's shape-only stand-ins (`jax.eval_shape`, `ShapeDtypeStruct`):
+here tensors on `torch.device("meta")`, which carry shape and dtype and
+allocate nothing, so Grok-1's full-size tree builds in milliseconds."""
 
 from __future__ import annotations
 
@@ -11,7 +16,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import common, encdec, lm
 
 
@@ -66,6 +71,52 @@ def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
         decode_fn=decode_fn,
         prefill_fn=prefill_fn,
     )
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as meta tensors of its shapes and dtypes."""
+    family = encdec if cfg.family == "encdec" else lm
+    return lm.tree_map(
+        lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta"),
+        family.param_shapes(cfg), family.param_dtypes(cfg))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """Meta-tensor stand-ins for every step input of this cell.
+
+    train/prefill: token batch (+ stub modality frontends).
+    decode: one new token + cur_index; the KV cache is a separate argument
+    (`abstract_decode_cache`) sized to shape.seq_len."""
+    B, T = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    i32, f32 = torch.int32, torch.float32
+    if shape.kind in ("train", "prefill"):
+        batch: dict[str, Any] = {"tokens": sds((B, T), i32),
+                                 "labels": sds((B, T), i32)}
+        if cfg.family == "vlm":
+            batch["tokens"] = sds((B, T - cfg.n_img_tokens), i32)
+            batch["labels"] = sds((B, T - cfg.n_img_tokens), i32)
+            batch["img_embeds"] = sds((B, cfg.n_img_tokens, cfg.d_model),
+                                      f32)
+        if cfg.family == "encdec":
+            batch["frames"] = sds((B, cfg.enc_seq_len, cfg.d_model), f32)
+        return batch
+    batch = {"tokens": sds((B, 1), i32), "cur_index": sds((), i32)}
+    if cfg.family == "encdec":
+        kv = (cfg.n_layers, B, cfg.enc_seq_len, cfg.head_plan().n_kv_pad,
+              cfg.head_dim_)
+        batch["cross_kv"] = {"k": sds(kv, torch.bfloat16),
+                             "v": sds(kv, torch.bfloat16)}
+    return batch
+
+
+def abstract_decode_cache(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode cache of this cell as meta tensors."""
+    return build(cfg).init_decode_cache(shape.global_batch, shape.seq_len,
+                                        "meta")
 
 
 def params_from_jax(cfg: ModelConfig, np_tree, device="cuda"):

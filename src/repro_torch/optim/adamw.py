@@ -155,12 +155,16 @@ def _update(p, g, m_f, v_f, clip, bc1, bc2, lr, cfg: AdamWConfig,
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, lr, cfg: AdamWConfig):
+def apply_updates(params, grads, state, lr, cfg: AdamWConfig,
+                  grad_norm=None):
     """One AdamW step, in place. Returns (params, state, metrics) — the
-    same `params` and `state` objects, updated."""
+    same `params` and `state` objects, updated. `grad_norm` is the global
+    norm of the whole gradient where `grads` are blocks of it (the placed
+    train step's: each rank updates its blocks of the params and f32
+    moments, elementwise); by default `global_norm(grads)`."""
     quant = cfg.state_dtype == "int8"
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip_norm)
                        / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))

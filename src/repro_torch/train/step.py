@@ -37,11 +37,44 @@ Sharding over `torch.distributed` (the reference's `shard_map` paths):
   loss is averaged over the ranks, and the ef residual, `grad_error` and
   the plane stay each rank's own, where the reference declares them
   replicated (`out_specs=P()`) and returns one device's.
+
+Placed (FSDP) training, `make_train_step(..., mesh=)`: the counterpart of
+the reference's `jax.jit(step)` called with params and moments placed by
+`parallel.sharding.named_shardings` and the batch over the DP axes. The
+params and the f32 AdamW moments are DTensors (`sharding.place`); each
+step
+- takes this rank's rows of the batch over the DP axes (they must split
+  evenly, so the mean of the ranks' mean losses is the batch's);
+- gathers every leaf whole (`sharding.full_tensor`: one `all_gather` a
+  sharded mesh dim), so the loss, its gradients and every hand-written
+  kernel run on plain local tensors;
+- cuts each gradient to this rank's block of its leaf's placement: along a
+  non-DP mesh dim (`model`) the ranks hold the same rows and computed the
+  same gradient, so a cut needs no collective; along a DP dim the blocks
+  are exchanged (`all_to_all_single`, a reduce-scatter in rank order) or,
+  where the leaf is replicated over it, gathered whole, and added in rank
+  order in f32 (`_rank_order_sum`), then divided by the DP ranks' count;
+- takes a statistic of the whole batch that a loss reads without a
+  gradient (the MoE's top-1 expert shares, `sharding.batch_mean`) as the
+  mean over the DP ranks, so the ranks' mean loss and gradient are the
+  global batch's, as in the reference;
+- takes the global gradient norm from every distinct block's sum of
+  squares, leaves in the reference's order and blocks in rank order;
+- updates this rank's blocks of the params and moments in place with the
+  same AdamW (`adamw.apply_updates(..., grad_norm=)`): the update is
+  elementwise, so a block equals the slice of the same update made whole.
+A one-process run that takes each rank's rows in turn, adds their
+gradients in rank order and takes the norm block by block makes the same
+bits (`tests/sharded_worlds.py` `placed_oracle`). The int8 moments (flat
+`[n_blocks, 256]` codes whose blocks do not line up with a param placed on
+another dim) and the ef sync are refused on a placed step
+(`NotImplementedError`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
@@ -56,6 +89,7 @@ from repro_torch.core.power_plane import (PowerPlaneState, StepProfile,
                                           account_fleet_and_observe, as_f32)
 from repro_torch.kernels import ops
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,13 +152,7 @@ def _accumulate_grads(loss_fn, params, batch, microbatches: int):
         leaf.requires_grad_(True)
 
     def tree(values):
-        out: dict = {}
-        for path, val in zip(paths, values):
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            node[path[-1]] = val
-        return out
+        return _tree(paths, values)
 
     def one(mb):
         loss, metrics = loss_fn(params, mb)
@@ -199,18 +227,28 @@ def _grads_and_update(loss_fn, opt_cfg, schedule_fn, step_cfg, params,
 
 def make_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig,
                     schedule_fn: Callable, profile: StepProfile,
-                    step_cfg: StepConfig):
+                    step_cfg: StepConfig, *, mesh=None):
     """Returns train_step(params, opt_state, plane, ef_resid, batch) ->
-    (params', opt_state', plane', ef_resid', metrics)."""
+    (params', opt_state', plane', ef_resid', metrics).
+
+    With `mesh` the step is the placed (FSDP) step of the module docstring:
+    params and the AdamW state (moments and step) are DTensors on `mesh`
+    (`sharding.place` of `sharding.named_shardings` of each tree), the
+    batch is the global batch on every rank, and the mesh's 'pod' and
+    'data' axes split its rows."""
     _check_step_cfg(step_cfg)
     controller = as_controller(step_cfg.policy)
+    if mesh is None:
+        update = functools.partial(_grads_and_update, loss_fn, opt_cfg,
+                                   schedule_fn, step_cfg)
+    else:
+        update = _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg,
+                                mesh)
 
     def train_step(params, opt_state, plane: PowerPlaneState, ef_resid,
                    batch):
         (params, opt_state, ef_resid, loss, metrics, opt_metrics,
-         grad_error) = _grads_and_update(loss_fn, opt_cfg, schedule_fn,
-                                         step_cfg, params, opt_state,
-                                         ef_resid, batch)
+         grad_error) = update(params, opt_state, ef_resid, batch)
         plane, frame, power_metrics = account_and_observe(profile, plane)
         frame = dataclasses.replace(frame, grad_error=grad_error)
         if controller is not None:
@@ -458,14 +496,9 @@ def _dp_index(mesh, dp_axes) -> tuple[int, int]:
     return index, count
 
 
-def shard_map_ef_step(train_step, mesh, dp_axes=("data",)):
-    """Wrap a train step for error-feedback compressed data parallelism:
-    each rank takes its rows of the batch (the last argument) over the DP
-    axes, the DP axes are bound to their process groups for the ef sync
-    (`ecollectives.bound_axes`), and params and optimizer state stay
-    replicated (every rank applies the same reduced gradient). The wrapped
-    step takes the 5-argument signature or the SOR step's 6."""
-    groups = {name: ops.axis_group(mesh, name)[0] for name in dp_axes}
+def _dp_rows(mesh, dp_axes):
+    """(this rank's rows of a batch over the DP axes: a function of a
+    tensor or a dict of them, the DP ranks' count)."""
     index, count = _dp_index(mesh, dp_axes)
 
     def rows(a):
@@ -476,11 +509,189 @@ def shard_map_ef_step(train_step, mesh, dp_axes=("data",)):
         k = b // count
         return a[index * k:(index + 1) * k]
 
+    def local(batch):
+        return ({k: rows(v) for k, v in batch.items()}
+                if isinstance(batch, dict) else rows(batch))
+
+    return local, count
+
+
+def shard_map_ef_step(train_step, mesh, dp_axes=("data",)):
+    """Wrap a train step for error-feedback compressed data parallelism:
+    each rank takes its rows of the batch (the last argument) over the DP
+    axes, the DP axes are bound to their process groups for the ef sync
+    (`ecollectives.bound_axes`), and params and optimizer state stay
+    replicated (every rank applies the same reduced gradient). The wrapped
+    step takes the 5-argument signature or the SOR step's 6."""
+    groups = {name: ops.axis_group(mesh, name)[0] for name in dp_axes}
+    rows, _ = _dp_rows(mesh, dp_axes)
+
     def mapped(*args):
         *state, batch = args
-        local = ({k: rows(v) for k, v in batch.items()}
-                 if isinstance(batch, dict) else rows(batch))
         with ecollectives.bound_axes(groups):
-            return train_step(*state, local)
+            return train_step(*state, rows(batch))
 
     return mapped
+
+
+# -- placed (FSDP) training -------------------------------------------------------
+
+def _rank_order_sum(parts):
+    """The f32 sum of `parts`, added one at a time in rank order."""
+    acc = parts[0].to(torch.float32, copy=True)
+    for x in parts[1:]:
+        acc.add_(x)
+    return acc
+
+
+def _gather_list(x, group, n: int) -> list:
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return parts
+
+
+def _exchange(x, d: int, group, n: int):
+    """x cut into n blocks along dim d, block j sent to rank j of `group`:
+    the blocks of this rank's index that every rank sent, in rank order
+    (one `all_to_all_single`)."""
+    import torch.distributed as dist
+    send = torch.stack(x.chunk(n, d))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.unbind(0)
+
+
+def _grad_block(g, mesh, dims: tuple, dp: tuple) -> torch.Tensor:
+    """This rank's block of the sum over the DP ranks of their gradients of
+    one leaf (`g`, this rank's gradient of the whole leaf; `dims`, per mesh
+    dim the tensor dim it shards), in f32. Mesh dims cut in mesh order, as
+    DTensor nests them; a non-DP cut on a tensor dim no other mesh dim
+    shards goes first, since cuts on distinct dims commute and it shrinks
+    what the DP dims move."""
+    coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
+
+    def cut(x, i):
+        k = x.shape[dims[i]] // sizes[i]
+        return x.narrow(dims[i], coord[i] * k, k)
+
+    alone = [i for i, d in enumerate(dims)
+             if d is not None and i not in dp and dims.count(d) == 1]
+    for i in alone:
+        g = cut(g, i)
+    summed = False
+    for i, d in enumerate(dims):
+        if i in alone:
+            continue
+        if i not in dp:
+            if d is not None:
+                g = cut(g, i)
+            continue
+        group = mesh.get_group(i)
+        parts = (_gather_list(g, group, sizes[i]) if d is None
+                 else _exchange(g, d, group, sizes[i]))
+        g, summed = _rank_order_sum(parts), True
+    return g if summed else g.to(torch.float32, copy=True)
+
+
+def _dp_mean(x, mesh, dp: tuple):
+    """The mean over the DP ranks of a tensor, their values added in rank
+    order."""
+    shape = x.shape
+    x = x.reshape(-1)
+    for i in dp:
+        x = _rank_order_sum(_gather_list(x, mesh.get_group(i),
+                                        mesh.size(i))).div_(mesh.size(i))
+    return x.reshape(shape)
+
+
+def _placed_norm(blocks: list, dims: list, mesh):
+    """The global norm of a gradient held as this rank's blocks (`blocks`,
+    leaves in the reference's order; `dims`, each leaf's sharded tensor
+    dim per mesh dim): every distinct block's f32 sum of squares, gathered
+    from every rank, added leaf by leaf and block by block in rank order."""
+    sums = torch.stack([b.to(torch.float32, copy=True).square_().sum()
+                        for b in blocks])
+    every = sums
+    for i in reversed(range(mesh.ndim)):
+        every = torch.stack(_gather_list(every, mesh.get_group(i),
+                                         mesh.size(i)))
+    sizes = tuple(mesh.shape)
+    total = None
+    for j, d in enumerate(dims):
+        for coord in shd.distinct_blocks(sizes, d):
+            sq = every[coord + (j,)]
+            total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
+    """The model side of the placed step (module docstring), with the
+    signature of `_grads_and_update` once its configuration is bound."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if step_cfg.grad_sync != "auto":
+        raise NotImplementedError(
+            f"grad_sync={step_cfg.grad_sync!r} on placed parameters: the "
+            "ef sync runs over replicated params (shard_map_ef_step)")
+    if opt_cfg.state_dtype != "float32":
+        raise NotImplementedError(
+            "int8 AdamW moments on placed parameters: their flat "
+            "[n_blocks, 256] codes do not line up with a param's blocks; "
+            "place f32 moments")
+    from repro_torch.launch.mesh import dp_axes
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(names.index(a) for a in dp_axes(mesh))
+    rows, n_dp = _dp_rows(mesh, dp_axes(mesh))
+
+    def update(params, opt_state, ef_resid, batch):
+        paths = adamw.leaf_paths(params)
+        leaves = [adamw.get_path(params, p) for p in paths]
+        for path, leaf in zip(paths, leaves):
+            if not isinstance(leaf, DTensor) or leaf.device_mesh != mesh:
+                raise ValueError(f"params leaf {'/'.join(path)} is not "
+                                 "placed on the step's mesh "
+                                 "(sharding.place)")
+        dims = [shd.sharding_of(a)[1] for a in leaves]
+        full = _tree(paths, [shd.full_tensor(a).detach() for a in leaves])
+        with shd.batch_context(lambda x: _dp_mean(x, mesh, dp)):
+            loss, metrics, grads = _accumulate_grads(
+                loss_fn, full, rows(batch), step_cfg.microbatches)
+        del full
+        blocks = []
+        for path, d in zip(paths, dims):
+            parent = adamw.get_path(grads, path[:-1])
+            g = parent.pop(path[-1])
+            blocks.append(_grad_block(g, mesh, d, dp).div_(n_dp))
+            del g
+        gnorm = _placed_norm(blocks, dims, mesh)
+        loss = _dp_mean(loss, mesh, dp)
+        metrics = {k: _dp_mean(v, mesh, dp) for k, v in metrics.items()}
+
+        def local(tree):
+            return _tree(paths, [adamw.get_path(tree, p).to_local()
+                                 for p in paths])
+
+        state = {"step": opt_state["step"].to_local(),
+                 "m": local(opt_state["m"]), "v": local(opt_state["v"])}
+        lr = schedule_fn(state["step"])
+        _, state, opt_metrics = adamw.apply_updates(
+            local(params), _tree(paths, blocks), state, lr, opt_cfg,
+            grad_norm=gnorm)
+        opt_state["step"] = DTensor.from_local(
+            state["step"], mesh, [Replicate()] * mesh.ndim, run_check=False)
+        grad_error = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return (params, opt_state, ef_resid, loss, metrics, opt_metrics,
+                grad_error)
+
+    return update
+
+
+def _tree(paths, values) -> dict:
+    """Nested dicts with `values` at the key `paths`."""
+    out: dict = {}
+    for path, val in zip(paths, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = val
+    return out

@@ -7,12 +7,19 @@ count is fixed when JAX starts (the reference tests' recipe,
         PYTHONPATH=src:.:tests python tests/sharded_reference.py sharding OUT
     XLA_FLAGS=--xla_force_host_platform_device_count=2 \\
         PYTHONPATH=src:.:tests python tests/sharded_reference.py dp OUT
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        PYTHONPATH=src:.:tests python tests/sharded_reference.py fsdp OUT \\
+        PARAMS ARCH:MESH ...
 
 `sharding` (4 devices): the sharded control round, the sharded fleet
 train step and the routed world served over a `chips` mesh, on the inputs
 of `sharded_worlds`. `dp` (2 devices): the reference's `shard_map_ef_step`
-on tiny MiniCPM over a `data` mesh of 2. Pickles a dict of numpy arrays to
-OUT.
+on tiny MiniCPM over a `data` mesh of 2. `fsdp` (4 devices): the
+reference's train step jitted with params and moments placed by
+`named_shardings` and the batch over `data`, under `mesh_context`, for
+each named family of `sharded_worlds.FSDP_ARCHS` on the named mesh of
+`FSDP_MESHES`.
+Pickles a dict of numpy arrays to OUT.
 """
 
 from __future__ import annotations
@@ -223,6 +230,71 @@ def dp_run(mesh, params_path: str) -> dict:
             "comp_level": int(plane.comp_level)}
 
 
+def fsdp_run(arch: str, mesh_name: str, params_np) -> dict:
+    """FSDP_STEPS placed steps of `arch`: the losses and grad norms, the
+    whole params and first moment after the last, and each device's index
+    of every params leaf (`devices_indices_map`, devices in mesh order)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.core.power_plane import StepProfile
+    from repro.data.pipeline import (DataConfig, SyntheticLM,
+                                     stub_frontend_inputs)
+    from repro.models import registry
+    from repro.optim import adamw
+    from repro.optim.schedule import wsd
+    from repro.parallel import sharding as shd
+    from repro.train.step import StepConfig, make_train_step
+    from repro.train.trainer import initial_plane_and_ef
+    cfg = sw.fsdp_config(get_config, arch)
+    shape, axes = sw.FSDP_MESHES[mesh_name]
+    mesh = Mesh(np.array(jax.devices()[:sw.FSDP_RANKS]).reshape(shape),
+                axes)
+    kw = dict(sw.FSDP_ARCHS)[arch]
+    params = jax.tree_util.tree_map(jnp.asarray, params_np)
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, opt_cfg)
+    plane, ef = initial_plane_and_ef(params)
+    psh = shd.named_shardings(params, mesh, **kw)
+    osh = shd.named_shardings(opt, mesh, **kw)
+    params, opt = jax.device_put(params, psh), jax.device_put(opt, osh)
+    raw = make_train_step(registry.build(cfg, remat="full").loss_fn,
+                          opt_cfg, sw.fsdp_schedule(wsd),
+                          StepProfile(**sw.DP_PROFILE), StepConfig())
+    rules = sw.fsdp_rules(mesh_name, arch)
+
+    def run(p, o, pl, e, b):
+        with shd.mesh_context(mesh, rules):
+            return raw(p, o, pl, e, b)
+
+    bsh = NamedSharding(mesh, P("data"))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, sw.FSDP_SEQ,
+                                  sw.FSDP_BATCH))
+    batches = [data.jax_batch(i, stub_frontend_inputs(
+        cfg, cfg.family, sw.FSDP_BATCH, seed=sw.fsdp_frontend_seed(i)))
+        for i in range(sw.FSDP_STEPS)]
+    step = jax.jit(run, in_shardings=(
+        psh, osh, None, None, {k: bsh for k in batches[0]}),
+        out_shardings=(psh, osh, None, None, None))
+    losses, norms = [], []
+    for b in batches:
+        params, opt, plane, ef, m = step(params, opt, plane, ef, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    devs = list(mesh.devices.flat)
+
+    def index(sh, leaf):
+        idx = sh.devices_indices_map(leaf.shape)
+        return [[(s.start or 0, s.stop if s.stop is not None else n)
+                 for s, n in zip(idx[d], leaf.shape)] for d in devs]
+
+    host = lambda t: jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jax.device_get(t))
+    return {"loss": losses, "grad_norm": norms, "params": host(params),
+            "m": host(opt["m"]),
+            "index": jax.tree_util.tree_map(index, psh, params)}
+
+
 def main(argv) -> None:
     which, out_path = argv[1], argv[2]
     devs = jax.devices()
@@ -235,6 +307,13 @@ def main(argv) -> None:
     elif which == "dp":
         mesh = Mesh(np.array(devs[:sw.DP_RANKS]), ("data",))
         out = {"devices": len(devs), "ef": dp_run(mesh, argv[3])}
+    elif which == "fsdp":
+        with open(argv[3], "rb") as f:
+            params = pickle.load(f)
+        out = {"devices": len(devs)}
+        for case in argv[4:]:
+            arch, name = case.split(":")
+            out[arch, name] = fsdp_run(arch, name, params[arch])
     else:
         raise SystemExit(f"unknown run {which!r}")
     with open(out_path, "wb") as f:

@@ -19,6 +19,18 @@ forced-device runs) and the tests read the same numbers. The worlds:
   mesh (round-robin and headroom routers).
 - `dp_world` (2 ranks): the collectives over a bound `data` axis and the
   ef train step of tiny MiniCPM under `shard_map_ef_step`.
+- `elastic_save_world` (4 ranks) and `elastic_restore_world` (8 and 1):
+  a placed checkpoint of tiny MiniCPM written on a (data, model) mesh of
+  2 x 2 and restored (`restore(shardings=)`) onto `(data,)` meshes of 8
+  and of 1; the reference's checkpoint restored placed.
+- `fsdp_world` (4 ranks): the placed (FSDP) train step of every family of
+  `FSDP_ARCHS` (f32 tiny configs, params and f32 moments placed by
+  `named_shardings`), over a `(data, model)` mesh of 2 x 2 and a `(data,)`
+  mesh of 4, under `mesh_context`; rank 0 also runs `placed_oracle`, the
+  one-process run the ranks' blocks equal bit for bit.
+
+The placed runs are device-agnostic (`fsdp_run(..., device=)`), so the
+card's `tiny_fsdp` phase (`chip_smoke.py`) runs the same code on cuda.
 """
 
 from __future__ import annotations
@@ -408,6 +420,369 @@ def dp_ef_run(mesh=None) -> dict:
     return {"loss": losses, "grad_error": errors, "params": host(params),
             "ef": host(ef), "v_io": float(plane.v_io),
             "comp_level": int(plane.comp_level)}
+
+
+# -- placed (FSDP) training -------------------------------------------------------
+
+FSDP_RANKS = 4
+FSDP_STEPS = 2
+FSDP_SEQ = 32
+FSDP_BATCH = 4
+# (arch, placement profile): the dense, moe (expert parallelism), encdec
+# (enc_blocks, dec_blocks), hybrid (the mamba rules) and ssm (the rwkv
+# rules) families
+FSDP_ARCHS = (("minicpm_2b", {}), ("qwen3_moe_30b_a3b", {"moe_ep": True}),
+              ("whisper_base", {}), ("zamba2_1p2b", {}), ("rwkv6_7b", {}))
+# mesh name -> (shape, axes)
+FSDP_MESHES = {"data2_model2": ((2, 2), ("data", "model")),
+               "data4": ((4,), ("data",))}
+
+
+# the reference's wide-FSDP rule overrides (`launch/dryrun.py`
+# `_profile_settings`): no tensor parallelism
+NO_TP = {"heads": None, "kv_heads": None, "ff": None, "vocab": None,
+         "ssm_heads": None, "experts": None}
+
+
+def fsdp_rules(mesh_name: str, arch: str) -> dict | None:
+    """The `mesh_context` rule overrides of a run: none on the 2-D mesh
+    (the moe_ep profile's experts over 'model' for the MoE, as the
+    reference's dry run sets them); NO_TP on the 1-D mesh, which has no
+    'model' axis."""
+    if "model" not in FSDP_MESHES[mesh_name][1]:
+        return dict(NO_TP)
+    if dict(FSDP_ARCHS)[arch].get("moe_ep"):
+        return {"experts": "model", "ff": None}
+    return None
+
+
+def fsdp_config(get_config, arch: str):
+    import dataclasses
+    return dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+
+
+def fsdp_schedule(wsd):
+    return lambda s: wsd(s, peak_lr=1e-3, warmup_steps=2, stable_steps=50,
+                         decay_steps=50)
+
+
+def fsdp_frontend_seed(step: int) -> int:
+    return 1000 + step
+
+
+def fsdp_batch(cfg, step: int, device="cpu") -> dict:
+    """Step `step`'s global batch: FSDP_BATCH rows of FSDP_SEQ tokens, the
+    stub frontend's frames for the encdec family."""
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           stub_frontend_inputs)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, FSDP_SEQ, FSDP_BATCH))
+    extra = stub_frontend_inputs(cfg, cfg.family, FSDP_BATCH,
+                                 seed=fsdp_frontend_seed(step), device=device)
+    return data.torch_batch(step, device, extra=extra)
+
+
+def fsdp_params(arch: str, device="cpu"):
+    """(cfg, params) of `arch` on `device`: the reference's init from
+    FSDP_PARAMS' pickle when the environment names one (the CPU tests),
+    else the port's init from seed 0 drawn on the CPU (the card's phase,
+    which holds its runs to a cpu run of the same weights)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    cfg = fsdp_config(get_config, arch)
+    path = os.environ.get("FSDP_PARAMS")
+    if path:
+        with open(path, "rb") as f:
+            tree = pickle.load(f)[arch]
+        return cfg, registry.params_from_jax(cfg, tree, device=device)
+    from repro_torch.models.lm import tree_map
+    return cfg, tree_map(lambda a: a.to(device), registry.build(cfg).init(
+        torch.Generator().manual_seed(0)))
+
+
+def fsdp_step(cfg, mesh=None):
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import StepConfig, make_train_step
+    return make_train_step(registry.build(cfg, remat="full").loss_fn,
+                           adamw.AdamWConfig(), fsdp_schedule(wsd),
+                           StepProfile(**DP_PROFILE), StepConfig(),
+                           mesh=mesh)
+
+
+def _host(t):
+    """A tensor (a DTensor's local block) as a numpy f32 copy."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    return t.detach().float().cpu().numpy().copy()
+
+
+def fsdp_run(arch: str, mesh_name: str, mesh, device="cpu") -> dict:
+    """FSDP_STEPS placed steps of `arch` on `mesh`: per step the loss and
+    grad norm, and after the last this rank's blocks of the params and the
+    first moment."""
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, params = fsdp_params(arch, device)
+    kw = dict(FSDP_ARCHS)[arch]
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    plane, ef = initial_plane_and_ef(params)
+    params = shd.place(params, shd.named_shardings(params, mesh, **kw))
+    opt = shd.place(opt, shd.named_shardings(opt, mesh, **kw))
+    step = fsdp_step(cfg, mesh)
+    losses, norms = [], []
+    with shd.mesh_context(mesh, fsdp_rules(mesh_name, arch)):
+        for i in range(FSDP_STEPS):
+            params, opt, plane, ef, metrics = step(
+                params, opt, plane, ef, fsdp_batch(cfg, i, device))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    return {"loss": losses, "grad_norm": norms,
+            "params": tree_map(_host, params),
+            "m": tree_map(_host, opt["m"]),
+            "coord": tuple(mesh.get_coordinate())}
+
+
+def placed_oracle(cfg, params, loss_fn, batches, steps: list,
+                  placement: dict | None = None, shares: bool = True,
+                  host: bool = True) -> dict:
+    """The placed run in one process: each step each DP rank's rows in
+    turn through the same loss and gradient, the gradients added in rank
+    order in f32 and divided by the DP count, the norm block by block in
+    rank order (each leaf's placement under `named_shardings(**placement)`
+    on that step's mesh), the same AdamW on whole leaves. `steps` gives
+    each step's (mesh shape, axes) (the elastic restart changes them);
+    `batches(i)` is step i's global batch. `shares`: replay the whole
+    batch's statistics (`sharding.batch_mean`, the MoE's) as the placed
+    step reads them, at the cost of a forward a rank a step. Returns the
+    losses and the norms, and (`host`) the whole params and first moment
+    as numpy arrays; `params` is updated in place either way."""
+    import torch
+
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import _accumulate_grads, _tree
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, opt_cfg)
+    sched = fsdp_schedule(wsd)
+    paths = leaf_paths(params)
+    losses, norms = [], []
+    for i, (shape, names) in enumerate(steps):
+        mesh = shd.SpecMesh(tuple(names), tuple(shape))
+        n_dp = int(np.prod([n for a, n in zip(names, shape)
+                            if a in ("pod", "data")]))
+        shard = shd.named_shardings(params, mesh, **(placement or {}))
+        batch = batches(i)
+        k = next(iter(batch.values())).shape[0] // n_dp
+        rows = [{key: v[r * k:(r + 1) * k] for key, v in batch.items()}
+                for r in range(n_dp)]
+        stats = _global_shares(loss_fn, params, rows) if shares else {}
+        per_rank, rank_losses = [], []
+        for r in range(n_dp):
+            with shd.batch_context(lambda x, r=r: stats[
+                    r, x.cpu().numpy().tobytes()]):
+                loss, _, grads = _accumulate_grads(loss_fn, params, rows[r],
+                                                   1)
+            per_rank.append(grads)
+            rank_losses.append(loss.reshape(1))
+        avg = []
+        for path in paths:
+            acc = get_path(per_rank[0], path).to(torch.float32, copy=True)
+            for r in range(1, n_dp):
+                acc.add_(get_path(per_rank[r], path))
+            avg.append(acc.div_(n_dp))
+        del per_rank
+        total = None
+        for path, g in zip(paths, avg):
+            sh = get_path(shard, path)
+            for coord in shd.distinct_coords(sh):
+                blk = g[shd.block_index(tuple(g.shape), sh, coord)]
+                sq = blk.contiguous().to(torch.float32,
+                                         copy=True).square_().sum()
+                total = sq if total is None else total + sq
+        gnorm = torch.sqrt(total)
+        acc = rank_losses[0].to(torch.float32, copy=True)
+        for x in rank_losses[1:]:
+            acc.add_(x)
+        losses.append(float(acc.div_(n_dp)[0]))
+        norms.append(float(gnorm))
+        adamw.apply_updates(params, _tree(paths, avg), opt,
+                            sched(opt["step"]), opt_cfg, grad_norm=gnorm)
+        del avg
+    out = {"loss": losses, "grad_norm": norms}
+    if host:
+        out.update(params=tree_map(_host, params),
+                   m=tree_map(_host, opt["m"]))
+    return out
+
+
+def _global_shares(loss_fn, params, rows: list) -> dict:
+    """What `sharding.batch_mean` gives each DP rank in the placed step:
+    a forward per rank records its calls' local values; call i's mean is
+    their rank-order sum over the ranks divided by their count. Returns
+    {(rank, the local value's bytes): the mean} (the value identifies the
+    call, the recompute of a checkpointed layer included); raises where
+    one rank's value would stand for two calls with different means."""
+    import torch
+
+    from repro_torch.parallel import sharding as shd
+    seen: list = [[] for _ in rows]
+    for r, rr in enumerate(rows):
+        with torch.no_grad(), shd.batch_context(
+                lambda x, r=r: seen[r].append(x.clone()) or x):
+            loss_fn(params, rr)
+    out: dict = {}
+    for i in range(len(seen[0])):
+        acc = seen[0][i].to(torch.float32, copy=True)
+        for r in range(1, len(rows)):
+            acc.add_(seen[r][i])
+        acc.div_(len(rows))
+        for r in range(len(rows)):
+            key = (r, seen[r][i].cpu().numpy().tobytes())
+            if key in out and not torch.equal(out[key], acc):
+                raise AssertionError("a rank's batch statistic stands for "
+                                     "two calls with different means")
+            out[key] = acc
+    return out
+
+
+def fsdp_oracle(arch: str, mesh_name: str, device="cpu") -> dict:
+    """`placed_oracle` of `fsdp_run`'s run."""
+    from repro_torch.models import registry
+    cfg, params = fsdp_params(arch, device)
+    return placed_oracle(
+        cfg, params, registry.build(cfg, remat="full").loss_fn,
+        lambda i: fsdp_batch(cfg, i, device),
+        [FSDP_MESHES[mesh_name]] * FSDP_STEPS, dict(FSDP_ARCHS)[arch],
+        shares=cfg.family == "moe")
+
+
+def fsdp_world(rank: int, world: int, out_dir: str) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for arch, _ in FSDP_ARCHS:
+        for name, (shape, axes) in FSDP_MESHES.items():
+            mesh = make_mesh(shape, axes, "cpu")
+            out[arch, name] = fsdp_run(arch, name, mesh)
+            if rank == 0:
+                out[arch, name, "oracle"] = fsdp_oracle(arch, name)
+    return out
+
+
+# -- elastic restore ------------------------------------------------------------
+
+ELASTIC_SAVE_MESH = ((2, 2), ("data", "model"))
+ELASTIC_STEP = 1            # the placed steps before the checkpoint
+ELASTIC_BATCH = dict(seq=32, batch=8)
+
+
+def elastic_setup(device="cpu"):
+    """(cfg, its abstract params, the step factory, step i's batch) of the
+    elastic example's model: tiny MiniCPM (bf16), 8 rows of 32 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.train.step import StepConfig, make_train_step
+    cfg = get_config("minicpm_2b", tiny=True)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, ELASTIC_BATCH["seq"],
+                                  ELASTIC_BATCH["batch"]))
+
+    def build(mesh):
+        return make_train_step(registry.build(cfg, remat="none").loss_fn,
+                               adamw.AdamWConfig(), fsdp_schedule(wsd),
+                               StepProfile(**DP_PROFILE), StepConfig(),
+                               mesh=mesh)
+
+    return (cfg, registry.abstract_params(cfg), build,
+            lambda i: data.torch_batch(i, device))
+
+
+def _abstract_state(abstract):
+    from repro_torch.optim import adamw
+    return {"params": abstract,
+            "opt": adamw.init_state(abstract, adamw.AdamWConfig())}
+
+
+def _restore_placed(path, mesh):
+    """The checkpoint at `path` restored onto `mesh` (params and opt
+    placed by `named_shardings`): (step, state)."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.parallel import sharding as shd
+    _, abstract, _, _ = elastic_setup()
+    like = _abstract_state(abstract)
+    return CheckpointManager(path).restore(
+        like, shardings={k: shd.named_shardings(v, mesh)
+                         for k, v in like.items()})
+
+
+def _blocks(state) -> dict:
+    from repro_torch.models.lm import tree_map
+    return {k: tree_map(_host, v) for k, v in state.items()}
+
+
+def elastic_save_world(rank: int, world: int, out_dir: str) -> dict:
+    """On a (data, model) mesh of 2 x 2: the reference's tiny MiniCPM init
+    (ELASTIC_PARAMS) placed with fresh f32 moments, ELASTIC_STEP placed
+    steps, the checkpoint `port_ckpt` saved under ELASTIC_DIR; the whole
+    state gathered (rank 0 returns it); and the reference's checkpoint
+    `ref_ckpt` restored placed on the same mesh (each rank's blocks)."""
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, _, build, batch = elastic_setup()
+    mesh = make_mesh(*ELASTIC_SAVE_MESH, "cpu")
+    with open(os.environ["ELASTIC_PARAMS"], "rb") as f:
+        params = registry.params_from_jax(cfg, pickle.load(f), "cpu")
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    plane, ef = initial_plane_and_ef(params)
+    params = shd.place(params, shd.named_shardings(params, mesh))
+    opt = shd.place(opt, shd.named_shardings(opt, mesh))
+    step = build(mesh)
+    for i in range(ELASTIC_STEP):
+        params, opt, plane, ef, _ = step(params, opt, plane, ef, batch(i))
+    state = {"params": params, "opt": opt}
+    root = os.environ["ELASTIC_DIR"]
+    CheckpointManager(os.path.join(root, "port_ckpt")).save(ELASTIC_STEP,
+                                                            state)
+    from repro_torch.models.lm import tree_map
+    whole = {k: tree_map(shd.full_tensor, v) for k, v in state.items()}
+    _, from_ref = _restore_placed(os.path.join(root, "ref_ckpt"), mesh)
+    return {"whole": _blocks(whole) if rank == 0 else None,
+            "from_ref": _blocks(from_ref),
+            "coord": tuple(mesh.get_coordinate())}
+
+
+def elastic_restore_world(rank: int, world: int, out_dir: str) -> dict:
+    """`port_ckpt` restored onto a `(data,)` mesh of the whole world: each
+    rank's blocks, and one placed step from there (its loss)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.trainer import initial_plane_and_ef
+    _, _, build, batch = elastic_setup()
+    mesh = make_mesh((world,), ("data",), "cpu")
+    step_no, state = _restore_placed(
+        os.path.join(os.environ["ELASTIC_DIR"], "port_ckpt"), mesh)
+    out = {"step": step_no, "blocks": _blocks(state),
+           "coord": tuple(mesh.get_coordinate())}
+    plane, ef = initial_plane_and_ef(state["params"])
+    _, _, _, _, m = build(mesh)(state["params"], state["opt"], plane, ef,
+                                batch(step_no))
+    out["loss"] = float(m["loss"])
+    return out
 
 
 # -- spawning a world ------------------------------------------------------------

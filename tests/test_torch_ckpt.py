@@ -414,11 +414,66 @@ def test_checkpoint_fleet_preserves_custom_chip_spec(tmp_path):
 
 
 def test_restore_onto_a_mesh_waits_for_sharding(tmp_path):
+    """The restore onto a mesh no longer waits for the placements: in a
+    gloo world of one, a group named in `shardings` comes back as DTensors
+    on the mesh (the saved values), one not named is written in place."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import named_shardings
     mgr = tckpt.CheckpointManager(str(tmp_path))
-    mgr.save(1, {"params": {"w": torch.ones(2)}})
-    with pytest.raises(NotImplementedError, match="Sharding"):
-        mgr.restore({"params": {"w": torch.zeros(2)}},
-                    shardings={"params": object()})
+    w = torch.arange(8, dtype=torch.float32).reshape(2, 4)
+    mgr.save(1, {"params": {"w_in": w}, "plane": {"v": torch.ones(2)}})
+    store = dist.FileStore(tempfile.mktemp(prefix="store_"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), "cpu")
+        live = {"v": torch.zeros(2)}
+        _, out = mgr.restore(
+            {"params": {"w_in": torch.empty(2, 4, device="meta")},
+             "plane": live},
+            shardings={"params": named_shardings({"w_in": w}, mesh)})
+        got = out["params"]["w_in"]
+        assert isinstance(got, DTensor) and got.device_mesh == mesh
+        assert torch.equal(got.to_local(), w)
+        assert out["plane"]["v"] is live["v"]
+        assert torch.equal(live["v"], torch.ones(2))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_restore_reads_large_members_through_memory_maps(tmp_path):
+    """Members from `_MAP_BYTES` up come back as memory maps of the stored
+    bytes (f32 and bf16 bits), smaller ones as arrays of their own; either
+    restores bit for bit, and nothing restored is backed by the file."""
+    g = torch.Generator().manual_seed(5)
+    big = torch.randn(700_000, generator=g)
+    state = {"params": {"big": big, "bf16": big.to(torch.bfloat16),
+                        "small": big[:10].clone()}}
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    path = mgr.save(2, state)
+    with tckpt._NpzMembers(os.path.join(path, "arrays.npz")) as z:
+        assert isinstance(z["params::big"], np.memmap)
+        assert isinstance(z["params::bf16"], np.memmap)
+        assert not isinstance(z["params::small"], np.memmap)
+        assert np.array_equal(z["params::big"], big.numpy())
+    live = {"params": {"big": torch.zeros(700_000),
+                       "bf16": torch.zeros(700_000, dtype=torch.bfloat16),
+                       "small": torch.zeros(10)}}
+    _, out = mgr.restore(live)
+    for k, want in state["params"].items():
+        assert out["params"][k] is live["params"][k]
+        assert torch.equal(out["params"][k], want)
+    # a shape the live tensor does not have comes back as a copy
+    _, grown = mgr.restore({"params": {"big": torch.zeros(3),
+                                       "bf16": live["params"]["bf16"],
+                                       "small": live["params"]["small"]}})
+    grown["params"]["big"].add_(1.0)
+    with tckpt._NpzMembers(os.path.join(path, "arrays.npz")) as z:
+        assert np.array_equal(z["params::big"], big.numpy())
 
 
 # -- the in-place restore and the snapshot --------------------------------------------

@@ -58,7 +58,8 @@ def test_port_files_found():
             "ckpt.py", "_msgpack.py", "router.py", "traffic.py",
             "transceiver.py", "overhead.py", "granite_20b.py",
             "quickstart.py", "case_study_transceiver.py", "serve_decode.py",
-            "train_voltune_lm.py", "mesh.py"} <= names
+            "train_voltune_lm.py", "mesh.py", "sharding.py",
+            "elastic_restart.py"} <= names
 
 
 MESH = ROOT / "src" / "repro_torch" / "launch" / "mesh.py"
@@ -69,7 +70,8 @@ def test_mesh_module_switches_no_backend(check):
     """`launch/mesh.py` (imports already scanned above) picks no backend:
     no try/except to fall from one to another, no environment knob, and
     no process group of its own (the caller starts it). Across the port,
-    only the train example starts one, on the backend its flag names."""
+    only the examples start one: the train example on the backend its flag
+    names, the elastic example its gloo worlds of 4 and 8."""
     tree = ast.parse(MESH.read_text())
     if check == "no_try":
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
@@ -85,6 +87,7 @@ def test_mesh_module_switches_no_backend(check):
         starters = sorted(str(p.relative_to(ROOT)) for p in PORT_FILES
                           if p.name != "chip_smoke.py" and starts(p))
         assert starters == [
+            "src/repro_torch/examples/elastic_restart.py",
             "src/repro_torch/examples/train_voltune_lm.py"], starters
 
 
@@ -92,6 +95,13 @@ def test_mesh_module_switches_no_backend(check):
 def no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+
+
+def test_elastic_example_default_device_needs_a_card(no_card, tmp_path):
+    from repro_torch.examples import elastic_restart
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        elastic_restart.main(["--ckpt-dir", str(tmp_path / "ckpt")])
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_engine_default_device_needs_a_card(no_card):
