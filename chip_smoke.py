@@ -285,6 +285,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -5550,25 +5551,35 @@ def dp_oracle(dev, ranks: int) -> dict:
     return params, losses
 
 
-def run_tiny_sharded() -> tuple[dict, dict]:
-    """tiny_sharded and tiny_fsdp, run at once: an NCCL world of one (the
-    forced sharded paths against the unsharded ones, bit for bit), a gloo
-    world of 2 sharing the card (cuda against cpu, blocks against the
-    unsharded slices) and tiny_fsdp's gloo world of 4
-    (`shard_tiny_fsdp`). Returns the two phases' results."""
+def run_tiny_sharded() -> tuple[dict, dict, dict]:
+    """tiny_sharded, tiny_fsdp and tiny_tp, run at once: an NCCL world of
+    one (the forced sharded paths against the unsharded ones, bit for
+    bit), a gloo world of 2 sharing the card (cuda against cpu, blocks
+    against the unsharded slices), tiny_fsdp's gloo world of 4
+    (`shard_tiny_fsdp`) and tiny_tp's (`shard_tiny_tp`). Returns the
+    three phases' results."""
     t0 = time.perf_counter()
     res = run_worlds([("tiny_nccl", 1, "nccl"), ("tiny_gloo", 2, "gloo"),
-                      ("tiny_fsdp", 4, "gloo")], timeout_s=300)
+                      ("tiny_fsdp", 4, "gloo"), ("tiny_tp", 4, "gloo")],
+                     timeout_s=400)
     secs = time.perf_counter() - t0
-    launches = {}
-    for r in res["tiny_fsdp"]:
-        for run in r["runs"].values():
-            for k, v in run["launches"].items():
-                launches[k] = launches.get(k, 0) + v
+
+    def summed(job):
+        launches = {}
+        for r in res[job]:
+            for run in r["runs"].values():
+                for k, v in run["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        return launches
+
     return (dict(nccl_world_of_one=res["tiny_nccl"][0],
                  gloo_world_of_two=res["tiny_gloo"], seconds=secs),
-            dict(rank0=res["tiny_fsdp"][0]["runs"], launches=launches,
+            dict(rank0=res["tiny_fsdp"][0]["runs"],
+                 launches=summed("tiny_fsdp"),
                  ranks=len(res["tiny_fsdp"]), blocks_equal_oracle=True,
+                 seconds=secs),
+            dict(rank0=res["tiny_tp"][0]["runs"], launches=summed("tiny_tp"),
+                 ranks=len(res["tiny_tp"]), equal_oracle=True,
                  seconds=secs))
 
 
@@ -5702,10 +5713,11 @@ FSDP_LOSS_RTOL = 1e-3
 
 
 def blocks_close(got: dict, want: dict, label: str,
-                 flip_frac: float = TINY_FSDP_FLIP_FRAC) -> dict:
+                 flip_frac: float = TINY_FSDP_FLIP_FRAC,
+                 flip_gap: float = TINY_FSDP_FLIP_GAP) -> dict:
     """Every leaf of `got` within TINY_FSDP_TOL of `want` but for flips:
     at most `flip_frac` of the tree's elements (at least one), each within
-    TINY_FSDP_FLIP_GAP. Returns the largest gap and the flips' count."""
+    `flip_gap`. Returns the largest gap and the flips' count."""
     import numpy as np
     apart = size = 0
     worst = 0.0
@@ -5713,7 +5725,7 @@ def blocks_close(got: dict, want: dict, label: str,
         a, b = np.asarray(a, np.float64), np.asarray(_at(want, path))
         gap = np.abs(a - b)
         out = gap > TINY_FSDP_TOL["atol"] + TINY_FSDP_TOL["rtol"] * np.abs(b)
-        if gap.max(initial=0.0) > TINY_FSDP_FLIP_GAP:
+        if gap.max(initial=0.0) > flip_gap:
             raise AssertionError(f"{label} {path}: max gap {gap.max()}")
         apart, size = apart + int(out.sum()), size + a.size
         worst = max(worst, float(gap.max(initial=0.0)))
@@ -5839,18 +5851,19 @@ def fsdp_model(dev):
 
 class CommMeter:
     """Seconds and bytes of the placed step's collectives on this rank:
-    the gathers of whole leaves (`sharding.full_tensor`) and the gradient
-    reduction to blocks (`train.step._grad_block`), each timed between
-    two synchronizes (the wrappers are installed on the modules and
-    removed by `close`)."""
+    the gathers of its leaves' blocks along the mesh dims the forward
+    takes whole (`sharding.gather_dims`: the FSDP dims; a TP block stays
+    the rank's) and the gradient reduction to blocks
+    (`train.step._grad_block`), each timed between two synchronizes (the
+    wrappers are installed on the modules and removed by `close`)."""
 
     def __init__(self):
         from repro_torch.parallel import sharding as shd
         from repro_torch.train import step as step_mod
         self.mods = (shd, step_mod)
-        self.plain = (shd.full_tensor, step_mod._grad_block)
+        self.plain = (shd.gather_dims, step_mod._grad_block)
         self.reset()
-        shd.full_tensor = self._wrap(self.plain[0], "gather",
+        shd.gather_dims = self._wrap(self.plain[0], "gather",
                                      lambda out, a: out.numel()
                                      * out.element_size())
         step_mod._grad_block = self._wrap(
@@ -5875,7 +5888,7 @@ class CommMeter:
         return timed
 
     def close(self):
-        self.mods[0].full_tensor, self.mods[1]._grad_block = self.plain
+        self.mods[0].gather_dims, self.mods[1]._grad_block = self.plain
 
 
 def fsdp_train(dev, step_fn, state, batch, first: int, steps: int,
@@ -6124,11 +6137,698 @@ def _leaf_values(tree):
     return [leaf for _, leaf in _leaf_items(tree)]
 
 
+# -- tensor parallelism over 'model' (slice 21) -------------------------------------
+
+# tiny_tp: the card's one-process split run against the cpu's, f32 tiny
+# models (the same bound as tiny_fsdp's cuda against cpu). With int8
+# moments a float-level gradient gap flips a moment code now and then, and
+# a flipped element's update is bounded only by 1/eps
+# (`tests/test_torch_tp.py` INT8_FLIP_FRAC): the flips are counted, not
+# bounded
+TINY_TP_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+TINY_TP_INT8_FLIP_FRAC = 1e-3
+# main_serve_tp: Qwen2.5-14B at full width and depth over 2 model ranks
+# (24 of the 48 padded q heads and 8 of the 16 kv heads a rank), the main
+# phase's traffic (4 prompts of 256 tokens, 32 greedy tokens), weights
+# from seed 0 as `init_main` draws them. The split adds the two ranks' bf16
+# partial sums where the unsharded run sums one product: the logits part
+# by up to TP_LOGIT_ATOL (0.0850 measured at the first step, run 1 of PR
+# 32), and a token may part from the unsharded run's only where its top-2
+# gap is within twice that (the random weights' logits are flat: gaps of
+# 0–0.11)
+SERVE_TP = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, ranks=2)
+TP_LOGIT_ATOL = 0.25
+# main_train_tp: RWKV6-7B at full width (d_model 4096, 64 heads x 64) cut
+# to 4 of its 32 layers (the 4 ranks' memory on one card and the script's
+# time), 4 rows of 256 tokens, f32 AdamW, StepConfig(), over (data 2,
+# model 2): 32 heads a rank
+TRAIN_TP = dict(arch="rwkv6_7b", n_layers=4, batch=4, seq=256, steps=2,
+                shape=(2, 2))
+TP_LOSS_RTOL = 1e-6
+
+
+def tp_serve_launches(cfg, steps: int) -> dict:
+    """The launches of `sharded_worlds.tp_serve`'s placed prefill (TP_PROMPT
+    tokens: one launch a scan) and `steps` decode steps a rank (the encdec
+    family has no prefill: its encoder runs once, whole, for the cross
+    K/V, and the decoder attends twice a layer)."""
+    from repro_torch.kernels import ops
+    L = cfg.n_layers
+    want = {name: 0 for name in ops.KERNELS}
+    if cfg.family == "ssm":
+        want["rwkv6_scan"] = L * (1 + steps)
+    elif cfg.family == "hybrid":
+        n_occ = L // cfg.attn_every
+        want.update(mamba2_ssd=L * (1 + steps), flash_attention_fwd=n_occ,
+                    decode_attention=n_occ * steps)
+    elif cfg.family == "encdec":
+        want.update(flash_attention_fwd=cfg.n_enc_layers or L,
+                    decode_attention=2 * L * steps)
+    else:
+        want.update(flash_attention_fwd=L, decode_attention=L * steps)
+    return want
+
+
+def shard_tiny_tp(dev, rank, world, where) -> dict:
+    """One rank of tiny_tp: every family of `sharded_worlds.TP_ARCHS`
+    served placed (prefill, TP_NEW greedy decode steps) and the TP_TRAIN
+    placed train steps (tiny Grok-1 and Mistral-Large with int8 moments)
+    on the card over (data 2, model 2), the port's init from seed 0, each
+    rank's launches exact. Rank 0 runs the one-process split on the card
+    (`tp_serve_oracle`, `tp_train_oracle`) and holds every rank's logits,
+    tokens, caches, losses and blocks to it bit for bit, and that run to
+    the same run on the cpu (TINY_TP_LOGIT_TOL; train: `blocks_close`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import sharded_worlds as sw
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as shd
+    mesh = make_mesh(*sw.TP_MESH, dev.type)
+    out = {}
+    for arch, kw in sw.TP_ARCHS:
+        cfg = sw.fsdp_config(get_config, arch)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = sw.tp_serve(arch, mesh, dev)
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        want = tp_serve_launches(cfg, sw.TP_NEW)
+        if launches != want:
+            raise AssertionError(f"tiny_tp serve {arch} rank {rank}: "
+                                 f"launches {launches} != {want}")
+        every = [None] * world
+        dist.all_gather_object(every, got)
+        row = dict(seconds=secs,
+                   launches={k: v for k, v in launches.items() if v})
+        out[f"serve/{arch}"] = row
+        if rank != 0:
+            continue
+        oracle = sw.tp_serve_oracle(arch, dev)
+        k = sw.TP_BATCH // sw.TP_MESH[0][0]
+        for r, theirs in enumerate(every):
+            want_r = oracle[theirs["coord"]]
+            d = theirs["coord"][0]
+            same = all(np.array_equal(a, b) for a, b in
+                       zip(theirs["logits"], want_r["logits"])) and all(
+                np.array_equal(a[d * k:(d + 1) * k], b) for a, b in
+                zip(theirs["tokens"], want_r["tokens"])) and all(
+                np.array_equal(a, _at(want_r["cache"], path))
+                for path, a in _leaf_items(theirs["cache"]))
+            if not same:
+                raise AssertionError(f"tiny_tp serve {arch} rank {r}: not "
+                                     f"the one-process split's bits")
+        torch.set_num_threads(TINY_FSDP_CPU_THREADS)
+        cpu = sw.tp_serve_oracle(arch, "cpu")
+        torch.set_num_threads(2)
+        gap = 0.0
+        for coord, o in oracle.items():
+            for a, b in zip(o["logits"], cpu[coord]["logits"]):
+                np.testing.assert_allclose(a, b, **TINY_TP_LOGIT_TOL,
+                                           err_msg=f"tiny_tp {arch}")
+                gap = max(gap, float(np.abs(a - b).max()))
+        row.update(ranks_equal_oracle=True, cpu_logit_gap=gap)
+    for arch, dtype in sw.TP_TRAIN:
+        cfg = sw.fsdp_config(get_config, arch)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = sw.tp_train_run(arch, dtype, mesh, dev)
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        want = model_launches(cfg, sw.FSDP_STEPS)
+        if launches != want:
+            raise AssertionError(f"tiny_tp train {arch} rank {rank}: "
+                                 f"launches {launches} != {want}")
+        if dtype == "int8" and not got["restored"]:
+            raise AssertionError(f"tiny_tp {arch}: the placed int8 state "
+                                 f"did not restore bit for bit")
+        every = [None] * world
+        dist.all_gather_object(every, got)
+        row = dict(seconds=secs, loss=got["loss"], moments=dtype,
+                   launches={k: v for k, v in launches.items() if v})
+        out[f"train/{arch}"] = row
+        if rank != 0:
+            continue
+        oracle = sw.tp_train_oracle(arch, dtype, dev)
+        sh = shd.named_shardings(oracle["params"], mesh,
+                                 **dict(sw.TP_ARCHS)[arch])
+        for r, theirs in enumerate(every):
+            if theirs["loss"] != oracle["loss"] or \
+                    theirs["grad_norm"] != oracle["grad_norm"]:
+                raise AssertionError(f"tiny_tp train {arch} rank {r}: "
+                                     f"{theirs['loss']} != {oracle['loss']}")
+            for path, full in _leaf_items(oracle["params"]):
+                block = full[shd.block_index(full.shape, _at(sh, path),
+                                             theirs["coord"])]
+                if not np.array_equal(_at(theirs["params"], path), block):
+                    raise AssertionError(f"tiny_tp train {arch} rank {r}: "
+                                         f"params {path}")
+        torch.set_num_threads(TINY_FSDP_CPU_THREADS)
+        cpu = sw.tp_train_oracle(arch, dtype, "cpu")
+        torch.set_num_threads(2)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(oracle["loss"], cpu["loss"]))
+        if rel > TINY_FSDP_LOSS_RTOL:
+            raise AssertionError(f"tiny_tp {arch}: cuda {oracle['loss']} "
+                                 f"cpu {cpu['loss']}")
+        flips = ((TINY_TP_INT8_FLIP_FRAC, math.inf) if dtype == "int8"
+                 else (TINY_FSDP_FLIP_FRAC, TINY_FSDP_FLIP_GAP))
+        row.update(ranks_equal_oracle=True, cpu_loss_rel_gap=rel,
+                   cpu=blocks_close({"params": oracle["params"]},
+                                    {"params": cpu["params"]},
+                                    f"tiny_tp {arch}", *flips))
+    return dict(runs=out)
+
+
+def tp_blocks_of(cfg, params, rank: int, size: int) -> dict:
+    """This model rank's blocks of a whole parameter tree over a ('model',)
+    mesh of `size` (`sharding.tp_plan`), contiguous; each whole leaf is
+    dropped from `params` as its blocks are made."""
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    mesh = shd.SpecMesh(("model",), (size,))
+    dims = shd._tree_map(lambda s: s.shard_dims, shd.named_shardings(
+        registry.abstract_params(cfg), mesh))
+    plan = shd.tp_plan(dims, ("model",), ())
+
+    def one(leaf, d, keep):
+        if not keep:
+            return leaf.clone()
+        n = leaf.shape[d[keep[0]]] // size
+        return leaf.narrow(d[keep[0]], rank * n, n).contiguous()
+    return shd._tree_map(one, params, dims, plan)
+
+
+def tp_draw(cfg, dev, rank: int, size: int) -> dict:
+    """`init_main`'s weights (`lm.init_lm` from seed 0 on the card: the
+    embedding, the head, then each layer's draws) drawn in its order, a
+    layer at a time, keeping this model rank's blocks (`tp_plan` on a
+    ('model',) mesh of `size`): the rank never holds the whole model."""
+    import torch
+
+    from repro_torch.models import common, lm, registry
+    from repro_torch.parallel import sharding as shd
+    abstract = registry.abstract_params(cfg)
+    dims = shd._tree_map(lambda s: s.shard_dims, shd.named_shardings(
+        abstract, shd.SpecMesh(("model",), (size,))))
+    plan = shd.tp_plan(dims, ("model",), ())
+
+    def cut_dim(path):
+        keep = shd._get_path(plan, path)
+        return shd._get_path(dims, path)[keep[0]] if keep else None
+
+    def cut(path, leaf, lead: int = 0):
+        d = cut_dim(path)
+        if d is None:
+            return leaf
+        d -= lead
+        n = leaf.shape[d] // size
+        return leaf.narrow(d, rank * n, n).contiguous()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtype = common.default_dtype(cfg.dtype)
+    Vp, D = cfg.vocab_padded, cfg.d_model
+    out = {"embed": cut(("embed",), common.embed_init(gen, (Vp, D), dtype)),
+           "final_norm_w": torch.ones(D, dtype=dtype, device=dev),
+           "lm_head": cut(("lm_head",),
+                          common.dense_init(gen, (D, Vp), D, dtype))}
+
+    def local(path, a):
+        shape = list(a.shape)
+        d = cut_dim(("blocks",) + path)
+        if d is not None:
+            shape[d] //= size
+        return torch.empty(shape, dtype=a.dtype, device=dev)
+
+    blocks = shd._map_with_path(local, abstract["blocks"])
+    for i in range(cfg.n_layers):
+        layer = lm._init_block(gen, cfg, dtype)
+        shd._map_with_path(lambda path, a: shd._get_path(blocks, path)[i]
+                           .copy_(cut(("blocks",) + path, a, lead=1)),
+                           layer)
+        del layer
+    out["blocks"] = blocks
+    if set(abstract) != set(out):
+        raise ValueError(f"tp_draw draws {sorted(out)}, not "
+                         f"{sorted(abstract)}")
+    return out
+
+
+def tp_placed(cfg, blocks: dict, mesh) -> dict:
+    """DTensors on `mesh` (a ('model',) mesh) from this rank's blocks."""
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    abstract = registry.abstract_params(cfg)
+    return shd._tree_map(lambda b, sh, a: shd.from_block(b, sh,
+                                                         tuple(a.shape)),
+                         blocks, shd.named_shardings(abstract, mesh),
+                         abstract)
+
+
+def greedy_run(prefill, decode, vocab_size: int, n_vocab: int, prompts,
+               new: int, *, tp=False):
+    """Greedy decoding through `prefill(tokens) -> logits` and
+    `decode(tokens, i) -> logits` (each the last logits, [B, 1, V] or its
+    vocab block): the tokens fed, the last logits of every step (f32 on
+    the host) and, on whole logits, each step's smallest top-2 gap."""
+    import torch
+
+    from repro_torch.models import common
+    from repro_torch.parallel import sharding as shd
+    toks, logits_out, gaps = [], [], []
+    logits = prefill(prompts)
+    for i in range(new):
+        last = common.mask_padded_vocab(logits[:, -1].float().clone(),
+                                        vocab_size, n_vocab)
+        logits_out.append(last.cpu())
+        if not tp:
+            top2 = last.topk(2, -1).values
+            gaps.append(float((top2[:, 0] - top2[:, 1]).min()))
+        tok = shd.vocab_argmax(last, n_vocab)[:, None].to(torch.int32)
+        toks.append(tok.cpu())
+        if i + 1 < new:
+            logits = decode(tok, i)
+    return torch.cat(toks, 1), logits_out, gaps
+
+
+def shard_serve_tp(dev, rank, world, where) -> dict:
+    """One rank of main_serve_tp: SERVE_TP's model drawn a layer at a time
+    keeping this rank's blocks (`tp_draw`), placed over a ('model',) mesh
+    of the world, then the placed prefill and greedy decode
+    (`prefill_fn` / `decode_fn`, the cache placed by `serve_cache_pspecs`)
+    with the rank's launches exact, its decode timed; one more decode step
+    under `roofline.op_costs` (the collectives a token); the tokens and
+    the rank's logits blocks written to `where`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.op_costs import analyze_ops
+    cfg = get_config(SERVE_TP["arch"])
+    B, Tp, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
+    mesh = make_mesh((world,), ("model",), dev.type)
+    t0 = time.perf_counter()
+    params = tp_placed(cfg, tp_draw(cfg, dev, rank, world), mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_local = sum(a.to_local().numel() for a in _leaf_values(params))
+    api = registry.build(cfg)
+    prompts = torch.from_numpy(main_prompts(cfg, SERVE_TP)).to(dev)
+    max_len = Tp + new
+    state = {}
+
+    def prefill(tok):
+        logits, state["cache"], state["T"] = api.prefill_fn(params, tok,
+                                                            max_len)
+        return logits.to_local()
+
+    def decode(tok, i):
+        logits, state["cache"] = api.decode_fn(
+            params, state["cache"], {"tokens": tok,
+                                     "cur_index": state["T"] + i})
+        return logits.to_local()
+
+    # the mesh has no data axis: the batch is replicated
+    with torch.no_grad(), shd.mesh_context(mesh, {"batch": None}):
+        greedy_run(prefill, decode, cfg.vocab_size, cfg.vocab_padded,
+                   prompts[:, :16], 2, tp=True)        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens, logits, _ = greedy_run(prefill, decode, cfg.vocab_size,
+                                       cfg.vocab_padded, prompts, new,
+                                       tp=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        last = tokens[:, -1:].to(dev)
+        costs = analyze_ops(lambda: shd.vocab_argmax(
+            decode(last, new - 1)[:, -1].float(), cfg.vocab_padded))
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention_fwd=cfg.n_layers,
+                decode_attention=cfg.n_layers * (new - 1))
+    if launches != want:
+        raise AssertionError(f"main_serve_tp rank {rank}: launches "
+                             f"{launches} != {want}")
+    np.savez(where / f"rank{rank}.npz", tokens=tokens.numpy(),
+             logits=torch.stack(logits).numpy())
+    return dict(coord=tuple(mesh.get_coordinate()), params_local=n_local,
+                init_s=init_s, prefill_ms=prefill_s * 1e3,
+                decode_ms_per_token=(total_s - prefill_s) / (new - 1) * 1e3,
+                generate_s=total_s, peak_gb=peak_gb,
+                collectives_per_token=dict(costs.op_counts),
+                collective_bytes_per_token=dict(costs.collective_bytes),
+                launches={k: v for k, v in launches.items() if v})
+
+
+def run_main_serve_tp(dev, cfg, params) -> dict:
+    """main_serve_tp: the unsharded path's greedy run on `params` (the main
+    phase's weights: `lm.prefill` and `decode_step`, each step's logits
+    and smallest top-2 gap), then SERVE_TP over gloo model ranks sharing
+    the card (`shard_serve_tp`), then, after the ranks exit, the
+    one-process split of the same weights (`sharding.run_model_ranks`,
+    the ranks' blocks cut from `params`, which is emptied once they are
+    made: the card holds the weights twice at most): every rank's tokens
+    and logits equal the split's bit for bit, and the unsharded path's
+    within TP_LOGIT_ATOL, its tokens equal up to the first near-tie."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    t0 = time.perf_counter()
+    B, Tp, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
+    prompts = torch.from_numpy(main_prompts(cfg, SERVE_TP)).to(dev)
+    state = {}
+
+    def prefill(tok):
+        logits, state["cache"], state["T"] = lm.prefill(params, tok, cfg,
+                                                        Tp + new)
+        return logits
+
+    def decode(tok, i):
+        return lm.decode_step(params, state["cache"], tok, state["T"] + i,
+                              cfg)[0]
+
+    with torch.no_grad():
+        whole_tokens, whole_logits, gaps = greedy_run(
+            prefill, decode, cfg.vocab_size, cfg.vocab_padded, prompts, new)
+    state.clear()
+    ranks = run_worlds([("serve_tp", SERVE_TP["ranks"], "gloo")],
+                       timeout_s=600)["serve_tp"]
+    files = [np.load(SHARD_DIR / "serve_tp" / f"rank{r}.npz")
+             for r in range(SERVE_TP["ranks"])]
+    m = SERVE_TP["ranks"]
+    split = [tp_blocks_of(cfg, params, r, m) for r in range(m)]
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def oracle(r):
+        st = {}
+
+        def pre(tok):
+            logits, st["cache"], st["T"] = lm.prefill(split[r], tok, cfg,
+                                                      Tp + new)
+            return logits
+
+        def dec(tok, i):
+            return lm.decode_step(split[r], st["cache"], tok, st["T"] + i,
+                                  cfg)[0]
+        return greedy_run(pre, dec, cfg.vocab_size, cfg.vocab_padded,
+                          prompts, new, tp=True)
+
+    with torch.no_grad():
+        ref = shd.run_model_ranks(m, oracle)
+    del split
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r, f in enumerate(files):
+        if not (np.array_equal(f["tokens"], ref[r][0].numpy())
+                and np.array_equal(f["logits"],
+                                   torch.stack(ref[r][1]).numpy())):
+            raise AssertionError(f"main_serve_tp rank {r}: not the "
+                                 f"one-process split's tokens and logits")
+    joined = np.concatenate([f["logits"] for f in files], -1)
+    tp_tokens, want = files[0]["tokens"], whole_tokens.numpy()
+    # the inputs agree up to the first step whose token parts, so the
+    # logits are held there too; a token may part only where the unsharded
+    # top-2 gap is within twice the logits' tolerance
+    parted = [i for i in range(new)
+              if not np.array_equal(tp_tokens[:, i], want[:, i])]
+    first = parted[0] if parted else new
+    gap = max(float(np.abs(joined[i] - whole_logits[i].numpy()).max())
+              for i in range(min(first + 1, new)))
+    if gap > TP_LOGIT_ATOL:
+        raise AssertionError(f"main_serve_tp: logits {gap} from the "
+                             f"unsharded path's by step {first}")
+    if first < new and gaps[first] > 2 * TP_LOGIT_ATOL:
+        raise AssertionError(f"main_serve_tp: step {first}'s token parts "
+                             f"from the unsharded path's at a top-2 gap "
+                             f"of {gaps[first]}")
+    return dict(config=SERVE_TP, ranks=ranks, tokens_equal_unsharded_steps=
+                first, unsharded_top2_gaps=gaps, max_logit_gap=gap,
+                ranks_equal_oracle=True,
+                launches={k: sum(r["launches"].get(k, 0) for r in ranks)
+                          for k in ranks[0]["launches"]},
+                seconds=time.perf_counter() - t0)
+
+
+def tp_train_model(dev):
+    """TRAIN_TP's model: RWKV6-7B cut to its layers, random bf16 weights
+    from seed 0 on the card (the same on every rank), its loss (remat
+    "full"; the oracle's "none", the same bits) and step i's batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(get_config(TRAIN_TP["arch"]),
+                              n_layers=TRAIN_TP["n_layers"])
+    params = registry.build(cfg).init(
+        torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_TP["seq"],
+                                  TRAIN_TP["batch"]))
+    return cfg, params, lambda i: data.torch_batch(i, dev)
+
+
+def shard_train_tp(dev, rank, world, where) -> dict:
+    """One rank of main_train_tp: TRAIN_TP's params and f32 moments placed
+    over (data 2, model 2), TRAIN_TP["steps"] placed steps (the TP
+    forward: K9 on the rank's 32 heads) with exact launches; the losses,
+    the step times, the gathers' and reductions' seconds and bytes
+    (`CommMeter`), the digests of the rank's params blocks after them;
+    then one more step, not compared, under `roofline.op_costs` (the
+    collectives a step by kind); the peak."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline.op_costs import analyze_ops
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, params, batch = tp_train_model(dev)
+    mesh = make_mesh(TRAIN_TP["shape"], ("data", "model"), dev.type)
+    plane, ef = initial_plane_and_ef(params)
+    placed = shd.place(params, shd.named_shardings(params, mesh))
+    del params
+    torch.cuda.empty_cache()
+    # the f32 moments made on the rank's blocks (the whole model's would
+    # be 11.3 GB a rank while the four ranks share the card)
+    state = {"params": placed, "opt": placed_adamw_state(placed),
+             "plane": plane, "ef": ef}
+    step = fsdp_step_fn(cfg, registry.build(cfg, remat="full").loss_fn, mesh)
+    meter = CommMeter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with shd.mesh_context(mesh):
+        out = fsdp_train(dev, step, state, batch, 0, TRAIN_TP["steps"],
+                         meter)
+        launches = ops.launch_counts()
+        digests = block_digests(state["params"])
+        # one more step, not compared, for its collectives by kind
+        costs = analyze_ops(lambda: fsdp_train(
+            dev, step, state, batch, TRAIN_TP["steps"], 1, meter))
+    meter.close()
+    want = model_launches(cfg, TRAIN_TP["steps"])
+    if launches != want:
+        raise AssertionError(f"main_train_tp rank {rank}: launches "
+                             f"{launches} != {want}")
+    return dict(out, coord=tuple(mesh.get_coordinate()),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collectives_a_step=dict(costs.op_counts),
+                collective_bytes_a_step=dict(costs.collective_bytes),
+                launches={k: v for k, v in launches.items() if v},
+                digests=digests)
+
+
+def placed_adamw_state(placed) -> dict:
+    """`adamw.init_state` (f32 moments) of a placed params tree, made as
+    each rank's blocks: zero moments with the params' placements (their
+    `named_shardings` are the params'), the step replicated."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.parallel import sharding as shd
+
+    def zeros(a):
+        return DTensor.from_local(
+            torch.zeros(a.to_local().shape, dtype=torch.float32,
+                        device=a.to_local().device), a.device_mesh,
+            a.placements, run_check=False, shape=a.shape, stride=a.stride())
+
+    first = shd._leaves_of(placed)[0]
+    step = DTensor.from_local(
+        torch.zeros((), dtype=torch.int32, device=first.to_local().device),
+        first.device_mesh, [Replicate()] * first.device_mesh.ndim,
+        run_check=False)
+    return {"step": step, "m": shd._tree_map(zeros, placed),
+            "v": shd._tree_map(zeros, placed)}
+
+
+def run_main_train_tp(dev) -> dict:
+    """main_train_tp: TRAIN_TP over 4 gloo ranks sharing the card
+    (`shard_train_tp`), then the one-process oracle of the split on the
+    card (`sharded_worlds.placed_oracle`: each DP rank's rows in turn, its
+    two model ranks a thread each, the gradients added in rank order):
+    every rank's losses and params blocks equal the oracle's bit for
+    bit."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import sharded_worlds as sw
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    t0 = time.perf_counter()
+    ranks = run_worlds([("train_tp", 4, "gloo")],
+                       timeout_s=600)["train_tp"]
+    t1 = time.perf_counter()
+    cfg, params, batch = tp_train_model(dev)
+    n_params = sum(a.numel() for a in _leaf_values(params))
+    shape, names = TRAIN_TP["shape"], ("data", "model")
+    oracle = sw.placed_oracle(cfg, params,
+                              registry.build(cfg, remat="none").loss_fn,
+                              batch, [(shape, names)] * TRAIN_TP["steps"],
+                              shares=False, host=False)
+    spec = shd.SpecMesh(names, shape)
+    sh = shd.named_shardings(params, spec)
+    differ = []
+    for r in ranks:
+        if r["losses"] != oracle["loss"] or \
+                r["grad_norms"] != oracle["grad_norm"]:
+            raise AssertionError(
+                f"main_train_tp rank {r['rank']}: losses {r['losses']}, "
+                f"norms {r['grad_norms']} != {oracle['loss']}, "
+                f"{oracle['grad_norm']}")
+        for path, leaf in _leaf_items(params):
+            block = leaf[shd.block_index(tuple(leaf.shape), _at(sh, path),
+                                         tuple(r["coord"]))]
+            want = json.loads(json.dumps(list(leaf_digest(block))))
+            if r["digests"]["/".join(path)] != want:
+                differ.append(f"{r['rank']}:{'/'.join(path)}")
+    if differ:
+        raise AssertionError(f"main_train_tp: blocks differ from the "
+                             f"oracle's: {differ}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in ranks:
+        r.pop("digests")
+    return dict(config=TRAIN_TP, params=n_params, ranks=ranks,
+                losses=oracle["loss"], params_equal_oracle=True,
+                step_ms=ranks[0]["step_ms"], world_s=t1 - t0,
+                oracle_s=time.perf_counter() - t1,
+                launches={k: sum(r["launches"].get(k, 0) for r in ranks)
+                          for k in ranks[0]["launches"]},
+                seconds=time.perf_counter() - t0)
+
+
+# the dry run's cells `chip_smoke.py` runs (the whole grid's 64 take ~380 s
+# of one core, `PERF.md` §6, and slow the host-bound card phases beside
+# them): every family (dense, moe under moe_ep and the default rules, vlm,
+# encdec, hybrid, ssm), both meshes, both int8 train cells
+DRYRUN_CELLS = (("whisper_base", "decode_32k", "single"),
+                ("zamba2_1p2b", "long_500k", "single"),
+                ("rwkv6_7b", "long_500k", "single"),
+                ("qwen3_moe_30b_a3b", "prefill_32k", "single"),
+                ("minicpm_2b", "train_4k", "single"),
+                ("internvl2_2b", "decode_32k", "single"),
+                ("qwen2p5_14b", "decode_32k", "multi"),
+                ("grok1_314b", "train_4k", "multi"),
+                ("mistral_large_123b", "train_4k", "multi"))
+
+
+class DryRun:
+    """DRYRUN_CELLS through `python -m repro_torch.launch.dryrun --arch A
+    --shape S --mesh M` (CPU only), one process a cell in turn, in a thread
+    started beside the card's phases and joined at the end: each must
+    print `1/1 cells passed`."""
+
+    def __init__(self):
+        import threading
+        self.out = ROOT / "build" / "dryrun"
+        shutil.rmtree(self.out, ignore_errors=True)
+        self.out.mkdir(parents=True)
+        self.proc = None
+        self.stopped = False
+        self.done: list = []
+        self.t0 = time.perf_counter()
+        # a phase that fails before `join` leaves no process behind
+        import atexit
+        atexit.register(self.stop)
+        self.thread = threading.Thread(target=self._run)
+        self.thread.start()
+
+    def _run(self) -> None:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            if self.stopped:
+                return
+            where = self.out / f"{arch}.{shape}.{mesh}"
+            with open(self.out / "log.txt", "a") as log:
+                self.proc = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", str(where)],
+                    stdout=log, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                self.done.append((arch, shape, mesh, self.proc.wait()))
+
+    def stop(self) -> None:
+        self.stopped = True
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def join(self, timeout_s: float) -> dict:
+        self.thread.join(timeout_s)
+        alive = self.thread.is_alive()
+        self.stop()
+        self.thread.join()
+        secs = time.perf_counter() - self.t0
+        text = (self.out / "log.txt").read_text()
+        bad = [c for c in self.done if c[3] != 0]
+        if alive or bad or len(self.done) != len(DRYRUN_CELLS) or \
+                text.count("1/1 cells passed") != len(DRYRUN_CELLS):
+            raise AssertionError(f"dryrun: {len(self.done)} of "
+                                 f"{len(DRYRUN_CELLS)} cells ran, failed "
+                                 f"{bad}:\n" + text[-3000:])
+        recs = [json.loads((self.out / f"{a}.{s}.{m}" / f"dryrun_{m}.json")
+                           .read_text())[0] for a, s, m, _ in self.done]
+        return dict(cells=len(recs), ok=sum(r["ok"] for r in recs),
+                    seconds=secs, line=f"{len(recs)}/{len(recs)} cells",
+                    cell_s=sum(r["lower_s"] + r["compile_s"] for r in recs),
+                    records={f"{r['arch']}/{r['shape']}/{r['mesh']}":
+                             dict(flops=r["flops"],
+                                  peak_gb=r["memory"]["peak_bytes"] / 1e9,
+                                  collective_gb=r["collective_bytes"]
+                                  ["total"] / 1e9)
+                             for r in recs})
+
+
 SHARD_JOBS = {"tiny_nccl": shard_tiny_nccl, "tiny_gloo": shard_tiny_gloo,
               "routed": shard_routed, "train_dp": shard_train_dp,
               "tiny_fsdp": shard_tiny_fsdp,
               "fsdp_save": shard_train_fsdp_save,
-              "fsdp_restore": shard_train_fsdp_restore}
+              "fsdp_restore": shard_train_fsdp_restore,
+              "tiny_tp": shard_tiny_tp, "serve_tp": shard_serve_tp,
+              "train_tp": shard_train_tp}
 
 
 def sm90_hgmma(lib: Path) -> dict:
@@ -6192,6 +6892,7 @@ def main() -> int:
     _build.load()
     print(lib.with_name(lib.name + ".ptxas.txt").read_text(),
           file=sys.stderr)
+    dryrun = DryRun()              # CPU only: beside every card phase
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     kernels = {}
@@ -6217,15 +6918,21 @@ def main() -> int:
     result = run_main_host(dev, MAIN, cfg, params)
     by_path["serve-qwen-host"] = result["launches"]
     emit({"phase": "main_host", **result})
+    result = run_main_serve_tp(dev, cfg, params)     # empties params
+    by_path["serve-qwen-tp"] = {k: result["launches"].get(k, 0)
+                                for k in ops.KERNELS}
+    emit({"phase": "main_serve_tp", **result})
     del result, params
+    gc.collect()
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
 
     routed = Beside(run_tiny_routed)
     elastic = Beside(run_elastic_example, {name: 0 for name in ops.KERNELS})
-    tiny_sharded, tiny_fsdp = run_tiny_sharded()
+    tiny_sharded, tiny_fsdp, tiny_tp = run_tiny_sharded()
     emit({"phase": "tiny_routed", **routed.join()})
     emit({"phase": "tiny_sharded", **tiny_sharded})
     emit({"phase": "tiny_fsdp", **tiny_fsdp})
+    emit({"phase": "tiny_tp", **tiny_tp})
     elastic = elastic.join()
     gc.collect()
     torch.cuda.empty_cache()
@@ -6292,6 +6999,13 @@ def main() -> int:
                              for k in ops.KERNELS}
     emit({"phase": "main_train_fsdp", **result})
     del result
+    result = run_main_train_tp(dev)
+    by_path["train-tp"] = {k: result["launches"].get(k, 0)
+                           for k in ops.KERNELS}
+    emit({"phase": "main_train_tp", **result})
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()       # main_train_tp's oracle state is gone
 
     for tiny, phase, path, spec in (
             ("tiny_train_zamba", "main_train_zamba", "train-zamba",
@@ -6332,6 +7046,8 @@ def main() -> int:
     del result
     gc.collect()
     torch.cuda.empty_cache()       # main_train_ckpt's training state is gone
+
+    emit({"phase": "dryrun", **dryrun.join(timeout_s=600)})
 
     rows = []
     for name in ops.KERNELS:

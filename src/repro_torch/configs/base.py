@@ -2,7 +2,9 @@
 and sequence), the shape grid and the arch registry, copied from
 `repro/configs/base.py`. One module per ported architecture lives next to
 this file; each exports CONFIG (the published hyperparameters) and TINY (a
-reduced same-family config for CPU tests)."""
+reduced same-family config for CPU tests). `param_count` and
+`active_param_count` are the reference's approximate counts for the 6ND
+arithmetic of the dry run and the roofline."""
 
 from __future__ import annotations
 
@@ -66,6 +68,44 @@ class ModelConfig:
             if self.n_layers % g == 0:
                 return g
         return 1
+
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for 6ND math."""
+        D, F, V = self.d_model, self.d_ff, self.vocab_size
+        plan = None
+        n = V * D * 2  # embed + lm_head (untied)
+        for _ in range(self.n_layers):
+            if self.family in ("dense", "moe", "vlm", "encdec"):
+                if plan is None:
+                    plan = self.head_plan()
+                Dh = self.head_dim_
+                n += D * (plan.n_q_pad + 2 * plan.n_kv_pad) * Dh + plan.n_q_pad * Dh * D
+                if self.family == "moe" and self.n_experts:
+                    n += self.n_experts * 3 * D * F + D * self.n_experts
+                else:
+                    n += 3 * D * F
+            elif self.family == "hybrid":
+                d_in = 2 * D
+                n += D * (2 * d_in + 2 * self.ssm_state + d_in // 64) + d_in * D
+            elif self.family == "ssm":
+                n += 5 * D * D + 2 * D * F
+        if self.family == "encdec":
+            for _ in range(self.n_enc_layers):
+                Dh = self.head_dim_
+                n += 4 * D * self.n_heads * Dh + 2 * D * F
+                n += 4 * D * self.n_kv_heads * Dh  # cross-attn kv
+        return n
+
+    def active_param_count(self) -> int:
+        """MoE: parameters touched per token (for 6*N_active*D FLOPs math)."""
+        if self.family != "moe" or not self.n_experts:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        total = self.param_count()
+        moe_all = self.n_layers * self.n_experts * 3 * D * F
+        moe_active = self.n_layers * self.experts_per_token * 3 * D * F
+        return total - moe_all + moe_active
 
 
 @dataclasses.dataclass(frozen=True)

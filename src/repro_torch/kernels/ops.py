@@ -2,7 +2,14 @@
 
 Dispatch is by the device of the tensors: a CPU tensor runs the plain
 PyTorch version, a CUDA tensor launches the hand-written CUDA kernel (built
-at first use) or raises. There is no switch and no fallback.
+at first use) or raises. There is no switch and no fallback. A meta tensor
+(the dry run's, `launch/dryrun.py`) takes a third branch for the model
+path's kernels (K2-K5, K8, K9): outputs of the kernel's shapes, nothing
+computed, and the kernel's operations and bytes (the formulas of
+`chip_smoke.py`'s bounds) added to the active `kernel_costs()` counter. It
+never runs the plain version, which would materialise what the kernel
+never writes (K2's T x S scores at prefill_32k) or walk a scan step by
+step (524,288 Python steps a layer at long_500k).
 
 Launch counts: each kernel wrapper carries a `launches` integer that it
 increments where it launches its kernel and nowhere else;
@@ -19,6 +26,8 @@ process group."""
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import dataclasses
 import functools
@@ -61,16 +70,105 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+# -- the meta branch ---------------------------------------------------------------
+
+_COSTS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_costs", default=None)
+
+
+@contextlib.contextmanager
+def kernel_costs():
+    """Counts what the meta branch's kernels would do: yields {kernel name:
+    {"launches", "flops", "bytes"}}, filled as meta calls run."""
+    costs: dict = {}
+    token = _COSTS.set(costs)
+    try:
+        yield costs
+    finally:
+        _COSTS.reset(token)
+
+
+def _count(name: str, flops: float, n_bytes: float, launches: int = 1):
+    costs = _COSTS.get()
+    if costs is None:
+        return
+    row = costs.setdefault(name, {"launches": 0, "flops": 0.0,
+                                  "bytes": 0.0})
+    row["launches"] += launches
+    row["flops"] += float(flops)
+    row["bytes"] += float(n_bytes)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors
+               if a is not None)
+
+
+def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs one head of a flash call scores: all T x S,
+    or causally (the last query row at key S - 1) each row's keys, at most
+    `window` of them."""
+    if not causal:
+        return T * S
+    seen = np.minimum(np.arange(T, dtype=np.int64) + (S - T) + 1, S)
+    if window:
+        seen = np.minimum(seen, window)
+    return int(seen.clip(0).sum())
+
+
+def _flash_costs(q, k, causal, group, window):
+    B, T, Hq, Dh = q.shape
+    pairs = B * Hq * attention_pairs(T, k.shape[1], causal, window)
+    qb, kb = _nbytes(q), _nbytes(k)
+    stats = 4 * B * Hq * T
+    return pairs, qb, kb, stats
+
+
+class _MetaFlash(torch.autograd.Function):
+    """K2 on meta tensors (K4 + K5 its backward): shapes and costs only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, group, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = (causal, group, window)
+        pairs, qb, kb, stats = _flash_costs(q, k, causal, group, window)
+        _count("flash_attention_fwd", 4 * q.shape[3] * pairs,
+               2 * qb + 2 * kb + stats)
+        return torch.empty_like(q)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        pairs, qb, kb, stats = _flash_costs(q, k, *ctx.kw)
+        Dh = q.shape[3]
+        _count("flash_attention_bwd_dq", 6 * Dh * pairs,
+               3 * qb + 2 * kb + 2 * stats)
+        _count("flash_attention_bwd_dkv", 8 * Dh * pairs,
+               2 * qb + 4 * kb + 2 * stats)
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, group: int = 1,
                     sliding_window: int = 0):
     """q [B,T,Hq,Dh], k/v [B,S,Hkv,Dh] -> [B,T,Hq,Dh], differentiable: the
     forward is K2, the backward K4 + K5 (`flash_attention.FlashAttention`)."""
+    if q.device.type == "meta":
+        return _MetaFlash.apply(q, k, v, causal, group, sliding_window)
     return _fa.FlashAttention.apply(q, k, v, causal, group, sliding_window)
 
 
-def decode_attention(q, k, v, lengths, *, group: int = 1):
+def decode_attention(q, k, v, lengths, *, group: int = 1, n_valid=None):
     """q [B,1,Hq,Dh] against cache k/v [B,S,Hkv,Dh]; lengths [B] valid
-    slots."""
+    slots. On meta tensors (whose lengths hold no values) `n_valid`, the
+    valid slots of every row, sizes the count."""
+    if q.device.type == "meta":
+        B, _, Hq, Dh = q.shape
+        n = B * (k.shape[1] if n_valid is None else n_valid)
+        _count("decode_attention", 4 * Dh * Hq * n,
+               2 * _nbytes(q) + 2 * n * k.shape[2] * Dh * k.element_size()
+               + 4 * B)
+        return torch.empty_like(q)
     return _da.decode_attention(q, k, v, lengths, group=group)
 
 
@@ -145,6 +243,11 @@ def rwkv6_scan(r, k, v, w, u, *, init_state=None, state_out=None):
     the state returned. Under grad, with an input that requires one, the
     call is differentiable (`rwkv6_scan.Rwkv6Scan`: K9 forward, the plain
     version's gradient) and refuses `state_out`."""
+    if r.device.type == "meta":
+        return _meta_scan("rwkv6_scan", 5 * r.shape[3] ** 2 * r.shape[0]
+                          * r.shape[1] * r.shape[2], (r, k, v, w, u),
+                          init_state, state_out,
+                          (r.shape[0], r.shape[2], r.shape[3], v.shape[3]))
     if _differentiated(r, k, v, w, u, init_state):
         return _r6.Rwkv6Scan.apply(r, k, v, w, u, init_state, state_out)
     return _r6.rwkv6_scan(r, k, v, w, u, init_state=init_state,
@@ -159,10 +262,53 @@ def mamba2_scan(x, dt, A, B, C, D, *, init_state=None, state_out=None):
     returned. Under grad, with an input that requires one, the call is
     differentiable (`mamba2_ssd.Mamba2Scan`: K8 forward, the plain
     version's gradient) and refuses `state_out`."""
+    if x.device.type == "meta":
+        b, t, h, p = x.shape
+        return _meta_scan("mamba2_ssd", 5 * B.shape[3] * p * b * t * h,
+                          (x, dt, A, B, C, D), init_state, state_out,
+                          (b, h, B.shape[3], p))
     if _differentiated(x, dt, A, B, C, D, init_state):
         return _m2.Mamba2Scan.apply(x, dt, A, B, C, D, init_state, state_out)
     return _m2.mamba2_ssd(x, dt, A, B, C, D, init_state=init_state,
                           state_out=state_out)
+
+
+class _MetaScan(torch.autograd.Function):
+    """K8 / K9 on meta tensors: (y, final state) of the kernel's shapes and
+    its costs; the backward (the plain version's gradient on the card,
+    `ref.plain_vjp`) counted as twice the forward's operations, reading
+    the forward's inputs and outputs and writing the inputs' gradients."""
+
+    @staticmethod
+    def forward(ctx, name, flops, state_shape, init_state, *inputs):
+        ctx.name, ctx.flops = name, flops
+        ctx.n_in = len(inputs)
+        ctx.shapes = [(a.shape, a.dtype) for a in inputs]
+        ctx.init = None if init_state is None else (init_state.shape,
+                                                    init_state.dtype)
+        y = torch.empty_like(inputs[0])
+        state = torch.empty(state_shape, dtype=torch.float32,
+                            device=inputs[0].device)
+        ctx.io = _nbytes(*inputs, y, state, init_state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        _count(ctx.name + "_bwd_plain", 2 * ctx.flops, 2 * ctx.io,
+               launches=0)
+        grads = [torch.empty(s, dtype=d, device="meta")
+                 for s, d in ctx.shapes]
+        init = (None if ctx.init is None
+                else torch.empty(ctx.init[0], dtype=ctx.init[1],
+                                 device="meta"))
+        return (None, None, None, init, *grads)
+
+
+def _meta_scan(name, flops, inputs, init_state, state_out, state_shape):
+    y, state = _MetaScan.apply(name, flops, state_shape, init_state,
+                               *inputs)
+    _count(name, flops, _nbytes(*inputs, y, state, init_state))
+    return y, (state if state_out is None else state_out)
 
 
 def quantize_int8(x, *, block: int = 256):

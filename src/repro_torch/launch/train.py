@@ -22,7 +22,11 @@ restores the latest checkpoint in `--ckpt-dir` and continues from its
 step. Unlike the reference, which defaults to `/tmp/repro_train_ckpt`,
 no directory means no checkpoint.
 
-Not ported yet (raises `NotImplementedError`): `--dry-run`.
+`--dry-run` runs the dry run of the architecture's `train_4k` cell on
+both production meshes instead (`python -m repro_torch.launch.dryrun
+--arch A --shape train_4k --mesh both`, in a process of its own, which
+writes `reports/dryrun_single_multi.json` under the working directory)
+and exits with its code, as the reference's launcher does.
 """
 
 from __future__ import annotations
@@ -80,7 +84,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.dry_run:
-        raise NotImplementedError("--dry-run is not yet ported")
+        import subprocess
+        import sys
+        raise SystemExit(subprocess.call(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             args.arch, "--shape", "train_4k", "--mesh", "both"]))
     if args.resume and args.ckpt_dir is None:
         ap.error("--resume needs --ckpt-dir")
     device = resolve_device(args.device)

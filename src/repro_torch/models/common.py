@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import tp_local
+
 
 def default_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -101,19 +103,71 @@ def apply_rotary(x, sin, cos):
 # Loss
 # ---------------------------------------------------------------------------
 
-def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4):
+def softmax_cross_entropy(logits, labels, z_loss: float = 1e-4,
+                          n_vocab: int | None = None):
     """Mean token cross-entropy with optional z-loss; logits [*, V] cast to
-    f32. labels == -1 are masked out (padding)."""
+    f32. labels == -1 are masked out (padding). With `n_vocab` (the padded
+    vocab) and logits holding this rank's block of it, the vocab-parallel
+    form: the max, the sum of exponentials and the label's logit reduced
+    over the model group."""
+    tp = None if n_vocab is None else tp_local(logits.shape[-1], n_vocab)
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
-    ll = logits.gather(-1, safe[..., None])[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, safe[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        m = tp.max(logits.amax(-1))
+        lse = torch.log(tp.reduce(torch.exp(logits - m[..., None]).sum(-1))
+                        ) + m
+        local = safe - tp.rank * n
+        mine = (local >= 0) & (local < n)
+        ll = tp.reduce(torch.where(mine, logits.gather(
+            -1, local.clamp(0, n - 1)[..., None])[..., 0], 0.0))
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * lse.square()
     denom = mask.sum().clamp(min=1)
     return torch.where(mask, nll, 0.0).sum() / denom
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel embedding and logits
+# ---------------------------------------------------------------------------
+
+def embed_lookup(table, tokens, n_vocab: int):
+    """table[tokens]; where `table` holds this rank's block of the
+    `n_vocab` rows, a masked lookup of the rank's rows (zeros elsewhere)
+    reduced over the model group."""
+    tp = tp_local(table.shape[0], n_vocab)
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return tp.reduce(torch.where(mine[..., None], rows, 0))
+
+
+def mask_padded_vocab(logits, vocab_size: int, n_vocab: int):
+    """Sets the padded vocab slots (global index >= vocab_size) to -1e9 in
+    place, on the whole vocab or on this rank's block of it."""
+    tp = tp_local(logits.shape[-1], n_vocab)
+    lo = 0 if tp is None else tp.rank * logits.shape[-1]
+    start = max(vocab_size - lo, 0)
+    if start < logits.shape[-1]:
+        logits[..., start:] = -1e9
+    return logits
+
+
+def unembed(x, lm_head, n_vocab: int):
+    """x @ lm_head, where `lm_head` [D, Vp] may hold this rank's vocab
+    block: x then enters the model region, and the logits stay the rank's
+    block (the reference's logits sharded over vocab)."""
+    tp = tp_local(lm_head.shape[-1], n_vocab)
+    return (x if tp is None else tp.copy(x)) @ lm_head
 
 
 # ---------------------------------------------------------------------------

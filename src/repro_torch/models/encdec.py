@@ -140,7 +140,7 @@ def encode(params, frames, cfg: ModelConfig):
         a, _ = attn.attention_full(p["attn"], h, spec)
         x = x + a
         h = _ln(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp.gelu_mlp(p["mlp"], h)
+        x = x + mlp.gelu_mlp(p["mlp"], h, cfg.d_ff)
     return _ln(x, params["enc_ln"], cfg.norm_eps)
 
 
@@ -155,9 +155,16 @@ def cross_kv(params, enc_states, cfg: ModelConfig):
 
 
 def _mask_vocab(logits, cfg: ModelConfig):
-    if cfg.vocab_padded != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
-    return logits
+    return common.mask_padded_vocab(logits, cfg.vocab_size, cfg.vocab_padded)
+
+
+def _logits(params, x, cfg: ModelConfig):
+    """x @ lm_head: this rank's vocab block where `lm_head` holds one."""
+    return common.unembed(x, params["lm_head"], cfg.vocab_padded)
+
+
+def _embed(params, tokens, cfg: ModelConfig):
+    return common.embed_lookup(params["embed"], tokens, cfg.vocab_padded)
 
 
 def decode_train(params, enc_states, tokens, cfg: ModelConfig):
@@ -165,7 +172,7 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig):
     slots masked. Each layer computes its cross K/V from `enc_states`, so
     the pass differentiates through them."""
     B, T = tokens.shape
-    x = constrain(params["embed"][tokens.long()] + params["dec_pos"][None, :T],
+    x = constrain(_embed(params, tokens, cfg) + params["dec_pos"][None, :T],
                   "batch", "seq", "embed")
     sspec, cspec = dec_attn_spec(cfg), enc_attn_spec(cfg)
     for p in layer_views(params["dec_blocks"], cfg.n_layers):
@@ -177,10 +184,10 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig):
         a, _ = attn.attention_full(p["cross_attn"], h, cspec, cross_kv=ckv)
         x = x + a
         h = _ln(x, p["ln3"], cfg.norm_eps)
-        x = x + mlp.gelu_mlp(p["mlp"], h)
+        x = x + mlp.gelu_mlp(p["mlp"], h, cfg.d_ff)
     x = _ln(x, params["dec_ln"], cfg.norm_eps)
-    return constrain(_mask_vocab(x @ params["lm_head"], cfg), "batch", "seq",
-                     "vocab")
+    return constrain(_mask_vocab(_logits(params, x, cfg), cfg), "batch",
+                     "seq", "vocab")
 
 
 def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
@@ -189,15 +196,22 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     reference ignores it: the family keeps every activation."""
     enc = encode(params, batch["frames"], cfg)
     logits = decode_train(params, enc, batch["tokens"], cfg)
-    loss = common.softmax_cross_entropy(logits, batch["labels"])
+    loss = common.softmax_cross_entropy(logits, batch["labels"],
+                                        n_vocab=cfg.vocab_padded)
     return loss, {"ce_loss": loss,
                   "moe_aux": torch.zeros((), dtype=torch.float32,
                                          device=loss.device)}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda"):
-    """The decoder's self-attention KV cache, stacked over its layers."""
+                      device="cuda", model_ranks: int = 1):
+    """The decoder's self-attention KV cache, stacked over its layers (this
+    rank's kv heads with `model_ranks` > 1, as `lm.init_decode_cache`)."""
+    if model_ranks > 1:
+        from repro_torch.parallel.sharding import local_zeros, shapes_only
+        with shapes_only():
+            whole = init_decode_cache(cfg, batch, max_len, "meta")
+        return local_zeros(whole, model_ranks, device)
     dtype = common.default_dtype(cfg.dtype)
     kv = attn.init_kv_cache(batch, max_len, dec_attn_spec(cfg), dtype,
                             device)
@@ -211,8 +225,8 @@ def decode_step(params, cache, xkv, tokens, cur_index: int,
     -> (logits [B,1,Vp], cache), the self-attention cache written in place
     at slot `cur_index`; xkv: the stacked cross K/V from `cross_kv`. As in
     the reference, the padded vocab slots are not masked here."""
-    x = params["embed"][tokens.long()] + params["dec_pos"][cur_index][None,
-                                                                     None]
+    x = _embed(params, tokens, cfg) + params["dec_pos"][cur_index][None,
+                                                                   None]
     sspec, cspec = dec_attn_spec(cfg), enc_attn_spec(cfg)
     for i in range(cfg.n_layers):
         p = tree_map(lambda a: a[i], params["dec_blocks"])
@@ -227,6 +241,6 @@ def decode_step(params, cache, xkv, tokens, cur_index: int,
                                      cross_kv=(xkv["k"][i], xkv["v"][i]))
         x = x + a
         h = _ln(x, p["ln3"], cfg.norm_eps)
-        x = x + mlp.gelu_mlp(p["mlp"], h)
+        x = x + mlp.gelu_mlp(p["mlp"], h, cfg.d_ff)
     x = _ln(x, params["dec_ln"], cfg.norm_eps)
-    return x @ params["lm_head"], cache
+    return _logits(params, x, cfg), cache

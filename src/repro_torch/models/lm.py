@@ -13,8 +13,14 @@ sharding constraints are `parallel.sharding.constrain` at the same places
 (after each layer's attention residual, at each layer's end, on the
 embeddings and on the logits): the identity without an active mesh, and
 under `mesh_context` a redistribution of a DTensor activation (the placed
-train step's activations are plain tensors, each rank's own rows). Decode
-caches, which `decode_step` updates in place:
+paths' activations are plain tensors, each rank's own block). Where the
+params are a rank's blocks along 'model' (`parallel.sharding.tp_plan`),
+every family runs its tensor-parallel form: the vocab-parallel embedding
+and loss (`models/common.py`), attention, MLPs and MoE on the rank's
+heads, ff or experts, Mamba2 and RWKV6 on the rank's heads, and the decode
+caches hold the rank's heads (`sharding.serve_cache_pspecs`; the hybrid's
+conv_B / conv_C states are its channels, gathered whole to be read).
+Decode caches, which `decode_step` updates in place:
 
 - dense, moe, vlm: the KV cache `{"k", "v": [n_layers, B, S, nkv, Dh]}`;
 - ssm: the recurrent state `{"wkv": [n_layers, B, H, Dh, Dh] f32,
@@ -46,6 +52,7 @@ also under a checkpoint, and `forward_train` adds their sum to the loss.
 
 from __future__ import annotations
 
+import contextvars
 from typing import Any
 
 import torch
@@ -58,6 +65,7 @@ from repro_torch.models.attention import AttnSpec
 from repro_torch.models.mamba2 import Mamba2Spec
 from repro_torch.models.mlp import MoESpec
 from repro_torch.models.rwkv6 import Rwkv6Spec
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import constrain
 
 MOE_AUX_COEF = 0.01
@@ -281,16 +289,19 @@ def _train_group(ps, shared, x, positions, i0: int, cfg: ModelConfig):
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
-    return constrain(params["embed"][tokens.long()], "batch", "seq", "embed")
+    return constrain(common.embed_lookup(params["embed"], tokens,
+                                         cfg.vocab_padded),
+                     "batch", "seq", "embed")
 
 
 def logits_from(params, x, cfg: ModelConfig):
+    """The final norm and the unembedding; where `lm_head` holds this
+    rank's vocab block the logits stay that block."""
     x = common.rms_norm(x, params["final_norm_w"], cfg.norm_eps)
-    logits = constrain(x @ params["lm_head"], "batch", "seq", "vocab")
+    logits = constrain(common.unembed(x, params["lm_head"], cfg.vocab_padded),
+                       "batch", "seq", "vocab")
     # mask padded vocab slots out of the softmax
-    if cfg.vocab_padded != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e9
-    return logits
+    return common.mask_padded_vocab(logits, cfg.vocab_size, cfg.vocab_padded)
 
 
 def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
@@ -324,26 +335,39 @@ def forward_train(params, batch, cfg: ModelConfig, *, remat: str = "full"):
     layers = layer_views(params["blocks"], cfg.n_layers)
     G = cfg.remat_group_ if remat == "group" else 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a checkpointed group recomputes in the backward, on CUDA in the
+    # autograd engine's device thread, which does not see this thread's
+    # context variables: the recompute runs in a copy of the forward's (the
+    # mesh and model group of `parallel.sharding`, its batch statistic)
+    ctx = contextvars.copy_context()
     for i0 in range(0, cfg.n_layers, G):
         if remat == "none":
             x, a = _train_group(layers[i0:i0 + G], shared, x, positions, i0,
                                 cfg)
         else:
-            x, a = checkpoint(_train_group, layers[i0:i0 + G], shared, x,
-                              positions, i0, cfg, use_reentrant=False)
+            x, a = checkpoint(ctx.run, _train_group, layers[i0:i0 + G],
+                              shared, x, positions, i0, cfg,
+                              use_reentrant=False)
         if a is not None:
             aux = aux + a
     logits = logits_from(params, x, cfg)
-    loss = common.softmax_cross_entropy(logits, labels)
+    loss = common.softmax_cross_entropy(logits, labels,
+                                        n_vocab=cfg.vocab_padded)
     total = loss + MOE_AUX_COEF * aux / max(cfg.n_layers, 1)
     return total, {"ce_loss": loss, "moe_aux": aux}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device="cuda"):
+                      device="cuda", model_ranks: int = 1):
     """Stacked per-layer cache, laid out as the module docstring says (the
-    ssm family's ignores `max_len`)."""
+    ssm family's ignores `max_len`). With `model_ranks` > 1, this rank's
+    blocks along 'model' where `sharding.cache_pspecs` places a dim there
+    (the heads; the conv states' channels)."""
     _check_family(cfg)
+    if model_ranks > 1:
+        with shd.shapes_only():
+            whole = init_decode_cache(cfg, batch, max_len, "meta")
+        return shd.local_zeros(whole, model_ranks, device)
     dtype = common.default_dtype(cfg.dtype)
 
     def stack(c, n):
@@ -374,7 +398,7 @@ def _ffn(p, x, cfg: ModelConfig):
     if "moe" in p:
         m, am = mlp.moe_apply(p["moe"], h, moe_spec(cfg))
         return x + m, am["moe_aux"]
-    return x + mlp.swiglu(p["mlp"], h), None
+    return x + mlp.swiglu(p["mlp"], h, cfg.d_ff), None
 
 
 def _block_tail(p, x, cfg: ModelConfig):
@@ -391,10 +415,20 @@ def _mamba_layer(p, x, cfg: ModelConfig, state=None, ssm_out=None):
     return x + m, state
 
 
-def _mamba_state(cache, i: int):
+def _mamba_state(cache, i: int, cfg: ModelConfig):
     """Layer i's state in the hybrid cache, as views, in the reference's
-    tuple layout."""
-    return tuple(cache[k][i] for k in CONV_KEYS), cache["ssm"][i]
+    tuple layout. A conv state the cache holds as this rank's channels
+    while the layer computes it whole (conv_B, conv_C under tensor
+    parallelism) is gathered over the model group."""
+    spec = mamba_spec(cfg)
+    gn = spec.n_groups * spec.d_state
+    return tuple(cache[k][i] if k == "conv_x" else _whole(cache[k][i], gn)
+                 for k in CONV_KEYS), cache["ssm"][i]
+
+
+def _whole(state, n: int):
+    tp = shd.tp_local(state.shape[-1], n)
+    return state if tp is None else torch.cat(tp.gather_list(state), -1)
 
 
 def _shared_block(shared, x, i: int, cfg: ModelConfig, attend):
@@ -413,9 +447,15 @@ def _shared_block(shared, x, i: int, cfg: ModelConfig, attend):
 
 def _store_convs(cache, i: int, state) -> None:
     """Layer i's conv states into the hybrid cache (its ssm state is
-    already there: the scan wrote it in place)."""
+    already there: the scan wrote it in place); a state computed whole
+    where the cache holds this rank's channels is cut to them."""
     for key, value in zip(CONV_KEYS, state[0]):
-        cache[key][i].copy_(value)
+        dst = cache[key][i]
+        n = dst.shape[-1]
+        if value.shape[-1] != n:
+            r = shd.tp_local(n, value.shape[-1]).rank
+            value = value[..., r * n:(r + 1) * n]
+        dst.copy_(value)
 
 
 def _rwkv_layer(p, x, cfg: ModelConfig, state=None, wkv_out=None):
@@ -459,7 +499,7 @@ def decode_step(params, cache, tokens, cur_index: int, cfg: ModelConfig):
 
         for i in range(cfg.n_layers):
             x, state = _mamba_layer(_layer(params, i), x, cfg,
-                                    _mamba_state(cache["mamba"], i),
+                                    _mamba_state(cache["mamba"], i, cfg),
                                     ssm_out=cache["mamba"]["ssm"][i])
             _store_convs(cache["mamba"], i, state)
             x = _shared_block(params["shared"], x, i, cfg, attend)
@@ -480,7 +520,9 @@ def prefill(params, tokens, cfg: ModelConfig, max_len: int):
     _check_family(cfg)
     B, T = tokens.shape
     x = embed_tokens(params, tokens, cfg)
-    cache = init_decode_cache(cfg, B, max_len, x.device)
+    tp = shd.model_group()
+    cache = init_decode_cache(cfg, B, max_len, x.device,
+                              1 if tp is None else tp.size)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             x, state = _rwkv_layer(_layer(params, i), x, cfg,

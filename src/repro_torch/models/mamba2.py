@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.parallel.sharding import tp_local
 
 # parameters the reference creates in f32 whatever the model's dtype
 F32_PARAMS = ("A_log", "D", "dt_bias")
@@ -145,15 +146,20 @@ def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None,
     own ssm) the scan writes the new ssm state there in place and that
     tensor is returned."""
     B, T, _ = x.shape
-    H, N, G, P = spec.n_heads, spec.d_state, spec.n_groups, spec.head_dim
+    N, G, P = spec.d_state, spec.n_groups, spec.head_dim
     convs_prev = (None,) * 3 if init_state is None else init_state[0]
     ssm_prev = None if init_state is None else init_state[1]
+    # tensor parallelism over the SSD heads: z, x, dt, the x conv, A, D,
+    # dt_bias and the norm weight are the rank's; B and C stay whole
+    tp = tp_local(params["w_x"].shape[1], spec.d_inner)
+    xt = x if tp is None else tp.copy(x)
+    H = params["w_dt"].shape[1]
 
-    z = x @ params["w_z"]
-    xs = x @ params["w_x"]
+    z = xt @ params["w_z"]
+    xs = xt @ params["w_x"]
     Bm = x @ params["w_B"]
     Cm = x @ params["w_C"]
-    dt = x @ params["w_dt"]
+    dt = xt @ params["w_dt"]
 
     xs, sx = _causal_conv(xs, params["conv_x_w"], params["conv_x_b"],
                           prev=convs_prev[0])
@@ -161,6 +167,8 @@ def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None,
                           prev=convs_prev[1])
     Cm, sC = _causal_conv(Cm, params["conv_C_w"], params["conv_C_b"],
                           prev=convs_prev[2])
+    if tp is not None:
+        Bm, Cm = tp.copy(Bm), tp.copy(Cm)
 
     xh = xs.reshape(B, T, H, P)
     Bh = Bm.reshape(B, T, G, N)
@@ -170,9 +178,17 @@ def mamba2_forward(params, x, spec: Mamba2Spec, *, init_state=None,
 
     y, ssm_state = ops.mamba2_scan(xh, dts, A, Bh, Ch, params["D"],
                                    init_state=ssm_prev, state_out=ssm_out)
-    y = y.reshape(B, T, spec.d_inner)
-    y = common.rms_norm(y * F.silu(z.float()).to(y.dtype), params["norm_w"])
-    return y @ params["w_out"], ((sx, sB, sC), ssm_state)
+    y = y.reshape(B, T, H * P)
+    g = y * F.silu(z.float()).to(y.dtype)
+    if tp is None:
+        y = common.rms_norm(g, params["norm_w"])
+        return y @ params["w_out"], ((sx, sB, sC), ssm_state)
+    # the gated RMSNorm is over the whole d_inner: its sum of squares is
+    # reduced over the model group, then w_out is row-parallel
+    gf = g.float()
+    var = tp.allsum(gf.square().sum(-1, keepdim=True)) / spec.d_inner
+    y = (gf * torch.rsqrt(var + 1e-5) * params["norm_w"].float()).to(g.dtype)
+    return tp.reduce(y @ params["w_out"]), ((sx, sB, sC), ssm_state)
 
 
 def mamba2_decode(params, x, state, spec: Mamba2Spec):

@@ -10,7 +10,14 @@ expert-major layout (`[E, B*cap, ...]`, the reference's `[B, E, cap, ...]`
 with the expert axis first): the logical axes are given in that order.
 Its expert parallelism is the `moe_ep` placement profile
 (`parallel.sharding.PARAM_RULES_MOE_EP`); like the reference, the port has
-no all-to-all dispatch."""
+no all-to-all dispatch.
+
+Tensor parallelism: where a leaf holds this rank's block along 'model'
+(`parallel.sharding.tp_local`), the dense MLPs are column-parallel in and
+row-parallel out with one reduce over the model group; the MoE splits its
+experts' ff (the default rules) or, under `moe_ep`, computes the rank's
+experts only, and reduces the combined output. The router stays
+replicated, on true f32."""
 
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
-from repro_torch.parallel.sharding import batch_mean, constrain
+from repro_torch.parallel.sharding import batch_mean, constrain, tp_local
 
 
 # ---------------------------------------------------------------------------
@@ -36,11 +43,22 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu(params, x):
-    g = x @ params["w_gate"]
-    h = x @ params["w_in"]
+def _enter(w, dim: int, n_full, x):
+    """(tp group or None, x as the rank-local products take it): x enters
+    the model region where `w` holds a block of its dim `dim`."""
+    tp = None if n_full is None else tp_local(w.shape[dim], n_full)
+    return tp, (x if tp is None else tp.copy(x))
+
+
+def swiglu(params, x, d_ff: int | None = None):
+    """The SwiGLU; with `d_ff` and `w_gate` holding this rank's block of
+    it, column-parallel in and row-parallel out, reduced."""
+    tp, xt = _enter(params["w_gate"], 1, d_ff, x)
+    g = xt @ params["w_gate"]
+    h = xt @ params["w_in"]
     act = F.silu(g.float()).to(x.dtype) * h
-    return act @ params["w_out"]
+    y = act @ params["w_out"]
+    return y if tp is None else tp.reduce(y)
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -54,11 +72,14 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def gelu_mlp(params, x):
-    """`jax.nn.gelu` defaults to the tanh approximation, and so does this."""
-    h = x @ params["w_in"] + params["b_in"]
+def gelu_mlp(params, x, d_ff: int | None = None):
+    """`jax.nn.gelu` defaults to the tanh approximation, and so does this.
+    Tensor-parallel as `swiglu` (`b_out` added after the reduce)."""
+    tp, xt = _enter(params["w_in"], 1, d_ff, x)
+    h = xt @ params["w_in"] + params["b_in"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ params["w_out"] + params["b_out"]
+    y = h @ params["w_out"]
+    return (y if tp is None else tp.reduce(y)) + params["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -148,15 +169,24 @@ def moe_apply(params, x, spec: MoESpec):
     cap = moe_capacity(T, spec)
     gate_vals, idx, aux = moe_route(params, x, spec)
     rank, keep = moe_ranks(idx, E, cap)
-    flat_e = idx.reshape(B, T * K)
+    # tensor parallelism: the rank's block of the experts (moe_ep) or of
+    # their ff (the default rules)
+    tp_e = tp_local(params["w_gate"].shape[0], E)
+    tp = tp_e or tp_local(params["w_gate"].shape[2], spec.d_ff)
+    xt = x if tp is None else tp.copy(x)
+    E_l = params["w_gate"].shape[0]
+    e0 = 0 if tp_e is None else tp_e.rank * E_l
+    flat_e = idx.reshape(B, T * K) - e0
+    if tp_e is not None:
+        keep = keep & (flat_e >= 0) & (flat_e < E_l)
     rows = torch.arange(B, device=x.device)[:, None]
     slot = (flat_e * B + rows) * cap + rank                    # [B,TK]
-    n_rows = E * B * cap
+    n_rows = E_l * B * cap
     dest = torch.where(keep, slot, n_rows)
-    xr = x.repeat_interleave(K, dim=1)                         # [B,TK,D]
+    xr = xt.repeat_interleave(K, dim=1)                        # [B,TK,D]
     buf = x.new_zeros((n_rows + 1, D)).index_put(
         (dest.reshape(-1),), xr.reshape(-1, D))
-    buf = constrain(buf[:n_rows].view(E, B * cap, D), "experts", "batch",
+    buf = constrain(buf[:n_rows].view(E_l, B * cap, D), "experts", "batch",
                     "embed")
     g = torch.bmm(buf, params["w_gate"])
     h = torch.bmm(buf, params["w_in"])
@@ -167,5 +197,8 @@ def moe_apply(params, x, spec: MoESpec):
     y_slots = out[torch.where(keep, slot, 0)]                  # [B,TK,D]
     y_slots = torch.where(keep[..., None], y_slots, 0)
     w = gate_vals.reshape(B, T * K, 1).to(x.dtype)
+    if tp is not None:
+        # the gates (replicated) weight the rank's partial slots
+        w = tp.copy(w)
     y = (y_slots * w).view(B, T, K, D).sum(2)
-    return y, {"moe_aux": aux}
+    return (y if tp is None else tp.reduce(y)), {"moe_aux": aux}

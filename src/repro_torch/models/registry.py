@@ -3,6 +3,11 @@ dense, moe, vlm, ssm, hybrid) and the encoder-decoder (`encdec`) (port of
 `repro/models/registry.py`), plus `params_from_jax`, which carries a
 reference parameter tree (as numpy arrays) over into the port.
 
+`prefill_fn` and `decode_fn` also take params placed by
+`parallel.sharding.named_shardings` (DTensors): each rank then runs the
+tensor-parallel forward on its blocks and its rows, and the logits and the
+cache come back placed (`_placed_prefill`, `_placed_decode`).
+
 `abstract_params`, `input_specs` and `abstract_decode_cache` are the
 reference's shape-only stand-ins (`jax.eval_shape`, `ShapeDtypeStruct`):
 here tensors on `torch.device("meta")`, which carry shape and dtype and
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import common, encdec, lm
+from repro_torch.parallel import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +43,8 @@ def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
 
         def enc_decode_fn(params, cache, batch):
             # batch: tokens [B,1], cur_index, the stacked cross K/V
+            if shd.is_placed(params):
+                return _placed_decode(cfg, params, cache, batch)
             return encdec.decode_step(params, cache, batch["cross_kv"],
                                       batch["tokens"], batch["cur_index"],
                                       cfg)
@@ -56,10 +64,14 @@ def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
         return lm.forward_train(params, batch, cfg, remat=remat)
 
     def decode_fn(params, cache, batch):
+        if shd.is_placed(params):
+            return _placed_decode(cfg, params, cache, batch)
         return lm.decode_step(params, cache, batch["tokens"],
                               batch["cur_index"], cfg)
 
     def prefill_fn(params, tokens, max_len):
+        if shd.is_placed(params):
+            return _placed_prefill(cfg, params, tokens, max_len)
         return lm.prefill(params, tokens, cfg, max_len)
 
     return ModelApi(
@@ -71,6 +83,71 @@ def build(cfg: ModelConfig, *, remat: str = "full") -> ModelApi:
         decode_fn=decode_fn,
         prefill_fn=prefill_fn,
     )
+
+
+# -- placed serving --------------------------------------------------------------
+
+def serve_setup(params, batch_rows: int):
+    """(mesh, batch axes, the params as the TP forward takes them: each
+    leaf's block along 'model', gathered whole along the other mesh
+    dims)."""
+    mesh = shd.mesh_of(params)
+    axes = shd.serve_batch_axes(mesh, batch_rows)
+    dp = tuple(i for i, a in enumerate(mesh.mesh_dim_names)
+               if a in (axes or ()))
+    return mesh, axes, shd.tp_blocks(params, dp)
+
+
+def _placed_logits(logits, cfg: ModelConfig, mesh, axes, rows: int):
+    vocab = "model" if logits.shape[-1] != cfg.vocab_padded else None
+    with shd.shapes_only():
+        whole = torch.empty((rows,) + tuple(logits.shape[1:-1])
+                            + (cfg.vocab_padded,), device="meta")
+    return shd.place_blocks(logits, shd.P(axes, None, vocab), whole, mesh)
+
+
+def _placed_prefill(cfg: ModelConfig, params, tokens, max_len: int):
+    """`prefill` on params placed by `named_shardings` (DTensors), under
+    the ambient `mesh_context`: the rank's rows of `tokens` (the global
+    batch) over the batch axes, the TP forward on the rank's blocks, and
+    the outputs placed: the last logits over the batch axes and (where
+    `lm_head` is a vocab block) over 'model', the cache by
+    `sharding.serve_cache_pspecs` (`cache_pspecs`, the RWKV6 state by its
+    heads)."""
+    B = tokens.shape[0]
+    mesh, axes, p = serve_setup(params, B)
+    tok = shd.local_inputs({"tokens": tokens},
+                           shd.batch_pspecs({"tokens": tokens}, axes),
+                           mesh)["tokens"]
+    with shd.model_group_context(shd.mesh_model_group(mesh)):
+        logits, cache, T = lm.prefill(p, tok, cfg, max_len)
+    with shd.shapes_only():
+        whole = lm.init_decode_cache(cfg, B, max_len, "meta")
+    cache = shd.place_blocks(
+        cache, shd.serve_cache_pspecs(whole, mesh, batch_axes=axes), whole,
+        mesh)
+    return _placed_logits(logits, cfg, mesh, axes, B), cache, T
+
+
+def _placed_decode(cfg: ModelConfig, params, cache, batch):
+    """`decode_fn` on placed params and a cache placed by
+    `serve_cache_pspecs` (DTensors, written in place through their local
+    blocks): the batch is global (each rank takes its block by
+    `sharding.batch_pspecs`), the logits come back placed as
+    `_placed_prefill`'s."""
+    B = batch["tokens"].shape[0]
+    mesh, axes, p = serve_setup(params, B)
+    local = shd.local_inputs(batch, shd.batch_pspecs(batch, axes), mesh)
+    c = shd.to_local_tree(cache)
+    with shd.model_group_context(shd.mesh_model_group(mesh)):
+        if cfg.family == "encdec":
+            logits, _ = encdec.decode_step(p, c, local["cross_kv"],
+                                           local["tokens"],
+                                           batch["cur_index"], cfg)
+        else:
+            logits, _ = lm.decode_step(p, c, local["tokens"],
+                                       batch["cur_index"], cfg)
+    return _placed_logits(logits, cfg, mesh, axes, B), cache
 
 
 def abstract_params(cfg: ModelConfig):

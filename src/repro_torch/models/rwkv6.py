@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.parallel.sharding import tp_local
 
 # parameters the reference creates in f32 whatever the model's dtype
 F32_PARAMS = ("decay_base", "bonus_u")
@@ -107,7 +108,7 @@ def rwkv6_time_mix(params, x, spec: Rwkv6Spec, *, init_state=None,
     may be `init_state`) the scan writes the new state there in place and
     that tensor is returned."""
     B, T, D = x.shape
-    H, Dh, R = spec.n_heads, spec.head_dim, spec.lora_rank
+    Dh, R = spec.head_dim, spec.lora_rank
     xs = _token_shift(x, last_x)
     dx = xs - x
 
@@ -116,34 +117,74 @@ def rwkv6_time_mix(params, x, spec: Rwkv6Spec, *, init_state=None,
     dyn = torch.einsum("btfr,frd->btfd", lora.to(x.dtype), params["mix_w2"])
     mix = params["mix_base"] + dyn                               # [B,T,5,D]
     xw, xk, xv, xr, xg = (x + dx * mix[:, :, i] for i in range(5))
+    dec_in = torch.tanh((xw @ params["decay_w1"]).float()).to(x.dtype)
 
+    # tensor parallelism over the heads: r, k, v, g, the decay and the
+    # bonus are the rank's; the mixed inputs (and the decay's low-rank
+    # input) enter the model region
+    tp = tp_local(params["w_r"].shape[1], D)
+    if tp is not None:
+        xk, xv, xr, xg, dec_in = (tp.copy(a) for a in (xk, xv, xr, xg,
+                                                       dec_in))
+    Dl = params["w_r"].shape[1]
+    H = Dl // Dh
     r = (xr @ params["w_r"]).reshape(B, T, H, Dh)
     k = (xk @ params["w_k"]).reshape(B, T, H, Dh)
     v = (xv @ params["w_v"]).reshape(B, T, H, Dh)
     g = xg @ params["w_g"]
 
-    dec = torch.tanh((xw @ params["decay_w1"]).float()).to(x.dtype) \
-        @ params["decay_w2"]
-    w_log = -torch.exp(params["decay_base"] + dec.float())
+    dec = dec_in @ params["decay_w2"]
+    w_log = -torch.exp(_slice(tp, params["decay_base"], Dl) + dec.float())
     w_log = w_log.reshape(B, T, H, Dh)
 
     y, state = ops.rwkv6_scan(r, k, v, w_log, params["bonus_u"],
                               init_state=init_state, state_out=state_out)
-    y = common.layer_norm(y.reshape(B, T, D), params["ln_x_w"],
-                          params["ln_x_b"])
+    y = y.reshape(B, T, Dl)
+    if tp is None:
+        y = common.layer_norm(y, params["ln_x_w"], params["ln_x_b"])
+    else:
+        # ln_x is over the whole D: its mean and variance are reduced over
+        # the model group; its weight and bias are cut to the rank's slice
+        yf = y.float()
+        mu = tp.allsum(yf.sum(-1, keepdim=True)) / D
+        var = tp.allsum((yf - mu).square().sum(-1, keepdim=True)) / D
+        y = ((yf - mu) * torch.rsqrt(var + 1e-5)
+             * _slice(tp, params["ln_x_w"], Dl).float()
+             + _slice(tp, params["ln_x_b"], Dl).float()).to(y.dtype)
     y = y * F.silu(g.float()).to(y.dtype)
-    return y @ params["w_o"], (state, x[:, -1:])
+    out = y @ params["w_o"]
+    return (out if tp is None else tp.reduce(out)), (state, x[:, -1:])
+
+
+def _slice(tp, w, n: int):
+    """`w` ([D], replicated over 'model') as this rank's block of `n`
+    entries, through the model region, so its gradient is the sum of the
+    ranks' blocks: whole on every rank."""
+    if tp is None:
+        return w
+    return tp.copy(w)[tp.rank * n:(tp.rank + 1) * n]
 
 
 def rwkv6_channel_mix(params, x, *, last_x=None):
-    """x [B,T,D] -> (y, last token [B,1,D])."""
+    """x [B,T,D] -> (y, last token [B,1,D]). Tensor-parallel where the
+    leaves hold this rank's blocks (`cm_wr` of its columns, `cm_wk` of the
+    ff): cm_wk column-parallel, cm_wv row-parallel and reduced, and the
+    receptance gate's columns (cm_wr, column-parallel) gathered from the
+    ranks (an activation of [B, T, D], where gathering cm_wr whole would
+    move [D, D] a layer)."""
     xs = _token_shift(x, last_x)
     dx = xs - x
     xk = x + dx * params["cmix_k"]
     xr = x + dx * params["cmix_r"]
+    tp = tp_local(params["cm_wr"].shape[1], x.shape[-1])
+    if tp is not None:
+        xk, xr = tp.copy(xk), tp.copy(xr)
     k = torch.square(torch.relu((xk @ params["cm_wk"]).float())).to(x.dtype)
     r = torch.sigmoid((xr @ params["cm_wr"]).float()).to(x.dtype)
-    return r * (k @ params["cm_wv"]), x[:, -1:]
+    kv = k @ params["cm_wv"]
+    if tp is not None:
+        kv, r = tp.reduce(kv), tp.gather(r, -1)
+    return r * kv, x[:, -1:]
 
 
 def init_rwkv6_state(batch: int, spec: Rwkv6Spec, dtype=torch.bfloat16,

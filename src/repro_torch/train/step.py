@@ -38,22 +38,30 @@ Sharding over `torch.distributed` (the reference's `shard_map` paths):
   the plane stay each rank's own, where the reference declares them
   replicated (`out_specs=P()`) and returns one device's.
 
-Placed (FSDP) training, `make_train_step(..., mesh=)`: the counterpart of
-the reference's `jax.jit(step)` called with params and moments placed by
+Placed training, `make_train_step(..., mesh=)`: the counterpart of the
+reference's `jax.jit(step)` called with params and moments placed by
 `parallel.sharding.named_shardings` and the batch over the DP axes. The
-params and the f32 AdamW moments are DTensors (`sharding.place`); each
-step
-- takes this rank's rows of the batch over the DP axes (they must split
-  evenly, so the mean of the ranks' mean losses is the batch's);
-- gathers every leaf whole (`sharding.full_tensor`: one `all_gather` a
-  sharded mesh dim), so the loss, its gradients and every hand-written
-  kernel run on plain local tensors;
-- cuts each gradient to this rank's block of its leaf's placement: along a
-  non-DP mesh dim (`model`) the ranks hold the same rows and computed the
-  same gradient, so a cut needs no collective; along a DP dim the blocks
+params and the AdamW moments are DTensors (`sharding.place`); each step
+- takes this rank's rows of the batch over the DP axes (those the active
+  `mesh_context` resolves the batch to, else 'pod' and 'data'; the rows
+  must split evenly, so the mean of the ranks' mean losses is the
+  batch's);
+- gathers each leaf along its DP and FSDP mesh dims only
+  (`sharding.gather_dims`: one `all_gather` a dim) and keeps its block
+  along 'model' where the leaf is a tensor-parallel block
+  (`sharding.tp_plan`: heads, kv heads, ff, vocab, ssm heads, the MoE's
+  experts or ff), so the loss runs the TP forward on the rank's blocks
+  under the mesh's model group (`sharding.model_group_context`; the
+  regions' collectives are the models'), and every hand-written kernel
+  runs on the rank's heads;
+- reduces each gradient to this rank's block of its leaf's placement: a
+  TP block's gradient is already the rank's; along a DP dim the blocks
   are exchanged (`all_to_all_single`, a reduce-scatter in rank order) or,
   where the leaf is replicated over it, gathered whole, and added in rank
   order in f32 (`_rank_order_sum`), then divided by the DP ranks' count;
+  along a non-DP dim that is not a TP block (the wide-FSDP profile's
+  model dim where the batch is not split over it) the ranks computed the
+  same gradient, which is cut;
 - takes a statistic of the whole batch that a loss reads without a
   gradient (the MoE's top-1 expert shares, `sharding.batch_mean`) as the
   mean over the DP ranks, so the ranks' mean loss and gradient are the
@@ -63,12 +71,19 @@ step
 - updates this rank's blocks of the params and moments in place with the
   same AdamW (`adamw.apply_updates(..., grad_norm=)`): the update is
   elementwise, so a block equals the slice of the same update made whole.
-A one-process run that takes each rank's rows in turn, adds their
+  The int8 moments are flat `[n_blocks, 256]` codes of the leaf's
+  row-major flattening, placed over FSDP on their rows: the gradient is
+  gathered whole along 'model' and reduced straight into the moments'
+  rows, the param's value cut to the same rows, and the rows updated
+  (whole 256-element blocks, the norm over the rows' blocks); the updated
+  rows are gathered and the rank's block of the param's own placement
+  written back, so the result is the unplaced int8 update's bits.
+A one-process run that takes each rank's rows in turn, splits the model
+ranks as the TP forward does (`sharding.run_model_ranks`), adds the
 gradients in rank order and takes the norm block by block makes the same
-bits (`tests/sharded_worlds.py` `placed_oracle`). The int8 moments (flat
-`[n_blocks, 256]` codes whose blocks do not line up with a param placed on
-another dim) and the ef sync are refused on a placed step
-(`NotImplementedError`).
+bits (`tests/sharded_worlds.py` `placed_oracle`). The ef sync is refused
+on a placed step (`NotImplementedError`): the reference's binds a data
+axis through `shard_map_ef_step`, which keeps the params replicated.
 """
 
 from __future__ import annotations
@@ -562,13 +577,15 @@ def _exchange(x, d: int, group, n: int):
     return recv.unbind(0)
 
 
-def _grad_block(g, mesh, dims: tuple, dp: tuple) -> torch.Tensor:
+def _grad_block(g, mesh, dims: tuple, dp: tuple, keep: tuple = ()
+                ) -> torch.Tensor:
     """This rank's block of the sum over the DP ranks of their gradients of
-    one leaf (`g`, this rank's gradient of the whole leaf; `dims`, per mesh
-    dim the tensor dim it shards), in f32. Mesh dims cut in mesh order, as
-    DTensor nests them; a non-DP cut on a tensor dim no other mesh dim
-    shards goes first, since cuts on distinct dims commute and it shrinks
-    what the DP dims move."""
+    one leaf (`g`, this rank's gradient of the leaf as the forward took it:
+    its block along the TP mesh dims `keep`, whole along the others;
+    `dims`, per mesh dim the tensor dim it shards), in f32. Mesh dims cut
+    in mesh order, as DTensor nests them; a non-DP cut on a tensor dim no
+    other mesh dim shards goes first, since cuts on distinct dims commute
+    and it shrinks what the DP dims move."""
     coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
 
     def cut(x, i):
@@ -576,12 +593,13 @@ def _grad_block(g, mesh, dims: tuple, dp: tuple) -> torch.Tensor:
         return x.narrow(dims[i], coord[i] * k, k)
 
     alone = [i for i, d in enumerate(dims)
-             if d is not None and i not in dp and dims.count(d) == 1]
+             if d is not None and i not in dp and i not in keep
+             and dims.count(d) == 1]
     for i in alone:
         g = cut(g, i)
     summed = False
     for i, d in enumerate(dims):
-        if i in alone:
+        if i in alone or i in keep:
             continue
         if i not in dp:
             if d is not None:
@@ -625,6 +643,38 @@ def _placed_norm(blocks: list, dims: list, mesh):
     return torch.sqrt(total)
 
 
+def _placed_dp(mesh) -> tuple[str, ...]:
+    """The placed step's data-parallel axes: those the active
+    `mesh_context` resolves the batch to (the wide-FSDP profile puts it
+    over data and model), else the mesh's 'pod' and 'data'."""
+    from repro_torch.launch.mesh import dp_axes
+    if shd.active_mesh() is None:
+        return dp_axes(mesh)
+    return tuple(a for a in shd._entry_axes(shd.resolve("batch")[0])
+                 if a in mesh.mesh_dim_names)
+
+
+def _flat_rows(x, n_blocks: int):
+    """`x` flattened in row-major order and zero-padded into
+    `[n_blocks, Q_BLOCK]` rows (the int8 moments' layout)."""
+    flat = x.reshape(-1)
+    pad = n_blocks * adamw.Q_BLOCK - flat.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.view(n_blocks, adamw.Q_BLOCK)
+
+
+def _cut(x, mesh, dims: tuple):
+    """This rank's block of a whole `x` under `dims` (per mesh dim the
+    tensor dim it shards), cut in mesh order."""
+    coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
+    for i, d in enumerate(dims):
+        if d is not None:
+            k = x.shape[d] // sizes[i]
+            x = x.narrow(d, coord[i] * k, k)
+    return x
+
+
 def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
     """The model side of the placed step (module docstring), with the
     signature of `_grads_and_update` once its configuration is bound."""
@@ -632,18 +682,15 @@ def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
     if step_cfg.grad_sync != "auto":
         raise NotImplementedError(
             f"grad_sync={step_cfg.grad_sync!r} on placed parameters: the "
-            "ef sync runs over replicated params (shard_map_ef_step)")
-    if opt_cfg.state_dtype != "float32":
-        raise NotImplementedError(
-            "int8 AdamW moments on placed parameters: their flat "
-            "[n_blocks, 256] codes do not line up with a param's blocks; "
-            "place f32 moments")
-    from repro_torch.launch.mesh import dp_axes
-    names = tuple(mesh.mesh_dim_names)
-    dp = tuple(names.index(a) for a in dp_axes(mesh))
-    rows, n_dp = _dp_rows(mesh, dp_axes(mesh))
+            "ef sync runs over replicated params (shard_map_ef_step), as "
+            "the reference's pmean needs a bound data axis")
+    int8 = opt_cfg.state_dtype == "int8"
 
     def update(params, opt_state, ef_resid, batch):
+        names = tuple(mesh.mesh_dim_names)
+        dp_names = _placed_dp(mesh)
+        dp = tuple(names.index(a) for a in dp_names)
+        rows, n_dp = _dp_rows(mesh, dp_names)
         paths = adamw.leaf_paths(params)
         leaves = [adamw.get_path(params, p) for p in paths]
         for path, leaf in zip(paths, leaves):
@@ -652,31 +699,74 @@ def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
                                  "placed on the step's mesh "
                                  "(sharding.place)")
         dims = [shd.sharding_of(a)[1] for a in leaves]
-        full = _tree(paths, [shd.full_tensor(a).detach() for a in leaves])
-        with shd.batch_context(lambda x: _dp_mean(x, mesh, dp)):
+        plan = shd.tp_plan(_tree(paths, dims), names, dp)
+        keep = [adamw.get_path(plan, p) for p in paths]
+        local = _tree(paths, [shd.gather_dims(
+            a.to_local(), mesh, d,
+            tuple(i for i in range(mesh.ndim) if i not in k)).detach()
+            for a, d, k in zip(leaves, dims, keep)])
+        group = (None if "model" not in names or names.index("model") in dp
+                 else shd.mesh_model_group(mesh))
+        with shd.batch_context(lambda x: _dp_mean(x, mesh, dp)), \
+                shd.model_group_context(group):
             loss, metrics, grads = _accumulate_grads(
-                loss_fn, full, rows(batch), step_cfg.microbatches)
-        del full
-        blocks = []
-        for path, d in zip(paths, dims):
+                loss_fn, local, rows(batch), step_cfg.microbatches)
+        blocks, norm_dims, rows_p = [], [], {}
+        for path, d, k in zip(paths, dims, keep):
             parent = adamw.get_path(grads, path[:-1])
             g = parent.pop(path[-1])
-            blocks.append(_grad_block(g, mesh, d, dp).div_(n_dp))
-            del g
-        gnorm = _placed_norm(blocks, dims, mesh)
+            if not int8:
+                blocks.append(_grad_block(g, mesh, d, dp, k).div_(n_dp))
+                norm_dims.append(d)
+                continue
+            # int8 moments: the gradient reduced straight into the moments'
+            # flat rows, and the param's value cut to the same rows
+            # (a 1-D leaf's rows flattened: AdamW decays only 2-D and up)
+            q = adamw.get_path(opt_state["m"], path)["q"]
+            qd = shd.sharding_of(q)[1]
+            nb = q.shape[0]
+            shape = (-1, adamw.Q_BLOCK) if g.dim() >= 2 else (-1,)
+            g = _grad_block(_flat_rows(shd.gather_dims(g, mesh, d, k), nb),
+                            mesh, qd, dp)
+            blocks.append(g.div_(n_dp).reshape(shape))
+            norm_dims.append(qd)
+            whole = shd.gather_dims(adamw.get_path(local, path), mesh, d, k)
+            rows_p[path] = _cut(_flat_rows(whole, nb), mesh, qd).reshape(
+                shape).clone()
+            del g, whole
+        del local
+        gnorm = _placed_norm(blocks, norm_dims, mesh)
         loss = _dp_mean(loss, mesh, dp)
         metrics = {k: _dp_mean(v, mesh, dp) for k, v in metrics.items()}
 
-        def local(tree):
-            return _tree(paths, [adamw.get_path(tree, p).to_local()
+        def local_of(tree):
+            return _tree(paths, [shd.to_local_tree(adamw.get_path(tree, p))
                                  for p in paths])
 
         state = {"step": opt_state["step"].to_local(),
-                 "m": local(opt_state["m"]), "v": local(opt_state["v"])}
+                 "m": local_of(opt_state["m"]), "v": local_of(opt_state["v"])}
         lr = schedule_fn(state["step"])
+        targets = (_tree(paths, [rows_p[p] for p in paths]) if int8
+                   else local_of(params))
         _, state, opt_metrics = adamw.apply_updates(
-            local(params), _tree(paths, blocks), state, lr, opt_cfg,
+            targets, _tree(paths, blocks), state, lr, opt_cfg,
             grad_norm=gnorm)
+        if int8:
+            for path, leaf, d in zip(paths, leaves, dims):
+                for mom in ("m", "v"):
+                    dst = adamw.get_path(opt_state[mom], path)
+                    for key in ("q", "scale"):
+                        new = adamw.get_path(state[mom], path)[key]
+                        if new.data_ptr() != dst[key].to_local().data_ptr():
+                            dst[key].to_local().copy_(new)
+                q = adamw.get_path(opt_state["m"], path)["q"]
+                qd = shd.sharding_of(q)[1]
+                flat = shd.gather_dims(
+                    rows_p[path].reshape(-1, adamw.Q_BLOCK), mesh, qd,
+                    tuple(range(mesh.ndim))).reshape(-1)
+                whole = flat[:leaf.numel()].view(leaf.shape)
+                with torch.no_grad():
+                    leaf.to_local().copy_(_cut(whole, mesh, d))
         opt_state["step"] = DTensor.from_local(
             state["step"], mesh, [Replicate()] * mesh.ndim, run_check=False)
         grad_error = torch.zeros((), dtype=torch.float32, device=loss.device)

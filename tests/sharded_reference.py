@@ -18,7 +18,15 @@ on tiny MiniCPM over a `data` mesh of 2. `fsdp` (4 devices): the
 reference's train step jitted with params and moments placed by
 `named_shardings` and the batch over `data`, under `mesh_context`, for
 each named family of `sharded_worlds.FSDP_ARCHS` on the named mesh of
-`FSDP_MESHES`.
+`FSDP_MESHES` (an ARCH:MESH:int8 case with the int8 AdamW moments).
+`tp_serve` (4 devices): the reference's placed prefill and greedy decode
+steps of each named family of `sharded_worlds.TP_ARCHS`, jitted on the
+(data 2, model 2) mesh:
+
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        PYTHONPATH=src:.:tests python tests/sharded_reference.py tp_serve \\
+        OUT PARAMS ARCH ...
+
 Pickles a dict of numpy arrays to OUT.
 """
 
@@ -230,10 +238,12 @@ def dp_run(mesh, params_path: str) -> dict:
             "comp_level": int(plane.comp_level)}
 
 
-def fsdp_run(arch: str, mesh_name: str, params_np) -> dict:
-    """FSDP_STEPS placed steps of `arch`: the losses and grad norms, the
-    whole params and first moment after the last, and each device's index
-    of every params leaf (`devices_indices_map`, devices in mesh order)."""
+def fsdp_run(arch: str, mesh_name: str, params_np,
+             state_dtype: str = "float32") -> dict:
+    """FSDP_STEPS placed steps of `arch` (AdamW moments in `state_dtype`):
+    the losses and grad norms, the whole params and first moment (int8:
+    its decoded values) after the last, and each device's index of every
+    params leaf (`devices_indices_map`, devices in mesh order)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from repro.configs import get_config
@@ -250,9 +260,9 @@ def fsdp_run(arch: str, mesh_name: str, params_np) -> dict:
     shape, axes = sw.FSDP_MESHES[mesh_name]
     mesh = Mesh(np.array(jax.devices()[:sw.FSDP_RANKS]).reshape(shape),
                 axes)
-    kw = dict(sw.FSDP_ARCHS)[arch]
+    kw = {**dict(sw.TP_ARCHS), **dict(sw.FSDP_ARCHS)}[arch]
     params = jax.tree_util.tree_map(jnp.asarray, params_np)
-    opt_cfg = adamw.AdamWConfig()
+    opt_cfg = adamw.AdamWConfig(state_dtype=state_dtype)
     opt = adamw.init_state(params, opt_cfg)
     plane, ef = initial_plane_and_ef(params)
     psh = shd.named_shardings(params, mesh, **kw)
@@ -261,7 +271,8 @@ def fsdp_run(arch: str, mesh_name: str, params_np) -> dict:
     raw = make_train_step(registry.build(cfg, remat="full").loss_fn,
                           opt_cfg, sw.fsdp_schedule(wsd),
                           StepProfile(**sw.DP_PROFILE), StepConfig())
-    rules = sw.fsdp_rules(mesh_name, arch)
+    rules = (sw.fsdp_rules(mesh_name, arch) if arch in dict(sw.FSDP_ARCHS)
+             else sw.tp_rules(arch))
 
     def run(p, o, pl, e, b):
         with shd.mesh_context(mesh, rules):
@@ -290,9 +301,84 @@ def fsdp_run(arch: str, mesh_name: str, params_np) -> dict:
 
     host = lambda t: jax.tree_util.tree_map(
         lambda a: np.asarray(a, np.float32), jax.device_get(t))
+    m = opt["m"]
+    if state_dtype == "int8":
+        m = jax.tree_util.tree_map(
+            lambda p, e: adamw._q_decode(e, p.shape), params, m,
+            is_leaf=lambda x: isinstance(x, dict) and "q" in x)
     return {"loss": losses, "grad_norm": norms, "params": host(params),
-            "m": host(opt["m"]),
+            "m": host(m),
             "index": jax.tree_util.tree_map(index, psh, params)}
+
+
+def tp_serve_run(arch: str, params_np) -> dict:
+    """`sharded_worlds.tp_serve` in the reference: its prefill (the
+    encdec family: the cross K/V made whole) and TP_NEW greedy decode
+    steps jitted with params placed by `named_shardings`, the batch by
+    its dry run's `batch_pspecs` and the cache by `cache_pspecs`, under
+    `mesh_context` on the (data 2, model 2) mesh: each step's whole
+    logits and the tokens fed."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.data.pipeline import DataConfig, SyntheticLM
+    from repro.models import encdec, registry
+    from repro.parallel import sharding as shd
+    cfg = sw.fsdp_config(get_config, arch)
+    shape, axes = sw.TP_MESH
+    mesh = Mesh(np.array(jax.devices()[:sw.TP_RANKS]).reshape(shape), axes)
+    api = registry.build(cfg)
+    params = jax.tree_util.tree_map(jnp.asarray, params_np)
+    psh = shd.named_shardings(params, mesh, **dict(sw.TP_ARCHS)[arch])
+    params = jax.device_put(params, psh)
+    rules = sw.tp_rules(arch)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, sw.FSDP_SEQ, sw.TP_BATCH))
+    prompt = jnp.asarray(data.batch(0)["tokens"][:, :sw.TP_PROMPT])
+    bsh = NamedSharding(mesh, P("data"))
+    max_len = sw.TP_PROMPT + sw.TP_NEW
+
+    def greedy(logits):
+        lg = np.array(jax.device_get(logits), np.float32)[:, -1]
+        lg[:, cfg.vocab_size:] = -np.inf
+        return jnp.asarray(lg.argmax(-1)[:, None].astype(np.int32))
+
+    def decode(p, c, b):
+        with shd.mesh_context(mesh, rules):
+            return api.decode_fn(p, c, b)
+
+    logits_out, fed = [], []
+    if cfg.family == "encdec":
+        from repro.data.pipeline import stub_frontend_inputs
+        frames = jnp.asarray(np.asarray(sw.tp_frames_np(cfg)))
+        xkv = encdec.cross_kv(params, encdec.encode(params, frames, cfg),
+                              cfg)
+        cache = api.init_decode_cache(sw.TP_BATCH, max_len)
+        tok, start = prompt[:, :1], 0
+    else:
+        def prefill(p, t):
+            with shd.mesh_context(mesh, rules):
+                return api.prefill_fn(p, t, max_len)
+        logits, cache, start = jax.jit(
+            prefill, in_shardings=(psh, bsh), static_argnums=())(params,
+                                                                 prompt)
+        start = int(start)
+        logits_out.append(np.asarray(jax.device_get(logits), np.float32))
+        tok = greedy(logits)
+    csh = jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s),
+        shd.cache_pspecs(cache, mesh, batch_axes=("data",)))
+    cache = jax.device_put(cache, csh)
+    step = jax.jit(decode, in_shardings=(psh, csh, None),
+                   out_shardings=(None, csh))
+    for i in range(sw.TP_NEW):
+        fed.append(np.asarray(tok))
+        batch = {"tokens": tok, "cur_index": jnp.int32(start + i)}
+        if cfg.family == "encdec":
+            batch["cross_kv"] = xkv
+        logits, cache = step(params, cache, batch)
+        logits_out.append(np.asarray(jax.device_get(logits), np.float32))
+        tok = greedy(logits)
+    return {"logits": logits_out, "tokens": fed}
 
 
 def main(argv) -> None:
@@ -312,8 +398,15 @@ def main(argv) -> None:
             params = pickle.load(f)
         out = {"devices": len(devs)}
         for case in argv[4:]:
-            arch, name = case.split(":")
-            out[arch, name] = fsdp_run(arch, name, params[arch])
+            arch, name, *dtype = case.split(":")
+            out[(arch, name, *dtype)] = fsdp_run(arch, name, params[arch],
+                                                 *dtype)
+    elif which == "tp_serve":
+        with open(argv[3], "rb") as f:
+            params = pickle.load(f)
+        out = {"devices": len(devs)}
+        for arch in argv[4:]:
+            out[arch] = tp_serve_run(arch, params[arch])
     else:
         raise SystemExit(f"unknown run {which!r}")
     with open(out_path, "wb") as f:

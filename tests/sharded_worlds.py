@@ -27,7 +27,14 @@ forced-device runs) and the tests read the same numbers. The worlds:
   `FSDP_ARCHS` (f32 tiny configs, params and f32 moments placed by
   `named_shardings`), over a `(data, model)` mesh of 2 x 2 and a `(data,)`
   mesh of 4, under `mesh_context`; rank 0 also runs `placed_oracle`, the
-  one-process run the ranks' blocks equal bit for bit.
+  one-process run the ranks' blocks equal bit for bit (on the 2 x 2 mesh
+  the step computes tensor-parallel over 'model', and the oracle splits
+  each DP rank's pass over the model ranks, `tp_loss_and_grads`).
+- `tp_world` (4 ranks, (data 2, model 2)): every family of `TP_ARCHS`
+  served placed (`tp_serve`: prefill and greedy decode on params placed by
+  `named_shardings`) against `tp_serve_oracle`, the TP_TRAIN placed train
+  steps (the int8 moments among them) against `placed_oracle`, and one
+  step's collectives under `CommDebugMode` (`tp_comm_counts`).
 
 The placed runs are device-agnostic (`fsdp_run(..., device=)`), so the
 card's `tiny_fsdp` phase (`chip_smoke.py`) runs the same code on cuda.
@@ -549,20 +556,91 @@ def fsdp_run(arch: str, mesh_name: str, mesh, device="cpu") -> dict:
             "coord": tuple(mesh.get_coordinate())}
 
 
+def tp_dims(shard: dict, names: tuple, dp: tuple = ()) -> dict:
+    """{leaf path: the tensor dim its TP mesh dim ('model', alone on its
+    dim, not data-parallel) shards, or None} of a tree of
+    `NamedSharding`s."""
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    from repro_torch.parallel import sharding as shd
+    dims = tree_map(lambda sh: sh.shard_dims, shard)
+    plan = shd.tp_plan(dims, tuple(names), dp)
+    out = {}
+    for path in leaf_paths(shard):
+        keep = get_path(plan, path)
+        out[path] = get_path(dims, path)[keep[0]] if keep else None
+    return out
+
+
+def tp_loss_and_grads(loss_fn, params, batch, tdims: dict, m: int,
+                      ctx=None):
+    """The TP split of one DP rank's loss and gradients in one process:
+    each of the `m` model ranks' blocks of the params (`tdims`: each leaf's
+    TP dim or None) through `loss_fn` in a thread of its own
+    (`sharding.run_model_ranks`, the collectives' sums in rank order), one
+    `autograd.grad` over every rank's loss, and each leaf's gradient whole
+    (the ranks' blocks joined; a replicated leaf's, rank 0's, which every
+    rank holds). `ctx(r)` is a context each rank's forward runs under.
+    `loss_fn` must not recompute under a checkpoint (its collectives would
+    run in the backward's thread): remat "none", the same bits (the
+    tests' worlds check it). Returns (loss, metrics, grads) as
+    `_accumulate_grads` does."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import _accumulate_grads, _tree
+    paths = leaf_paths(params)
+    if m == 1 or all(tdims[p] is None for p in paths):
+        with (ctx(0) if ctx else contextlib.nullcontext()):
+            return _accumulate_grads(loss_fn, params, batch, 1)
+
+    def block(a, d, r):
+        if d is None:
+            return a.detach().clone()
+        n = a.shape[d] // m
+        return a.detach().narrow(d, r * n, n).contiguous()
+
+    ranks = [[block(get_path(params, p), tdims[p], r).requires_grad_(True)
+              for p in paths] for r in range(m)]
+
+    def fwd(r):
+        with (ctx(r) if ctx else contextlib.nullcontext()):
+            return loss_fn(_tree(paths, ranks[r]), batch)
+
+    outs = shd.run_model_ranks(m, fwd)
+    flat = [leaf for r in range(m) for leaf in ranks[r]]
+    gs = torch.autograd.grad([o[0] for o in outs], flat,
+                             materialize_grads=True)
+    n = len(paths)
+    whole = [gs[j] if tdims[p] is None else
+             torch.cat([gs[r * n + j] for r in range(m)], tdims[p])
+             for j, p in enumerate(paths)]
+    return (outs[0][0].detach(),
+            {k: v.detach() for k, v in outs[0][1].items()},
+            _tree(paths, whole))
+
+
 def placed_oracle(cfg, params, loss_fn, batches, steps: list,
                   placement: dict | None = None, shares: bool = True,
-                  host: bool = True) -> dict:
+                  host: bool = True, opt_cfg=None) -> dict:
     """The placed run in one process: each step each DP rank's rows in
-    turn through the same loss and gradient, the gradients added in rank
-    order in f32 and divided by the DP count, the norm block by block in
-    rank order (each leaf's placement under `named_shardings(**placement)`
-    on that step's mesh), the same AdamW on whole leaves. `steps` gives
-    each step's (mesh shape, axes) (the elastic restart changes them);
-    `batches(i)` is step i's global batch. `shares`: replay the whole
-    batch's statistics (`sharding.batch_mean`, the MoE's) as the placed
-    step reads them, at the cost of a forward a rank a step. Returns the
-    losses and the norms, and (`host`) the whole params and first moment
-    as numpy arrays; `params` is updated in place either way."""
+    turn through the same loss and gradient, split over the model ranks
+    as the TP forward splits it (`tp_loss_and_grads`), the gradients added
+    in rank order in f32 and divided by the DP count, the norm block by
+    block in rank order (each leaf's placement under
+    `named_shardings(**placement)` on that step's mesh; the int8 moments'
+    flat rows where `opt_cfg` keeps them), the same AdamW on whole leaves.
+    `steps` gives each step's (mesh shape, axes) (the elastic restart
+    changes them); `batches(i)` is step i's global batch. `shares`: replay
+    the whole batch's statistics (`sharding.batch_mean`, the MoE's) as
+    the placed step reads them, at the cost of a forward a rank a step.
+    `loss_fn` recomputes nothing under a checkpoint (remat "none").
+    Returns the losses and the norms, and (`host`) the whole params and
+    first moment (int8: its decoded values) as numpy arrays; `params` is
+    updated in place either way."""
     import torch
 
     from repro_torch.models.lm import tree_map
@@ -570,28 +648,33 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
     from repro_torch.optim.adamw import get_path, leaf_paths
     from repro_torch.optim.schedule import wsd
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train.step import _accumulate_grads, _tree
-    opt_cfg = adamw.AdamWConfig()
+    from repro_torch.train.step import _flat_rows, _tree
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    int8 = opt_cfg.state_dtype == "int8"
     opt = adamw.init_state(params, opt_cfg)
     sched = fsdp_schedule(wsd)
     paths = leaf_paths(params)
     losses, norms = [], []
     for i, (shape, names) in enumerate(steps):
         mesh = shd.SpecMesh(tuple(names), tuple(shape))
-        n_dp = int(np.prod([n for a, n in zip(names, shape)
-                            if a in ("pod", "data")]))
+        dp = tuple(j for j, a in enumerate(names) if a in ("pod", "data"))
+        n_dp = int(np.prod([shape[j] for j in dp]))
+        m = dict(zip(names, shape)).get("model", 1)
         shard = shd.named_shardings(params, mesh, **(placement or {}))
+        oshard = shd.named_shardings(opt, mesh, **(placement or {}))
+        tdims = tp_dims(shard, tuple(names), dp)
         batch = batches(i)
         k = next(iter(batch.values())).shape[0] // n_dp
         rows = [{key: v[r * k:(r + 1) * k] for key, v in batch.items()}
                 for r in range(n_dp)]
-        stats = _global_shares(loss_fn, params, rows) if shares else {}
+        stats = (_global_shares(loss_fn, params, rows, tdims, m) if shares
+                 else {})
         per_rank, rank_losses = [], []
         for r in range(n_dp):
-            with shd.batch_context(lambda x, r=r: stats[
-                    r, x.cpu().numpy().tobytes()]):
-                loss, _, grads = _accumulate_grads(loss_fn, params, rows[r],
-                                                   1)
+            loss, _, grads = tp_loss_and_grads(
+                loss_fn, params, rows[r], tdims, m,
+                lambda _t, r=r: shd.batch_context(lambda x: stats[
+                    r, x.cpu().numpy().tobytes()]))
             per_rank.append(grads)
             rank_losses.append(loss.reshape(1))
         avg = []
@@ -604,6 +687,9 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
         total = None
         for path, g in zip(paths, avg):
             sh = get_path(shard, path)
+            if int8:
+                sh = get_path(oshard["m"], path)["q"]
+                g = _flat_rows(g, get_path(opt["m"], path)["q"].shape[0])
             for coord in shd.distinct_coords(sh):
                 blk = g[shd.block_index(tuple(g.shape), sh, coord)]
                 sq = blk.contiguous().to(torch.float32,
@@ -620,26 +706,40 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
         del avg
     out = {"loss": losses, "grad_norm": norms}
     if host:
-        out.update(params=tree_map(_host, params),
-                   m=tree_map(_host, opt["m"]))
+        m1 = opt["m"]
+        if int8:
+            m1 = _tree(paths, [adamw._q_decode(get_path(m1, p), get_path(
+                params, p).shape) for p in paths])
+        out.update(params=tree_map(_host, params), m=tree_map(_host, m1))
     return out
 
 
-def _global_shares(loss_fn, params, rows: list) -> dict:
+def _global_shares(loss_fn, params, rows: list, tdims: dict | None = None,
+                   m: int = 1) -> dict:
     """What `sharding.batch_mean` gives each DP rank in the placed step:
-    a forward per rank records its calls' local values; call i's mean is
-    their rank-order sum over the ranks divided by their count. Returns
-    {(rank, the local value's bytes): the mean} (the value identifies the
-    call, the recompute of a checkpointed layer included); raises where
-    one rank's value would stand for two calls with different means."""
+    a forward per rank (split over the `m` model ranks as
+    `tp_loss_and_grads` splits it; model rank 0's calls) records its
+    calls' local values; call i's mean is their rank-order sum over the
+    ranks divided by their count. Returns {(rank, the local value's
+    bytes): the mean} (the value identifies the call, the recompute of a
+    checkpointed layer included); raises where one rank's value would
+    stand for two calls with different means."""
     import torch
 
     from repro_torch.parallel import sharding as shd
     seen: list = [[] for _ in rows]
     for r, rr in enumerate(rows):
-        with torch.no_grad(), shd.batch_context(
-                lambda x, r=r: seen[r].append(x.clone()) or x):
-            loss_fn(params, rr)
+        def record(t, r=r):
+            return shd.batch_context(
+                lambda x: (seen[r].append(x.clone()) if t == 0 else None)
+                or x)
+        with torch.no_grad():
+            if m == 1 or tdims is None:
+                with record(0):
+                    loss_fn(params, rr)
+            else:
+                tp_loss_and_grads_forward(loss_fn, params, rr, tdims, m,
+                                          record)
     out: dict = {}
     for i in range(len(seen[0])):
         acc = seen[0][i].to(torch.float32, copy=True)
@@ -655,12 +755,35 @@ def _global_shares(loss_fn, params, rows: list) -> dict:
     return out
 
 
+def tp_loss_and_grads_forward(loss_fn, params, batch, tdims: dict, m: int,
+                              ctx):
+    """The forward of `tp_loss_and_grads` alone (no gradient): each model
+    rank's loss, in rank order."""
+    from repro_torch.optim.adamw import get_path, leaf_paths
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import _tree
+    paths = leaf_paths(params)
+
+    def block(a, d, r):
+        if d is None:
+            return a
+        n = a.shape[d] // m
+        return a.narrow(d, r * n, n).contiguous()
+
+    def fwd(r):
+        with ctx(r):
+            return loss_fn(_tree(paths, [block(get_path(params, p), tdims[p],
+                                               r) for p in paths]), batch)[0]
+
+    return shd.run_model_ranks(m, fwd)
+
+
 def fsdp_oracle(arch: str, mesh_name: str, device="cpu") -> dict:
     """`placed_oracle` of `fsdp_run`'s run."""
     from repro_torch.models import registry
     cfg, params = fsdp_params(arch, device)
     return placed_oracle(
-        cfg, params, registry.build(cfg, remat="full").loss_fn,
+        cfg, params, registry.build(cfg, remat="none").loss_fn,
         lambda i: fsdp_batch(cfg, i, device),
         [FSDP_MESHES[mesh_name]] * FSDP_STEPS, dict(FSDP_ARCHS)[arch],
         shares=cfg.family == "moe")
@@ -675,6 +798,346 @@ def fsdp_world(rank: int, world: int, out_dir: str) -> dict:
             out[arch, name] = fsdp_run(arch, name, mesh)
             if rank == 0:
                 out[arch, name, "oracle"] = fsdp_oracle(arch, name)
+    return out
+
+
+# -- tensor parallelism over 'model' ------------------------------------------------
+
+TP_RANKS = 4
+TP_MESH = ((2, 2), ("data", "model"))
+# every family's tiny config served placed (prefill and decode), with its
+# placement profile: dense (MHA; Granite's MQA, whose one kv head stays
+# replicated; Mistral-Large's head_dim 16), moe (Qwen3-MoE under moe_ep,
+# Grok-1 under the default rules: the experts' ff over 'model'), vlm,
+# encdec, hybrid and ssm
+TP_ARCHS = (("minicpm_2b", {}), ("granite_20b", {}),
+            ("qwen3_moe_30b_a3b", {"moe_ep": True}), ("grok1_314b", {}),
+            ("mistral_large_123b", {}), ("internvl2_2b", {}),
+            ("whisper_base", {}), ("zamba2_1p2b", {}), ("rwkv6_7b", {}))
+# the placed train steps this world adds to `fsdp_world`'s (whose 2 x 2
+# runs cover the dense, moe_ep, encdec, hybrid and ssm ones): the vlm, and
+# the int8 AdamW moments the reference's dry run gives its two largest
+# models (`INT8_OPT`)
+TP_TRAIN = (("internvl2_2b", "float32"), ("grok1_314b", "int8"),
+            ("mistral_large_123b", "int8"))
+TP_BATCH = 4
+TP_PROMPT = 8
+TP_NEW = 4
+
+
+def tp_rules(arch: str) -> dict | None:
+    """The `mesh_context` overrides of `arch`'s profile (the moe_ep one's
+    experts over 'model'; none for the default rules)."""
+    if dict(TP_ARCHS)[arch].get("moe_ep"):
+        return {"experts": "model", "ff": None}
+    return None
+
+
+def tp_prompt(cfg, device="cpu"):
+    """The prompt: TP_BATCH rows of TP_PROMPT tokens (SyntheticLM step 0's
+    first columns), int32."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(cfg.vocab_size, FSDP_SEQ, TP_BATCH))
+    return data.torch_batch(0, device)["tokens"][:, :TP_PROMPT].contiguous()
+
+
+def tp_frames_np(cfg) -> np.ndarray:
+    """The encdec decode's frames, [TP_BATCH, enc_seq_len, D] f32 (the
+    stub frontend's draw, seed 5)."""
+    rng = np.random.default_rng(5)
+    return (rng.standard_normal((TP_BATCH, cfg.enc_seq_len, cfg.d_model))
+            .astype(np.float32) * 0.02)
+
+
+def tp_frames(cfg, device="cpu"):
+    import torch
+    return torch.from_numpy(tp_frames_np(cfg)).to(device)
+
+
+def tp_cross_kv(cfg, params, device="cpu"):
+    """The encdec decode's stacked cross K/V of `tp_frames`, made whole in
+    one process (the placed decode takes each rank's block of it)."""
+    import torch
+
+    from repro_torch.models import encdec
+    with torch.no_grad():
+        return encdec.cross_kv(params, encdec.encode(
+            params, tp_frames(cfg, device), cfg), cfg)
+
+
+def _greedy(cfg, logits):
+    """This rank's rows' greedy tokens [b, 1] from its (vocab block of
+    the) last logits, the padded vocab masked (the encdec decode leaves it
+    unmasked)."""
+    import torch
+
+    from repro_torch.models import common
+    from repro_torch.parallel import sharding as shd
+    logits = common.mask_padded_vocab(logits[:, -1].clone(), cfg.vocab_size,
+                                      cfg.vocab_padded)
+    return shd.vocab_argmax(logits, cfg.vocab_padded)[:, None].to(
+        torch.int32)
+
+
+def tp_serve(arch: str, mesh, device="cpu") -> dict:
+    """The placed prefill (the encdec family: the stacked cross K/V, made
+    whole) and TP_NEW greedy decode steps of `arch` on `mesh`, under its
+    profile's `mesh_context`: this rank's blocks of every step's logits,
+    the tokens it fed, and its blocks of the cache after the last."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import registry
+    from repro_torch.parallel import sharding as shd
+    cfg, params = fsdp_params(arch, device)
+    api = registry.build(cfg)
+    placed = shd.place(params, shd.named_shardings(params, mesh,
+                                                   **dict(TP_ARCHS)[arch]))
+    prompt = tp_prompt(cfg, device)
+    data_group = mesh.get_group("data")
+
+    def global_tokens(local):
+        parts = [torch.empty_like(local) for _ in range(mesh.size(0))]
+        dist.all_gather(parts, local.contiguous(), group=data_group)
+        return torch.cat(parts)
+
+    logits_out, fed = [], []
+    with torch.no_grad(), shd.mesh_context(mesh, tp_rules(arch)):
+        if cfg.family == "encdec":
+            xkv = tp_cross_kv(cfg, params, device)
+            cache = shd.place_blocks(
+                *_encdec_cache(cfg, mesh, device), mesh)
+            tok, start = prompt[:, :1], 0
+        else:
+            logits, cache, start = api.prefill_fn(placed, prompt,
+                                                  TP_PROMPT + TP_NEW)
+            logits_out.append(_host(logits))
+            tok = global_tokens(_greedy(cfg, logits.to_local()))
+        for i in range(TP_NEW):
+            fed.append(tok.cpu().numpy().copy())
+            batch = {"tokens": tok, "cur_index": start + i}
+            if cfg.family == "encdec":
+                batch["cross_kv"] = xkv
+            logits, cache = api.decode_fn(placed, cache, batch)
+            logits_out.append(_host(logits))
+            tok = global_tokens(_greedy(cfg, logits.to_local()))
+    from repro_torch.models.lm import tree_map
+    return {"logits": logits_out, "tokens": fed,
+            "cache": tree_map(_host, cache),
+            "coord": tuple(mesh.get_coordinate())}
+
+
+def _encdec_cache(cfg, mesh, device):
+    """(this rank's zero blocks, specs, whole abstract cache) of the encdec
+    decode cache on `mesh` (the family has no prefill to make it)."""
+    import torch
+
+    from repro_torch.models import encdec
+    from repro_torch.parallel import sharding as shd
+    whole = encdec.init_decode_cache(cfg, TP_BATCH, TP_PROMPT + TP_NEW,
+                                     "meta")
+    axes = shd.serve_batch_axes(mesh, TP_BATCH)
+    specs = shd.serve_cache_pspecs(whole, mesh, batch_axes=axes)
+
+    def zeros(w, spec):
+        idx = shd.block_index(tuple(w.shape), shd.NamedSharding(mesh, spec),
+                              tuple(mesh.get_coordinate()))
+        return torch.zeros(tuple(s.stop - s.start for s in idx),
+                           dtype=w.dtype, device=device)
+    return shd._tree_map(zeros, whole, specs), specs, whole
+
+
+def tp_serve_oracle(arch: str, device="cpu") -> dict:
+    """`tp_serve` in one process: each DP rank's rows in turn, split over
+    the model ranks (`sharding.run_model_ranks`: one thread a rank, the
+    reductions' sums in rank order). Returns {(data, model) coordinate:
+    what that rank of `tp_serve` returns}."""
+    import torch
+
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.lm import tree_map
+    from repro_torch.parallel import sharding as shd
+    cfg, params = fsdp_params(arch, device)
+    (n_dp, m), names = TP_MESH
+    shard = shd.named_shardings(params, shd.SpecMesh(names, (n_dp, m)),
+                                **dict(TP_ARCHS)[arch])
+    tdims = tp_dims(shard, names, (0,))
+    prompt = tp_prompt(cfg, device)
+    k = TP_BATCH // n_dp
+    xkv = tp_cross_kv(cfg, params, device) if cfg.family == "encdec" \
+        else None
+    out = {}
+    for d in range(n_dp):
+        rows = slice(d * k, (d + 1) * k)
+
+        def rank(r):
+            p = tree_map(lambda a, t: a if t is None else a.narrow(
+                t, r * (a.shape[t] // m), a.shape[t] // m).contiguous(),
+                params, _tdim_tree(params, tdims))
+            logits_out, fed = [], []
+            if cfg.family == "encdec":
+                kv = {key: v[:, rows].narrow(
+                    3, r * (v.shape[3] // m), v.shape[3] // m).contiguous()
+                    if v.shape[3] % m == 0 else v[:, rows].contiguous()
+                    for key, v in xkv.items()}
+                cache = encdec.init_decode_cache(
+                    cfg, k, TP_PROMPT + TP_NEW, device, model_ranks=m)
+                tok, start = prompt[rows, :1], 0
+            else:
+                logits, cache, start = lm.prefill(p, prompt[rows], cfg,
+                                                  TP_PROMPT + TP_NEW)
+                logits_out.append(_host(logits))
+                tok = _greedy(cfg, logits)
+            for i in range(TP_NEW):
+                fed.append(tok.cpu().numpy().copy())
+                if cfg.family == "encdec":
+                    logits, cache = encdec.decode_step(p, cache, kv, tok,
+                                                       start + i, cfg)
+                else:
+                    logits, cache = lm.decode_step(p, cache, tok, start + i,
+                                                   cfg)
+                logits_out.append(_host(logits))
+                tok = _greedy(cfg, logits)
+            return {"logits": logits_out, "tokens": fed,
+                    "cache": tree_map(_host, cache)}
+
+        with torch.no_grad():
+            for r, res in enumerate(shd.run_model_ranks(m, rank)):
+                out[d, r] = res
+    return out
+
+
+def _tdim_tree(params, tdims: dict):
+    from repro_torch.train.step import _tree
+    return _tree(list(tdims), list(tdims.values()))
+
+
+def tp_train_run(arch: str, state_dtype: str, mesh, device="cpu") -> dict:
+    """FSDP_STEPS placed steps of `arch` (`fsdp_run`'s, with the AdamW
+    moments in `state_dtype`): losses, norms, this rank's blocks of the
+    params and of the first moment (int8: its codes and scales)."""
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.models import registry
+    from repro_torch.models.lm import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import StepConfig, make_train_step
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, params = fsdp_params(arch, device)
+    kw = dict(TP_ARCHS)[arch]
+    opt_cfg = adamw.AdamWConfig(state_dtype=state_dtype)
+    opt = adamw.init_state(params, opt_cfg)
+    plane, ef = initial_plane_and_ef(params)
+    params = shd.place(params, shd.named_shardings(params, mesh, **kw))
+    opt = shd.place(opt, shd.named_shardings(opt, mesh, **kw))
+    step = make_train_step(registry.build(cfg, remat="full").loss_fn,
+                           opt_cfg, fsdp_schedule(wsd),
+                           StepProfile(**DP_PROFILE), StepConfig(),
+                           mesh=mesh)
+    losses, norms = [], []
+    with shd.mesh_context(mesh, tp_rules(arch)):
+        for i in range(FSDP_STEPS):
+            params, opt, plane, ef, metrics = step(
+                params, opt, plane, ef, fsdp_batch(cfg, i, device))
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+    out = {"loss": losses, "grad_norm": norms,
+           "params": tree_map(_host, params),
+           "m": tree_map(_host, opt["m"]),
+           "coord": tuple(mesh.get_coordinate())}
+    if state_dtype == "int8":
+        out["restored"] = _placed_round_trip(
+            {"params": params, "opt": opt}, mesh, kw)
+    return out
+
+
+def _placed_round_trip(state, mesh, kw) -> bool:
+    """The placed state saved (`CheckpointManager.save`) and restored onto
+    the same mesh (`restore(shardings=)`): whether every rank's blocks
+    come back bit for bit (a collective; the checkpoint under the rank
+    0's directory of the world's store)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.models.lm import tree_map
+    from repro_torch.parallel import sharding as shd
+    root = [tempfile.mkdtemp(prefix="tp_ckpt_") if dist.get_rank() == 0
+            else None]
+    dist.broadcast_object_list(root, src=0)
+    mgr = CheckpointManager(root[0])
+    mgr.save(FSDP_STEPS, state)
+    dist.barrier()
+    like = tree_map(lambda a: torch.empty(a.shape, dtype=a.dtype,
+                                          device="meta"), state)
+    _, back = mgr.restore(like, shardings={
+        k: shd.named_shardings(v, mesh, **kw) for k, v in like.items()})
+    same = all(torch.equal(a.to_local(), b.to_local()) for a, b in zip(
+        shd._leaves_of(state), shd._leaves_of(back)))
+    dist.barrier()
+    if dist.get_rank() == 0:
+        import shutil
+        shutil.rmtree(root[0], ignore_errors=True)
+    return same
+
+
+def tp_train_oracle(arch: str, state_dtype: str, device="cpu") -> dict:
+    """`placed_oracle` of `tp_train_run`'s run."""
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    cfg, params = fsdp_params(arch, device)
+    return placed_oracle(
+        cfg, params, registry.build(cfg, remat="none").loss_fn,
+        lambda i: fsdp_batch(cfg, i, device), [TP_MESH] * FSDP_STEPS,
+        dict(TP_ARCHS)[arch], shares=cfg.family == "moe",
+        opt_cfg=adamw.AdamWConfig(state_dtype=state_dtype))
+
+
+def tp_comm_counts(mesh, device="cpu") -> dict:
+    """One placed step of tiny MiniCPM under `CommDebugMode`: its
+    collective counts by op, and the all-gathers the step's placement
+    implies (module `tests/test_torch_tp.py`)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core.power_plane import StepProfile
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import wsd
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.step import StepConfig, make_train_step
+    from repro_torch.train.trainer import initial_plane_and_ef
+    cfg, params = fsdp_params("minicpm_2b", device)
+    shard = shd.named_shardings(params, mesh)
+    opt = adamw.init_state(params, adamw.AdamWConfig())
+    plane, ef = initial_plane_and_ef(params)
+    placed = shd.place(params, shard)
+    opt = shd.place(opt, shd.named_shardings(opt, mesh))
+    step = make_train_step(registry.build(cfg, remat="none").loss_fn,
+                           adamw.AdamWConfig(), fsdp_schedule(wsd),
+                           StepProfile(**DP_PROFILE), StepConfig(),
+                           mesh=mesh)
+    with shd.mesh_context(mesh), CommDebugMode() as comm:
+        step(placed, opt, plane, ef, fsdp_batch(cfg, 0, device))
+    return {"counts": {str(k): v for k, v in
+                       comm.get_comm_counts().items()},
+            "dims": [sh.shard_dims for sh in shd._leaves_of(shard)]}
+
+
+def tp_world(rank: int, world: int, out_dir: str) -> dict:
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*TP_MESH, "cpu")
+    out = {"comm": tp_comm_counts(mesh)}
+    for arch, _ in TP_ARCHS:
+        out["serve", arch] = tp_serve(arch, mesh)
+        if rank == 0:
+            out["serve", arch, "oracle"] = tp_serve_oracle(arch)
+    for arch, dtype in TP_TRAIN:
+        out["train", arch] = tp_train_run(arch, dtype, mesh)
+        if rank == 0:
+            out["train", arch, "oracle"] = tp_train_oracle(arch, dtype)
     return out
 
 

@@ -2,12 +2,15 @@
 gloo world of 4 processes on the CPU (`sharded_worlds.fsdp_world`), every
 family of `FSDP_ARCHS` in turn (tiny MiniCPM, tiny Qwen3-MoE under the
 moe_ep profile, tiny Whisper, tiny Zamba2, tiny RWKV6; f32), over a
-`(data, model)` mesh of 2 x 2 and a `(data,)` mesh of 4, params and f32
-moments placed by `named_shardings`, under `mesh_context`. Held against:
+`(data, model)` mesh of 2 x 2 (where the step computes tensor-parallel
+over 'model': each rank's heads, ff, vocab or experts) and a `(data,)`
+mesh of 4, params and f32 moments placed by `named_shardings`, under
+`mesh_context`. Held against:
 
 - the one-process run of the same sequence (`sharded_worlds.fsdp_oracle`:
-  each DP rank's rows in turn, the gradients added in rank order, the norm
-  block by block), which rank 0 runs: losses, grad norms and every rank's
+  each DP rank's rows in turn, split over the model ranks as the TP
+  forward splits them, the gradients added in rank order, the norm block
+  by block), which rank 0 runs: losses, grad norms and every rank's
   blocks of the params and first moment equal bit for bit;
 - the reference's train step jitted with `in_shardings` from its
   `named_shardings`, the batch over `data`, under its `mesh_context`, on 4
@@ -253,14 +256,16 @@ def test_constraints_change_nothing_without_a_placed_activation(
 
 
 def test_placed_step_refuses_the_int8_moments_and_the_ef_sync():
+    """The ef sync stays refused on a placed step (the reference's pmean
+    needs a bound data axis: its only binding, `shard_map_ef_step`, keeps
+    the params replicated). The int8 moments are taken since the TP slice
+    (`tests/test_torch_tp.py`): the factory builds a step with them."""
     from repro_torch.core.power_plane import StepProfile
     mesh = tshd.SpecMesh(("data",), (2,))
     prof = StepProfile(**sw.DP_PROFILE)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tstep.make_train_step(lambda p, b: None,
-                              tadamw.AdamWConfig(state_dtype="int8"),
-                              lambda s: 1e-3, prof, tstep.StepConfig(),
-                              mesh=mesh)
+    assert callable(tstep.make_train_step(
+        lambda p, b: None, tadamw.AdamWConfig(state_dtype="int8"),
+        lambda s: 1e-3, prof, tstep.StepConfig(), mesh=mesh))
     with pytest.raises(NotImplementedError, match="ef sync"):
         tstep.make_train_step(lambda p, b: None, tadamw.AdamWConfig(),
                               lambda s: 1e-3, prof,

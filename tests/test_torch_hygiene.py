@@ -59,7 +59,29 @@ def test_port_files_found():
             "transceiver.py", "overhead.py", "granite_20b.py",
             "quickstart.py", "case_study_transceiver.py", "serve_decode.py",
             "train_voltune_lm.py", "mesh.py", "sharding.py",
-            "elastic_restart.py"} <= names
+            "elastic_restart.py", "dryrun.py", "analysis.py", "analytic.py",
+            "op_costs.py"} <= names
+
+
+def test_only_the_dry_run_imports_the_fake_world():
+    """`torch.testing._internal` (the `fake` process-group backend of the
+    dry run's 256- and 512-rank worlds) is imported by
+    `launch/dryrun.py` alone, inside the function that starts its world:
+    importing the module (as `roofline/analysis.py` does for its tables)
+    leaves it out of the process."""
+    users = [p for p in PORT_FILES
+             if any(m.startswith("torch.testing._internal")
+                    for m in _imported_modules(p))]
+    assert [p.relative_to(ROOT).as_posix() for p in users] == [
+        "src/repro_torch/launch/dryrun.py"]
+    tree = ast.parse(users[0].read_text())
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    assert not any(getattr(n, "module", "") and n.module.startswith(
+        "torch.testing") for n in top)
+    import repro_torch.launch.dryrun  # noqa: F401
+    import repro_torch.roofline.analysis  # noqa: F401
+    assert "torch.testing._internal.distributed.fake_pg" not in sys.modules
 
 
 MESH = ROOT / "src" / "repro_torch" / "launch" / "mesh.py"
@@ -70,8 +92,9 @@ def test_mesh_module_switches_no_backend(check):
     """`launch/mesh.py` (imports already scanned above) picks no backend:
     no try/except to fall from one to another, no environment knob, and
     no process group of its own (the caller starts it). Across the port,
-    only the examples start one: the train example on the backend its flag
-    names, the elastic example its gloo worlds of 4 and 8."""
+    only the examples and the dry run start one: the train example on the
+    backend its flag names, the elastic example its gloo worlds of 4 and
+    8, the dry run its `fake` worlds of 256 and 512 ranks."""
     tree = ast.parse(MESH.read_text())
     if check == "no_try":
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
@@ -88,7 +111,8 @@ def test_mesh_module_switches_no_backend(check):
                           if p.name != "chip_smoke.py" and starts(p))
         assert starters == [
             "src/repro_torch/examples/elastic_restart.py",
-            "src/repro_torch/examples/train_voltune_lm.py"], starters
+            "src/repro_torch/examples/train_voltune_lm.py",
+            "src/repro_torch/launch/dryrun.py"], starters
 
 
 @pytest.fixture
@@ -237,10 +261,23 @@ def test_host_path_launchers_default_device_needs_a_card(no_card):
 
 
 @pytest.mark.parametrize("flags", [["--dry-run"]])
-def test_train_launcher_refuses_unported_paths(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_train_launcher_refuses_unported_paths(flags, monkeypatch):
+    """The launcher refuses no path any longer: `--dry-run` (refused until
+    the dry run was ported) runs `launch/dryrun.py` on the architecture's
+    train_4k cell on both meshes in a process of its own and exits with
+    its code, as the reference's launcher does (the run itself:
+    `tests/test_torch_dryrun.py`)."""
+    import subprocess
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda argv: calls.append(argv) or 3)
+    with pytest.raises(SystemExit) as exc:
         launch_train.main(["--arch", "minicpm_2b", "--tiny", "--device",
                            "cpu", *flags])
+    assert exc.value.code == 3
+    assert calls == [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", "minicpm_2b", "--shape", "train_4k",
+                      "--mesh", "both"]]
 
 
 def test_train_launcher_refuses_resume_without_ckpt_dir(capsys):
