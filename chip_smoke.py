@@ -73,6 +73,17 @@ script exits nonzero:
                 the simulated PMBus fleet at 400 kHz; exact launch counts,
                 the host round's time (bus simulation, SOR observe), its
                 plane reads, the bus's `stats()` and the decode breakdown;
+6a. main_serve_tp - the same weights' first 24 layers over 2 gloo model
+                ranks sharing the card, against the one-process split bit
+                for bit and the unsharded path (SERVE_TP);
+6b. main_serve_tp_moe - full-width Grok-1, 4 of its 64 layers, over 2
+                model ranks under the default rules (SERVE_TP_MOE): each
+                rank's tokens, logits and caches against the one-process
+                split bit for bit; the unsharded run fed their tokens and
+                routed experts, the routes apart only at near-ties
+                (ROUTE_TIE), the logits within TP_LOGIT_ATOL; exact
+                launches, no MoE weight in a token's collectives, the peak
+                a rank under TP_MOE_PEAK_GB;
 7. tiny_routed - routed serving (`ServeEngine.serve_trace`) cuda against
                 cpu on the routed world of tests/test_torch_serve_trace.py
                 (16 chips; 8 for the half-pinned migration world and the
@@ -6147,22 +6158,49 @@ def _leaf_values(tree):
 # bounded
 TINY_TP_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 TINY_TP_INT8_FLIP_FRAC = 1e-3
-# main_serve_tp: Qwen2.5-14B at full width and depth over 2 model ranks
-# (24 of the 48 padded q heads and 8 of the 16 kv heads a rank), the main
-# phase's traffic (4 prompts of 256 tokens, 32 greedy tokens), weights
-# from seed 0 as `init_main` draws them. The split adds the two ranks' bf16
+# main_serve_tp: Qwen2.5-14B at full width over 2 model ranks (24 of the
+# 48 padded q heads and 8 of the 16 kv heads a rank), cut to the first 24
+# of its 48 layers for the script's time (since main_serve_tp_moe joined
+# it; the main phase's weights, whose first 24 layers `tp_draw` draws
+# alike), the main phase's traffic (4 prompts of 256 tokens, 32 greedy
+# tokens), weights from seed 0 as `init_main` draws them. The split adds
+# the two ranks' bf16
 # partial sums where the unsharded run sums one product: the logits part
 # by up to TP_LOGIT_ATOL (0.0850 measured at the first step, run 1 of PR
 # 32), and a token may part from the unsharded run's only where its top-2
 # gap is within twice that (the random weights' logits are flat: gaps of
 # 0–0.11)
-SERVE_TP = dict(arch="qwen2p5_14b", batch=4, prompt=256, new=32, ranks=2)
+SERVE_TP = dict(arch="qwen2p5_14b", n_layers=24, batch=4, prompt=256,
+                new=32, ranks=2)
 TP_LOGIT_ATOL = 0.25
+# main_serve_tp_moe: Grok-1 at full width (d_model 6144, 8 experts x ff
+# 32768 top-2, 48 q / 8 kv heads x 128, padded to 48 / 16 by the tp=16
+# head plan, vocab 131072, bf16) cut to 4 of its 64 layers (42 GB whole;
+# the full model is 634 GB) over 2 model ranks under the default rules:
+# `w_gate`/`w_in` by d_model, `w_out` by its experts, 24 q / 8 kv heads a
+# rank; main_serve_tp's traffic and logits tolerance; the ranks' caches
+# are held to the split's too
+SERVE_TP_MOE = dict(arch="grok1_314b", n_layers=4, batch=4, prompt=256,
+                    new=32, ranks=2, caches=True)
+TP_MOE_PEAK_GB = 26.0
+# no collective of a decode token moves MoE weights: moving a rank's MoE
+# weight block of one layer over 2 ranks counts at least half its bytes
+# (`roofline.op_costs`' ring factors), so a token's collectives must stay
+# under that share of the smallest such block (activations: ~11 MB against
+# 1.6 GB)
+TP_MOE_WEIGHT_SHARE = 0.5
+# the split's hidden states part from the unsharded run's at the bf16
+# level, so its f32 router may send a token to another expert where the
+# unsharded router's top-k and top-(k+1) probabilities lie within this of
+# each other; a flipped expert changes that token's output whole and,
+# through attention, the later positions', so the unsharded run is fed
+# the split's routed experts (`RouteLog.replay`) and holds its logits
+ROUTE_TIE = 0.01
 # main_train_tp: RWKV6-7B at full width (d_model 4096, 64 heads x 64) cut
-# to 4 of its 32 layers (the 4 ranks' memory on one card and the script's
+# to 2 of its 32 layers (the 4 ranks' memory on one card and the script's
 # time), 4 rows of 256 tokens, f32 AdamW, StepConfig(), over (data 2,
 # model 2): 32 heads a rank
-TRAIN_TP = dict(arch="rwkv6_7b", n_layers=4, batch=4, seq=256, steps=2,
+TRAIN_TP = dict(arch="rwkv6_7b", n_layers=2, batch=4, seq=256, steps=2,
                 shape=(2, 2))
 TP_LOSS_RTOL = 1e-6
 
@@ -6305,40 +6343,46 @@ def shard_tiny_tp(dev, rank, world, where) -> dict:
 
 def tp_blocks_of(cfg, params, rank: int, size: int) -> dict:
     """This model rank's blocks of a whole parameter tree over a ('model',)
-    mesh of `size` (`sharding.tp_plan`), contiguous; each whole leaf is
-    dropped from `params` as its blocks are made."""
+    mesh of `size` (`tp_cut_dims`), contiguous copies."""
+    from repro_torch.parallel import sharding as shd
+    cuts = tp_cut_dims(cfg, size)
+
+    def one(leaf, d):
+        if d is None:
+            return leaf.clone()
+        n = leaf.shape[d] // size
+        return leaf.narrow(d, rank * n, n).contiguous()
+    return shd._tree_map(one, params, cuts)
+
+
+def tp_cut_dims(cfg, size: int) -> dict:
+    """Per leaf of `cfg`'s parameter tree, the tensor dim the TP forward
+    cuts over a ('model',) mesh of `size` (`sharding.tp_cuts`), or None."""
     from repro_torch.models import registry
     from repro_torch.parallel import sharding as shd
-    mesh = shd.SpecMesh(("model",), (size,))
+    abstract = registry.abstract_params(cfg)
     dims = shd._tree_map(lambda s: s.shard_dims, shd.named_shardings(
-        registry.abstract_params(cfg), mesh))
-    plan = shd.tp_plan(dims, ("model",), ())
-
-    def one(leaf, d, keep):
-        if not keep:
-            return leaf.clone()
-        n = leaf.shape[d[keep[0]]] // size
-        return leaf.narrow(d[keep[0]], rank * n, n).contiguous()
-    return shd._tree_map(one, params, dims, plan)
+        abstract, shd.SpecMesh(("model",), (size,))))
+    cuts = shd.tp_cuts(dims, ("model",), (), sizes=(size,),
+                       shapes=shd._tree_map(lambda a: tuple(a.shape),
+                                            abstract))
+    return shd._tree_map(lambda c: c[0][1] if c else None, cuts)
 
 
 def tp_draw(cfg, dev, rank: int, size: int) -> dict:
     """`init_main`'s weights (`lm.init_lm` from seed 0 on the card: the
     embedding, the head, then each layer's draws) drawn in its order, a
-    layer at a time, keeping this model rank's blocks (`tp_plan` on a
+    layer at a time, keeping this model rank's blocks (`tp_cut_dims` on a
     ('model',) mesh of `size`): the rank never holds the whole model."""
     import torch
 
     from repro_torch.models import common, lm, registry
     from repro_torch.parallel import sharding as shd
     abstract = registry.abstract_params(cfg)
-    dims = shd._tree_map(lambda s: s.shard_dims, shd.named_shardings(
-        abstract, shd.SpecMesh(("model",), (size,))))
-    plan = shd.tp_plan(dims, ("model",), ())
+    cuts = tp_cut_dims(cfg, size)
 
     def cut_dim(path):
-        keep = shd._get_path(plan, path)
-        return shd._get_path(dims, path)[keep[0]] if keep else None
+        return shd._get_path(cuts, path)
 
     def cut(path, leaf, lead: int = 0):
         d = cut_dim(path)
@@ -6414,33 +6458,106 @@ def greedy_run(prefill, decode, vocab_size: int, n_vocab: int, prompts,
     return torch.cat(toks, 1), logits_out, gaps
 
 
-def shard_serve_tp(dev, rank, world, where) -> dict:
-    """One rank of main_serve_tp: SERVE_TP's model drawn a layer at a time
-    keeping this rank's blocks (`tp_draw`), placed over a ('model',) mesh
-    of the world, then the placed prefill and greedy decode
-    (`prefill_fn` / `decode_fn`, the cache placed by `serve_cache_pspecs`)
-    with the rank's launches exact, its decode timed; one more decode step
-    under `roofline.op_costs` (the collectives a token); the tokens and
-    the rank's logits blocks written to `where`."""
-    import numpy as np
-    import torch
+def serve_tp_config(spec: dict):
+    """`spec["arch"]` at full width, cut to `spec["n_layers"]` where set."""
+    import dataclasses
 
     from repro_torch.configs import get_config
+    cfg = get_config(spec["arch"])
+    if "n_layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg
+
+
+def moe_weight_bytes(params) -> int:
+    """The bytes of the smallest MoE weight block one layer of this rank's
+    params holds (0 without a MoE)."""
+    moe = params.get("blocks", {}).get("moe")
+    if moe is None:
+        return 0
+    return min(a.to_local()[0].numel() * a.to_local().element_size()
+               for k, a in moe.items() if k != "router")
+
+
+class RouteLog:
+    """The MoE router's choices while `calls` is a list: each
+    `mlp.moe_route` call's routed experts [B, T, K] in the router's order
+    and its top-k minus top-(k+1) probability [B, T], on the host (the
+    wrapper recomputes the probabilities beside the router's own; `close`
+    restores it). With `replay` (a list of routed experts, one a call)
+    the layer takes those experts in place of its router's, their gates
+    from its own probabilities, and `calls` records what its router would
+    have picked."""
+
+    def __init__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.plain, self.calls = mlp, mlp.moe_route, None
+        self.replay = None
+        mlp.moe_route = self._route
+
+    def _route(self, params, x, spec):
+        import torch
+        import torch.nn.functional as F
+        out = self.plain(params, x, spec)
+        if self.calls is None:
+            return out
+        probs = torch.softmax(x.float() @ params["router"], dim=-1)
+        top = probs.topk(spec.k + 1, dim=-1).values
+        self.calls.append((out[1].cpu().numpy(),
+                           (top[..., -2] - top[..., -1]).cpu().numpy()))
+        if self.replay is None:
+            return out
+        idx = torch.from_numpy(self.replay[len(self.calls) - 1]).to(
+            out[1].device)
+        gates = probs.gather(-1, idx)
+        ce = F.one_hot(idx[..., 0], spec.n_experts).float().mean(dim=(0, 1))
+        return (gates / gates.sum(-1, keepdim=True), idx,
+                spec.n_experts * (probs.mean(dim=(0, 1)) * ce).sum())
+
+    def close(self):
+        self.mlp.moe_route = self.plain
+
+
+def shard_serve_tp(dev, rank, world, where, spec=None) -> dict:
+    """One rank of main_serve_tp (`spec`, SERVE_TP by default;
+    main_serve_tp_moe's SERVE_TP_MOE): the model drawn a layer at a time
+    keeping this rank's blocks (`tp_draw`), placed over a ('model',) mesh
+    of the world, then the placed prefill and greedy decode (`prefill_fn`
+    / `decode_fn`, the cache placed by `serve_cache_pspecs`) with the
+    rank's launches exact, its decode timed; one more decode step under
+    `roofline.op_costs` (the collectives a token: with a MoE, their bytes
+    under TP_MOE_WEIGHT_SHARE of one layer's smallest MoE weight block of
+    the rank, so no MoE weight moves); the tokens, the rank's logits blocks and
+    (`spec["caches"]`) its cache blocks written to `where`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import registry
     from repro_torch.parallel import sharding as shd
     from repro_torch.roofline.op_costs import analyze_ops
-    cfg = get_config(SERVE_TP["arch"])
-    B, Tp, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
+    spec = spec or SERVE_TP
+    cfg = serve_tp_config(spec)
+    B, Tp, new = spec["batch"], spec["prompt"], spec["new"]
     mesh = make_mesh((world,), ("model",), dev.type)
     t0 = time.perf_counter()
-    params = tp_placed(cfg, tp_draw(cfg, dev, rank, world), mesh)
+    # the ranks draw in turn: a layer's draw holds the whole layer and an
+    # f32 copy of its largest leaf beside the rank's blocks (Grok-1: 9.7
+    # and 6 GB beside 21), which two ranks at once do not fit
+    for r in range(world):
+        if r == rank:
+            blocks = tp_draw(cfg, dev, rank, world)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    params = tp_placed(cfg, blocks, mesh)
+    del blocks
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_local = sum(a.to_local().numel() for a in _leaf_values(params))
     api = registry.build(cfg)
-    prompts = torch.from_numpy(main_prompts(cfg, SERVE_TP)).to(dev)
+    prompts = torch.from_numpy(main_prompts(cfg, spec)).to(dev)
     max_len = Tp + new
     state = {}
 
@@ -6467,6 +6584,9 @@ def shard_serve_tp(dev, rank, world, where) -> dict:
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         ops.reset_launch_counts()
+        routes = RouteLog() if cfg.family == "moe" else None
+        if routes is not None:
+            routes.calls = []
         t0 = time.perf_counter()
         tokens, logits, _ = greedy_run(prefill, decode, cfg.vocab_size,
                                        cfg.vocab_padded, prompts, new,
@@ -6474,7 +6594,14 @@ def shard_serve_tp(dev, rank, world, where) -> dict:
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launches = ops.launch_counts()
+        calls = routes.calls if routes is not None else []
+        if routes is not None:
+            routes.close()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        caches = {".".join(path): a.float().cpu().numpy().copy()
+                  for path, a in
+                  _leaf_items(shd.to_local_tree(state["cache"]))
+                  } if spec.get("caches") else {}
         last = tokens[:, -1:].to(dev)
         costs = analyze_ops(lambda: shd.vocab_argmax(
             decode(last, new - 1)[:, -1].float(), cfg.vocab_padded))
@@ -6484,34 +6611,164 @@ def shard_serve_tp(dev, rank, world, where) -> dict:
     if launches != want:
         raise AssertionError(f"main_serve_tp rank {rank}: launches "
                              f"{launches} != {want}")
+    moe_bytes = moe_weight_bytes(params)
+    moved = sum(costs.collective_bytes.values())
+    if moe_bytes and moved >= TP_MOE_WEIGHT_SHARE * moe_bytes:
+        raise AssertionError(f"main_serve_tp_moe rank {rank}: {moved} B of "
+                             f"collectives a token, against one layer's "
+                             f"{moe_bytes} B MoE weight block")
     np.savez(where / f"rank{rank}.npz", tokens=tokens.numpy(),
-             logits=torch.stack(logits).numpy())
+             logits=torch.stack(logits).numpy(),
+             **{f"cache.{k}": v for k, v in caches.items()},
+             **{f"route.{i}": idx for i, (idx, _) in enumerate(calls)})
     return dict(coord=tuple(mesh.get_coordinate()), params_local=n_local,
                 init_s=init_s, prefill_ms=prefill_s * 1e3,
                 decode_ms_per_token=(total_s - prefill_s) / (new - 1) * 1e3,
                 generate_s=total_s, peak_gb=peak_gb,
                 collectives_per_token=dict(costs.op_counts),
                 collective_bytes_per_token=dict(costs.collective_bytes),
+                moe_layer_block_bytes=moe_bytes,
                 launches={k: v for k, v in launches.items() if v})
 
 
-def run_main_serve_tp(dev, cfg, params) -> dict:
-    """main_serve_tp: the unsharded path's greedy run on `params` (the main
-    phase's weights: `lm.prefill` and `decode_step`, each step's logits
-    and smallest top-2 gap), then SERVE_TP over gloo model ranks sharing
-    the card (`shard_serve_tp`), then, after the ranks exit, the
-    one-process split of the same weights (`sharding.run_model_ranks`,
-    the ranks' blocks cut from `params`, which is emptied once they are
-    made: the card holds the weights twice at most): every rank's tokens
-    and logits equal the split's bit for bit, and the unsharded path's
-    within TP_LOGIT_ATOL, its tokens equal up to the first near-tie."""
+def check_tp_oracle(phase: str, files, ref) -> None:
+    """Every rank's tokens, logits and (where the ranks wrote them) cache
+    blocks equal to the one-process split's (`ref`: each rank's
+    `greedy_run` result and cache) bit for bit."""
     import numpy as np
+    import torch
+    for r, f in enumerate(files):
+        same = (np.array_equal(f["tokens"], ref[r][0].numpy())
+                and np.array_equal(f["logits"],
+                                   torch.stack(ref[r][1]).numpy()))
+        for key in f.files:
+            if key.startswith("cache."):
+                want = _at(ref[r][3], tuple(key.split(".")[1:]))
+                same = same and np.array_equal(f[key],
+                                               want.float().cpu().numpy())
+        if not same:
+            raise AssertionError(f"{phase} rank {r}: not the one-process "
+                                 f"split's tokens, logits and caches")
+
+
+def check_tp_serve(phase: str, files, ref, whole_tokens, whole_logits,
+                   gaps, new: int) -> dict:
+    """`check_tp_oracle`, and the joined logits within TP_LOGIT_ATOL of
+    the unsharded path's, its tokens equal up to the first near-tie: (the
+    first step whose token parts, the largest logit gap up to it)."""
+    import numpy as np
+    check_tp_oracle(phase, files, ref)
+    joined = np.concatenate([f["logits"] for f in files], -1)
+    tp_tokens, want = files[0]["tokens"], whole_tokens.numpy()
+    # the inputs agree up to the first step whose token parts, so the
+    # logits are held there too; a token may part only where the unsharded
+    # top-2 gap is within twice the logits' tolerance
+    parted = [i for i in range(new)
+              if not np.array_equal(tp_tokens[:, i], want[:, i])]
+    first = parted[0] if parted else new
+    gap = max(float(np.abs(joined[i] - whole_logits[i].numpy()).max())
+              for i in range(min(first + 1, new)))
+    if gap > TP_LOGIT_ATOL:
+        raise AssertionError(f"{phase}: logits {gap} from the unsharded "
+                             f"path's by step {first}")
+    if first < new and gaps[first] > 2 * TP_LOGIT_ATOL:
+        raise AssertionError(f"{phase}: step {first}'s token parts from "
+                             f"the unsharded path's at a top-2 gap of "
+                             f"{gaps[first]}")
+    return dict(tokens_equal_unsharded_steps=first, max_logit_gap=gap,
+                unsharded_top2_gaps=gaps, ranks_equal_oracle=True)
+
+
+def check_tp_moe_serve(phase: str, files, whole_logits, routes,
+                       n_layers: int, new: int) -> dict:
+    """The unsharded run (`whole_logits`, each step's; `routes`, what its
+    router picked at each MoE call), fed the split's tokens and routed
+    experts (`RouteLog.replay`), against the split (rank 0's routes,
+    `files`): at every call the routed experts equal the unsharded
+    router's but where its top-k gap is under ROUTE_TIE (a flip), the
+    joined logits within TP_LOGIT_ATOL at every step, and each token the
+    unsharded logits' argmax but at a top-2 gap within twice that."""
+    import numpy as np
+    tp_routes = [files[0][f"route.{i}"] for i in range(len(routes))]
+    if len(routes) != n_layers * new or f"route.{len(routes)}" in files[0]:
+        raise AssertionError(f"{phase}: {len(routes)} router calls")
+    flips, flip_gap = 0, 0.0
+    for c, ((idx_w, gap_w), idx_tp) in enumerate(zip(routes, tp_routes)):
+        diff = (np.sort(idx_tp, -1) != np.sort(idx_w, -1)).any(-1)
+        if diff.any():
+            flip_gap = max(flip_gap, float(gap_w[diff].max()))
+        if flip_gap > ROUTE_TIE:
+            raise AssertionError(f"{phase}: call {c} routes apart at a "
+                                 f"top-k gap of {flip_gap}")
+        flips += int(diff.sum())
+    joined = np.concatenate([f["logits"] for f in files], -1)
+    tokens, worst, ties = files[0]["tokens"], 0.0, []
+    for step in range(new):
+        w = whole_logits[step].numpy()
+        worst = max(worst, float(np.abs(joined[step] - w).max()))
+        top2 = np.sort(w, -1)[:, -2:]
+        for b in np.nonzero(tokens[:, step] != w.argmax(-1))[0]:
+            if top2[b, 1] - top2[b, 0] > 2 * TP_LOGIT_ATOL:
+                raise AssertionError(f"{phase}: row {b} step {step}'s "
+                                     f"token is not the unsharded argmax "
+                                     f"at a top-2 gap of "
+                                     f"{top2[b, 1] - top2[b, 0]}")
+            ties.append((int(b), step))
+    if worst > TP_LOGIT_ATOL:
+        raise AssertionError(f"{phase}: logits {worst} apart")
+    return dict(route_flips=flips, max_flip_gap=flip_gap,
+                routed_slots=sum(int(np.prod(i.shape[:2])) for i, _ in
+                                 routes),
+                max_logit_gap=worst, tokens_at_near_ties=ties)
+
+
+def split_greedy(cfg, split, prompts, spec: dict) -> list:
+    """The one-process split: each model rank's `greedy_run` on its blocks
+    (`split[r]`) in a thread of `sharding.run_model_ranks`; each rank's
+    (tokens, logits, gaps, its cache)."""
     import torch
 
     from repro_torch.models import lm
     from repro_torch.parallel import sharding as shd
+    Tp, new = spec["prompt"], spec["new"]
+
+    def oracle(r):
+        st = {}
+
+        def pre(tok):
+            logits, st["cache"], st["T"] = lm.prefill(split[r], tok, cfg,
+                                                      Tp + new)
+            return logits
+
+        def dec(tok, i):
+            return lm.decode_step(split[r], st["cache"], tok, st["T"] + i,
+                                  cfg)[0]
+        return greedy_run(pre, dec, cfg.vocab_size, cfg.vocab_padded,
+                          prompts, new, tp=True) + (st["cache"],)
+
+    with torch.no_grad():
+        return shd.run_model_ranks(len(split), oracle)
+
+
+def run_main_serve_tp(dev, cfg, params) -> dict:
+    """main_serve_tp: the unsharded path's greedy run on `params` (the main
+    phase's weights, their first SERVE_TP["n_layers"] layers: `lm.prefill`
+    and `decode_step`, each step's logits and smallest top-2 gap), then
+    SERVE_TP over gloo model ranks sharing the card (`shard_serve_tp`),
+    then, after the ranks exit, the one-process split of the same weights
+    (`split_greedy`, the ranks' blocks cut from `params`, which is emptied
+    once they are made: the card holds the weights twice at most), held to
+    the ranks and to the unsharded path by `check_tp_serve`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
     t0 = time.perf_counter()
-    B, Tp, new = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["new"]
+    Tp, new = SERVE_TP["prompt"], SERVE_TP["new"]
+    whole = params
+    cfg = serve_tp_config(SERVE_TP)
+    params = dict(whole, blocks=lm.tree_map(lambda a: a[:cfg.n_layers],
+                                            whole["blocks"]))
     prompts = torch.from_numpy(main_prompts(cfg, SERVE_TP)).to(dev)
     state = {}
 
@@ -6535,53 +6792,98 @@ def run_main_serve_tp(dev, cfg, params) -> dict:
     m = SERVE_TP["ranks"]
     split = [tp_blocks_of(cfg, params, r, m) for r in range(m)]
     params.clear()
+    whole.clear()
     gc.collect()
     torch.cuda.empty_cache()
-
-    def oracle(r):
-        st = {}
-
-        def pre(tok):
-            logits, st["cache"], st["T"] = lm.prefill(split[r], tok, cfg,
-                                                      Tp + new)
-            return logits
-
-        def dec(tok, i):
-            return lm.decode_step(split[r], st["cache"], tok, st["T"] + i,
-                                  cfg)[0]
-        return greedy_run(pre, dec, cfg.vocab_size, cfg.vocab_padded,
-                          prompts, new, tp=True)
-
-    with torch.no_grad():
-        ref = shd.run_model_ranks(m, oracle)
+    ref = split_greedy(cfg, split, prompts, SERVE_TP)
     del split
     gc.collect()
     torch.cuda.empty_cache()
-    for r, f in enumerate(files):
-        if not (np.array_equal(f["tokens"], ref[r][0].numpy())
-                and np.array_equal(f["logits"],
-                                   torch.stack(ref[r][1]).numpy())):
-            raise AssertionError(f"main_serve_tp rank {r}: not the "
-                                 f"one-process split's tokens and logits")
-    joined = np.concatenate([f["logits"] for f in files], -1)
-    tp_tokens, want = files[0]["tokens"], whole_tokens.numpy()
-    # the inputs agree up to the first step whose token parts, so the
-    # logits are held there too; a token may part only where the unsharded
-    # top-2 gap is within twice the logits' tolerance
-    parted = [i for i in range(new)
-              if not np.array_equal(tp_tokens[:, i], want[:, i])]
-    first = parted[0] if parted else new
-    gap = max(float(np.abs(joined[i] - whole_logits[i].numpy()).max())
-              for i in range(min(first + 1, new)))
-    if gap > TP_LOGIT_ATOL:
-        raise AssertionError(f"main_serve_tp: logits {gap} from the "
-                             f"unsharded path's by step {first}")
-    if first < new and gaps[first] > 2 * TP_LOGIT_ATOL:
-        raise AssertionError(f"main_serve_tp: step {first}'s token parts "
-                             f"from the unsharded path's at a top-2 gap "
-                             f"of {gaps[first]}")
-    return dict(config=SERVE_TP, ranks=ranks, tokens_equal_unsharded_steps=
-                first, unsharded_top2_gaps=gaps, max_logit_gap=gap,
+    checked = check_tp_serve("main_serve_tp", files, ref, whole_tokens,
+                             whole_logits, gaps, new)
+    return dict(config=SERVE_TP, ranks=ranks, **checked,
+                launches={k: sum(r["launches"].get(k, 0) for r in ranks)
+                          for k in ranks[0]["launches"]},
+                seconds=time.perf_counter() - t0)
+
+
+def run_main_serve_tp_moe(dev) -> dict:
+    """main_serve_tp_moe: SERVE_TP_MOE over 2 gloo model ranks sharing the
+    card (`shard_serve_tp`: each rank's blocks drawn in turn, its launches
+    exact, no MoE weight in a token's collectives, its routed experts
+    recorded), each rank's peak under TP_MOE_PEAK_GB; then the model drawn
+    whole in the ranks' order (`tp_draw` of one rank) and run unsharded
+    on the ranks' tokens and routed experts (its decode timed, its peak;
+    `check_tp_moe_serve`: the split's bf16 sums part the two runs' router
+    inputs, so a free run would send some tokens to other experts and part
+    from then on); then the one-process split of the same draws
+    (`split_greedy`), held to the ranks bit for bit (tokens, logits,
+    caches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, lm
+    t0 = time.perf_counter()
+    spec = SERVE_TP_MOE
+    cfg = serve_tp_config(spec)
+    Tp, new, m = spec["prompt"], spec["new"], spec["ranks"]
+    prompts = torch.from_numpy(main_prompts(cfg, spec)).to(dev)
+    ranks = run_worlds([("serve_tp_moe", m, "gloo")],
+                       timeout_s=600)["serve_tp_moe"]
+    for r in ranks:
+        if r["peak_gb"] > TP_MOE_PEAK_GB:
+            raise AssertionError(f"main_serve_tp_moe rank {r['coord']}: "
+                                 f"peak {r['peak_gb']} GB")
+    files = [np.load(SHARD_DIR / "serve_tp_moe" / f"rank{r}.npz")
+             for r in range(m)]
+    tokens = torch.from_numpy(files[0]["tokens"]).to(dev)
+    params = tp_draw(cfg, dev, 0, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    log = RouteLog()
+    log.calls = []
+    log.replay = [files[0][f"route.{i}"]
+                  for i in range(cfg.n_layers * new)]
+    whole_logits = []
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache, T = lm.prefill(params, prompts, cfg, Tp + new)
+        for i in range(new):
+            whole_logits.append(common.mask_padded_vocab(
+                logits[:, -1].float().clone(), cfg.vocab_size,
+                cfg.vocab_padded).cpu())
+            if i + 1 < new:
+                logits = lm.decode_step(params, cache, tokens[:, i:i + 1],
+                                        T + i, cfg)[0]
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t1
+    routes = log.calls
+    log.close()
+    launches = ops.launch_counts()
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(flash_attention_fwd=cfg.n_layers,
+                decode_attention=cfg.n_layers * (new - 1))
+    if launches != want:
+        raise AssertionError(f"main_serve_tp_moe unsharded: launches "
+                             f"{launches} != {want}")
+    unsharded = dict(
+        params=sum(a.numel() for a in _leaf_values(params)),
+        forced_run_s=whole_s,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    checked = check_tp_moe_serve("main_serve_tp_moe", files, whole_logits,
+                                 routes, cfg.n_layers, new)
+    split = [tp_draw(cfg, dev, r, m) for r in range(m)]
+    check_tp_oracle("main_serve_tp_moe", files,
+                    split_greedy(cfg, split, prompts, spec))
+    del split
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(config=spec, unsharded=unsharded, ranks=ranks, **checked,
                 ranks_equal_oracle=True,
                 launches={k: sum(r["launches"].get(k, 0) for r in ranks)
                           for k in ranks[0]["launches"]},
@@ -6788,6 +7090,9 @@ class DryRun:
                      "--out", str(where)],
                     stdout=log, stderr=subprocess.STDOUT,
                     env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+                # the cells yield the host to the card phases beside them,
+                # which are bound by their host dispatch
+                os.setpriority(os.PRIO_PROCESS, self.proc.pid, 19)
                 self.done.append((arch, shape, mesh, self.proc.wait()))
 
     def stop(self) -> None:
@@ -6828,6 +7133,8 @@ SHARD_JOBS = {"tiny_nccl": shard_tiny_nccl, "tiny_gloo": shard_tiny_gloo,
               "fsdp_save": shard_train_fsdp_save,
               "fsdp_restore": shard_train_fsdp_restore,
               "tiny_tp": shard_tiny_tp, "serve_tp": shard_serve_tp,
+              "serve_tp_moe": lambda dev, rank, world, where: shard_serve_tp(
+                  dev, rank, world, where, SERVE_TP_MOE),
               "train_tp": shard_train_tp}
 
 
@@ -6925,6 +7232,13 @@ def main() -> int:
     del result, params
     gc.collect()
     torch.cuda.empty_cache()       # the Qwen2.5 weights are gone
+    result = run_main_serve_tp_moe(dev)
+    by_path["serve-grok-tp"] = {k: result["launches"].get(k, 0)
+                                for k in ops.KERNELS}
+    emit({"phase": "main_serve_tp_moe", **result})
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()       # the Grok-1 weights are gone
 
     routed = Beside(run_tiny_routed)
     elastic = Beside(run_elastic_example, {name: 0 for name in ops.KERNELS})

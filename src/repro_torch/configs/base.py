@@ -69,6 +69,9 @@ class ModelConfig:
                 return g
         return 1
 
+    @property
+    def has_attention(self) -> bool:
+        return self.family not in ("ssm",)
 
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + blocks), for 6ND math."""

@@ -53,6 +53,10 @@ class RailRequest:
     comp_level: Any = None
     reason: str = ""
 
+    def is_empty(self) -> bool:
+        return (self.v_core is None and self.v_hbm is None
+                and self.v_io is None and self.comp_level is None)
+
 
 def apply_request(state: PowerPlaneState, request: RailRequest
                   ) -> PowerPlaneState:

@@ -35,7 +35,8 @@ import torch
 
 from repro_torch.core import telemetry as _telemetry
 from repro_torch.core.power_plane import as_f32
-from repro_torch.core.telemetry import (DEFAULT_RAIL_OBSERVABLES,
+from repro_torch.core.telemetry import (ALL_RAIL_OBSERVABLES,
+                                        DEFAULT_RAIL_OBSERVABLES,
                                         FrameHistory, RailObservable,
                                         TelemetryFrame)
 from repro_torch.kernels import ops, ref
@@ -79,6 +80,9 @@ class SorConfig:
     def n_rails(self) -> int:
         return len(self.rails)
 
+    def rail_index(self, name: str) -> int:
+        return _telemetry.rail_index(self.rails, name)
+
 
 _FIELDS = ("intercept", "slope", "v_frontier", "confidence", "n_eff")
 
@@ -105,6 +109,14 @@ class SorEstimate:
     @property
     def n_rails(self) -> int:
         return self.confidence.shape[0]
+
+    def rail(self, i: int) -> "SorEstimate":
+        """One rail's estimate (fields shaped [*chip])."""
+        return SorEstimate(*(getattr(self, f)[i] for f in _FIELDS))
+
+    def log10_error_at(self, v) -> torch.Tensor:
+        """Modeled log10(observable) at voltage `v` (elementwise)."""
+        return self.intercept + self.slope * as_f32(v, self.slope.device)
 
 
 def _rail_bounds(cfg: SorConfig) -> np.ndarray:
@@ -409,3 +421,13 @@ def summary(est: SorEstimate, cfg: SorConfig) -> dict[str, float]:
             if k != "n_chips":
                 out[f"{spec.rail}/{k}"] = v
     return out
+
+
+# re-exported for consumers that configure rails through this module
+__all__ = [
+    "ALL_RAIL_OBSERVABLES", "DEFAULT_RAIL_OBSERVABLES", "RailObservable",
+    "SorConfig", "SorEstimate", "SafeEnvelope", "SorState",
+    "fit_history", "update_estimate", "rail_envelopes", "safe_envelope",
+    "envelope_for", "as_envelopes", "init_state", "observe",
+    "merge_observables", "summary",
+]

@@ -104,6 +104,16 @@ class TelemetryFrame:
                               v_io=state.v_io, extras=extras,
                               provenance=Provenance.EXACT, **kw)
 
+    def to_dict(self) -> dict[str, Any]:
+        """The metrics-dict view (for the `update_*` policies and logging):
+        the non-None typed fields plus the extras."""
+        out = dict(self.extras)
+        for k in _FRAME_METRIC_KEYS + _FRAME_NOM_KEYS + _FRAME_RAIL_KEYS:
+            v = getattr(self, k)
+            if v is not None:
+                out[k] = v
+        return out
+
     def get(self, key: str, default: Any = None) -> Any:
         """dict-style access over typed fields + extras."""
         if key in self.extras:
@@ -229,6 +239,35 @@ class FrameHistory:
     @property
     def chip_shape(self) -> tuple[int, ...]:
         return tuple(self.v.shape[2:])
+
+    @property
+    def n_rails(self) -> int:
+        return len(self.rails)
+
+    def rail_index(self, name: str) -> int:
+        return rail_index(self.rails, name)
+
+    # the single-rail views (the field names of the one-rail layout)
+    @property
+    def v_io(self) -> torch.Tensor:
+        return self.v[:, self.rail_index("VDD_IO")]
+
+    @property
+    def error(self) -> torch.Tensor:
+        return self.obs[:, self.rail_index("VDD_IO")]
+
+    def partition_specs(self, axis_name: str = "chips"):
+        """The placement tree of this ring on a 1-D `axis_name` chip mesh:
+        the `[capacity, n_rails, n]` tensors shard their trailing chip axis
+        (`Shard(-1)`), `cursor` and `count` replicate, so a sharded control
+        round never gathers the window. A scalar or multi-dim chip shape
+        replicates every leaf."""
+        from torch.distributed.tensor import Replicate
+
+        from repro_torch.kernels import ops
+        if len(self.chip_shape) == 1:
+            return ops.chip_specs(self, self.chip_shape[0], axis_name)
+        return ops._map_tree(lambda leaf: Replicate(), self)
 
     def push(self, frame: TelemetryFrame) -> "FrameHistory":
         """Functional append of one observation. (rail, chip) lanes whose

@@ -37,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 import traceback
 
@@ -238,6 +239,72 @@ def build_cell(arch: str, shape_name: str, mesh):
             return api.decode_fn(params, cache, step_batch)
 
     return run, {"params": params, "cache": cache, "batch": local_batch}
+
+
+# ---------------------------------------------------------------------------
+# Collective bytes from post-SPMD HLO text (the reference's parser, copied:
+# the port makes no HLO, `roofline/op_costs.py` counts its collectives)
+# ---------------------------------------------------------------------------
+
+_COLL_RE = re.compile(
+    r"^\s*(?:ROOT\s+)?%?[\w.\-]+\s*=\s*(\([^)]*\)|\S+)\s+"
+    r"(all-gather|all-reduce|reduce-scatter|all-to-all|collective-permute)"
+    r"[^\n]*",
+    re.M)
+
+_SHAPE_RE = re.compile(r"(f64|f32|bf16|f16|s64|s32|s16|s8|u64|u32|u16|u8|pred)"
+                       r"\[([\d,]*)\]")
+_GROUP_RE = re.compile(r"replica_groups=\{\{([\d,]+)\}")
+_GROUP_IOTA_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+
+_BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
+          "bf16": 2, "f16": 2, "s16": 2, "u16": 2, "s8": 1, "u8": 1, "pred": 1}
+
+
+def _group_size(line: str) -> int:
+    m = _GROUP_IOTA_RE.search(line)       # iota format: [ngroups,group_size]
+    if m:
+        return max(1, int(m.group(2)))
+    m = _GROUP_RE.search(line)            # explicit: {{0,1,...},{...}}
+    if m:
+        return max(1, m.group(1).count(",") + 1)
+    return 2
+
+
+def collective_bytes(hlo_text: str) -> dict[str, float]:
+    """Per-device wire bytes of every collective in post-optimization HLO.
+
+    Output-shape bytes are converted to ring-algorithm wire traffic per
+    participant (P = replica-group size):
+      all-gather         out*(P-1)/P     (out = full gathered buffer)
+      all-reduce         2*out*(P-1)/P   (reduce-scatter + all-gather phases)
+      reduce-scatter     out*(P-1)       (out = the local shard)
+      all-to-all         out*(P-1)/P
+      collective-permute out
+    """
+    out: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for m in _COLL_RE.finditer(hlo_text):
+        shapes_blob, kind, line = m.group(1), m.group(2), m.group(0)
+        total = 0
+        for sm in _SHAPE_RE.finditer(shapes_blob):
+            dt, dims = sm.group(1), sm.group(2)
+            n = 1
+            if dims:
+                for d in dims.split(","):
+                    n *= int(d)
+            total += n * _BYTES[dt]
+        p = _group_size(line)
+        factor = {"all-gather": (p - 1) / p,
+                  "all-reduce": 2 * (p - 1) / p,
+                  "reduce-scatter": float(p - 1),
+                  "all-to-all": (p - 1) / p,
+                  "collective-permute": 1.0}[kind]
+        out[kind] = out.get(kind, 0) + total * factor
+        counts[kind] = counts.get(kind, 0) + 1
+    out["total"] = sum(v for k, v in out.items() if k != "total")
+    out["op_counts"] = counts
+    return out
 
 
 # ---------------------------------------------------------------------------

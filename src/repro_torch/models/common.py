@@ -232,3 +232,20 @@ def plan_head_padding(n_q: int, n_kv: int, tp: int) -> HeadPlan:
             f"planner failed: q={n_q}->{n_q_pad} kv={n_kv}->{n_kv_pad} tp={tp}")
     return HeadPlan(n_q, n_kv, n_q_pad, n_kv_pad, n_q_pad // n_kv_pad,
                     tuple(kv_src), tuple(q_src))
+
+
+def _pad_heads(w, src):
+    src = torch.as_tensor(src, device=w.device)
+    gathered = torch.index_select(w, -2, src.clamp(min=0))
+    return gathered * (src >= 0).to(w.dtype)[:, None]
+
+
+def pad_heads_q(w, plan: HeadPlan):
+    """w [..., n_q, Dh] -> [..., n_q_pad, Dh], zero rows at pad slots."""
+    return _pad_heads(w, plan.q_src)
+
+
+def pad_heads_kv(w, plan: HeadPlan):
+    """w [..., n_kv, Dh] -> [..., n_kv_pad, Dh] by duplication (or zero
+    pad for MHA layouts where kv_src == -1)."""
+    return _pad_heads(w, plan.kv_src)

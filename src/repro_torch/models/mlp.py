@@ -14,10 +14,14 @@ no all-to-all dispatch.
 
 Tensor parallelism: where a leaf holds this rank's block along 'model'
 (`parallel.sharding.tp_local`), the dense MLPs are column-parallel in and
-row-parallel out with one reduce over the model group; the MoE splits its
-experts' ff (the default rules) or, under `moe_ep`, computes the rank's
-experts only, and reduces the combined output. The router stays
-replicated, on true f32."""
+row-parallel out with one reduce over the model group. The MoE takes each
+weight in the layout `parallel.sharding.tp_cuts` gives it: under `moe_ep`
+the rank's experts; under the default rules `w_gate`/`w_in` in d_model
+blocks (as placed) and `w_out` in expert blocks (as placed, where the
+experts divide over 'model') or in ff blocks (its rows for the rank's ff,
+moved to it by `sharding.fetch_block`); or all three in ff blocks. Every
+rank computes 1/m of the layer (`moe_apply`) and the combined output is
+reduced. The router stays replicated, on true f32."""
 
 from __future__ import annotations
 
@@ -163,36 +167,69 @@ def moe_apply(params, x, spec: MoESpec):
     is read is the only write to its row and the buffer has the same bits
     every run. A SwiGLU over the experts, then each slot's row gathered back
     and weighted by its gate, summed over the K slots in the router's
-    order. Nothing leaves the device: no shape depends on the routing."""
+    order. Nothing leaves the device: no shape depends on the routing.
+
+    Tensor parallelism (each weight's block along 'model', module
+    docstring): under moe_ep each rank runs its experts alone. Otherwise
+    the activation `act` [E, B*cap, F] is made in ff blocks, as the
+    reference constrains it (`constrain(act, ..., "ff")`): from ff blocks
+    of `w_gate`/`w_in`, or from their d_model blocks as partial products
+    over the rank's d_model slice of the buffer, reduce-scattered along
+    the ff; then `w_out`'s ff block gives a partial output, or, where
+    `w_out` holds the rank's experts, an all-to-all swaps `act` from ff
+    blocks to expert blocks and the rank's experts run whole. Either way
+    the combined slots are partial sums, reduced over the model group."""
     B, T, D = x.shape
-    E, K = spec.n_experts, spec.k
+    E, K, Fd = spec.n_experts, spec.k, spec.d_ff
     cap = moe_capacity(T, spec)
     gate_vals, idx, aux = moe_route(params, x, spec)
     rank, keep = moe_ranks(idx, E, cap)
-    # tensor parallelism: the rank's block of the experts (moe_ep) or of
-    # their ff (the default rules)
-    tp_e = tp_local(params["w_gate"].shape[0], E)
-    tp = tp_e or tp_local(params["w_gate"].shape[2], spec.d_ff)
+    wg, wi, wo = params["w_gate"], params["w_in"], params["w_out"]
+    in_e, in_d, in_f = (tp_local(wg.shape[0], E), tp_local(wg.shape[1], D),
+                        tp_local(wg.shape[2], Fd))
+    out_e, out_f = tp_local(wo.shape[0], E), tp_local(wo.shape[1], Fd)
+    tp = in_e or in_d or in_f or out_e or out_f
+    experts = in_e is not None and out_e is not None
+    if tp is not None and not experts and (in_e or not (in_d or in_f)):
+        raise ValueError(
+            f"MoE weights of shapes {tuple(wg.shape)}, {tuple(wo.shape)}: "
+            "no layout of the layer over the model group (w_gate and w_in "
+            "take d_model or ff blocks, w_out experts or ff blocks, or all "
+            "three experts)")
     xt = x if tp is None else tp.copy(x)
-    E_l = params["w_gate"].shape[0]
-    e0 = 0 if tp_e is None else tp_e.rank * E_l
+    # the buffer's experts (the rank's under moe_ep) and d_model columns
+    E_l = wg.shape[0] if experts else E
+    e0 = tp.rank * E_l if experts else 0
+    cols = slice(None) if in_d is None else slice(tp.rank * wg.shape[1],
+                                                  (tp.rank + 1) * wg.shape[1])
     flat_e = idx.reshape(B, T * K) - e0
-    if tp_e is not None:
+    if experts:
         keep = keep & (flat_e >= 0) & (flat_e < E_l)
     rows = torch.arange(B, device=x.device)[:, None]
     slot = (flat_e * B + rows) * cap + rank                    # [B,TK]
     n_rows = E_l * B * cap
     dest = torch.where(keep, slot, n_rows)
-    xr = xt.repeat_interleave(K, dim=1)                        # [B,TK,D]
-    buf = x.new_zeros((n_rows + 1, D)).index_put(
-        (dest.reshape(-1),), xr.reshape(-1, D))
-    buf = constrain(buf[:n_rows].view(E_l, B * cap, D), "experts", "batch",
+    xr = xt[..., cols].repeat_interleave(K, dim=1)             # [B,TK,D']
+    buf = x.new_zeros((n_rows + 1, xr.shape[-1])).index_put(
+        (dest.reshape(-1),), xr.reshape(-1, xr.shape[-1]))
+    buf = constrain(buf[:n_rows].view(E_l, B * cap, -1), "experts", "batch",
                     "embed")
-    g = torch.bmm(buf, params["w_gate"])
-    h = torch.bmm(buf, params["w_in"])
+    g = torch.bmm(buf, wg)
+    h = torch.bmm(buf, wi)
+    if in_d is not None:
+        # the d_model slice's partial products, summed into ff blocks
+        g, h = tp.reduce_scatter(g, 2), tp.reduce_scatter(h, 2)
     act = constrain(F.silu(g.float()).to(x.dtype) * h, "experts", "batch",
                     "ff")
-    out = constrain(torch.bmm(act, params["w_out"]), "experts", "batch",
+    if out_e is not None and not experts:
+        # ff blocks to expert blocks: the rank's experts, their whole ff
+        act = tp.all_to_all(act, 0, 2)
+        E_l, e0 = wo.shape[0], tp.rank * wo.shape[0]
+        flat_e = idx.reshape(B, T * K) - e0
+        keep = keep & (flat_e >= 0) & (flat_e < E_l)
+        slot = (flat_e * B + rows) * cap + rank
+        n_rows = E_l * B * cap
+    out = constrain(torch.bmm(act, wo), "experts", "batch",
                     "embed").view(n_rows, D)
     y_slots = out[torch.where(keep, slot, 0)]                  # [B,TK,D]
     y_slots = torch.where(keep[..., None], y_slots, 0)

@@ -135,10 +135,11 @@ def _row_chunks(p):
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
-def _update(p, g, m_f, v_f, clip, bc1, bc2, lr, cfg: AdamWConfig,
-            wd: float) -> None:
-    """The AdamW update of one leaf or slice, in place: g (the gradient)
-    is read, m_f and v_f (f32 moments) and p written."""
+def _direction(g, m_f, v_f, clip, bc1, bc2, cfg: AdamWConfig):
+    """The moments' update of one leaf or slice, in place (g, the
+    gradient, is read; m_f and v_f, f32 moments, written), and AdamW's
+    direction (m / bc1) / (sqrt(v / bc2) + eps): returns (the direction,
+    a scratch tensor of its shape)."""
     b1, b2 = cfg.b1, cfg.b2
     g = g.to(torch.float32, copy=True).mul_(clip)
     tmp = torch.mul(g, 1 - b1)
@@ -149,9 +150,71 @@ def _update(p, g, m_f, v_f, clip, bc1, bc2, lr, cfg: AdamWConfig,
     torch.div(m_f, bc1, out=tmp)
     torch.div(v_f, bc2, out=g)
     tmp.div_(g.sqrt_().add_(cfg.eps))
-    g.copy_(p).mul_(wd).add_(tmp).mul_(lr)      # lr (upd + wd p)
-    tmp.copy_(p).sub_(g)
-    p.copy_(tmp)
+    return tmp, g
+
+
+def _apply(p, upd, scratch, lr, wd: float) -> None:
+    """p - lr (upd + wd p), written into p (`upd` and `scratch`, f32 of
+    p's shape, are overwritten)."""
+    scratch.copy_(p).mul_(wd).add_(upd).mul_(lr)      # lr (upd + wd p)
+    upd.copy_(p).sub_(scratch)
+    p.copy_(upd)
+
+
+def _update(p, g, m_f, v_f, clip, bc1, bc2, lr, cfg: AdamWConfig,
+            wd: float) -> None:
+    """The AdamW update of one leaf or slice, in place: g (the gradient)
+    is read, m_f and v_f (f32 moments) and p written."""
+    upd, scratch = _direction(g, m_f, v_f, clip, bc1, bc2, cfg)
+    _apply(p, upd, scratch, lr, wd)
+
+
+def step_scalars(step, gnorm, cfg: AdamWConfig):
+    """(the step count after this update, the clip factor from the global
+    norm `gnorm`, the two bias corrections): what every leaf's update
+    reads."""
+    step = step + 1
+    clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip_norm)
+                       / (gnorm + 1e-9), max=1.0)
+    bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
+    bc2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+    return step, clip, bc1, bc2
+
+
+@torch.no_grad()
+def int8_rows_direction(g_rows, m, v, clip, bc1, bc2, cfg: AdamWConfig):
+    """The int8 moments' update on rows of a leaf's flat 256-element
+    blocks, in place, and AdamW's direction on the same rows: `g_rows`
+    [n, Q_BLOCK] f32 is the gradient's (zero past the leaf's end), `m`
+    and `v` the moments' `{"q", "scale"}` on the same rows. Decoded,
+    updated and encoded a slice of whole blocks at a time, so the codes
+    are those the whole leaf's update makes. Returns the direction rows
+    [n, Q_BLOCK] f32 (the placed train step sends them to the param's
+    blocks, `apply_direction`)."""
+    out = torch.empty_like(g_rows)
+    step = max(1, CHUNK_ELEMENTS // Q_BLOCK)
+    for r in range(0, g_rows.shape[0], step):
+        sl = slice(r, r + step)
+        m_f, v_f = (e["q"][sl].float() * e["scale"][sl] for e in (m, v))
+        upd, _ = _direction(g_rows[sl], m_f, v_f, clip, bc1, bc2, cfg)
+        out[sl] = upd
+        for e, f in zip((m, v), (m_f, v_f)):
+            new = _q_encode(f)
+            e["q"][sl].copy_(new["q"])
+            e["scale"][sl].copy_(new["scale"])
+    return out
+
+
+@torch.no_grad()
+def apply_direction(p, upd, lr, cfg: AdamWConfig) -> None:
+    """p - lr (upd + wd p) into `p` (a leaf or its block; `upd`, f32 of
+    its shape, the direction from `int8_rows_direction`, is overwritten),
+    in slices of `p`'s leading axis: the bits of `apply_updates`' last
+    step. wd is decayed on 2-D and up."""
+    wd = cfg.weight_decay if p.dim() >= 2 else 0.0
+    for sl in _row_chunks(p):
+        u = upd[sl]
+        _apply(p[sl], u, torch.empty_like(u), lr, wd)
 
 
 @torch.no_grad()
@@ -163,12 +226,8 @@ def apply_updates(params, grads, state, lr, cfg: AdamWConfig,
     train step's: each rank updates its blocks of the params and f32
     moments, elementwise); by default `global_norm(grads)`."""
     quant = cfg.state_dtype == "int8"
-    step = state["step"] + 1
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip_norm)
-                       / (gnorm + 1e-9), max=1.0)
-    bc1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
-    bc2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+    step, clip, bc1, bc2 = step_scalars(state["step"], gnorm, cfg)
 
     for path in leaf_paths(params):
         p = get_path(params, path)

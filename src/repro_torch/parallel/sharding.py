@@ -37,10 +37,13 @@ What the port does with them:
   view of the reference's constraint. The spec is resolved (and checked
   against the mesh) either way.
 - Tensor parallelism over 'model' (the section below): the Megatron
-  region functions over the 'model' group, `tp_plan` (which leaves the
-  forward keeps as blocks), the placed serve paths' helpers, and
-  `run_model_ranks`, a one-process emulation of the axis that the tests'
-  and the card's oracles use.
+  region functions over the 'model' group (copy, reduce, reduce-scatter,
+  all-to-all, gather), `tp_cuts` (the layout the forward takes each leaf
+  in) and `tp_plan` (which leaves it keeps as the placement's blocks),
+  `relayout` (a leaf moved between two layouts over every rank, one
+  all-to-all), the placed serve paths' helpers, and `run_model_ranks`, a
+  one-process emulation of the axis that the tests' and the card's
+  oracles use.
 """
 
 from __future__ import annotations
@@ -584,6 +587,9 @@ def cache_pspecs(abstract_cache, mesh, *, batch_axes) -> Any:
 # `mesh_context`'s mesh. The all-reduces are plain `dist.all_reduce`s: at
 # two ranks a sum of two terms is the same bits in either order, which is
 # what a one-process emulation (`run_model_ranks`, rank-order sums) makes.
+# The reduce-scatter (the MoE's partial products over a d_model slice)
+# swaps the ranks' blocks with one all-to-all and adds them in rank order,
+# the emulation's order at any rank count.
 
 _MODEL_GROUP: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_model_group", default=None)
@@ -692,6 +698,57 @@ class _Gather(torch.autograd.Function):
                 None)
 
 
+def _as_bytes(x):
+    """`x` contiguous and viewed as bytes along its last dim: gloo moves
+    every dtype so, bf16 included."""
+    return x.contiguous().view(torch.uint8)
+
+
+def _swap(x, split_dim: int, cat_dim: int, group, size: int):
+    """x cut into `size` blocks along `split_dim`, block j sent to rank j
+    of `group`: the blocks of this rank's index that every rank sent,
+    joined along `cat_dim` in rank order (one `all_to_all_single`)."""
+    send = torch.stack(x.chunk(size, split_dim))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_as_bytes(recv), _as_bytes(send), group=group)
+    return torch.cat(recv.unbind(0), cat_dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """reduce-scatter out of the model region along `dim`: this rank's
+    block of the ranks' partials, added in rank order (one all-to-all);
+    the gradient's blocks gathered back (all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        send = torch.stack(x.chunk(size, dim))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(_as_bytes(recv), _as_bytes(send), group=group)
+        return _rank_sum(recv.unbind(0))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(ctx.size)]
+        dist.all_gather(parts, g, group=ctx.group)
+        return torch.cat(parts, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The model ranks' blocks swapped (`_swap`): split along one dim,
+    joined along another; the gradient swapped back."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group, size):
+        ctx.args = (cat_dim, split_dim, group, size)
+        return _swap(x, split_dim, cat_dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _swap(g, *ctx.args), None, None, None, None
+
+
 class DistModelGroup:
     """The ranks along 'model' over `torch.distributed`: `rank`, `size`
     and the region functions on the axis's process group."""
@@ -712,6 +769,17 @@ class DistModelGroup:
 
     def gather(self, x, dim: int):
         return _Gather.apply(x, dim, self.group, self.rank, self.size)
+
+    def reduce_scatter(self, x, dim: int):
+        """The sum over the ranks of a rank-local partial, this rank's
+        block of it along `dim` (the ranks' blocks added in rank order);
+        all-gather backward."""
+        return _ReduceScatter.apply(x, dim, self.group, self.size)
+
+    def all_to_all(self, x, split_dim: int, cat_dim: int):
+        """Block j of `x` along `split_dim` to rank j, the blocks received
+        joined along `cat_dim` in rank order; the reverse backward."""
+        return _AllToAll.apply(x, split_dim, cat_dim, self.group, self.size)
 
     def max(self, x):
         """The elementwise max over the ranks, without a gradient."""
@@ -762,6 +830,37 @@ class _JointGather(torch.autograd.Function):
     def backward(ctx, *gs):
         return (None,) + tuple(g.narrow(ctx.dim, r * ctx.n, ctx.n)
                                for r, g in enumerate(gs))
+
+
+class _JointReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim = dim
+        n = len(xs)
+        return tuple(_rank_sum([x.chunk(n, dim)[r] for x in xs])
+                     for r in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        whole = torch.cat(gs, ctx.dim)
+        return (None,) + tuple(whole.clone() for _ in gs)
+
+
+def _joint_swap(xs, split_dim: int, cat_dim: int):
+    n = len(xs)
+    return tuple(torch.cat([x.chunk(n, split_dim)[r] for x in xs], cat_dim)
+                 for r in range(n))
+
+
+class _JointAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, cat_dim, *xs):
+        ctx.dims = (cat_dim, split_dim)
+        return _joint_swap(xs, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + _joint_swap(gs, *ctx.dims)
 
 
 class _JointWorld:
@@ -833,6 +932,12 @@ class ThreadModelGroup:
     def gather(self, x, dim: int):
         return self._joint(_JointGather, x, dim)
 
+    def reduce_scatter(self, x, dim: int):
+        return self._joint(_JointReduceScatter, x, dim)
+
+    def all_to_all(self, x, split_dim: int, cat_dim: int):
+        return self._joint(_JointAllToAll, x, split_dim, cat_dim)
+
     def max(self, x):
         out = self.world.exchange(
             self.rank, x.detach(),
@@ -895,9 +1000,10 @@ def tp_mesh_dims(dims: tuple, names: tuple, dp: tuple = ()) -> tuple:
 
 
 # the dims of a leaf (unstacked) that the TP forward computes on a block
-# of: heads, kv heads, ff, vocab, ssm heads and the MoE's experts or ff
+# of: heads, kv heads, ff, vocab, ssm heads and the MoE's experts, d_model
+# or ff
 TP_DIMS: list[tuple[str, tuple[int, ...]]] = [
-    (r"moe.*w_(gate|in)$", (0, 2)),                # [E, D, F]: E or F
+    (r"moe.*w_(gate|in)$", (0, 1, 2)),             # [E, D, F]
     (r"moe.*w_out$", (0, 1)),                      # [E, F, D]
     (r"mamba.*w_(z|x|dt)$", (1,)),
     (r"mamba.*conv_x_w$", (1,)),
@@ -914,8 +1020,9 @@ TP_DIMS: list[tuple[str, tuple[int, ...]]] = [
     (r"w_(gate|in)$", (1,)),
     (r"(w_out|b_in)$", (0,)),
 ]
-_MOE_LAYOUTS = ({"w_gate": 0, "w_in": 0, "w_out": 0},     # experts (moe_ep)
-                {"w_gate": 2, "w_in": 2, "w_out": 1})     # the experts' ff
+# the MoE weights' ff dim (unstacked): the block a weight takes where the
+# placement holds none the layer splits
+_MOE_FF = {"w_gate": 2, "w_in": 2, "w_out": 1}
 
 
 def _tp_dim_ok(path: str, dim: int, stacked: bool) -> bool:
@@ -926,45 +1033,69 @@ def _tp_dim_ok(path: str, dim: int, stacked: bool) -> bool:
     return False
 
 
-def tp_plan(dims_tree, names: tuple, dp: tuple = (),
+def tp_cuts(dims_tree, names: tuple, dp: tuple = (), shapes=None,
+            sizes: tuple | None = None,
             stacked_prefixes: tuple[str, ...] = ("blocks", "enc_blocks",
                                                  "dec_blocks")):
     """Per leaf of a parameter tree (`dims_tree`: each leaf's per-mesh-dim
-    sharded tensor dims), the mesh dims along which the TP forward keeps
-    it a block: `tp_mesh_dims`, where the dim is one the layer splits
-    (`TP_DIMS`). A MoE layer keeps its three weights blocks only when they
-    split the same thing (its experts under `moe_ep`, or their ff); under
-    the default rules the dense `w_gate`/`w_out` patterns match the MoE's
-    leaves first (in the reference's table too), placing their d_model or
-    experts over 'model', and the layer then takes them whole."""
+    sharded tensor dims), the layout the TP forward takes it in: its cuts
+    along 'model', (mesh dim, tensor dim) pairs, () for a leaf taken
+    whole.
+
+    A leaf keeps its own block along 'model' (`tp_mesh_dims`) where the
+    layer splits that dim (`TP_DIMS`). The MoE's weights: all three keep
+    their experts where the placement splits them so (moe_ep); else
+    `w_gate` and `w_in` keep a d_model or an ff block and `w_out` an
+    experts or an ff block, and a weight the placement splits otherwise
+    takes the ff block of its rank, a cut the placement does not hold
+    (`fetch_block` moves it there). So under the default rules, where the
+    dense patterns place the MoE's d_model (`w_gate`, `w_in`) and experts
+    (`w_out`) over 'model' and its experts do not divide over it on the
+    production meshes (`w_out`'s ff then lies over 'data'), every model
+    rank computes its share of the layer. `shapes` (each leaf's whole
+    shape) and `sizes` (the mesh's) check that the ff divides; without
+    them it is taken to."""
     plan = {}
 
     def one(path_tuple, dims):
         path = ".".join(str(k) for k in path_tuple)
         stacked = any(seg in stacked_prefixes for seg in path_tuple)
         plan[path_tuple] = tuple(
-            i for i in tp_mesh_dims(dims, names, dp)
+            (i, dims[i]) for i in tp_mesh_dims(dims, names, dp)
             if _tp_dim_ok(path, dims[i], stacked))
         return plan[path_tuple]
 
     out = _map_with_path(one, dims_tree)
+    model = [i for i, a in enumerate(names) if a == "model" and i not in dp]
     for path_tuple in list(plan):
-        if path_tuple[-1] != "w_gate" or "moe" not in path_tuple:
+        if path_tuple[-1] != "w_gate" or "moe" not in path_tuple \
+                or not model:
             continue
         parent = path_tuple[:-1]
-        trio = {k: plan.get(parent + (k,), ()) for k in ("w_gate", "w_in",
-                                                          "w_out")}
-        got = {}
-        for k, keep in trio.items():
-            dims = _get_path(dims_tree, parent + (k,))
-            got[k] = dims[keep[0]] - (1 if any(
-                seg in stacked_prefixes for seg in parent) else 0) \
-                if keep else None
-        if got not in _MOE_LAYOUTS:
-            node = _get_path(out, parent)
-            for k in trio:
+        lead = 1 if any(seg in stacked_prefixes for seg in parent) else 0
+        node = _get_path(out, parent)
+        got = {k: node[k][0][1] - lead if node[k] else None for k in _MOE_FF}
+        if got["w_gate"] == got["w_in"] == got["w_out"] == 0:
+            continue
+        ok_in = got["w_gate"] == got["w_in"] and got["w_gate"] in (1, 2)
+        for k in _MOE_FF:
+            if (ok_in if k != "w_out" else got[k] in (0, 1)):
+                continue
+            d = _MOE_FF[k] + lead
+            if shapes is not None and sizes is not None and \
+                    _get_path(shapes, parent + (k,))[d] % sizes[model[0]]:
                 node[k] = ()
+                continue
+            node[k] = ((model[0], d),)
     return out
+
+
+def tp_plan(dims_tree, names: tuple, dp: tuple = (), **kw):
+    """Per leaf, the mesh dims along which the TP forward keeps the
+    placement's own block (`tp_cuts`' cuts that the placement holds)."""
+    cuts = tp_cuts(dims_tree, names, dp, **kw)
+    return _tree_map(lambda c, d: tuple(i for i, t in c if d[i] == t),
+                     cuts, dims_tree)
 
 
 def _get_path(tree, path):
@@ -986,17 +1117,222 @@ def gather_dims(x, mesh, dims: tuple, along: tuple):
     return x
 
 
+# -- a leaf moved between layouts over every rank of a mesh -------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Which elements of a leaf of `shape` each rank of a mesh with dims of
+    `sizes` holds: `cuts`, (mesh dim, tensor dim) pairs, outer first, each
+    cutting its tensor dim (as the cuts before it left it) into equal
+    blocks by the rank's coordinate on that mesh dim (a placement's cuts
+    are in mesh order, as DTensor nests them); a mesh dim no cut names
+    holds replicas. With `rows` = (n, width) the leaf is seen flattened in
+    row-major order and zero-padded to n rows of `width`, and the cuts cut
+    those rows (dim 0): the int8 AdamW moments' layout."""
+    shape: tuple
+    sizes: tuple
+    cuts: tuple = ()
+    rows: tuple | None = None
+
+    def box(self, coord) -> tuple:
+        """The (start, stop) of each dim (of the rows for a rows layout)
+        the rank at mesh coordinate `coord` holds."""
+        ext = list(self.rows if self.rows is not None else self.shape)
+        start = [0] * len(ext)
+        for i, d in self.cuts:
+            if ext[d] % self.sizes[i]:
+                raise ValueError(f"dim {d} of {self.shape} "
+                                 f"({ext[d]} left by the cuts before) does "
+                                 f"not divide into {self.sizes[i]} blocks")
+            ext[d] //= self.sizes[i]
+            start[d] += coord[i] * ext[d]
+        return tuple((s, s + n) for s, n in zip(start, ext))
+
+
+def placement_layout(shape, mesh, dims: tuple) -> Layout:
+    """The layout of a leaf of `shape` placed under `dims` (per mesh dim
+    the tensor dim it shards or None) on `mesh`."""
+    return Layout(tuple(shape), tuple(mesh_axes(mesh).values()),
+                  tuple((i, d) for i, d in enumerate(dims) if d is not None))
+
+
+def _prod(xs) -> int:
+    n = 1
+    for x in xs:
+        n *= int(x)
+    return n
+
+
+def _segments(shape, box, a: int, b: int, base: int = 0) -> list:
+    """The elements of the box `box` ((start, stop) a dim) of a row-major
+    leaf of `shape` whose flat index lies in [a, b), in the box's own
+    order (in which their flat indices rise, so any flat range is one
+    stretch of it), as pieces: (their count, their index into the box's
+    local tensor, the flat start of the whole-leaf region holding them,
+    that region's shape, their slices in it)."""
+    (s, e), rest = box[0], box[1:]
+    inner = _prod(shape[1:])
+    lo, hi = a - base, b - base
+    if lo >= hi:
+        return []
+    if not rest:
+        f0, f1 = max(s, lo), min(e, hi)
+        return ([(f1 - f0, (slice(f0 - s, f1 - s),), base + f0, (f1 - f0,),
+                  (slice(None),))] if f0 < f1 else [])
+    out = []
+    full0, full1 = max(s, -(-lo // inner)), min(e, hi // inner)
+    ext = _prod(b1 - b0 for b0, b1 in rest)
+    sel = tuple(slice(b0, b1) for b0, b1 in rest)
+
+    def partial(i):
+        return [(n, (i - s,) + idx, fs, rs, rsel) for n, idx, fs, rs, rsel
+                in _segments(shape[1:], rest, max(a, base + i * inner),
+                             min(b, base + (i + 1) * inner),
+                             base + i * inner)]
+    first, last = lo // inner, hi // inner
+    head = bool(lo % inner) and s <= first < e
+    if head:
+        out += partial(first)
+    if full0 < full1:
+        out.append(((full1 - full0) * ext,
+                    (slice(full0 - s, full1 - s),) + (slice(None),)
+                    * len(rest), base + full0 * inner,
+                    (full1 - full0,) + tuple(shape[1:]),
+                    (slice(None),) + sel))
+    if hi % inner and s <= last < e and not (head and last == first):
+        out += partial(last)
+    return out
+
+
+def _pieces(src: Layout, dst: Layout, s_coord, r_coord):
+    """(count, the sender's views, the receiver's views) of what the rank
+    at `s_coord` holds in `src` and the one at `r_coord` holds in `dst`:
+    each view a function from that rank's local tensor to a view of it,
+    the two lists matching piece for piece."""
+    sb, rb = src.box(s_coord), dst.box(r_coord)
+    if (src.rows is None) == (dst.rows is None):
+        inter = [(max(a0, b0), min(a1, b1)) for (a0, a1), (b0, b1)
+                 in zip(sb, rb)]
+        if any(lo >= hi for lo, hi in inter):
+            return 0, [], []
+        si = tuple(slice(lo - a0, hi - a0) for (lo, hi), (a0, _)
+                   in zip(inter, sb))
+        ri = tuple(slice(lo - b0, hi - b0) for (lo, hi), (b0, _)
+                   in zip(inter, rb))
+        return (_prod(hi - lo for lo, hi in inter), [lambda t: t[si]],
+                [lambda t: t[ri]])
+    box_side, rows_side = (sb, rb) if src.rows is None else (rb, sb)
+    width = (dst.rows or src.rows)[1]
+    a0 = rows_side[0][0] * width
+    n = _prod(src.shape)
+    segs = _segments(src.shape, box_side, a0,
+                     min(rows_side[0][1] * width, n))
+    on_box = [lambda t, idx=idx: t[idx] for _, idx, _, _, _ in segs]
+    on_rows = [lambda t, fs=fs, rs=rs, rsel=rsel: t.view(-1)[
+        fs - a0:fs - a0 + _prod(rs)].view(rs)[rsel]
+        for _, _, fs, rs, rsel in segs]
+    count = sum(c for c, *_ in segs)
+    return ((count, on_box, on_rows) if src.rows is None
+            else (count, on_rows, on_box))
+
+
+def relayout(x, src: Layout, dst: Layout, mesh):
+    """`x`, this rank's part of a leaf in `src`, as its part in `dst`:
+    every rank of `mesh` (all of the world's) sends each other rank the
+    elements it needs, in one `all_to_all_single`; where a part is held
+    by several ranks (replicas along the mesh dims `src` does not cut),
+    one of them sends it, picked by the receiver's coordinates so the
+    sends spread over the replicas. A rows layout's padding comes back as
+    zeros. The elements are moved, not summed: the same bits."""
+    if src == dst:
+        return x
+    grid = mesh.mesh.cpu().numpy()
+    if grid.size != dist.get_world_size():
+        raise ValueError(f"relayout moves a leaf over every rank of the "
+                         f"world ({dist.get_world_size()}); the mesh holds "
+                         f"{grid.size}")
+    sizes = tuple(grid.shape)
+    coord_of = {int(grid[c]): c for c in np.ndindex(*sizes)}
+    me = _coordinate(mesh)
+    src_cut = {i for i, _ in src.cuts}
+    rep = [i for i in range(len(sizes)) if i not in src_cut]
+    by = [i for i in range(len(sizes)) if i not in {j for j, _ in dst.cuts}]
+    by = by or list(range(len(sizes)))
+
+    def sender(r, holder):
+        """The rank that sends to `r` the block `holder` holds."""
+        k = 0
+        for i in by:
+            k = k * sizes[i] + r[i]
+        c = list(holder)
+        for i in reversed(rep):
+            c[i] = k % sizes[i]
+            k //= sizes[i]
+        return tuple(c)
+
+    ranks = sorted(coord_of)
+    send, in_splits, unpack, out_splits = [], [], [], []
+    for g in ranks:
+        r = coord_of[g]
+        count, views, _ = (_pieces(src, dst, me, r)
+                           if sender(r, me) == me else (0, [], []))
+        send += [v(x).reshape(-1) for v in views]
+        in_splits.append(count)
+        count, _, views = (_pieces(src, dst, r, me)
+                           if sender(me, r) == r else (0, [], []))
+        unpack.append(views)
+        out_splits.append(count)
+    ext = tuple(hi - lo for lo, hi in dst.box(me))
+    out = (x.new_zeros(ext) if dst.rows is not None else x.new_empty(ext))
+    item = x.element_size()
+    # one piece each way (a block moved whole) is sent from and received
+    # into the tensors themselves
+    buf = (send[0] if len(send) == 1 else torch.cat(send) if send
+           else x.new_empty((0,)))
+    whole = [v for views in unpack for v in views]
+    direct = len(whole) == 1 and whole[0](out).shape == out.shape
+    recv = out.view(-1) if direct else x.new_empty((sum(out_splits),))
+    dist.all_to_all_single(recv.view(torch.uint8), buf.view(torch.uint8),
+                           [n * item for n in out_splits],
+                           [n * item for n in in_splits])
+    if direct:
+        return out
+    for views, part in zip(unpack, recv.split(out_splits)):
+        for v in views:
+            dst_view = v(out)
+            n = dst_view.numel()
+            dst_view.copy_(part[:n].view(dst_view.shape))
+            part = part[n:]
+    return out
+
+
+def fetch_block(a, mesh, dims: tuple, cuts: tuple):
+    """This rank's part of the placed leaf `a` (a DTensor, placed under
+    `dims`) in the TP forward's layout `cuts` (`tp_cuts`): its block along
+    the mesh dims whose cut the placement holds, gathered whole along the
+    other mesh dims that shard it (`gather_dims`), or, where a cut is not
+    the placement's, the elements of the layout moved to the rank
+    (`relayout`: under the default rules on the production meshes, the
+    rows of the MoE `w_out`'s ff that the rank's activation reads)."""
+    keep = tuple(i for i, t in cuts if dims[i] == t)
+    if len(keep) == len(cuts):
+        return gather_dims(a.to_local(), mesh, dims, tuple(
+            i for i in range(len(dims)) if i not in keep))
+    src = placement_layout(a.shape, mesh, dims)
+    return relayout(a.to_local(), src,
+                    dataclasses.replace(src, cuts=tuple(cuts)), mesh)
+
+
 def tp_blocks(params, dp: tuple = ()):
-    """A placed parameter tree as the TP forward takes it: each leaf's
-    block along the mesh dims `tp_plan` keeps, gathered whole along every
-    other mesh dim that shards it (explicit `all_gather`s)."""
+    """A placed parameter tree as the TP forward takes it: each leaf in
+    its `tp_cuts` layout (`fetch_block`)."""
     mesh = mesh_of(params)
     dims = _tree_map(lambda a: sharding_of(a)[1], params)
-    plan = tp_plan(dims, tuple(mesh.mesh_dim_names), dp)
-    return _tree_map(lambda a, d, keep: gather_dims(
-        a.to_local(), mesh, d,
-        tuple(i for i in range(len(d)) if i not in keep)), params, dims,
-        plan)
+    cuts = tp_cuts(dims, tuple(mesh.mesh_dim_names), dp,
+                   shapes=_tree_map(lambda a: tuple(a.shape), params),
+                   sizes=tuple(mesh.shape))
+    return _tree_map(lambda a, d, c: fetch_block(a, mesh, d, c), params,
+                     dims, cuts)
 
 
 def vocab_argmax(logits, n_vocab: int):

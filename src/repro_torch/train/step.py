@@ -46,22 +46,30 @@ params and the AdamW moments are DTensors (`sharding.place`); each step
   `mesh_context` resolves the batch to, else 'pod' and 'data'; the rows
   must split evenly, so the mean of the ranks' mean losses is the
   batch's);
-- gathers each leaf along its DP and FSDP mesh dims only
-  (`sharding.gather_dims`: one `all_gather` a dim) and keeps its block
-  along 'model' where the leaf is a tensor-parallel block
-  (`sharding.tp_plan`: heads, kv heads, ff, vocab, ssm heads, the MoE's
-  experts or ff), so the loss runs the TP forward on the rank's blocks
-  under the mesh's model group (`sharding.model_group_context`; the
-  regions' collectives are the models'), and every hand-written kernel
-  runs on the rank's heads;
+- takes each leaf in the TP forward's layout (`sharding.tp_cuts`,
+  `sharding.fetch_block`): gathered along its DP and FSDP mesh dims only
+  (`sharding.gather_dims`: one `all_gather` a dim), its block along
+  'model' kept where the leaf is a tensor-parallel block (heads, kv
+  heads, ff, vocab, ssm heads, the MoE's experts, d_model or ff); where
+  the MoE's `w_out` holds no block the layer splits (its experts do not
+  divide over 'model'), the rows of its ff that the rank's activation
+  reads are moved to the rank (`sharding.relayout`, one all-to-all). So
+  the loss runs the TP forward on the rank's blocks under the mesh's
+  model group (`sharding.model_group_context`; the regions' collectives
+  are the models'), and every hand-written kernel runs on the rank's
+  heads;
 - reduces each gradient to this rank's block of its leaf's placement: a
   TP block's gradient is already the rank's; along a DP dim the blocks
   are exchanged (`all_to_all_single`, a reduce-scatter in rank order) or,
-  where the leaf is replicated over it, gathered whole, and added in rank
-  order in f32 (`_rank_order_sum`), then divided by the DP ranks' count;
-  along a non-DP dim that is not a TP block (the wide-FSDP profile's
-  model dim where the batch is not split over it) the ranks computed the
-  same gradient, which is cut;
+  where the leaf is replicated over it, summed on every rank (beyond two
+  ranks a reduce-scatter and an all-gather, else gathered whole), added
+  in rank order in f32 (`_rank_order_sum`), then divided by the DP ranks'
+  count; along a non-DP dim that is not a TP block (the wide-FSDP
+  profile's model dim where the batch is not split over it) the ranks
+  computed the same gradient, which is cut; a gradient in a layout the
+  placement does not hold (the fetched `w_out` rows) is reduce-scattered
+  over the DP ranks there and its pieces moved to the placement's blocks
+  (`sharding.relayout`);
 - takes a statistic of the whole batch that a loss reads without a
   gradient (the MoE's top-1 expert shares, `sharding.batch_mean`) as the
   mean over the DP ranks, so the ranks' mean loss and gradient are the
@@ -72,12 +80,15 @@ params and the AdamW moments are DTensors (`sharding.place`); each step
   same AdamW (`adamw.apply_updates(..., grad_norm=)`): the update is
   elementwise, so a block equals the slice of the same update made whole.
   The int8 moments are flat `[n_blocks, 256]` codes of the leaf's
-  row-major flattening, placed over FSDP on their rows: the gradient is
-  gathered whole along 'model' and reduced straight into the moments'
-  rows, the param's value cut to the same rows, and the rows updated
-  (whole 256-element blocks, the norm over the rows' blocks); the updated
-  rows are gathered and the rank's block of the param's own placement
-  written back, so the result is the unplaced int8 update's bits.
+  row-major flattening, placed over FSDP on their rows (`_int8_leaf`, a
+  leaf at a time): the elements of the gradient's block go to the ranks
+  holding their rows, the rows are updated whole (256-element blocks)
+  into AdamW's direction, and the direction's elements come back to the
+  param's block, each move one all-to-all (`sharding.relayout`; a
+  block's rows put together from fragments where its dims do not hold
+  whole rows, as attention's 384- or 128-element head blocks). A rank
+  receives its moment rows' and its param block's elements, and the
+  result is the unplaced int8 update's bits.
 A one-process run that takes each rank's rows in turn, splits the model
 ranks as the TP forward does (`sharding.run_model_ranks`), adds the
 gradients in rank order and takes the norm block by block makes the same
@@ -577,16 +588,51 @@ def _exchange(x, d: int, group, n: int):
     return recv.unbind(0)
 
 
-def _grad_block(g, mesh, dims: tuple, dp: tuple, keep: tuple = ()
-                ) -> torch.Tensor:
+def _all_sum(g, group, n: int):
+    """The f32 sum of every rank's `g` over `group` (n ranks), added in
+    rank order, on every rank: beyond two ranks a reduce-scatter along a
+    dim that divides (`_exchange`) and an all-gather, so a rank receives
+    twice its gradient's bytes, not n times; else every rank's `g`
+    gathered."""
+    t = next((d for d in range(g.dim()) if g.shape[d] % n == 0), None) \
+        if n > 2 else None
+    if t is None:
+        return _rank_order_sum(_gather_list(g, group, n))
+    part = _rank_order_sum(_exchange(g, t, group, n))
+    return torch.cat(_gather_list(part, group, n), t)
+
+
+def _grad_block(g, mesh, dims: tuple, dp: tuple, cuts: tuple = (),
+                shape: tuple | None = None) -> torch.Tensor:
     """This rank's block of the sum over the DP ranks of their gradients of
     one leaf (`g`, this rank's gradient of the leaf as the forward took it:
-    its block along the TP mesh dims `keep`, whole along the others;
-    `dims`, per mesh dim the tensor dim it shards), in f32. Mesh dims cut
-    in mesh order, as DTensor nests them; a non-DP cut on a tensor dim no
+    in the layout `cuts`, `sharding.tp_cuts`; `dims`, per mesh dim the
+    tensor dim its placement shards; `shape`, the whole leaf's), in f32.
+
+    Where the forward took the placement's own blocks, mesh dims cut in
+    mesh order, as DTensor nests them; a non-DP cut on a tensor dim no
     other mesh dim shards goes first, since cuts on distinct dims commute
-    and it shrinks what the DP dims move."""
+    and it shrinks what the DP dims move. Where a cut is not the
+    placement's (the MoE `w_out`'s ff on the production meshes), the DP
+    ranks' sums are reduce-scattered in the forward's layout and the
+    pieces moved to the placement's blocks (`sharding.relayout`). Either
+    way each element is the DP ranks' gradients added in rank order."""
     coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
+    keep = tuple(i for i, t in cuts if dims[i] == t)
+    if len(keep) != len(cuts):
+        layout = list(cuts)
+        for i in dp:
+            group, d = mesh.get_group(i), dims[i]
+            if d is not None and g.shape[d] % sizes[i] == 0:
+                g = _rank_order_sum(_exchange(g, d, group, sizes[i]))
+                layout.append((i, d))
+            else:
+                g = _all_sum(g, group, sizes[i])
+        if not dp:
+            g = g.to(torch.float32, copy=True)
+        src = shd.placement_layout(shape, mesh, dims)
+        return shd.relayout(g, dataclasses.replace(src, cuts=tuple(layout)),
+                            src, mesh)
 
     def cut(x, i):
         k = x.shape[dims[i]] // sizes[i]
@@ -606,9 +652,9 @@ def _grad_block(g, mesh, dims: tuple, dp: tuple, keep: tuple = ()
                 g = cut(g, i)
             continue
         group = mesh.get_group(i)
-        parts = (_gather_list(g, group, sizes[i]) if d is None
-                 else _exchange(g, d, group, sizes[i]))
-        g, summed = _rank_order_sum(parts), True
+        g = (_all_sum(g, group, sizes[i]) if d is None
+             else _rank_order_sum(_exchange(g, d, group, sizes[i])))
+        summed = True
     return g if summed else g.to(torch.float32, copy=True)
 
 
@@ -654,25 +700,31 @@ def _placed_dp(mesh) -> tuple[str, ...]:
                  if a in mesh.mesh_dim_names)
 
 
-def _flat_rows(x, n_blocks: int):
-    """`x` flattened in row-major order and zero-padded into
-    `[n_blocks, Q_BLOCK]` rows (the int8 moments' layout)."""
-    flat = x.reshape(-1)
-    pad = n_blocks * adamw.Q_BLOCK - flat.numel()
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    return flat.view(n_blocks, adamw.Q_BLOCK)
-
-
-def _cut(x, mesh, dims: tuple):
-    """This rank's block of a whole `x` under `dims` (per mesh dim the
-    tensor dim it shards), cut in mesh order."""
-    coord, sizes = mesh.get_coordinate(), tuple(mesh.shape)
-    for i, d in enumerate(dims):
-        if d is not None:
-            k = x.shape[d] // sizes[i]
-            x = x.narrow(d, coord[i] * k, k)
-    return x
+def _int8_leaf(g, leaf, dims: tuple, m: dict, v: dict, q, mesh, scalars,
+               opt_cfg) -> None:
+    """One leaf's AdamW step with int8 moments on the placed step, in
+    place: `g`, this rank's block of the reduced gradient under the
+    placement `dims`; `m`, `v`, its local rows of the moments (flat
+    256-element blocks of the leaf in row-major order, `q` their codes
+    as placed: over FSDP on their rows). The gradient's elements go to the
+    moments' rows, the rows are updated whole (`adamw.int8_rows_direction`)
+    and the direction's elements come back to the param's block
+    (`adamw.apply_direction`), each move one all-to-all over the mesh
+    (`sharding.relayout`): a rank receives its moment rows' and its
+    param block's elements, and holds one leaf's rows at a time. The
+    update is elementwise, so the bits are the unplaced int8 update's."""
+    clip, bc1, bc2, lr = scalars
+    block = shd.placement_layout(leaf.shape, mesh, dims)
+    qd = shd.sharding_of(q)[1]
+    rows = shd.Layout(block.shape, block.sizes, tuple(
+        (i, 0) for i, d in enumerate(qd) if d == 0),
+        rows=(q.shape[0], adamw.Q_BLOCK))
+    g_rows = shd.relayout(g, block, rows, mesh)
+    del g
+    upd = adamw.int8_rows_direction(g_rows, m, v, clip, bc1, bc2, opt_cfg)
+    del g_rows
+    upd = shd.relayout(upd, rows, block, mesh)
+    adamw.apply_direction(leaf.to_local(), upd, lr, opt_cfg)
 
 
 def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
@@ -699,43 +751,27 @@ def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
                                  "placed on the step's mesh "
                                  "(sharding.place)")
         dims = [shd.sharding_of(a)[1] for a in leaves]
-        plan = shd.tp_plan(_tree(paths, dims), names, dp)
-        keep = [adamw.get_path(plan, p) for p in paths]
-        local = _tree(paths, [shd.gather_dims(
-            a.to_local(), mesh, d,
-            tuple(i for i in range(mesh.ndim) if i not in k)).detach()
-            for a, d, k in zip(leaves, dims, keep)])
+        shapes = [tuple(a.shape) for a in leaves]
+        cuts = shd.tp_cuts(_tree(paths, dims), names, dp,
+                           shapes=_tree(paths, shapes),
+                           sizes=tuple(mesh.shape))
+        cuts = [adamw.get_path(cuts, p) for p in paths]
+        local = _tree(paths, [shd.fetch_block(a, mesh, d, c).detach()
+                              for a, d, c in zip(leaves, dims, cuts)])
         group = (None if "model" not in names or names.index("model") in dp
                  else shd.mesh_model_group(mesh))
         with shd.batch_context(lambda x: _dp_mean(x, mesh, dp)), \
                 shd.model_group_context(group):
             loss, metrics, grads = _accumulate_grads(
                 loss_fn, local, rows(batch), step_cfg.microbatches)
-        blocks, norm_dims, rows_p = [], [], {}
-        for path, d, k in zip(paths, dims, keep):
+        del local
+        blocks = []
+        for path, d, c, shape in zip(paths, dims, cuts, shapes):
             parent = adamw.get_path(grads, path[:-1])
             g = parent.pop(path[-1])
-            if not int8:
-                blocks.append(_grad_block(g, mesh, d, dp, k).div_(n_dp))
-                norm_dims.append(d)
-                continue
-            # int8 moments: the gradient reduced straight into the moments'
-            # flat rows, and the param's value cut to the same rows
-            # (a 1-D leaf's rows flattened: AdamW decays only 2-D and up)
-            q = adamw.get_path(opt_state["m"], path)["q"]
-            qd = shd.sharding_of(q)[1]
-            nb = q.shape[0]
-            shape = (-1, adamw.Q_BLOCK) if g.dim() >= 2 else (-1,)
-            g = _grad_block(_flat_rows(shd.gather_dims(g, mesh, d, k), nb),
-                            mesh, qd, dp)
-            blocks.append(g.div_(n_dp).reshape(shape))
-            norm_dims.append(qd)
-            whole = shd.gather_dims(adamw.get_path(local, path), mesh, d, k)
-            rows_p[path] = _cut(_flat_rows(whole, nb), mesh, qd).reshape(
-                shape).clone()
-            del g, whole
-        del local
-        gnorm = _placed_norm(blocks, norm_dims, mesh)
+            blocks.append(_grad_block(g, mesh, d, dp, c, shape).div_(n_dp))
+            del g
+        gnorm = _placed_norm(blocks, dims, mesh)
         loss = _dp_mean(loss, mesh, dp)
         metrics = {k: _dp_mean(v, mesh, dp) for k, v in metrics.items()}
 
@@ -746,27 +782,20 @@ def _placed_update(loss_fn, opt_cfg, schedule_fn, step_cfg, mesh):
         state = {"step": opt_state["step"].to_local(),
                  "m": local_of(opt_state["m"]), "v": local_of(opt_state["v"])}
         lr = schedule_fn(state["step"])
-        targets = (_tree(paths, [rows_p[p] for p in paths]) if int8
-                   else local_of(params))
-        _, state, opt_metrics = adamw.apply_updates(
-            targets, _tree(paths, blocks), state, lr, opt_cfg,
-            grad_norm=gnorm)
-        if int8:
-            for path, leaf, d in zip(paths, leaves, dims):
-                for mom in ("m", "v"):
-                    dst = adamw.get_path(opt_state[mom], path)
-                    for key in ("q", "scale"):
-                        new = adamw.get_path(state[mom], path)[key]
-                        if new.data_ptr() != dst[key].to_local().data_ptr():
-                            dst[key].to_local().copy_(new)
-                q = adamw.get_path(opt_state["m"], path)["q"]
-                qd = shd.sharding_of(q)[1]
-                flat = shd.gather_dims(
-                    rows_p[path].reshape(-1, adamw.Q_BLOCK), mesh, qd,
-                    tuple(range(mesh.ndim))).reshape(-1)
-                whole = flat[:leaf.numel()].view(leaf.shape)
-                with torch.no_grad():
-                    leaf.to_local().copy_(_cut(whole, mesh, d))
+        if not int8:
+            _, state, opt_metrics = adamw.apply_updates(
+                local_of(params), _tree(paths, blocks), state, lr, opt_cfg,
+                grad_norm=gnorm)
+        else:
+            state["step"], clip, bc1, bc2 = adamw.step_scalars(
+                state["step"], gnorm, opt_cfg)
+            for j, (path, leaf, d) in enumerate(zip(paths, leaves, dims)):
+                _int8_leaf(blocks[j], leaf, d, adamw.get_path(state["m"], path),
+                           adamw.get_path(state["v"], path),
+                           adamw.get_path(opt_state["m"], path)["q"], mesh,
+                           (clip, bc1, bc2, lr), opt_cfg)
+                blocks[j] = None
+            opt_metrics = {"grad_norm": gnorm, "lr": lr}
         opt_state["step"] = DTensor.from_local(
             state["step"], mesh, [Replicate()] * mesh.ndim, run_check=False)
         grad_error = torch.zeros((), dtype=torch.float32, device=loss.device)

@@ -464,8 +464,14 @@ def fsdp_rules(mesh_name: str, arch: str) -> dict | None:
 
 
 def fsdp_config(get_config, arch: str):
+    """`arch`'s tiny config in f32; a variant after '@', "e<n>", gives it
+    n experts (`TP_ARCHS`' tiny Grok-1 with 3)."""
     import dataclasses
-    return dataclasses.replace(get_config(arch, tiny=True), dtype="float32")
+    name, _, variant = arch.partition("@")
+    cfg = dataclasses.replace(get_config(name, tiny=True), dtype="float32")
+    if variant:
+        cfg = dataclasses.replace(cfg, n_experts=int(variant[1:]))
+    return cfg
 
 
 def fsdp_schedule(wsd):
@@ -557,18 +563,19 @@ def fsdp_run(arch: str, mesh_name: str, mesh, device="cpu") -> dict:
 
 
 def tp_dims(shard: dict, names: tuple, dp: tuple = ()) -> dict:
-    """{leaf path: the tensor dim its TP mesh dim ('model', alone on its
-    dim, not data-parallel) shards, or None} of a tree of
+    """{leaf path: the tensor dim the TP forward cuts along 'model'
+    (`sharding.tp_cuts`: the placement's own block, or the MoE `w_out`'s
+    ff where its experts do not divide), or None} of a tree of
     `NamedSharding`s."""
     from repro_torch.models.lm import tree_map
     from repro_torch.optim.adamw import get_path, leaf_paths
     from repro_torch.parallel import sharding as shd
     dims = tree_map(lambda sh: sh.shard_dims, shard)
-    plan = shd.tp_plan(dims, tuple(names), dp)
+    cuts = shd.tp_cuts(dims, tuple(names), dp)
     out = {}
     for path in leaf_paths(shard):
-        keep = get_path(plan, path)
-        out[path] = get_path(dims, path)[keep[0]] if keep else None
+        c = get_path(cuts, path)
+        out[path] = c[0][1] if c else None
     return out
 
 
@@ -631,8 +638,8 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
     as the TP forward splits it (`tp_loss_and_grads`), the gradients added
     in rank order in f32 and divided by the DP count, the norm block by
     block in rank order (each leaf's placement under
-    `named_shardings(**placement)` on that step's mesh; the int8 moments'
-    flat rows where `opt_cfg` keeps them), the same AdamW on whole leaves.
+    `named_shardings(**placement)` on that step's mesh, with int8 moments
+    too), the same AdamW on whole leaves.
     `steps` gives each step's (mesh shape, axes) (the elastic restart
     changes them); `batches(i)` is step i's global batch. `shares`: replay
     the whole batch's statistics (`sharding.batch_mean`, the MoE's) as
@@ -648,7 +655,7 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
     from repro_torch.optim.adamw import get_path, leaf_paths
     from repro_torch.optim.schedule import wsd
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train.step import _flat_rows, _tree
+    from repro_torch.train.step import _tree
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     int8 = opt_cfg.state_dtype == "int8"
     opt = adamw.init_state(params, opt_cfg)
@@ -661,7 +668,6 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
         n_dp = int(np.prod([shape[j] for j in dp]))
         m = dict(zip(names, shape)).get("model", 1)
         shard = shd.named_shardings(params, mesh, **(placement or {}))
-        oshard = shd.named_shardings(opt, mesh, **(placement or {}))
         tdims = tp_dims(shard, tuple(names), dp)
         batch = batches(i)
         k = next(iter(batch.values())).shape[0] // n_dp
@@ -687,9 +693,6 @@ def placed_oracle(cfg, params, loss_fn, batches, steps: list,
         total = None
         for path, g in zip(paths, avg):
             sh = get_path(shard, path)
-            if int8:
-                sh = get_path(oshard["m"], path)["q"]
-                g = _flat_rows(g, get_path(opt["m"], path)["q"].shape[0])
             for coord in shd.distinct_coords(sh):
                 blk = g[shd.block_index(tuple(g.shape), sh, coord)]
                 sq = blk.contiguous().to(torch.float32,
@@ -807,19 +810,26 @@ TP_RANKS = 4
 TP_MESH = ((2, 2), ("data", "model"))
 # every family's tiny config served placed (prefill and decode), with its
 # placement profile: dense (MHA; Granite's MQA, whose one kv head stays
-# replicated; Mistral-Large's head_dim 16), moe (Qwen3-MoE under moe_ep,
-# Grok-1 under the default rules: the experts' ff over 'model'), vlm,
-# encdec, hybrid and ssm
+# replicated; Mistral-Large's head_dim 16), moe (Qwen3-MoE under moe_ep;
+# Grok-1 under the default rules: `w_gate`/`w_in` by d_model, `w_out` by
+# its 4 experts over 'model', the card's ('model',) layout; and with 3
+# experts, which do not divide over 'model', so `w_out`'s ff lies over
+# 'data' and each rank's ff rows are moved to it, the production meshes'
+# layout), vlm, encdec, hybrid and ssm
 TP_ARCHS = (("minicpm_2b", {}), ("granite_20b", {}),
             ("qwen3_moe_30b_a3b", {"moe_ep": True}), ("grok1_314b", {}),
-            ("mistral_large_123b", {}), ("internvl2_2b", {}),
-            ("whisper_base", {}), ("zamba2_1p2b", {}), ("rwkv6_7b", {}))
+            ("grok1_314b@e3", {}), ("mistral_large_123b", {}),
+            ("internvl2_2b", {}), ("whisper_base", {}), ("zamba2_1p2b", {}),
+            ("rwkv6_7b", {}))
 # the placed train steps this world adds to `fsdp_world`'s (whose 2 x 2
 # runs cover the dense, moe_ep, encdec, hybrid and ssm ones): the vlm, and
 # the int8 AdamW moments the reference's dry run gives its two largest
-# models (`INT8_OPT`)
+# models (`INT8_OPT`), Grok-1 in both MoE layouts
 TP_TRAIN = (("internvl2_2b", "float32"), ("grok1_314b", "int8"),
-            ("mistral_large_123b", "int8"))
+            ("grok1_314b@e3", "int8"), ("mistral_large_123b", "int8"))
+# the placed steps whose collectives are counted: tiny MiniCPM, and tiny
+# Grok-1 in both MoE layouts
+TP_COMM = ("minicpm_2b", "grok1_314b", "grok1_314b@e3")
 TP_BATCH = 4
 TP_PROMPT = 8
 TP_NEW = 4
@@ -1096,20 +1106,22 @@ def tp_train_oracle(arch: str, state_dtype: str, device="cpu") -> dict:
         opt_cfg=adamw.AdamWConfig(state_dtype=state_dtype))
 
 
-def tp_comm_counts(mesh, device="cpu") -> dict:
-    """One placed step of tiny MiniCPM under `CommDebugMode`: its
-    collective counts by op, and the all-gathers the step's placement
-    implies (module `tests/test_torch_tp.py`)."""
+def tp_comm_counts(mesh, arch: str = "minicpm_2b", device="cpu") -> dict:
+    """One placed step of tiny `arch` (f32 moments) under `CommDebugMode`:
+    its collective counts by op, and each leaf's placement, by path
+    (`tests/test_torch_tp.py` derives the counts the step's placement
+    implies from them)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.core.power_plane import StepProfile
     from repro_torch.models import registry
     from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import get_path, leaf_paths
     from repro_torch.optim.schedule import wsd
     from repro_torch.parallel import sharding as shd
     from repro_torch.train.step import StepConfig, make_train_step
     from repro_torch.train.trainer import initial_plane_and_ef
-    cfg, params = fsdp_params("minicpm_2b", device)
+    cfg, params = fsdp_params(arch, device)
     shard = shd.named_shardings(params, mesh)
     opt = adamw.init_state(params, adamw.AdamWConfig())
     plane, ef = initial_plane_and_ef(params)
@@ -1123,13 +1135,14 @@ def tp_comm_counts(mesh, device="cpu") -> dict:
         step(placed, opt, plane, ef, fsdp_batch(cfg, 0, device))
     return {"counts": {str(k): v for k, v in
                        comm.get_comm_counts().items()},
-            "dims": [sh.shard_dims for sh in shd._leaves_of(shard)]}
+            "dims": {path: get_path(shard, path).shard_dims
+                     for path in leaf_paths(shard)}}
 
 
 def tp_world(rank: int, world: int, out_dir: str) -> dict:
     from repro_torch.launch.mesh import make_mesh
     mesh = make_mesh(*TP_MESH, "cpu")
-    out = {"comm": tp_comm_counts(mesh)}
+    out = {("comm", arch): tp_comm_counts(mesh, arch) for arch in TP_COMM}
     for arch, _ in TP_ARCHS:
         out["serve", arch] = tp_serve(arch, mesh)
         if rank == 0:
@@ -1312,3 +1325,4 @@ def spawn_world(worker_name: str, world: int, out_dir: str,
         with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
             results.append(pickle.load(f))
     return results
+

@@ -5,7 +5,9 @@ processes on the CPU on a (data 2, model 2) mesh (`sharded_worlds.tp_world`,
 spawned once for every family):
 
 - every family's tiny f32 config (`TP_ARCHS`: dense MHA and MQA, the MoE
-  under moe_ep and under the default rules, vlm, encdec, hybrid, ssm)
+  under moe_ep and under the default rules, the latter with 4 experts
+  (`w_out` by its experts over 'model') and with 3 (`w_out`'s ff over
+  'data', each rank's ff rows moved to it), vlm, encdec, hybrid, ssm)
   served placed: the prefill (the encdec family: its decode on the whole
   cross K/V) and TP_NEW greedy decode steps on params placed by
   `named_shardings` and the cache by `serve_cache_pspecs`. Each rank's
@@ -17,9 +19,10 @@ spawned once for every family):
   (`sharded_reference.py tp_serve`) within LOGIT_TOL, the tokens equal up
   to the first step whose top-2 gap lies under NEAR_TIE;
 - the placed train steps `fsdp_world` does not take (TP_TRAIN: the vlm,
-  and tiny Grok-1 and Mistral-Large with int8 AdamW moments): losses,
-  norms and every rank's blocks equal the one-process run bit for bit
-  (`placed_oracle`, the norm over the moments' flat rows), and the
+  and tiny Grok-1 (4 and 3 experts) and Mistral-Large with int8 AdamW
+  moments): losses, norms and every rank's blocks equal the one-process
+  run bit for bit (`placed_oracle`, the norm over the params' blocks),
+  and the
   reference's sharded jit (with `AdamWConfig(state_dtype="int8")`) at
   `test_torch_fsdp.py`'s tolerances. `test_torch_fsdp.py`'s 2 x 2 runs
   hold the dense, moe_ep, encdec, hybrid and ssm train steps on TP;
@@ -29,11 +32,15 @@ spawned once for every family):
   metrics) and the norm's two, so no leaf is gathered along 'model'; its
   all-reduces are the TP regions' (a reduce each attention, MLP and
   embedding, three in the vocab-parallel loss, a copy's backward each
-  region input).
+  region input); and one of tiny Grok-1 in each MoE layout, whose
+  all-gathers and all-to-alls are the placement's and the MoE layer's
+  activations' (`test_no_moe_leaf_is_gathered_along_model`).
 
 Beside the world, in this process: the region functions' gradients in a
-one-process emulation, the MoE's expert-ff split, the TP plan of the
-production meshes, and a one-rank model group's bit-for-bit identity.
+one-process emulation, the MoE's splits (the rank's experts, the experts'
+ff, the default rules' d_model with `w_out` by experts or by ff) against
+the whole layer with their gradients, the TP plan of the production
+meshes, and a one-rank model group's bit-for-bit identity.
 """
 
 import os
@@ -80,7 +87,7 @@ INT8_MOMENT_TOL = dict(rtol=1e-2, atol=1e-6)
 SERVE_ARCHS = [a for a, _ in sw.TP_ARCHS]
 TRAIN_CASES = list(sw.TP_TRAIN)
 REF_SERVE_SPLIT = 5
-# the moe, and the int8 moments' ff split of the experts
+# the moe layer of the emulated splits
 MOE_SPEC = tmlp.MoESpec(d_model=32, d_ff=16, n_experts=4, k=2)
 
 
@@ -175,7 +182,7 @@ def _whole_logits(ranks, arch, step):
 def test_serve_equals_the_references_sharded_jit(tp, arch):
     ranks, ref = tp
     want = ref[arch]
-    cfg = tget(arch, tiny=True)
+    cfg = sw.fsdp_config(tget, arch)
     got_tokens = ranks[0]["serve", arch]["tokens"]
     assert len(want["logits"]) == len(ranks[0]["serve", arch]["logits"])
     # the first step whose greedy pick is a near-tie: its logits are still
@@ -270,8 +277,8 @@ def test_train_blocks_equal_the_references_sharded_run(tp, arch, dtype):
 def test_no_leaf_is_gathered_along_model(tp):
     ranks, _ = tp
     for r in ranks:
-        comm = r["comm"]
-        dims = comm["dims"]             # per leaf: (data dim, model dim)
+        comm = r["comm", "minicpm_2b"]
+        dims = list(comm["dims"].values())  # per leaf: (data, model) dims
         fsdp = sum(d[0] is not None for d in dims)
         replicated = sum(d[0] is None for d in dims)
         # the means of the loss, ce_loss and moe_aux; the norm's gathers
@@ -282,6 +289,45 @@ def test_no_leaf_is_gathered_along_model(tp):
         # tiny MiniCPM (2 layers): forward reduces (embedding, 2 a layer,
         # 3 in the loss) and backward copies (2 a layer, the logits')
         assert comm["counts"]["c10d.allreduce_"] == (1 + 4 + 3) + (4 + 1)
+
+
+@pytest.mark.parametrize("arch", ["grok1_314b", "grok1_314b@e3"])
+def test_no_moe_leaf_is_gathered_along_model(tp, arch):
+    """One placed step of tiny Grok-1 (2 layers) on (data 2, model 2):
+    every all-gather is one the placement implies (a leaf's FSDP gather
+    along data, the gradient sum of a leaf replicated over data, the
+    means, the MoE's batch statistic, the norm) or the backward of the
+    MoE's reduce-scatter: no leaf, the MoE's among them, is gathered
+    along 'model'. With 4 experts `w_out` keeps its experts (an all-to-all
+    of the activation a layer each way); with 3 its ff lies over 'data'
+    and its rows are moved to the rank (one all-to-all) and its gradient
+    back (a reduce-scatter over data, then one all-to-all)."""
+    ranks, _ = tp
+    L = sw.fsdp_config(tget, arch).n_layers
+    for r in ranks:
+        comm = r["comm", arch]
+        dims = comm["dims"]
+        fetched = [p for p in dims if p[-1] == "w_out" and
+                   dims[p][1] is None]
+        assert len(fetched) == (arch.endswith("@e3"))
+        fsdp = sum(d[0] is not None for d in dims.values()) - len(fetched)
+        replicated = sum(d[0] is None for d in dims.values())
+        # FSDP gathers, replicated gradients' sums, the 3 metric means,
+        # the top-1 shares' mean a layer, the norm's 2, and the two
+        # reduce-scatters' backward all-gathers a layer
+        assert comm["counts"]["c10d.allgather_"] == \
+            fsdp + replicated + 3 + L + 2 + 2 * L
+        # each FSDP leaf's gradient exchange; a layer's two reduce-scatters
+        # and, where w_out keeps its experts, the activation's swap each
+        # way; the fetched w_out's rows, its gradient's exchange and move
+        moe = 2 * L + (0 if fetched else 2 * L)
+        assert comm["counts"]["c10d.alltoall_base_"] == \
+            fsdp + moe + 3 * len(fetched)
+        # forward reduces (embedding, attention and MoE a layer, 3 in the
+        # loss) and backward copies (attention, the MoE's input and gates
+        # a layer, the logits')
+        assert comm["counts"]["c10d.allreduce_"] == \
+            (1 + 2 * L + 3) + (3 * L + 1)
 
 
 # -- in this process ----------------------------------------------------------------
@@ -319,48 +365,81 @@ def test_regions_gradients_in_the_one_process_emulation():
     torch.testing.assert_close(gx[1], want_g, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("layout", ["experts", "ff"])
+# each MoE layout's tensor dim (unstacked) of w_gate, w_in, w_out split over
+# 'model': the rank's experts (moe_ep); the experts' ff; the default rules'
+# d_model blocks of w_gate and w_in beside w_out's experts (a mesh whose
+# model size divides the experts: the card's ('model',) of 2) or beside
+# w_out's ff (the production meshes, where 8 experts do not divide 16 and
+# w_out's ff lies over 'data': `fetch_block` moves its rows to the rank)
+MOE_LAYOUTS = {"experts": (0, 0, 0), "ff": (2, 2, 1),
+               "d_model_experts": (1, 1, 0), "d_model_ff": (1, 1, 1)}
+# the split against the whole layer: f32 sums in another order
+MOE_SPLIT_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", list(MOE_LAYOUTS))
 def test_moe_split_equals_the_whole_layer(layout):
-    """`moe_apply` on each rank's experts (moe_ep) or each expert's ff
-    block, emulated over 2 model ranks, against the whole layer: the
-    routing is the same and the output within f32 rounding (the reduce
-    adds the ranks' partial combines)."""
+    """`moe_apply` on each rank's blocks (MOE_LAYOUTS), emulated over 2
+    model ranks (`run_model_ranks`: the reduce-scatter, the all-to-all
+    and the reduce as joint autograd nodes), against the whole layer: the
+    routing is the same, the output and the gradients of x and of every
+    weight (the ranks' blocks joined) within MOE_SPLIT_TOL, the load
+    balance loss equal."""
     gen = torch.Generator().manual_seed(1)
     params = tmlp.init_moe(gen, MOE_SPEC)
     x = torch.randn((2, 6, MOE_SPEC.d_model), generator=gen)
-    want, aux = tmlp.moe_apply(params, x, MOE_SPEC)
+    names = ("router", "w_gate", "w_in", "w_out")
+    leaves = [params[k].clone().requires_grad_(True) for k in names]
+    xw = x.clone().requires_grad_(True)
+    want, aux = tmlp.moe_apply(dict(zip(names, leaves)), xw, MOE_SPEC)
+    gy = torch.randn(want.shape, generator=gen)
+    want_g = torch.autograd.grad(want, [xw] + leaves, gy)
+    dims = dict(zip(names[1:], MOE_LAYOUTS[layout]))
 
-    def block(r):
-        p = dict(params)
-        if layout == "experts":
-            for k in ("w_gate", "w_in", "w_out"):
-                p[k] = params[k][2 * r:2 * r + 2].contiguous()
-        else:
-            n = MOE_SPEC.d_ff // 2
-            p["w_gate"] = params["w_gate"][..., r * n:(r + 1) * n]
-            p["w_in"] = params["w_in"][..., r * n:(r + 1) * n]
-            p["w_out"] = params["w_out"][:, r * n:(r + 1) * n]
-            p = {k: v.contiguous() for k, v in p.items()}
-        return tmlp.moe_apply(p, x, MOE_SPEC)
+    def block(k, r):
+        a = params[k]
+        if k not in dims:
+            return a.clone().requires_grad_(True)
+        n = a.shape[dims[k]] // 2
+        return a.narrow(dims[k], r * n, n).contiguous().requires_grad_(True)
 
-    for y, a in _emulate(2, block):
-        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
-        assert torch.equal(a["moe_aux"], aux["moe_aux"])
+    ranks = [[block(k, r) for k in names] for r in range(2)]
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    outs = _emulate(2, lambda r: tmlp.moe_apply(dict(zip(names, ranks[r])),
+                                                xs[r], MOE_SPEC))
+    for y, a in outs:
+        torch.testing.assert_close(y, want.detach(), **MOE_SPLIT_TOL)
+        assert torch.equal(a["moe_aux"], aux["moe_aux"].detach())
+    got = torch.autograd.grad([o[0] for o in outs],
+                              [xs[0]] + ranks[0] + ranks[1], [gy, gy])
+    torch.testing.assert_close(got[0], want_g[0], **MOE_SPLIT_TOL)
+    torch.testing.assert_close(got[1], want_g[1], **MOE_SPLIT_TOL)
+    for j, k in enumerate(names[1:], start=2):
+        joined = torch.cat([got[j], got[j + 4]], dims[k])
+        torch.testing.assert_close(joined, want_g[j], **MOE_SPLIT_TOL,
+                                   msg=f"{layout} {k}")
 
 
 def test_tp_plan_keeps_what_the_layers_split():
     """The production meshes: attention, MLP, vocab, ssm and moe_ep blocks
     stay blocks; the MoE under the default rules (the dense patterns place
-    its d_model and experts over 'model') and the wide-FSDP profile are
-    gathered whole along 'model'."""
+    its d_model and experts over 'model') keeps `w_gate`'s and `w_in`'s
+    d_model blocks, and `w_out`, whose 8 experts do not divide over 16
+    ranks (its ff lies over 'data'), takes its rank's ff block
+    (`tp_cuts`), so no MoE leaf is gathered whole along 'model'; on a
+    ('model',) mesh of 2 `w_out` keeps its experts. The wide-FSDP profile
+    is gathered whole along 'model'."""
     mesh = tshd.SpecMesh(("data", "model"), (16, 16))
     names = mesh.axis_names
 
-    def plan(arch, **kw):
+    def plan(arch, mesh=mesh, dp=(0,), cuts=False, **kw):
         ab = treg.abstract_params(tget(arch))
         shard = tshd.named_shardings(ab, mesh, **kw)
-        return tshd.tp_plan(tshd._tree_map(lambda s: s.shard_dims, shard),
-                            names, (0,))
+        fn = tshd.tp_cuts if cuts else tshd.tp_plan
+        return fn(tshd._tree_map(lambda s: s.shard_dims, shard),
+                  mesh.axis_names, dp,
+                  shapes=tshd._tree_map(lambda a: tuple(a.shape), ab),
+                  sizes=mesh.shape)
 
     qwen = plan("qwen2p5_14b")
     for key in ("wq", "wk", "wv", "wo"):
@@ -369,8 +448,15 @@ def test_tp_plan_keeps_what_the_layers_split():
     assert qwen["blocks"]["mlp"]["w_out"] == (1,)
     assert qwen["blocks"]["ln1_w"] == ()
     grok = plan("grok1_314b")
-    assert all(grok["blocks"]["moe"][k] == () for k in ("w_gate", "w_in",
-                                                       "w_out"))
+    moe = grok["blocks"]["moe"]
+    assert (moe["w_gate"], moe["w_in"], moe["w_out"]) == ((1,), (1,), ())
+    cuts = plan("grok1_314b", cuts=True)["blocks"]["moe"]
+    # [L, E, D, F] by d_model, [L, E, F, D] by the ff the placement lacks
+    assert (cuts["w_gate"], cuts["w_out"]) == (((1, 2),), ((1, 2),))
+    assert cuts["router"] == ()
+    card = plan("grok1_314b", tshd.SpecMesh(("model",), (2,)), ())
+    assert all(card["blocks"]["moe"][k] == (0,) for k in ("w_gate", "w_in",
+                                                         "w_out"))
     assert grok["blocks"]["attn"]["wq"] == (1,)
     ep = plan("qwen3_moe_30b_a3b", moe_ep=True)
     assert all(ep["blocks"]["moe"][k] == (1,) for k in ("w_gate", "w_in",
