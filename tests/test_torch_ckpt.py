@@ -44,6 +44,7 @@ from repro_torch.core.telemetry import ALL_RAIL_OBSERVABLES as TRAILS
 from repro_torch.core.telemetry import FrameHistory as THistory
 from repro_torch.models import registry as treg
 from repro_torch.optim import adamw as tadamw
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_CHIPS = 4
 CAPACITY = 4

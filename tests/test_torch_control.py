@@ -21,6 +21,7 @@ from repro_torch.core import power_plane as tpp
 from repro_torch.core import sor as tsor
 from repro_torch.core import telemetry as ttel
 from repro_torch.core.hwspec import FleetSpec as TFleet
+from torch_threads import one_torch_thread  # noqa: F401
 
 # elementwise f32 on the same inputs: a few ulps apart at most
 F32 = dict(rtol=1e-6, atol=1e-7)

@@ -43,6 +43,7 @@ from repro.configs import get_config as jget
 from repro.core import ecollectives as jec
 from repro.models import registry as jreg
 from repro_torch.core import ecollectives as tec
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 240

@@ -33,6 +33,7 @@ import pytest
 
 from repro_torch.configs import get_config
 from repro_torch.models.mlp import MoESpec, moe_capacity
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 300
@@ -87,7 +88,7 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = one_thread_env(PYTHONPATH=os.path.join(ROOT, "src"))
     procs = {}
     for name, argv in RUNS.items():
         out = tmp_path_factory.mktemp(name)

@@ -59,6 +59,7 @@ from repro_torch.train import trainer as ttrainer
 from test_torch_inputs import codec_input, codec_ties, ef_inputs
 from test_torch_train import (GRAD_TOL, LOSS_TOL, PLANE_TOL, TRAJ_PARAM_TOL,
                               _batches, _close_plane, _leaf, _pair, _sched)
+from torch_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

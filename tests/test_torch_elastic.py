@@ -42,6 +42,7 @@ from repro.configs import get_config as jget
 from repro.models import registry as jreg
 from repro.optim import adamw as jadamw
 from repro_torch.parallel import sharding as tshd
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 300
@@ -112,8 +113,8 @@ def _elastic_runs(out: str) -> dict:
     port_ex = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.examples.elastic_restart",
          "--device", "cpu", "--ckpt-dir", os.path.join(out, "port_example"),
-         "--params", params_path], env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         "--params", params_path], env=one_thread_env(_env()),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         env = {"ELASTIC_PARAMS": params_path, "ELASTIC_DIR": out}
         saved = sw.spawn_world("elastic_save_world", 4,

@@ -34,6 +34,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models.common import plan_head_padding
 from repro_torch.optim import adamw as tadamw
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "whisper_base"
 # f32: the same math with sums in another order
@@ -44,14 +45,6 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 # bf16 (the GELU MLP): as tests/test_torch_models.py's BF16_TOL
 BF16_TOL = dict(rtol=2e-2, atol=4e-2)
 N_PARAMS = 185_436_160        # whisper_base's tree, 67.1 M of it dec_pos
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -10,7 +10,6 @@ raises on a machine with no card. No tolerance: the printed text."""
 
 import importlib
 import math
-import os
 import pathlib
 import runpy
 import subprocess
@@ -19,22 +18,12 @@ import sys
 import pytest
 import torch
 
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NAMES = ("quickstart", "case_study_transceiver", "serve_decode",
          "train_voltune_lm")
 TRAIN_ARGS = ["--steps", "8", "--d-model", "64", "--layers", "2"]
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's small CPU ops on one thread: in a parallel test run the
-    workers share the cores, and torch's default pool of one thread a
-    core then waits more than it works (the serve example ran ~40x
-    slower beside five busy processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reference(name, argv, monkeypatch, capsys):
@@ -120,7 +109,7 @@ def test_runs_as_a_module(no_card):
     """`python -m repro_torch.examples.<name>`: with `--device cpu` the case
     study prints its text; without it the process fails, no card."""
     cmd = [sys.executable, "-m", "repro_torch.examples.case_study_transceiver"]
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = one_thread_env(PYTHONPATH=str(ROOT / "src"))
     ok = subprocess.run(cmd + ["--device", "cpu"], env=env,
                         capture_output=True, text=True, check=True)
     assert "=== Fig 16: BER-aware power savings at 10 Gbps ===" in ok.stdout

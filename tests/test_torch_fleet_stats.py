@@ -18,6 +18,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import fleet_telemetry as tft
 from repro_torch.kernels import ops as tops
 from test_torch_inputs import FLEET_CASES, check_fleet_stats, fleet_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU_SIZES = (1, 2, 63, 64, 65, 1000)
 # the plain version against the reference: the same max and min; sums (the

@@ -54,6 +54,7 @@ from repro_torch.models import registry as treg
 from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import sharding as tshd
 from repro_torch.train import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 300

@@ -39,24 +39,13 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import lm
 from repro_torch.models import registry as treg
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "granite_20b"
 PLANE = dict(rtol=1e-6, atol=1e-7)
 SOR = dict(rtol=1e-4, atol=1e-5)
 B, TP, NEW, CHIPS = 2, 16, 12, 8
 N_PARAMS = 29_394_327_552          # embed + lm_head + 52 x 553.6 M
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's small CPU ops on one thread: in a parallel test run the
-    workers share the cores, and torch's default pool of one thread a
-    core then waits more than it works (the serve example ran ~40x
-    slower beside five busy processes)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("tiny", [False, True], ids=["CONFIG", "TINY"])

@@ -40,6 +40,7 @@ from repro_torch.core.hwspec import FleetSpec as TFleet
 from repro_torch.core.power_manager import PowerManager as TPM
 from repro_torch.models import registry as treg
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 # The simulator is the same Python on the same inputs, and the host
 # controllers' decisions are elementwise f32 on equal observations, so

@@ -19,12 +19,14 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import registry
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train import trainer as ttrainer
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-# the card-side scripts: those that set a checkout beside the parent
-# (`*_compare.py`) and the profiler's window count
+# the scripts: the card-side ones that set a checkout beside the parent
+# (`*_compare.py`) and the profiler's window count, and the CPU suite's
+# timing summary (`suite_times.py`)
 CARD_SCRIPTS = sorted((ROOT / "scripts").glob("*.py"))
 
 
@@ -61,6 +63,31 @@ def test_port_files_found():
             "train_voltune_lm.py", "mesh.py", "sharding.py",
             "elastic_restart.py", "dryrun.py", "analysis.py", "analytic.py",
             "op_costs.py"} <= names
+
+
+def test_port_tests_run_on_one_torch_thread(request):
+    """A port test runs on one torch thread, and so does every other: each
+    `tests/test_torch_*.py` that holds a test imports the autouse fixture
+    `one_torch_thread` of `tests/torch_threads.py` and defines none of its
+    own, so a new file cannot bring back a pool of a thread a core beside
+    the other workers of a parallel run."""
+    assert torch.get_num_threads() == 1
+    assert "one_torch_thread" in request.fixturenames
+    paths = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(paths) > 30
+    bad = []
+    for path in paths:
+        body = ast.parse(path.read_text(), str(path)).body
+        names = {n.name for n in body
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        takes = any(isinstance(n, ast.ImportFrom)
+                    and n.module == "torch_threads"
+                    and "one_torch_thread" in (a.name for a in n.names)
+                    for n in body)
+        if any(n.lower().startswith("test") for n in names) and (
+                not takes or "one_torch_thread" in names):
+            bad.append(path.name)
+    assert not bad, bad
 
 
 def test_only_the_dry_run_imports_the_fake_world():
@@ -402,4 +429,4 @@ def test_kernel_build_is_lazy():
                      + ["from repro_torch.kernels import _build",
                         "assert _build._lib is None"])
     subprocess.run([sys.executable, "-c", code], check=True,
-                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+                   env=one_thread_env(PYTHONPATH=str(ROOT / "src")))

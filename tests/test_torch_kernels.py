@@ -28,6 +28,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from test_torch_inputs import (SOR_KW, accumulate_inputs, check_sor,
                                check_sums, qkv, sor_inputs)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 attention: the two packages sum the same products in another order
 ATT_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -30,6 +30,7 @@ from test_torch_inputs import (FLEET_CASES, FLEET_SIZES, FLEET_SUM_RTOL,
                                mamba2_adversarial_decay, mamba2_inputs, qkv,
                                ring_state, rwkv_adversarial_w, rwkv_inputs,
                                sor_inputs)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # attention on the card: f32 kernel vs f32 plain (FMA order); bf16 output
 # vs the f32 plain version rounded to bf16 (an ulp or two of O(1) values)

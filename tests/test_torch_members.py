@@ -43,6 +43,7 @@ from repro_torch.launch import dryrun as tdry
 from repro_torch.models import common as tcommon
 from repro_torch.roofline import hlo_costs as thlo
 from test_torch_control import _frame, _observables
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-6, atol=1e-7)
 ROOT = pathlib.Path(__file__).resolve().parents[1]

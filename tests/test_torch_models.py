@@ -18,6 +18,7 @@ from repro.models import registry as jreg
 from repro_torch.configs import get_config as tget
 from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32: the same math with sums in another order
 F32_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -36,6 +36,7 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models import registry as treg
 from repro_torch.optim import adamw as tadamw
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 # a gap between the k-th and (k+1)-th router probabilities below this is a
 # near-tie. Measured on the tiny models' prefills (both packages, each
@@ -53,16 +54,6 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 ARCHS = ("qwen3_moe_30b_a3b", "grok1_314b")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """Small CPU ops on one thread (a parallel test run shares the
-    cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

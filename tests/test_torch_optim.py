@@ -15,6 +15,7 @@ from repro.optim import schedule as jsched
 from repro_torch.data import pipeline as tpipe
 from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import schedule as tsched
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 AdamW: the same elementwise ops in the same order; the global norm
 # sums in another order, so the clip factor (and through it every update)

@@ -27,6 +27,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.models import registry as treg
 from repro_torch.optim import adamw as tadamw
 from repro_torch.parallel import sharding as tshd
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {"16x16": (("data", "model"), (16, 16)),
           "2x16x16": (("pod", "data", "model"), (2, 16, 16)),

@@ -37,6 +37,7 @@ from repro_torch.launch import dryrun as tdryrun
 from repro_torch.roofline import analysis as tanalysis
 from repro_torch.roofline import analytic as tanalytic
 from repro_torch.roofline.op_costs import analyze_ops, ring_factor
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's dry-run module sets XLA_FLAGS (512 host devices) when it
 # is imported, which its `analyze_cell` does; import it here and put the

@@ -34,6 +34,7 @@ from repro_torch.core.hwspec import FleetSpec as TFleet
 from repro_torch.serve import router as trouter
 from repro_torch.serve import traffic as ttraffic
 from test_torch_inputs import ROUTED_PROFILE, ROUTED_SEED
+from torch_threads import one_torch_thread  # noqa: F401
 
 PLANE_RTOL = 1e-6
 RAILS = ("VDD_CORE", "VDD_HBM", "VDD_IO")

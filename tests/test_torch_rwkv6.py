@@ -31,6 +31,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models import rwkv6 as trwkv
 from test_torch_inputs import (bf16_round, bf16_split, rwkv_adversarial_w,
                                rwkv_inputs)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 recurrence: the same products summed in another order (the
 # reference's einsum over keys against a sequential sum), relative to the

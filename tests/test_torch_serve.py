@@ -32,6 +32,7 @@ from repro_torch.core import telemetry as ttel
 from repro_torch.core.hwspec import FleetSpec as TFleet
 from repro_torch.models import registry as treg
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the plane is elementwise f32 on equal inputs
 PLANE = dict(rtol=1e-6, atol=1e-7)

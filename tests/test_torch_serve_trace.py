@@ -80,6 +80,7 @@ from test_torch_inputs import (ROUTED_BOUND, ROUTED_DECODE_PROFILE,
                                routed_migration_knobs, routed_observe,
                                routed_onset_sources, routed_trace_knobs,
                                routed_warm_up)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ANALOG_RTOL = 1e-5
 TICK_RTOL = 1e-6

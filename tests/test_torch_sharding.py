@@ -58,6 +58,7 @@ from repro_torch.core.policy import (MultiRailClosedLoop, PhaseAware,
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as tmesh
 from repro_torch.train import step as tstep
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 240

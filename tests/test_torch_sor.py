@@ -22,6 +22,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from test_torch_inputs import (RING_CASES, VIEW_OPS, OpNames, check_refit,
                                check_sums, ring_state)
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = np.float32
 FIELDS = ("intercept", "slope", "v_frontier", "confidence", "n_eff")

@@ -37,6 +37,7 @@ from repro_torch.core import power_plane as tpp
 from repro_torch.core import sor as tsor
 from repro_torch.core import telemetry as ttel
 from test_torch_inputs import ring_state
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 # the port's shims warn; an unexpected call anywhere in this file fails
 pytestmark = pytest.mark.filterwarnings(
@@ -78,7 +79,8 @@ def test_core_import_builds_no_kernel():
             "if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], check=True,
-                         capture_output=True, text=True).stdout
+                         capture_output=True, text=True,
+                         env=one_thread_env()).stdout
     assert out.strip() == "ok"
 
 

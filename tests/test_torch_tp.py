@@ -62,6 +62,7 @@ from repro_torch.models.lm import tree_map as tmap
 from repro_torch.parallel import sharding as tshd
 from test_torch_fsdp import (FLIP_FRAC, FLIP_GAP, LOSS_RTOL, MOMENT_TOL,
                              NORM_RTOL, PARAM_TOL, _get, _leaves)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD_TIMEOUT_S = 300

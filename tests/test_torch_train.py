@@ -50,6 +50,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim.schedule import wsd as twsd
 from repro_torch.train import step as tstep
 from repro_torch.train import trainer as ttrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 # loss: f32, the same math with sums in another order
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)

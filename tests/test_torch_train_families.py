@@ -42,6 +42,7 @@ from test_torch_train import (LOSS_TOL, N_CHIPS, TRAJ_METRIC_TOL,
                               TRAJ_PARAM_TOL, TRAJ_PLANE_TOL, _batches,
                               _close_plane, _close_trees,
                               _fleet_pair, _leaf, _pair)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # a scan's gradients, f32: the same recurrence walked back in both
 # packages, its einsums summed in another order; held relative to each

@@ -9,7 +9,6 @@ tolerance: the same numpy arithmetic on the same inputs)."""
 import ast
 import dataclasses
 import math
-import os
 import subprocess
 import sys
 
@@ -19,6 +18,7 @@ from repro.core import overhead as j_overhead
 from repro.core import transceiver as j_tx
 from repro_torch.core import overhead as t_overhead
 from repro_torch.core import transceiver as t_tx
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401
 
 MODULES = {"reference": j_tx, "port": t_tx}
 OVERHEAD = {"reference": j_overhead, "port": t_overhead}
@@ -221,7 +221,7 @@ def test_det_uniform_is_the_same_in_another_process():
     assert [t_tx._det_uniform(*k) for k in KEYS] == want
     code = ("from repro_torch.core.transceiver import _det_uniform; "
             f"print(repr([_det_uniform(*k) for k in {KEYS!r}]))")
-    env = {**os.environ, "PYTHONHASHSEED": "12345"}
+    env = one_thread_env(PYTHONHASHSEED="12345")
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True).stdout
     assert ast.literal_eval(out) == want

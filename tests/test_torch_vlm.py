@@ -31,19 +31,12 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import registry as treg
 from repro_torch.optim import adamw as tadamw
 from repro_torch.serve.engine import ServeEngine as TEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCH = "internvl2_2b"
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 N_PARAMS = 2_000_783_360      # internvl2_2b's tree (img_proj 4.2 M of it)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("arch", ["internvl2_2b", "whisper_base",

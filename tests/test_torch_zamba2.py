@@ -37,6 +37,7 @@ from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import registry as treg
 from test_torch_inputs import (bf16_round, bf16_split,
                                mamba2_adversarial_decay, mamba2_inputs)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 scan: the same products summed in another order (the reference's
 # einsum over the state rows against torch's), relative to the output's
