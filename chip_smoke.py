@@ -382,16 +382,124 @@ SCAN_KERNELS = ("ssd_chunk", "ssd_decode", "wkv_chunk", "wkv_decode")
 COPY_KERNELS = ("copy", "Memcpy")
 
 
-# the script's start on the host clock: each phase line carries the
-# seconds since (`elapsed_s`), so where the time limit goes reads off them
-STARTED = time.perf_counter()
+def process_start() -> float | None:
+    """This process's start (its `exec`) on the monotonic clock, from
+    `/proc/self/stat`; None where /proc does not give it."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        age = (time.clock_gettime(time.CLOCK_BOOTTIME)
+               - ticks / os.sysconf("SC_CLK_TCK"))
+    except (OSError, ValueError, IndexError):
+        return None
+    return time.monotonic() - age
+
+
+# the script's start on the monotonic clock, which every process of the
+# script shares: each phase line carries the seconds since (`elapsed_s`),
+# the seconds since the line before (`wall_s`) and, where the phase marks
+# them (`lap`), that wall time's split, so where the time limit goes reads
+# off them
+STARTED = time.monotonic()
+# this process's start-up, stamped on the same clock (`mark`): a rank's
+# goes back to its parent with its result, the main process's onto the
+# build line
+BOOT = {"process": process_start(), "script": STARTED}
+LAPS: list = []                 # (label, stamp) since the last phase line
+LAST_LINE = [STARTED]           # the last phase line's stamp
+PHASE_WALLS: list = []          # (phase, wall_s) of every phase line
+# the rank and fresh processes' start-up and exit, by the phase they serve
+PROCESS_RECORDS: list = []
+
+
+def mark(label: str) -> None:
+    """Stamp `label` on this process's start-up and close a lap there."""
+    BOOT[label] = time.monotonic()
+    lap(label)
+
+
+def lap(label: str) -> None:
+    """Close the stretch of the phase in progress that ends now as
+    `label` (the main thread's only: a thread beside it times its own)."""
+    import threading
+    if threading.current_thread() is threading.main_thread():
+        LAPS.append((label, time.monotonic()))
+
+
+def phase_split(now: float) -> dict:
+    """The laps since the last phase line as seconds by label, the rest
+    of the stretch as `rest`."""
+    split, t = {}, LAST_LINE[0]
+    for label, at in LAPS:
+        split[label] = split.get(label, 0.0) + at - t
+        t = at
+    if split:
+        split["rest"] = now - t
+    return split
 
 
 def emit(obj) -> None:
     if "phase" in obj:
-        obj = dict(obj, elapsed_s=time.perf_counter() - STARTED)
+        now = time.monotonic()
+        wall = now - LAST_LINE[0]
+        extra = dict(elapsed_s=now - STARTED, wall_s=wall)
+        split = phase_split(now)
+        if split:
+            extra["split"] = split
+        mine = [r for r in PROCESS_RECORDS if r["phase"] == obj["phase"]]
+        if mine:
+            extra["processes"] = mine
+        LAPS.clear()
+        LAST_LINE[0] = now
+        PHASE_WALLS.append((obj["phase"], wall))
+        obj = dict(obj, **extra)
     print(json.dumps(obj, default=lambda o: o.tolist()
                      if hasattr(o, "tolist") else str(o)), flush=True)
+
+
+def timing_summary(card_end_s: float, dryrun_end_s: float) -> dict:
+    """The `{"timing": ...}` line: each phase's wall time (its lines'
+    `wall_s` summed; `start` from the process's start to the script's
+    first line, `end` from the last phase line to now), which add up to
+    the script's wall time; the card chain's end and the dry run's (script
+    clock); the rank and fresh processes' start-up (`boot_split`'s
+    `start_s`) summed, and the part of it the script waited for; the
+    host's cores."""
+    now = time.monotonic()
+    first = STARTED if BOOT["process"] is None else BOOT["process"]
+    phases = {"start": STARTED - first}
+    for phase, wall in PHASE_WALLS:
+        phases[phase] = phases.get(phase, 0.0) + wall
+    phases["end"] = now - LAST_LINE[0]
+    starts = [r["start_s"] for rec in PROCESS_RECORDS for r in rec["ranks"]
+              if "start_s" in r]
+    waited = [rec.get("waited_s", max(r.get("start_s", 0.0)
+                                      for r in rec["ranks"]))
+              for rec in PROCESS_RECORDS]
+    return dict(wall_s=now - first, phases=phases, card_end_s=card_end_s,
+                dryrun_end_s=dryrun_end_s, processes=len(starts),
+                process_start_s=sum(starts),
+                process_start_waited_s=sum(waited), cpu_count=os.cpu_count(),
+                cpu_affinity=len(os.sched_getaffinity(0)))
+
+
+def boot_split(boot: dict, spawned: float | None = None,
+               exited: float | None = None) -> dict:
+    """A process's start-up marks (`BOOT`) as the seconds between
+    consecutive ones, from its spawn (the parent's stamp) to its exit (the
+    parent's sight of it); `start_s` is spawn to the job's start less the
+    time it idled, loaded, until its job was sent (`ready>go`)."""
+    marks = sorted(((t, k) for k, t in boot.items() if t is not None))
+    if spawned is not None:
+        marks.insert(0, (spawned, "spawn"))
+    if exited is not None:
+        marks.append((exited, "exit"))
+    out = {f"{k0}>{k1}": round(t1 - t0, 3)
+           for (t0, k0), (t1, k1) in zip(marks, marks[1:])}
+    if spawned is not None and "job_start" in boot:
+        idle = boot["go"] - boot["ready"] if "go" in boot else 0.0
+        out["start_s"] = round(boot["job_start"] - spawned - idle, 3)
+    return out
 
 
 def nvidia_smi() -> str:
@@ -2472,6 +2580,7 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
 
     engine().generate(prompts, 2)        # warm-up (cuBLAS, first launches)
     torch.cuda.synchronize()
+    lap("warmup")
 
     eng = engine()
     torch.cuda.reset_peak_memory_stats()
@@ -2484,6 +2593,7 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     summary = eng.summary()
+    lap("generate")
 
     want = serve_launches(cfg, new)
     if launches != want:
@@ -2507,8 +2617,10 @@ def run_main(dev, spec: dict, cfg, params, init_s: float) -> dict:
     eng.generate(prompts, 1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    lap("prefill")
     decode_s = (total_s - prefill_s) / (new - 1)
     profile = decode_breakdown(engine, prompts)
+    lap("profile")
     weight_bytes = sum(a.numel() * a.element_size()
                        for a in tree_leaves(params))
     return dict(arch=cfg.name, family=cfg.family, n_layers=cfg.n_layers,
@@ -2777,8 +2889,22 @@ def run_elastic_example(none: dict) -> dict:
     from repro_torch.examples import elastic_restart as ex
     ckpt_dir = ROOT / "build" / "elastic_ckpt"
     buf = io.StringIO()
+    # each world's start and end on the script's clock
+    spans, run_world = {}, ex.run_world
+
+    def timed_world(job, *args):
+        t = time.monotonic() - STARTED
+        try:
+            return run_world(job, *args)
+        finally:
+            spans[job] = (t, time.monotonic() - STARTED)
+
+    ex.run_world = timed_world
     t0 = time.perf_counter()
-    result = ex.main(["--ckpt-dir", str(ckpt_dir)], out=buf)
+    try:
+        result = ex.main(["--ckpt-dir", str(ckpt_dir)], out=buf)
+    finally:
+        ex.run_world = run_world
     secs = time.perf_counter() - t0
     text = buf.getvalue()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2797,7 +2923,8 @@ def run_elastic_example(none: dict) -> dict:
                                  f"{want}")
         for k, v in want.items():
             launches[k] = launches.get(k, 0) + v
-    return dict(seconds=secs, drift=result["drift"], l1=result["l1"],
+    return dict(seconds=secs, world_spans_s=spans, drift=result["drift"],
+                l1=result["l1"],
                 l2=result["l2"], save_s=result["save_s"],
                 restore_s=result["restore_s"],
                 ckpt_bytes=result["ckpt_bytes"], launches=launches,
@@ -2805,16 +2932,19 @@ def run_elastic_example(none: dict) -> dict:
 
 
 class Beside:
-    """`fn(*args)` in a thread, started beside the tiny sharded worlds
-    (their rank processes and this work share the card and the host; none
-    of it is timed for a claim) and joined before the next main phase:
-    `tiny_routed` (the only one of them that launches kernels in this
-    process, so its launch counts stay its own) and the elastic example,
-    whose result joins the `examples` phase."""
+    """`fn(*args)` in a thread, joined for its result (a dict, returned
+    with the thread's start and end on the script's clock,
+    `thread_span_s`): the kernel build beside this process's import, and
+    beside the tiny sharded worlds (their rank processes and this work
+    share the card and the host; none of it is timed for a claim), joined
+    before the next main phase, `tiny_routed` (the only one of them that
+    launches kernels in this process, so its launch counts stay its own)
+    and the elastic example, whose result joins the `examples` phase."""
 
     def __init__(self, fn, *args):
         import threading
         self.result, self.error = None, None
+        self.span = [time.monotonic() - STARTED, None]   # script clock
         self.thread = threading.Thread(target=self._run, args=(fn, args))
         self.thread.start()
 
@@ -2823,12 +2953,14 @@ class Beside:
             self.result = fn(*args)
         except BaseException as e:      # raised again by `join`
             self.error = e
+        finally:
+            self.span[1] = time.monotonic() - STARTED
 
     def join(self):
         self.thread.join()
         if self.error is not None:
             raise self.error
-        return self.result
+        return dict(self.result, thread_span_s=self.span)
 
 
 def printed_line(text: str, start: str) -> str:
@@ -3195,6 +3327,7 @@ def run_main_train(dev) -> dict:
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    lap("init")
 
     t0 = time.perf_counter()
     for s in range(3):
@@ -3219,6 +3352,7 @@ def run_main_train(dev) -> dict:
     trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    lap("steps")
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3576,6 +3710,7 @@ def run_main_train_ckpt(dev) -> dict:
         trainer.run()
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        lap("steps")
         launches = ops.launch_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         last_write_s, last_bytes = mgr.timings["write_s"], \
@@ -3766,12 +3901,14 @@ def run_main_train_family(dev, spec: dict, then=None) -> dict:
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    lap("init")
 
     t0 = time.perf_counter()
     warm = make(state, 1)
     warm.run()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    lap("warmup")
     tick0 = warm.state["sor"].tick
     trainer = make(warm.state, steps)
     del warm, state
@@ -3782,6 +3919,7 @@ def run_main_train_family(dev, spec: dict, then=None) -> dict:
     trainer.run()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    lap("steps")
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -4121,6 +4259,7 @@ def run_main_train_ef(dev) -> dict:
     del params
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    lap("init")
 
     warm = make("ef_int8", state, 1)
     warm.run()
@@ -4533,14 +4672,11 @@ def routed_tick_activity(eng, observe, refit: bool) -> dict:
 # the process `routed_tick_activity` reads one tick in: torch.profiler, in a
 # process that has run the earlier phases and the routed traces, dropped
 # more than a window's PROFILE_LEADS first kernels (every window, on the
-# H100), so the tick is read in a fresh process
-ROUTED_TICK_FLAG = "--routed-tick"
-
-
+# H100), so the tick is read in a fresh process (`tick_world`)
 def run_routed_tick(dev, n_chips: int) -> dict:
     """One fused tick of the routed world at `n_chips`, after the warm-up
     and a few routed ticks: `routed_tick_activity` without and with K1's
-    refit. Runs as `python3 chip_smoke.py --routed-tick N`."""
+    refit, in a process of its own (`routed_tick_in_fresh_process`)."""
     sys.path.insert(0, str(ROOT / "tests"))
     import test_torch_inputs as ti
 
@@ -4552,15 +4688,23 @@ def run_routed_tick(dev, n_chips: int) -> dict:
             "refit": routed_tick_activity(eng, obs, True)}
 
 
+def tick_world(n_chips: int) -> World:
+    """The fresh process of `run_routed_tick` at `n_chips`
+    (`card_process`), forked now; its job waits for `go`."""
+    job = f"routed_tick_{n_chips}"
+    return World(job, 1, card_process, lambda r: (
+        "tick", (n_chips, str(SHARD_DIR / job))), CONTEXT[0])
+
+
 def routed_tick_in_fresh_process(n_chips: int) -> dict:
-    """`run_routed_tick` in a process of its own (ROUTED_TICK_FLAG)."""
-    done = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                           ROUTED_TICK_FLAG, str(n_chips)],
-                          capture_output=True, text=True, timeout=600)
-    if done.returncode:
-        raise RuntimeError(f"routed tick process failed: "
-                           f"{done.stderr[-2000:]}")
-    return json.loads(done.stdout.strip().splitlines()[-1])
+    """`run_routed_tick` in a process of its own that ran nothing before
+    (`tick_world`), forked ahead (`PRESTARTED`) or now."""
+    job = f"routed_tick_{n_chips}"
+    world = PRESTARTED.pop(job, None) or tick_world(n_chips)
+    drive([world], 600)
+    result = world.results()[0]
+    lap(f"tick_profile_{n_chips}")
+    return result
 
 
 def run_main_routed(dev) -> dict:
@@ -4622,6 +4766,7 @@ def run_main_routed(dev) -> dict:
                        "p50_latency_s", "p95_latency_s", "p99_latency_s",
                        "mean_queue_s", "migrations", "migration_stall_s")})
         by_path[f"serve-routed-{label}"] = launches
+        lap(f"run_{label}")
         if label == f"{SHARD_ROUTED_CHIPS}":
             UNSHARDED_ROUTED.update(
                 state=routed_state(eng), ticks=ticks,
@@ -4663,6 +4808,7 @@ def run_main_routed(dev) -> dict:
                                   "--batch-cap", "4"])
     torch.cuda.synchronize()
     launcher_s = time.perf_counter() - t0
+    lap("launcher")
     launches = ops.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"launcher: launches {launches}")
@@ -4934,10 +5080,9 @@ def run_main_whisper(dev) -> dict:
 # sharding over torch.distributed: rank processes that share the card
 # ---------------------------------------------------------------------------
 
-# `python3 chip_smoke.py SHARD_FLAG job rank world backend dir` is one rank
-# of a sharded phase (`SHARD_JOBS[job]`) in a world its parent started
-# (`run_worlds`); the process group comes from a file store in `dir`
-SHARD_FLAG = "--shard-rank"
+# a rank of a sharded phase (`SHARD_JOBS[job]`) is a process forked by this
+# script (`run_worlds`, `card_process`); its process group comes from a file
+# store in its job's directory under SHARD_DIR
 SHARD_DIR = ROOT / "build" / "shard"
 SHARD_RANKS = 4
 SHARD_ROUTED_CHIPS = 4096
@@ -4967,77 +5112,280 @@ TRAIN_DP = dict(arch="minicpm_2b", n_layers=4, batch=4, seq=512, chips=64,
 DP_LOSS_RTOL = 1e-6
 
 
-def run_worlds(jobs, timeout_s: float) -> dict:
-    """Start every `(job, world, backend)` of `jobs` at once, each world a
-    process of this script per rank, and join them all by a deadline. A
-    rank that exits non-zero, or a world past the deadline, kills every
-    other rank and fails the phase with the ranks' error tails. Returns
-    {job: [each rank's last JSON line]}."""
-    procs = {}
-    for job, world, backend in jobs:
-        where = SHARD_DIR / job
-        shutil.rmtree(where, ignore_errors=True)
-        where.mkdir(parents=True)
-        procs[job] = []
-        for r in range(world):
-            with open(where / f"rank{r}.out", "w") as out, \
-                    open(where / f"rank{r}.err", "w") as err:
-                procs[job].append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"), SHARD_FLAG,
-                     job, str(r), str(world), backend, str(where)],
-                    stdout=out, stderr=err))
-    every = [(job, r, p) for job, ps in procs.items()
-             for r, p in enumerate(ps)]
-    deadline = time.monotonic() + timeout_s
+# the modules the jobs import, loaded once by the forkserver that forks
+# every rank and fresh process of the script (`forkserver`)
+PRELOAD = ("numpy", "torch", "torch.distributed", "torch.distributed.tensor",
+           "torch.profiler", "repro_torch.kernels.ops",
+           "repro_torch.models.registry", "repro_torch.models.lm",
+           "repro_torch.parallel.sharding", "repro_torch.serve.engine",
+           "repro_torch.train.step", "repro_torch.train.trainer",
+           "repro_torch.launch.mesh", "test_torch_inputs", "sharded_worlds")
+
+
+def forkserver(preload=PRELOAD):
+    """The `forkserver` context of multiprocessing, its server started now
+    with `preload` imported once (sys.path as this process's: `src/` and
+    `tests/` on it first). A process forked from it starts in a fraction
+    of a second where one that starts its own interpreter spends seconds
+    importing torch; the server never touches the card, so each child
+    makes its own CUDA context."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver as server
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(list(preload))
+    server.ensure_running()
+    return ctx
+
+
+def forked(fn, args, out: str, err: str, go) -> None:
+    """A forked process's entry: its stdout and stderr to `out` and `err`,
+    then `fn(*args, go)` (`go`: its world's event, set when the job is
+    sent)."""
+    for fd, path in ((1, out), (2, err)):
+        f = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(f, fd)
+        os.close(f)
+    fn(*args, go)
+
+
+class World:
+    """The processes of one job of this script, forked ahead of it
+    (`forked`): each loads its CUDA context, writes `rank{r}.ready` in the
+    job's directory and blocks (`await_go`) until `go` sends it the job.
+    Each process runs one job, so a job runs in processes that ran nothing
+    before it; only their start moves out of the job. `fn(*args(r), go)`
+    is rank r's body; its stdout and stderr go to the job's directory."""
+
+    def __init__(self, job: str, ranks: int, fn, args, ctx):
+        self.job, self.where = job, SHARD_DIR / job
+        shutil.rmtree(self.where, ignore_errors=True)
+        self.where.mkdir(parents=True)
+        self.spawned, self.procs, self.exited = [], [], {}
+        self.ready_at = self.went = None
+        self.waited = 0.0       # the parent's wait for the loaded ranks
+        self.go_event = ctx.Event()
+        STARTED_WORLDS.append(self)
+        for r in range(ranks):
+            self.spawned.append(time.monotonic())
+            self.procs.append(ctx.Process(
+                target=forked, name=f"{job}.{r}", daemon=True,
+                args=(fn, args(r), str(self.where / f"rank{r}.out"),
+                      str(self.where / f"rank{r}.err"), self.go_event)))
+            self.procs[-1].start()
+
+    def poll(self) -> str | None:
+        """Note the ranks that have exited; what went wrong, if anything."""
+        for r, p in enumerate(self.procs):
+            if r not in self.exited and p.exitcode is not None:
+                self.exited[r] = time.monotonic()
+        for r, p in enumerate(self.procs):
+            if p.exitcode not in (None, 0):
+                return f"{self.job} rank {r} exited {p.exitcode}"
+            if p.exitcode == 0 and self.went is None:
+                return f"{self.job} rank {r} exited before its job"
+        if self.ready_at is None and all(
+                (self.where / f"rank{r}.ready").exists()
+                for r in range(len(self.procs))):
+            self.ready_at = time.monotonic()
+        return None
+
+    def go(self) -> None:
+        self.went = time.monotonic()
+        self.go_event.set()
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.exitcode is None:
+                p.kill()
+        for p in self.procs:
+            p.join()
+
+    def tails(self) -> str:
+        errs = [self.where / f"rank{r}.err" for r in range(len(self.procs))]
+        return "\n".join(f"{self.job} rank {r}: " + (
+            err.read_text()[-2000:] if err.exists() else "(no output)")
+            for r, err in enumerate(errs))
+
+    def results(self) -> list:
+        """Each rank's last line, its start-up (`boot`) taken out into
+        PROCESS_RECORDS."""
+        lines = [json.loads((self.where / f"rank{r}.out").read_text()
+                            .strip().splitlines()[-1])
+                 for r in range(len(self.procs))]
+        PROCESS_RECORDS.append(dict(
+            phase=JOB_PHASE.get(self.job, self.job), job=self.job,
+            world=len(lines), ready_s=self.ready_at - self.spawned[0],
+            waited_s=self.waited,
+            ranks=[boot_split(line.pop("boot"), self.spawned[r],
+                              self.exited[r])
+                   for r, line in enumerate(lines)]))
+        return lines
+
+
+# every World started, each killed at exit if it still runs; the worlds
+# forked ahead of their phase, by job (`prestart`)
+STARTED_WORLDS: list = []
+PRESTARTED: dict = {}
+CONTEXT: list = []              # the forkserver context, once started
+
+
+def stop_processes() -> None:
+    """At exit: every world's processes killed, then the forkserver
+    stopped and reaped (left alone, it outlives this process a moment)."""
+    for w in STARTED_WORLDS:
+        w.kill()
+    if CONTEXT:
+        from multiprocessing import forkserver as server
+        server._forkserver._stop()
+
+
+def drive(worlds: list, timeout_s: float, *, ready_only: bool = False
+          ) -> None:
+    """Wait until every rank of `worlds` is loaded, send each world its job
+    as soon as its ranks are (unless `ready_only`), and wait until every
+    rank has exited, by a deadline. A rank that exits non-zero or before
+    its job, or a world past the deadline, kills every rank of `worlds`
+    and raises with the ranks' error tails."""
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
     failed = None
     try:
         while failed is None:
-            bad = [(job, r, p.returncode) for job, r, p in every
-                   if p.poll() not in (None, 0)]
-            if bad:
-                failed = f"{bad[0][0]} rank {bad[0][1]} exited {bad[0][2]}"
-            elif all(p.poll() == 0 for _, _, p in every):
+            failed = next(filter(None, (w.poll() for w in worlds)), None)
+            if failed:
                 break
-            elif time.monotonic() > deadline:
+            if ready_only and all(w.ready_at for w in worlds):
+                for w in worlds:
+                    w.waited += max(0.0, w.ready_at - t0)
+                return
+            for w in worlds:
+                if not ready_only and w.ready_at and w.went is None:
+                    w.waited += max(0.0, w.ready_at - t0)
+                    w.go()
+            if not ready_only and all(len(w.exited) == len(w.procs)
+                                      for w in worlds):
+                return
+            if time.monotonic() > deadline:
                 failed = f"ranks still running after {timeout_s} s"
             else:
-                time.sleep(0.2)
+                time.sleep(0.02)
     finally:
-        for _, _, p in every:
-            if p.poll() is None:
-                p.kill()
-        for _, _, p in every:
-            p.wait()
-    if failed:
-        tails = "\n".join(
-            f"{job} rank {r}: "
-            + (SHARD_DIR / job / f"rank{r}.err").read_text()[-2000:]
-            for job, r, _ in every)
-        raise RuntimeError(f"sharded phase: {failed}\n{tails}")
-    return {job: [json.loads((SHARD_DIR / job / f"rank{r}.out").read_text()
-                             .strip().splitlines()[-1])
-                  for r in range(len(ps))]
-            for job, ps in procs.items()}
+        if failed:
+            for w in worlds:
+                w.kill()
+    raise RuntimeError(f"sharded phase: {failed}\n"
+                       + "\n".join(w.tails() for w in worlds))
 
 
-def shard_rank(dev) -> dict:
-    """One rank (SHARD_FLAG's arguments): start the process group from the
-    parent's file store on the named backend, run the job, stop it."""
+def shard_world(job: str, world: int, backend: str) -> World:
+    """`job`'s world of `world` ranks on `backend` (`card_process`),
+    forked now."""
+    where = str(SHARD_DIR / job)
+    w = World(job, world, card_process,
+              lambda r: ("shard", (job, r, world, backend, where)),
+              CONTEXT[0])
+    w.spec = (world, backend)
+    return w
+
+
+def prestart(job: str, world: int, backend: str) -> None:
+    """Fork `job`'s ranks ahead of its phase (`run_worlds` takes them)."""
+    PRESTARTED[job] = shard_world(job, world, backend)
+
+
+# the worlds forked ahead of their phases, in three batches, each loaded
+# before the next timed window after it (`drive(..., ready_only=True)`, or
+# the world's own `drive`) and idle until its job: at the script's start,
+# beside the build; beside the tiny group (with the two routed tick
+# processes); after main_train_dp, beside the oracles. An idle rank holds
+# a CUDA context (0.55 GB): none waits beside main_serve_tp_moe, whose
+# ranks' draw of Grok-1 leaves less than that free (the tiny group's ranks
+# fork at its start, which times nothing)
+EARLY_WORLDS = (("serve_tp", 2, "gloo"), ("serve_tp_moe", 2, "gloo"))
+TINY_GROUP_WORLDS = (("routed", 4, "gloo"), ("train_dp", 4, "gloo"))
+LATE_WORLDS = (("fsdp_save", 2, "gloo"), ("fsdp_restore", 4, "gloo"),
+               ("train_tp", 4, "gloo"))
+READY_TIMEOUT_S = 300.0
+
+
+def run_worlds(jobs, timeout_s: float) -> dict:
+    """Run every `(job, world, backend)` of `jobs` at once, each world its
+    ranks forked ahead (`prestart`) or now, joined by a deadline
+    (`drive`). Returns {job: [each rank's last JSON line]}."""
+    worlds = [PRESTARTED.pop(job, None) or shard_world(job, world, backend)
+              for job, world, backend in jobs]
+    for w, (job, world, backend) in zip(worlds, jobs):
+        if w.spec != (world, backend):
+            raise AssertionError(f"{job}: forked ahead as {w.spec}, run as "
+                                 f"{(world, backend)}")
+    drive(worlds, timeout_s)
+    res = {w.job: w.results() for w in worlds}
+    lap("ranks_" + "+".join(res))
+    return res
+
+
+def await_go(where: Path, rank: int, go) -> None:
+    """A forked process, loaded: tell the parent (`rank{r}.ready`) and
+    block until it sends the job (`go` set); exit if the parent is
+    gone."""
+    import multiprocessing as mp
+    mark("ready")
+    (where / f"rank{rank}.ready").touch()
+    while not go.wait(1.0):
+        if not mp.parent_process().is_alive():
+            raise SystemExit("chip_smoke: the parent is gone")
+    mark("go")
+
+
+def card_process(kind: str, args: tuple, go) -> None:
+    """A forked process of this script on the card: its CUDA context (and
+    the settings `main` makes), then, sent its job (`await_go`), the
+    kernel library and the job: a rank of a sharded phase (`shard_rank`)
+    or `run_routed_tick`; its last line the result with its start-up
+    stamps."""
+    import torch
+
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.cuda.synchronize()         # the CUDA context, up
+    mark("cuda")
+    where = Path(args[-1])
+    await_go(where, args[1] if kind == "shard" else 0, go)
+    _build.load()
+    mark("lib")
+    if kind == "shard":
+        result = shard_rank(dev, SHARD_JOBS, *args)
+    else:
+        mark("job_start")
+        result = run_routed_tick(dev, args[0])
+        mark("job_end")
+    emit(dict(result, boot=BOOT))
+
+
+def shard_rank(dev, jobs: dict, job: str, rank: int, world: int,
+               backend: str, where: str, threads: int = 2) -> dict:
+    """One rank, sent its job: start the process group from the file store
+    in the job's directory on `backend`, run `jobs[job]`, stop the
+    group."""
     import torch
     import torch.distributed as dist
-    job, rank, world = sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
-    backend, where = sys.argv[5], Path(sys.argv[6])
-    sys.path.insert(0, str(ROOT / "tests"))
-    torch.cuda.set_device(dev)
-    # the ranks share the host's cores: two intra-op threads each
-    torch.set_num_threads(2)
+    where = Path(where)
+    # the ranks share the host's cores: `threads` intra-op threads each
+    torch.set_num_threads(threads)
     dist.init_process_group(backend, init_method=f"file://{where}/store",
                             rank=rank, world_size=world)
+    mark("job_start")
     try:
-        return dict(SHARD_JOBS[job](dev, rank, world, where), job=job,
-                    rank=rank, world=world, backend=backend)
+        result = dict(jobs[job](dev, rank, world, where), job=job,
+                      rank=rank, world=world, backend=backend)
+        mark("job_end")
+        return result
     finally:
         dist.destroy_process_group()
+        mark("pg_down")
 
 
 def equal_arrays(a: dict, b: dict, label: str) -> None:
@@ -5659,6 +6007,7 @@ def run_main_train_dp(dev) -> dict:
     t1 = time.perf_counter()
     params, losses = dp_oracle(dev, SHARD_RANKS)
     oracle_s = time.perf_counter() - t1
+    lap("oracle")
     worst = 0.0
     equal = True
     for name, leaf in _flat_params(params).items():
@@ -6099,6 +6448,7 @@ def run_main_train_fsdp(dev) -> dict:
     equal to the oracle's bit for bit (digests)."""
     t0 = time.perf_counter()
     oracle = fsdp_oracle(dev)
+    lap("oracle")
     shutil.rmtree(FSDP_CKPT, ignore_errors=True)
     save = run_worlds([("fsdp_save", TRAIN_FSDP["save_ranks"], "gloo")],
                       timeout_s=600)["fsdp_save"]
@@ -6555,6 +6905,7 @@ def shard_serve_tp(dev, rank, world, where, spec=None) -> dict:
     del blocks
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    lap("init")
     n_local = sum(a.to_local().numel() for a in _leaf_values(params))
     api = registry.build(cfg)
     prompts = torch.from_numpy(main_prompts(cfg, spec)).to(dev)
@@ -6785,6 +7136,7 @@ def run_main_serve_tp(dev, cfg, params) -> dict:
         whole_tokens, whole_logits, gaps = greedy_run(
             prefill, decode, cfg.vocab_size, cfg.vocab_padded, prompts, new)
     state.clear()
+    lap("unsharded")
     ranks = run_worlds([("serve_tp", SERVE_TP["ranks"], "gloo")],
                        timeout_s=600)["serve_tp"]
     files = [np.load(SHARD_DIR / "serve_tp" / f"rank{r}.npz")
@@ -6796,6 +7148,7 @@ def run_main_serve_tp(dev, cfg, params) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     ref = split_greedy(cfg, split, prompts, SERVE_TP)
+    lap("oracle")
     del split
     gc.collect()
     torch.cuda.empty_cache()
@@ -6840,6 +7193,7 @@ def run_main_serve_tp_moe(dev) -> dict:
     tokens = torch.from_numpy(files[0]["tokens"]).to(dev)
     params = tp_draw(cfg, dev, 0, 1)
     torch.cuda.synchronize()
+    lap("init")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     log = RouteLog()
@@ -6859,6 +7213,7 @@ def run_main_serve_tp_moe(dev) -> dict:
                                         T + i, cfg)[0]
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - t1
+    lap("unsharded")
     routes = log.calls
     log.close()
     launches = ops.launch_counts()
@@ -6880,6 +7235,7 @@ def run_main_serve_tp_moe(dev) -> dict:
     split = [tp_draw(cfg, dev, r, m) for r in range(m)]
     check_tp_oracle("main_serve_tp_moe", files,
                     split_greedy(cfg, split, prompts, spec))
+    lap("oracle")
     del split
     gc.collect()
     torch.cuda.empty_cache()
@@ -7057,68 +7413,131 @@ DRYRUN_CELLS = (("whisper_base", "decode_32k", "single"),
                 ("mistral_large_123b", "train_4k", "multi"))
 
 
+# the cell that runs through the dry run's own command line (`python -m
+# repro_torch.launch.dryrun`), so that it stays checked; the others run in
+# one process a mesh (`dryrun_cells`), which makes the mesh's world once
+DRYRUN_CLI_CELL = DRYRUN_CELLS[0]
+DRYRUN_FLAG = "--dryrun-cells"
+
+
+def dryrun_cells(mesh: str, out: Path, cells) -> None:
+    """`python3 chip_smoke.py DRYRUN_FLAG MESH OUT ARCH/SHAPE ...`, on the
+    CPU: the `fake` world of the mesh's size once, then each cell
+    (`launch.dryrun.run_cell`), its record written where the command line
+    writes it (`OUT/ARCH.SHAPE.MESH/dryrun_MESH.json`); a cell that fails
+    raises. The last line: this process's stamps (monotonic clock)."""
+    from repro_torch.launch import dryrun
+    mark("imports")
+    dryrun.init_world(math.prod(dryrun.MESHES[mesh][0]))
+    mark("world")
+    for arch, shape in cells:
+        r = dryrun.run_cell(arch, shape, mesh)
+        where = out / f"{arch}.{shape}.{mesh}"
+        where.mkdir(parents=True)
+        (where / f"dryrun_{mesh}.json").write_text(json.dumps([r], indent=1))
+        print(f"[OK] {arch} x {shape} x {mesh}: flops={r['flops']:.3e}",
+              flush=True)
+        mark(f"{arch}/{shape}")
+    print(f"{len(cells)}/{len(cells)} cells passed", flush=True)
+    emit({"boot": BOOT})
+
+
 class DryRun:
-    """DRYRUN_CELLS through `python -m repro_torch.launch.dryrun --arch A
-    --shape S --mesh M` (CPU only), one process a cell in turn, in a thread
-    started beside the card's phases and joined at the end: each must
-    print `1/1 cells passed`."""
+    """DRYRUN_CELLS on the CPU, started beside the card's phases and joined
+    at the end: DRYRUN_CLI_CELL through `python -m repro_torch.launch.dryrun
+    --arch A --shape S --mesh M`, which must print `1/1 cells passed`, and
+    the other cells in one process a mesh (`dryrun_cells`), all three
+    processes at once from the build line on, each must exit 0. They take
+    three of the host's eight cores for ~100-130 s and end before the
+    tiny group, the first phase whose processes fill the host. They are
+    not reniced: on the card's host a busy process at nice 19 got as much
+    CPU as nine others beside it on its eight cores."""
 
     def __init__(self):
+        import atexit
         import threading
         self.out = ROOT / "build" / "dryrun"
         shutil.rmtree(self.out, ignore_errors=True)
         self.out.mkdir(parents=True)
-        self.proc = None
-        self.stopped = False
-        self.done: list = []
         self.t0 = time.perf_counter()
-        # a phase that fails before `join` leaves no process behind
-        import atexit
-        atexit.register(self.stop)
-        self.thread = threading.Thread(target=self._run)
-        self.thread.start()
-
-    def _run(self) -> None:
-        for arch, shape, mesh in DRYRUN_CELLS:
-            if self.stopped:
-                return
-            where = self.out / f"{arch}.{shape}.{mesh}"
-            with open(self.out / "log.txt", "a") as log:
-                self.proc = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", arch, "--shape", shape, "--mesh", mesh,
-                     "--out", str(where)],
-                    stdout=log, stderr=subprocess.STDOUT,
+        arch, shape, mesh = DRYRUN_CLI_CELL
+        self.cmds = {"cli": [
+            "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+            shape, "--mesh", mesh, "--out",
+            str(self.out / f"{arch}.{shape}.{mesh}")]}
+        for kind in ("single", "multi"):
+            self.cmds[kind] = [str(ROOT / "chip_smoke.py"), DRYRUN_FLAG, kind,
+                               str(self.out)] + [
+                f"{a}/{s}" for a, s, m in DRYRUN_CELLS
+                if m == kind and (a, s, m) != DRYRUN_CLI_CELL]
+        self.procs, self.spans = {}, {}
+        for name, cmd in self.cmds.items():
+            with open(self.out / f"{name}.log", "w") as log:
+                spawned = time.monotonic()
+                self.procs[name] = subprocess.Popen(
+                    [sys.executable, *cmd], stdout=log,
+                    stderr=subprocess.STDOUT,
                     env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-                # the cells yield the host to the card phases beside them,
-                # which are bound by their host dispatch
-                os.setpriority(os.PRIO_PROCESS, self.proc.pid, 19)
-                self.done.append((arch, shape, mesh, self.proc.wait()))
+            self.spans[name] = [spawned - STARTED, None]
+        # a phase that fails before `join` leaves no process behind
+        atexit.register(self.stop)
+        self.waiters = [threading.Thread(target=self._wait, args=(name,))
+                        for name in self.procs]
+        for w in self.waiters:
+            w.start()
+
+    def _wait(self, name: str) -> None:
+        self.procs[name].wait()
+        self.spans[name][1] = time.monotonic() - STARTED
 
     def stop(self) -> None:
-        self.stopped = True
-        if self.proc is not None and self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
     def join(self, timeout_s: float) -> dict:
-        self.thread.join(timeout_s)
-        alive = self.thread.is_alive()
+        deadline = time.monotonic() + timeout_s
+        for w in self.waiters:
+            w.join(max(deadline - time.monotonic(), 0.0))
+        alive = [name for name, p in self.procs.items() if p.poll() is None]
         self.stop()
-        self.thread.join()
+        for w in self.waiters:
+            w.join()
         secs = time.perf_counter() - self.t0
-        text = (self.out / "log.txt").read_text()
-        bad = [c for c in self.done if c[3] != 0]
-        if alive or bad or len(self.done) != len(DRYRUN_CELLS) or \
-                text.count("1/1 cells passed") != len(DRYRUN_CELLS):
-            raise AssertionError(f"dryrun: {len(self.done)} of "
-                                 f"{len(DRYRUN_CELLS)} cells ran, failed "
-                                 f"{bad}:\n" + text[-3000:])
-        recs = [json.loads((self.out / f"{a}.{s}.{m}" / f"dryrun_{m}.json")
-                           .read_text())[0] for a, s, m, _ in self.done]
+        logs = {name: (self.out / f"{name}.log").read_text()
+                for name in self.procs}
+        bad = {name: p.returncode for name, p in self.procs.items()
+               if p.returncode != 0}
+        paths = [self.out / f"{a}.{s}.{m}" / f"dryrun_{m}.json"
+                 for a, s, m in DRYRUN_CELLS]
+        missing = [str(p.relative_to(self.out)) for p in paths
+                   if not p.exists()]
+        if alive or bad or missing or \
+                "1/1 cells passed" not in logs["cli"]:
+            raise AssertionError(
+                f"dryrun: still running {alive}, exit codes {bad}, no "
+                f"record for {missing}:\n" + "\n".join(
+                    f"{name}:\n{text[-3000:]}" for name, text in logs.items()))
+        recs = [json.loads(p.read_text())[0] for p in paths]
+        stamps = {name: json.loads(logs[name].strip().splitlines()[-1])
+                  ["boot"] for name in ("single", "multi")}
+        processes = {
+            name: dict(spawn_s=round(t0, 3), end_s=round(t1, 3),
+                       **({} if name == "cli" else {
+                           f"{k}_s": round(v - STARTED, 3)
+                           for k, v in stamps[name].items()
+                           if v is not None}))
+            for name, (t0, t1) in self.spans.items()}
         return dict(cells=len(recs), ok=sum(r["ok"] for r in recs),
                     seconds=secs, line=f"{len(recs)}/{len(recs)} cells",
+                    end_s=max(t1 for _, t1 in self.spans.values()),
+                    dryrun_processes=processes,
                     cell_s=sum(r["lower_s"] + r["compile_s"] for r in recs),
+                    cell_timing={f"{r['arch']}/{r['shape']}/{r['mesh']}":
+                                 dict(lower_s=r["lower_s"],
+                                      compile_s=r["compile_s"])
+                                 for r in recs},
                     records={f"{r['arch']}/{r['shape']}/{r['mesh']}":
                              dict(flops=r["flops"],
                                   peak_gb=r["memory"]["peak_bytes"] / 1e9,
@@ -7127,6 +7546,15 @@ class DryRun:
                              for r in recs})
 
 
+# the phase line each job's processes are reported on
+JOB_PHASE = {"tiny_nccl": "tiny_sharded", "tiny_gloo": "tiny_sharded",
+             "tiny_fsdp": "tiny_fsdp", "tiny_tp": "tiny_tp",
+             "routed": "main_sharded_routed", "train_dp": "main_train_dp",
+             "fsdp_save": "main_train_fsdp",
+             "fsdp_restore": "main_train_fsdp", "serve_tp": "main_serve_tp",
+             "serve_tp_moe": "main_serve_tp_moe", "train_tp": "main_train_tp",
+             "routed_tick_1024": "main_routed",
+             "routed_tick_4096": "main_routed"}
 SHARD_JOBS = {"tiny_nccl": shard_tiny_nccl, "tiny_gloo": shard_tiny_gloo,
               "routed": shard_routed, "train_dp": shard_train_dp,
               "tiny_fsdp": shard_tiny_fsdp,
@@ -7142,12 +7570,19 @@ def sm90_hgmma(lib: Path) -> dict:
     """The tensor-core instructions (`HGMMA`, Hopper's wgmma) in each
     instantiation of the sm90 attention kernels (K2's forward, K4's dq,
     K5's dk/dv, at head_dim 64 and 128), read from the built library's
-    SASS; raises if an instantiation is missing or has none."""
+    SASS (of those functions alone: `cuobjdump -fun`, their names from
+    the build's ptxas report beside the library); raises if an
+    instantiation is missing or has none."""
     import re
     import shutil
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    report = lib.with_name(lib.name + ".ptxas.txt").read_text()
+    names = sorted({name for name in re.findall(
+        r"Compiling entry function '(\S+)'", report)
+        if re.search(rf"({'|'.join(TRAIN_ATTENTION)})ILi\d+E", name)})
+    sass = subprocess.run([cuobjdump, "-sass", "-fun", ",".join(names),
+                           str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
     counts = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0]
@@ -7161,41 +7596,79 @@ def sm90_hgmma(lib: Path) -> dict:
     return counts
 
 
+def build_kernels() -> dict:
+    """The kernel library built (`_build.build`, one `nvcc` a source, all
+    at once) and its sm90 kernels' HGMMA counted (`sm90_hgmma`)."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build()
+    seconds = time.perf_counter() - t0
+    return dict(lib=lib, seconds=seconds, sm90_hgmma=sm90_hgmma(lib),
+                sm90_hgmma_s=time.perf_counter() - t0 - seconds)
+
+
+
+
 def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's card checks need one",
-              file=sys.stderr)
-        return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository (no "
               "src/repro_torch next to this script)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    if sys.argv[1:2] == [DRYRUN_FLAG]:          # the dry run's cells (CPU)
+        dryrun_cells(sys.argv[2], Path(sys.argv[3]),
+                     [cell.split("/") for cell in sys.argv[4:]])
+        return 0
+    import atexit
+    atexit.register(stop_processes)
+    try:
+        smi = nvidia_smi()
+    except (OSError, subprocess.SubprocessError):
+        smi = None                  # no nvidia-smi: torch tells below
+    mark("smi")
+    # the kernel build needs no torch here: nvcc from the first second
+    build = Beside(build_kernels) if smi is not None else None
+    import torch
+    mark("torch")
+    if not torch.cuda.is_available():
+        if build is not None:       # the build's nvcc runs to its end
+            build.thread.join()
+        print("chip_smoke: no CUDA device; the port's card checks need one",
+              file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = nvidia_smi()
+    torch.cuda.set_device(dev)
+    torch.cuda.synchronize()         # the CUDA context, up
+    mark("cuda")
+    if build is None:
+        smi = nvidia_smi()
+        build = Beside(build_kernels)
+    # the forkserver of the rank and fresh processes loads torch and the
+    # jobs' modules beside the build's tail (after this process's import:
+    # three at once slow nvcc)
+    CONTEXT.append(forkserver())
 
     from repro_torch.kernels import _build, ops
-
-    if sys.argv[1:2] == [ROUTED_TICK_FLAG]:     # run_routed_tick's process
-        _build.build()
-        _build.load()
-        emit(run_routed_tick(dev, int(sys.argv[2])))
-        return 0
-    if sys.argv[1:2] == [SHARD_FLAG]:           # a rank of a sharded phase
-        _build.build()
-        _build.load()
-        emit(shard_rank(dev))
-        return 0
-
-    t0 = time.perf_counter()
-    lib = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    mark("imports")
+    for job, world, backend in EARLY_WORLDS:
+        prestart(job, world, backend)
+    lap("fork")
+    built = build.join()
+    lap("build")
+    drive(list(PRESTARTED.values()), READY_TIMEOUT_S, ready_only=True)
+    lap("ranks_ready")
+    lib = built["lib"]
+    emit({"phase": "build", "seconds": built["seconds"],
           "library": str(lib.relative_to(ROOT)), "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "sm90_hgmma": sm90_hgmma(lib)})
+          "sm90_hgmma": built["sm90_hgmma"],
+          "sm90_hgmma_s": built["sm90_hgmma_s"],
+          "build_span_s": built["thread_span_s"],
+          "boot": boot_split(BOOT),
+          "cpu_count": os.cpu_count(),
+          "cpu_affinity": len(os.sched_getaffinity(0))})
     _build.load()
     print(lib.with_name(lib.name + ".ptxas.txt").read_text(),
           file=sys.stderr)
@@ -7219,6 +7692,7 @@ def main() -> int:
     emit({"phase": "tiny", **run_tiny(MAIN["arch"])})
     emit({"phase": "tiny_host", **run_tiny_host()})
     cfg, params, init_s = init_main(dev, MAIN)
+    lap("init")
     result = run_main(dev, MAIN, cfg, params, init_s)
     by_path["serve-qwen"] = result["launches"]
     emit({"phase": "main", **result})
@@ -7242,12 +7716,19 @@ def main() -> int:
 
     routed = Beside(run_tiny_routed)
     elastic = Beside(run_elastic_example, {name: 0 for name in ops.KERNELS})
+    for n in ROUTED_CHIPS:
+        PRESTARTED[f"routed_tick_{n}"] = tick_world(n)
+    for job, world, backend in TINY_GROUP_WORLDS:
+        prestart(job, world, backend)
     tiny_sharded, tiny_fsdp, tiny_tp = run_tiny_sharded()
     emit({"phase": "tiny_routed", **routed.join()})
     emit({"phase": "tiny_sharded", **tiny_sharded})
     emit({"phase": "tiny_fsdp", **tiny_fsdp})
     emit({"phase": "tiny_tp", **tiny_tp})
     elastic = elastic.join()
+    lap("elastic")
+    drive(list(PRESTARTED.values()), READY_TIMEOUT_S, ready_only=True)
+    lap("ranks_ready")
     gc.collect()
     torch.cuda.empty_cache()
     result = run_main_routed(dev)
@@ -7272,6 +7753,7 @@ def main() -> int:
             raise AssertionError(f"{phase}: {resident_gb} GB still "
                                  f"allocated before its weights")
         cfg, params, init_s = init_main(dev, spec)
+        lap("init")
         result = run_main(dev, spec, cfg, params, init_s)
         result["resident_before_init_gb"] = resident_gb
         by_path[path] = result["launches"]
@@ -7308,6 +7790,8 @@ def main() -> int:
                            for k in ops.KERNELS}
     emit({"phase": "main_train_dp", **result})
     del result
+    for job, world, backend in LATE_WORLDS:
+        prestart(job, world, backend)
     result = run_main_train_fsdp(dev)
     by_path["train-fsdp"] = {k: result["launches"].get(k, 0)
                              for k in ops.KERNELS}
@@ -7361,7 +7845,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()       # main_train_ckpt's training state is gone
 
-    emit({"phase": "dryrun", **dryrun.join(timeout_s=600)})
+    card_end_s = LAST_LINE[0] - STARTED
+    dry = dryrun.join(timeout_s=600)
+    emit({"phase": "dryrun", **dry})
 
     rows = []
     for name in ops.KERNELS:
@@ -7371,6 +7857,7 @@ def main() -> int:
         row["launches_by_path"] = {path: counts[name]
                                    for path, counts in by_path.items()}
         rows.append(row)
+    emit({"timing": timing_summary(card_end_s, dry["end_s"])})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

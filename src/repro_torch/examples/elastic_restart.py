@@ -189,7 +189,10 @@ def run_world(job: str, world: int, device: str, args, out_dir: str
     that fails, or a world past WORLD_TIMEOUT_S, kills the rest and
     raises with the ranks' tracebacks."""
     import multiprocessing as mp
-    ctx = mp.get_context("spawn")
+    # ranks forked from a server that imported torch once: under "spawn"
+    # each of the 12 ranks spent seconds on its own `import torch`
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
     procs = [ctx.Process(target=_rank_entry,
                          args=(job, r, world, device, args, out_dir))
              for r in range(world)]
